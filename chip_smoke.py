@@ -5,19 +5,30 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the final line):
   1. the card, the toolchain versions;
-  2. the kernel build (nvcc, sm_90a) from fishnet_tpu_torch/csrc/;
+  2. the kernel build (nvcc, sm_90a) from fishnet_tpu_torch/csrc/, one
+     nvcc per source, all started together;
   3. every kernel against its plain PyTorch version on the card, at the
-     main path's shapes (B = 16 and 1024 lanes, L1 = 64) on the shipped
-     f32 net and on its int8 quantization, with times (CUDA events);
-  4. where a search step's time goes (torch.profiler, B = 16 and 1024);
-  5. the main path: one standard-chess analysis chunk through GpuEngine
-     at full width (MAX_PLY 32, depth 3);
-  6. search_batch on the int8 net, card against CPU, field for field;
-  7. search_batch at B = 1024 lanes on the f32 net.
-Phases 4-7 each reset the kernels' launch counters just before they
-search and fail unless every kernel launched during the search.
-Then a `kernels` JSON line, the card's name and power limit, and the
-result line `{"ok": true, "device": {...}}`.
+     main path's shapes (B = 16, 64 and 1024 lanes, L1 = 64) on the
+     shipped f32 net and on its int8 quantization; the TT probe and store
+     (K5, K6) on seeded tables with forced slot collisions, plain and
+     prefer_deep, deep_bounds off and on, with contiguous inputs and with
+     the runner's strided and broadcast ones; with times (CUDA events and
+     torch.profiler) and bounds from the bytes these inputs need;
+  4. where a search step's time goes (torch.profiler: B = 16 and 1024
+     without the table, B = 64 with it);
+  5. the main path: one standard-chess analysis chunk through GpuEngine()
+     with its defaults (2^21-slot table, FISHNET_TPU_HELPERS helper lanes,
+     MAX_PLY 32, depth 3);
+  6. the same chunk with the table and helpers off (depth 2);
+  7. search_batch on the int8 net, card against CPU, field for field;
+  8. an int8 search with the table and helper lanes, card against CPU,
+     field for field and the tables byte for byte;
+  9. search_batch at B = 1024 lanes on the f32 net.
+Phases 4-9 each reset the kernels' launch counters just before they
+search and fail unless every kernel of their path launched during it.
+Then a `kernels` JSON line (launches from phase 5, the main path), the
+card's name and power limit, and the result line
+`{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -35,8 +46,10 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 DEPTH = 3  # engine analysis depth (the host-bound step sets the time; PERF.md)
+NO_TT_DEPTH = 2  # the same chunk without the table or helpers
 POSITIONS = 10  # positions in the engine's chunk
 PARITY_DEPTH = 3
+TT_PARITY_LOG2 = 16  # table of the card-against-CPU TT search
 SCALE_LANES = 1024  # bench.py's default lane count
 SCALE_DEPTH = 3
 REPS = 200  # launches per kernel timing
@@ -74,13 +87,18 @@ def nvcc_version() -> str:
     return out.strip().splitlines()[-1]
 
 
-def check_launches(path: str) -> dict:
+# the kernels of a search without the transposition table
+NO_TT_KERNELS = ("nnue_refresh_768", "nnue_forward_from_acc", "nnue_acc_update_768",
+                 "zobrist_hash")
+
+
+def check_launches(path: str, expected=None) -> dict:
     """The kernels' launch counts since the last reset; every kernel of
-    the path must have launched at least once."""
+    the path (default: all) must have launched at least once."""
     from fishnet_tpu_torch import kernels
 
     launches = dict(kernels.LAUNCHES)
-    missing = [name for name, n in launches.items() if n <= 0]
+    missing = [name for name in (expected or kernels.KERNELS) if launches[name] <= 0]
     if missing:
         raise AssertionError(f"{path}: kernels {missing} were not launched ({launches})")
     log(f"launches {path}: {launches}")
@@ -144,8 +162,8 @@ def encode(m) -> int:
 
 
 def kernel_phase(params_f32, reps: int) -> dict:
-    """Each kernel against its plain version at B = 16 and 1024 on both
-    nets; returns per-kernel stats for the kernels line (times at
+    """Each kernel against its plain version at B = 16, 64 (the engine's
+    dispatch width) and 1024 on both nets; returns per-kernel stats for the kernels line (times at
     B = 1024 on the f32 net)."""
     import torch
     import torch.nn.functional as F
@@ -156,9 +174,9 @@ def kernel_phase(params_f32, reps: int) -> dict:
     from fishnet_tpu_torch.ops.board import move_piece_changes
 
     dev = torch.device("cuda")
-    stats = {k: {"max_abs_err": 0.0} for k in kernels.KERNELS}
+    stats = {k: {"max_abs_err": 0.0} for k in NO_TT_KERNELS}
     params_i8 = nnue.quantize_int8(params_f32)
-    for B in (16, 1024):
+    for B in (16, 64, 1024):
         cpu_boards, moves = playout_boards(B, seed=B)
         b = cpu_boards.to(dev)
         mv = torch.tensor([encode(m) for m in moves], dtype=torch.int32, device=dev)
@@ -267,6 +285,226 @@ def kernel_phase(params_f32, reps: int) -> dict:
     return stats
 
 
+def tt_case(B: int, size_log2: int, seed: int) -> dict:
+    """A seeded table of 2**size_log2 slots (30% empty, in-range meta,
+    generations 0-2) and B lanes of probe/store inputs; half the lanes'
+    second keys match the row in their slot, most of those at its depth,
+    so probes hit with every flag; some scores are in the mate range,
+    which is never stored. → dict of int32/bool numpy arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = 1 << size_log2
+    meta = (((rng.integers(-600, 600, n) + 32768) << 10) | (rng.integers(0, 10, n) << 2)
+            | rng.integers(0, 3, n))
+    table = np.stack([rng.integers(-2**31, 2**31, n, dtype=np.int64), meta,
+                      rng.integers(-1, 4096, n), rng.integers(0, 3, n)], 1).astype(np.int32)
+    table[rng.random(n) < 0.3] = 0
+    h1 = rng.integers(-2**31, 2**31, B, dtype=np.int64).astype(np.int32)
+    h2 = rng.integers(-2**31, 2**31, B, dtype=np.int64).astype(np.int32)
+    hit = rng.random(B) < 0.5
+    rows = table[h1 & (n - 1)]
+    h2 = np.where(hit, rows[:, 0] ^ rows[:, 1] ^ rows[:, 2], h2).astype(np.int32)
+    depth_left = np.where(hit & (rng.random(B) < 0.7),
+                          ((rows[:, 1] >> 2) & 0xFF) - rng.integers(0, 2, B),
+                          rng.integers(-2, 10, B)).astype(np.int32)
+    alpha = rng.integers(-700, 700, B).astype(np.int32)
+    return dict(
+        table=table, h1=h1, h2=h2, depth_left=depth_left, alpha=alpha,
+        beta=(alpha + rng.integers(1, 400, B)).astype(np.int32),
+        enter=rng.random(B) < 0.8,
+        score=rng.integers(-31500, 31500, B).astype(np.int32),
+        depth=rng.integers(0, 10, B).astype(np.int32),
+        flag=rng.integers(0, 3, B).astype(np.int32),
+        move=rng.integers(-1, 4096, B).astype(np.int32),
+        mask=rng.random(B) < 0.8,
+    )
+
+
+def tt_inputs(B: int, size_log2: int, seed: int, dev) -> dict:
+    """tt_case as tensors on dev."""
+    import torch
+
+    return {k: torch.from_numpy(v).to(dev) for k, v in tt_case(B, size_log2, seed).items()}
+
+
+TT_PROBE_ARGS = ("h1", "h2", "depth_left", "alpha", "beta", "enter")
+TT_STORE_ARGS = ("h1", "h2", "score", "depth", "flag", "move", "mask")
+
+
+def tt_runner_layout(c: dict) -> tuple:
+    """The inputs as the TT runner passes them (ops/search.py _tt_step):
+    the keys as the two columns of the (B, 2) hash output, the window,
+    depth and entry values as columns of a wider lane table, and the leaf
+    store's depth, flag and move as stride-0 broadcasts of scalars.
+    → (probe args, interior store args, leaf store args)."""
+    import torch
+
+    B = c["h1"].shape[0]
+    keys = torch.stack([c["h1"], c["h2"]], 1)
+    lane = torch.stack([c[k] for k in ("depth_left", "alpha", "beta", "score", "depth",
+                                       "flag", "move")] + [torch.zeros_like(c["h1"])], 1)
+    dl, alpha, beta, score, depth, flag, move = lane.unbind(1)[:7]
+    scalar = torch.zeros((), dtype=torch.int32, device=c["h1"].device)
+    return ((keys[:, 0], keys[:, 1], dl, alpha, beta, c["enter"]),
+            (keys[:, 0], keys[:, 1], score, depth, flag, move, c["mask"]),
+            (keys[:, 0], keys[:, 1], score, scalar.expand(B), scalar.expand(B),
+             (scalar - 1).expand(B), c["mask"]))
+
+
+def probe_bytes(table, h1, h2, depth_left, alpha, beta, enter, deep_bounds: bool) -> int:
+    """The bytes K5's function must move on these inputs: h1 and enter of
+    every lane; the row of every distinct slot (score is an output of
+    every lane); h2 of the entering lanes; depth_left of the valid
+    entering lanes and, where the row is deep enough and a bound, the one
+    of alpha and beta its flag compares; usable, score and order_move
+    out (1 + 4 + 4 bytes a lane)."""
+    from fishnet_tpu_torch.ops import tt
+
+    B = h1.shape[0]
+    rows = table[tt._slots(table, h1)]
+    valid = enter & ((rows[:, 0] ^ rows[:, 1] ^ rows[:, 2]) == h2) & (rows[:, 1] != 0)
+    _, depth, flag = tt.unpack_meta(rows[:, 1])
+    dl = depth_left.clamp(min=0)
+    deep = valid & ((depth >= dl) if deep_bounds else (depth == dl))
+    n_bound = int((deep & (flag != tt.FLAG_EXACT)).sum())
+    n_rows = int(tt._slots(table, h1).unique().numel())
+    return (B * (4 + 1) + n_rows * 16 + int(enter.sum()) * 4 + int(valid.sum()) * 4
+            + n_bound * 4 + B * 9)
+
+
+def store_bytes(table, h1, h2, score, depth, flag, move, mask, prefer_deep: bool,
+                gen) -> int:
+    """The bytes K6's function must move on these inputs and this table:
+    the mask of every lane; the score of the masked lanes; h1 of the
+    storable ones (masked, not mate-range) and, with prefer_deep, their
+    depth, their generation where it is per lane, and the old row of
+    each distinct slot they hit; of the winning lanes (the highest lane
+    of each slot still storing), h2, flag and move (and depth, and a
+    per-lane generation, without prefer_deep) in and the row written."""
+    import torch
+
+    from fishnet_tpu_torch.ops import tt
+
+    slot = tt._slots(table, h1)
+    storable = mask & (score.abs() <= tt._MAX_STORE)
+    n_masked, n_storable = int(mask.sum()), int(storable.sum())
+    nbytes = mask.shape[0] + n_masked * 4 + n_storable * 4
+    if prefer_deep:
+        gen_t = torch.as_tensor(0 if gen is None else gen, dtype=torch.int32,
+                                device=table.device).expand(slot.shape[0])
+        old = table[slot]
+        keep = ((old[:, 1] != 0) & (old[:, 3] == gen_t)
+                & (tt.unpack_meta(old[:, 1])[1] > depth))
+        nbytes += n_storable * 4 + int(slot[storable].unique().numel()) * 16
+        if torch.is_tensor(gen):
+            nbytes += n_storable * 4
+        storable = storable & ~keep
+    elif torch.is_tensor(gen):
+        nbytes += int(slot[storable].unique().numel()) * 4
+    n_win = int(slot[storable].unique().numel())
+    return nbytes + n_win * ((3 if prefer_deep else 4) * 4 + 16)
+
+
+def tt_kernel_phase(reps: int) -> dict:
+    """K5 and K6 against their plain versions on the card, at B = 16, 64
+    (the engine's dispatch width) and 1024 into small tables (forced
+    collisions: 1024 lanes into 64 slots) and into the main path's
+    2^21-slot table, K5 with deep_bounds off and on, K6 plain and
+    prefer_deep (one generation, and per-lane ones); each also with the
+    runner's strided and broadcast inputs. Returns per-kernel stats
+    (times at B = 1024 into 2^21 slots, the engine's prefer_deep store)."""
+    import torch
+
+    from fishnet_tpu_torch.ops import tt
+
+    dev = torch.device("cuda")
+    stats = {k: {"max_abs_err": 0.0} for k in ("tt_probe", "tt_store")}
+
+    def check(name, label, got, want):
+        err = max(float((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+        if err != 0:
+            raise AssertionError(f"{name} {label}: max_abs_err {err}")
+        return err
+
+    for B, size_log2 in ((16, 3), (16, 21), (64, 21), (1024, 6), (1024, 21)):
+        c = tt_inputs(B, size_log2, seed=B + size_log2, dev=dev)
+        runner_probe, runner_store, runner_leaf = tt_runner_layout(c)
+        for deep in (False, True):
+            for layout, args in (("contiguous", [c[k] for k in TT_PROBE_ARGS]),
+                                 ("runner", runner_probe)):
+                got = tt.probe(c["table"], *args, deep_bounds=deep)
+                want = tt.probe_plain(c["table"], *args, deep_bounds=deep)
+                torch.cuda.synchronize()
+                label = f"B={B} slots=2^{size_log2} deep_bounds={deep} {layout}"
+                err = check("tt_probe", label, got, want)
+                log(f"check tt_probe {label}: max_abs_err={err} (tolerance 0; usable "
+                    f"{int(want[0].sum())}/{B})")
+        gen_lanes = torch.randint(0, 3, (B,), dtype=torch.int32, device=dev)
+        for prefer, gen in ((False, None), (True, 1), (True, gen_lanes)):
+            for layout, args in (("contiguous", [c[k] for k in TT_STORE_ARGS]),
+                                 ("runner", runner_store), ("runner leaf", runner_leaf)):
+                got, want = c["table"].clone(), c["table"].clone()
+                tt.store(got, *args, prefer_deep=prefer, gen=gen)
+                tt.store_plain(want, *args, prefer_deep=prefer, gen=gen)
+                torch.cuda.synchronize()
+                label = (f"B={B} slots=2^{size_log2} prefer_deep={prefer} "
+                         f"gen={'lanes' if torch.is_tensor(gen) else gen} {layout}")
+                err = check("tt_store", label, [got], [want])
+                changed = int((want != c["table"]).any(1).sum())
+                log(f"check tt_store {label}: max_abs_err={err} (tolerance 0; rows "
+                    f"written {changed})")
+        if (B, size_log2) != (1024, 21):
+            continue
+
+        # times at the main path's table size and the widest batch
+        table = c["table"]
+        slot = tt._slots(table, c["h1"])
+        probe_args = [c[k] for k in TT_PROBE_ARGS]
+        store_args = [c[k] for k in TT_STORE_ARGS]
+        meta = tt.pack_meta(c["score"], c["depth"], c["flag"])
+        rows = torch.stack([c["h2"] ^ meta ^ c["move"], meta, c["move"],
+                            torch.ones_like(meta)], 1)
+        table_k = table.clone()
+        table_p = table.clone()
+        table_l = table.clone()
+        # the repeated store reaches its fixed point after one call (the
+        # rows it writes are the ones it keeps); count the bytes there
+        tt.store(table_k, *store_args, prefer_deep=True, gen=1)
+        timed = {
+            "tt_probe": (
+                lambda: tt.probe(table, *probe_args),
+                lambda: tt.probe_plain(table, *probe_args),
+                lambda: table.index_select(0, slot),
+                probe_bytes(table, *probe_args, deep_bounds=False),
+                B * 16,
+            ),
+            "tt_store": (
+                lambda: tt.store(table_k, *store_args, prefer_deep=True, gen=1),
+                lambda: tt.store_plain(table_p, *store_args, prefer_deep=True, gen=1),
+                lambda: table_l.index_put_((slot,), rows),
+                store_bytes(table_k, *store_args, prefer_deep=True, gen=1),
+                B * 12,
+            ),
+        }
+        for name, (kern, plain, lib, nbytes, nops) in timed.items():
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = nops / F32_OPS_PER_S * 1e3
+            (ms, call_ms), (plain_ms, plain_call) = time_ms(kern, reps), time_ms(plain, reps)
+            lib_ms, lib_call = time_ms(lib, reps)
+            stats[name].update(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+            )
+            log(f"time {name} B={B} slots=2^{size_log2} (device ms / call ms): kernel "
+                f"{ms:.5f} / {call_ms:.5f}, plain {plain_ms:.5f} / {plain_call:.5f}, "
+                f"library {lib_ms:.5f} / {lib_call:.5f}, bound {stats[name]['bound_ms']:.6f} "
+                f"({stats[name]['bound_by']}, {nbytes} bytes)")
+    return stats
+
+
 def make_chunk(n_positions: int, depth: int):
     from fishnet_tpu_torch.ipc import AnalysisWork, Chunk, EngineFlavor, NodeLimit, WorkPosition
 
@@ -282,26 +520,39 @@ def make_chunk(n_positions: int, depth: int):
                  flavor=EngineFlavor.TPU, positions=positions)
 
 
-def engine_phase(params_f32, depth: int, n_positions: int) -> dict:
+def engine_phase(params_f32, depth: int, n_positions: int, tt_on: bool) -> dict:
+    """One chunk through GpuEngine: with its defaults (tt_on: the 2^21
+    table and the helper lanes), or with both off."""
+    import numpy as np
     import torch
 
     from fishnet_tpu_torch import kernels
     from fishnet_tpu_torch.chess import Position
     from fishnet_tpu_torch.engine.gpu import GpuEngine
 
-    steps = []
+    steps, helpers = [], {}
+    path = "engine chunk, table and helpers" if tt_on else "engine chunk, no table"
 
     class CountingEngine(GpuEngine):
-        def _search(self, roots, depth_arr, *a, **kw):
+        def _search(self, roots, depth_arr, *a, order_jitter=None, required=None, **kw):
             t0 = time.monotonic()
-            out = super()._search(roots, depth_arr, *a, **kw)
+            out = super()._search(roots, depth_arr, *a, order_jitter=order_jitter,
+                                  required=required, **kw)
             steps.append(out["steps"])
-            log(f"engine dispatch {len(steps)}: depth {int(depth_arr.max())} lanes "
-                f"{len(depth_arr)} steps {out['steps']} wall {time.monotonic() - t0:.3f} s")
+            d = int(depth_arr[required].max() if required is not None else depth_arr.max())
+            n_help = 0 if order_jitter is None else int((np.asarray(order_jitter) != 0).sum())
+            helpers.setdefault(d, n_help)
+            log(f"{path}: dispatch {len(steps)}: depth {d} lanes {len(depth_arr)} helpers "
+                f"{n_help} steps {out['steps']} wall {time.monotonic() - t0:.3f} s")
             return out
 
-    engine = CountingEngine(params=params_f32, tt_size_log2=0, helper_lanes=1,
-                            refill=False, max_depth=depth)
+    if tt_on:
+        engine = CountingEngine(params=params_f32, max_depth=depth)
+        if engine.tt.shape[0] != 1 << 21:
+            raise AssertionError(f"default table has {engine.tt.shape[0]} slots")
+    else:
+        engine = CountingEngine(params=params_f32, tt_size_log2=0, helper_lanes=1,
+                                refill=False, max_depth=depth)
     assert engine.max_ply == 32, engine.max_ply
     chunk = make_chunk(n_positions, depth)
     kernels.reset_launches()
@@ -309,7 +560,7 @@ def engine_phase(params_f32, depth: int, n_positions: int) -> dict:
     responses = asyncio.run(engine.go_multiple(chunk))
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = check_launches("engine chunk")
+    launches = check_launches(path, None if tt_on else NO_TT_KERNELS)
     if len(responses) != len(chunk.positions):
         raise AssertionError(f"{len(responses)} responses for {len(chunk.positions)} positions")
     for wp, res in zip(chunk.positions, responses):
@@ -320,11 +571,14 @@ def engine_phase(params_f32, depth: int, n_positions: int) -> dict:
             raise AssertionError(f"position {wp.position_index} reached depth {res.depth}")
         pos.parse_uci(res.best_move)  # raises if not legal
         score = res.scores.best()
-        log(f"engine position {wp.position_index} ({len(wp.moves)} plies): "
+        log(f"{path}: position {wp.position_index} ({len(wp.moves)} plies): "
             f"best {res.best_move} score {score.kind} {score.value} nodes {res.nodes}")
     nodes = sum(r.nodes for r in responses)
-    log(f"engine: {len(responses)} positions depth {depth} nodes {nodes} steps {sum(steps)} "
-        f"dispatches {len(steps)} wall {wall:.3f} s nodes/s {nodes / wall:.0f}")
+    log(f"{path}: {len(responses)} positions depth {depth} table "
+        f"{0 if engine.tt is None else engine.tt.shape[0]} slots, K={engine.helper_lanes}, "
+        f"nodes {nodes} steps {sum(steps)} dispatches {len(steps)} wall {wall:.3f} s "
+        f"ms/step {wall / max(sum(steps), 1) * 1e3:.3f} nodes/s {nodes / wall:.0f} "
+        f"helpers per depth {helpers}")
     return launches
 
 
@@ -342,7 +596,7 @@ def parity_phase(params_f32, depth: int) -> None:
     t0 = time.monotonic()
     card = search_batch(params_i8, roots, depth, 200_000, max_ply=8, device="cuda")
     t1 = time.monotonic()
-    check_launches("parity, card")
+    check_launches("parity, card", NO_TT_KERNELS)
     cpu = search_batch(params_i8.to("cpu"), roots, depth, 200_000, max_ply=8, device="cpu")
     t2 = time.monotonic()
     for k in ("score", "move", "nodes", "pv", "pv_len", "done"):
@@ -352,6 +606,53 @@ def parity_phase(params_f32, depth: int) -> None:
         raise AssertionError(f"steps differ: card {card['steps']} cpu {cpu['steps']}")
     log(f"parity: int8 search_batch B=16 depth {depth}: card == cpu on score, move, "
         f"nodes, steps ({card['steps']}), pv, pv_len; card {t1 - t0:.3f} s, cpu {t2 - t1:.3f} s")
+
+
+def tt_parity_phase(params_f32, depth: int) -> None:
+    """An int8 search with the table and a helper-lane layout (jittered
+    helpers one ply deeper, group tags, the required-lane stop, the
+    depth-preferred generation store), card against CPU: every field and
+    the final tables byte for byte."""
+    import numpy as np
+
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.models import nnue
+    from fishnet_tpu_torch.ops import tt
+    from fishnet_tpu_torch.ops.search import search_batch_resumable
+
+    params_i8 = nnue.quantize_int8(params_f32)
+    roots, _ = playout_boards(4, seed=17)
+    B, n = 16, 4
+    pick = [i % n for i in range(B)]
+    roots = type(roots)(*[t[pick] for t in roots])
+    jitter = np.asarray([0] * n + list(range(1, B - n + 1)), np.int32)
+    kw = dict(order_jitter=jitter, group=np.asarray(pick, np.int32),
+              required=np.arange(B) < n, prefer_deep_store=True, tt_gen=5, segment_steps=256)
+    depth_arr = np.asarray([depth] * n + [depth + (i % 2) for i in range(B - n)], np.int32)
+    outs, tables, walls = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        table = tt.make_table(TT_PARITY_LOG2, device=dev)
+        kernels.reset_launches()
+        t0 = time.monotonic()
+        outs[dev] = search_batch_resumable(params_i8.to(dev), roots.to(dev), depth_arr, 200_000,
+                                           max_ply=8, tt=table, device=dev, **kw)
+        walls[dev] = time.monotonic() - t0
+        tables[dev] = outs[dev].pop("tt").cpu().numpy()
+        if dev == "cuda":
+            check_launches("TT parity, card")
+    card, cpu = outs["cuda"], outs["cpu"]
+    for k in ("score", "move", "nodes", "pv", "pv_len", "done"):
+        if not np.array_equal(card[k], cpu[k]):
+            raise AssertionError(f"TT search: card and CPU differ in {k}")
+    if card["steps"] != cpu["steps"]:
+        raise AssertionError(f"TT steps differ: card {card['steps']} cpu {cpu['steps']}")
+    if not np.array_equal(tables["cuda"], tables["cpu"]):
+        raise AssertionError("TT search: the card's table differs from the CPU's")
+    filled = int((tables["cuda"][:, 1] != 0).sum())
+    log(f"TT parity: int8 B={B} ({n} primaries, {B - n} helpers) depth {depth}, 2^"
+        f"{TT_PARITY_LOG2} slots: card == cpu on score, move, nodes, steps "
+        f"({card['steps']}), pv, pv_len and the table ({filled} rows filled); card "
+        f"{walls['cuda']:.3f} s, cpu {walls['cpu']:.3f} s")
 
 
 def scale_phase(params_f32, lanes: int, depth: int) -> None:
@@ -367,7 +668,7 @@ def scale_phase(params_f32, lanes: int, depth: int) -> None:
     out = search_batch(params_f32, roots, depth, 10_000_000, max_ply=32, device="cuda")
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    check_launches(f"scale B={lanes}")
+    check_launches(f"scale B={lanes}", NO_TT_KERNELS)
     nodes = int(out["nodes"].sum())
     if not out["done"].all():
         raise AssertionError("scale search did not finish")
@@ -376,47 +677,58 @@ def scale_phase(params_f32, lanes: int, depth: int) -> None:
         f"ms/step {wall / max(out['steps'], 1) * 1e3:.3f}")
 
 
-def profile_phase(params_f32, lanes: int, steps: int) -> None:
+def profile_phase(params_f32, lanes: int, steps: int, tt_on: bool = False) -> None:
     """Where a search step's time goes: steps of the lockstep search at
     `lanes` lanes under torch.profiler — host wall per step, device time
     per step, the device's idle share, launches per step and the largest
-    device-time entries (the four hand kernels among them)."""
+    device-time entries (the hand kernels among them). tt_on: steps under
+    the TT runner, on a 2^21-slot table with the helpers' store."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from fishnet_tpu_torch import kernels
-    from fishnet_tpu_torch.ops.search import _step, init_state
+    from fishnet_tpu_torch.ops import tt
+    from fishnet_tpu_torch.ops.search import _step, _tt_step, init_state
 
     dev = torch.device("cuda")
     roots = playout_boards(lanes, seed=13)[0].to(dev)
     kernels.reset_launches()
     state = init_state(params_f32, roots, torch.full((lanes,), 6, dtype=torch.int32, device=dev),
                        torch.full((lanes,), 10_000_000, dtype=torch.int32, device=dev), 32)
+    if tt_on:
+        table = tt.make_table(21, device=dev)
+
+        def step():
+            _tt_step(params_f32, state, True, table, False, True, 1)
+    else:
+        def step():
+            _step(params_f32, state, True)
+    name = f"profile B={lanes}{' with table' if tt_on else ''}"
     for _ in range(20):  # warm up past the root
-        _step(params_f32, state, True)
+        step()
     torch.cuda.synchronize()
     t0 = time.monotonic()
     for _ in range(steps):
-        _step(params_f32, state, True)
+        step()
     torch.cuda.synchronize()
     plain_wall = time.monotonic() - t0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         for _ in range(steps):
-            _step(params_f32, state, True)
+            step()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    check_launches(f"profile B={lanes}")
+    check_launches(name, None if tt_on else NO_TT_KERNELS)
 
     # the kernels themselves (device-side entries), not the ops that launched them
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     dev_us = sum(_device_us(e) for e in events)
     launches = sum(e.count for e in events)
-    log(f"profile B={lanes}: wall {plain_wall / steps * 1e3:.3f} ms/step (profiled "
+    log(f"{name}: wall {plain_wall / steps * 1e3:.3f} ms/step (profiled "
         f"{wall / steps * 1e3:.3f}), device busy {dev_us / steps / 1e3:.3f} ms/step, device "
         f"idle share {1 - dev_us / 1e6 / plain_wall:.3f}, device entries {launches / steps:.1f}/step")
     for e in sorted(events, key=lambda e: -_device_us(e))[:12]:
-        log(f"profile B={lanes}: {_device_us(e) / steps:9.2f} us/step "
+        log(f"{name}: {_device_us(e) / steps:9.2f} us/step "
             f"x{e.count / steps:<6.1f} {e.key[:90]}")
 
 
@@ -446,17 +758,24 @@ def main() -> int:
     params = nnue.load_params(device="cuda")
     t0 = time.monotonic()
     stats = kernel_phase(params, REPS)
+    stats.update(tt_kernel_phase(REPS))
     log(f"kernel phase: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
-    for lanes in (16, 1024):
-        profile_phase(params, lanes, PROFILE_STEPS)
+    for lanes, tt_on in ((16, False), (1024, False), (64, True)):
+        profile_phase(params, lanes, PROFILE_STEPS, tt_on)
     log(f"profile phase: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
-    launches = engine_phase(params, DEPTH, POSITIONS)
+    launches = engine_phase(params, DEPTH, POSITIONS, tt_on=True)
     log(f"engine phase: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    engine_phase(params, NO_TT_DEPTH, POSITIONS, tt_on=False)
+    log(f"engine phase without the table: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     parity_phase(params, PARITY_DEPTH)
     log(f"parity phase: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    tt_parity_phase(params, PARITY_DEPTH)
+    log(f"TT parity phase: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     scale_phase(params, SCALE_LANES, SCALE_DEPTH)
     log(f"scale phase: {time.monotonic() - t0:.1f} s")
@@ -466,6 +785,8 @@ def main() -> int:
         "nnue_forward_from_acc": "fishnet_tpu/models/nnue.py:299",
         "nnue_acc_update_768": "fishnet_tpu/models/nnue.py:169",
         "zobrist_hash": "fishnet_tpu/ops/tt.py:113",
+        "tt_probe": "fishnet_tpu/ops/tt.py:188",
+        "tt_store": "fishnet_tpu/ops/tt.py:240",
     }
     rows = [
         {"name": name, "route": "cuda", "source": f"fishnet_tpu_torch/csrc/{name}.cu",

@@ -30,7 +30,7 @@ NVCC_FLAGS = (
 )
 KERNELS = (
     "nnue_refresh_768", "nnue_forward_from_acc", "nnue_acc_update_768",
-    "zobrist_hash",
+    "zobrist_hash", "tt_probe", "tt_store",
 )
 
 # length of each Zobrist table (ops/tt.py Z_SHAPE; the kernel reads the
@@ -52,7 +52,12 @@ _SIGNATURES = {
     "nnue_forward_from_acc_f32": [_P] * 10 + [_I, _P],
     "nnue_forward_from_acc_i8": [_P] * 10 + [_I, _P],
     "zobrist_hash": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _P, _I, _P],
+    "tt_probe": [_P, _I] + [_P, _L] * 5 + [_P, _I, _P, _P, _P, _I, _P],
+    "tt_store": [_P, _I] + [_P, _L] * 6 + [_P, _P, _I, _I, _I, _P],
 }
+
+# lanes one K6 launch takes (its shared-memory slot array)
+TT_STORE_MAX_LANES = 8192
 
 _lock = threading.Lock()
 _fns: dict = {}
@@ -259,3 +264,77 @@ def zobrist_hash(board: torch.Tensor, stm: torch.Tensor, ep: torch.Tensor,
                 castling.data_ptr(), sc, z1.data_ptr(), z2.data_ptr(),
                 out.data_ptr(), B)
     return out
+
+
+def _check_lanes(t: torch.Tensor, name: str, B: int, dtype=torch.int32) -> int:
+    """A (B,) CUDA view of `dtype`; returns its element stride (0 for a
+    broadcast scalar)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != (B,):
+        raise ValueError(f"{name} must have shape {(B,)}, got {tuple(t.shape)}")
+    return t.stride(0)
+
+
+def _check_table(table: torch.Tensor) -> int:
+    n = table.shape[0]
+    _check(table, "table", torch.int32, (n, 4))
+    if n & (n - 1) or not 0 < n < 2**31:
+        raise ValueError(f"table must have a power-of-two number of rows, got {n}")
+    if table.data_ptr() % 16:
+        raise ValueError("table rows must be 16-byte aligned")
+    return n
+
+
+def tt_probe(table: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor,
+             depth_left: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+             enter: torch.Tensor, deep_bounds: bool):
+    """K5: table (n, 4) int32; h1, h2, depth_left, alpha, beta (B,) int32
+    views (any stride); enter (B,) bool → (usable (B,) bool, score (B,)
+    int32, order_move (B,) int32)."""
+    B = h1.shape[0]
+    n = _check_table(table)
+    strides = [_check_lanes(t, name, B) for name, t in (
+        ("h1", h1), ("h2", h2), ("depth_left", depth_left), ("alpha", alpha), ("beta", beta))]
+    _check(enter, "enter", torch.bool, (B,))
+    usable = torch.empty((B,), dtype=torch.bool, device=table.device)
+    score = torch.empty((B,), dtype=torch.int32, device=table.device)
+    order = torch.empty((B,), dtype=torch.int32, device=table.device)
+    if B:
+        args = [a for t, s in zip((h1, h2, depth_left, alpha, beta), strides)
+                for a in (t.data_ptr(), s)]
+        _launch("tt_probe", "tt_probe", table.data_ptr(), n, *args, enter.data_ptr(),
+                int(bool(deep_bounds)), usable.data_ptr(), score.data_ptr(),
+                order.data_ptr(), B)
+    return usable, score, order
+
+
+def tt_store(table: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor,
+             score: torch.Tensor, depth: torch.Tensor, flag: torch.Tensor,
+             move: torch.Tensor, mask: torch.Tensor, prefer_deep: bool,
+             gen=None) -> torch.Tensor:
+    """K6: stores each masked lane's entry into table (n, 4) int32, in
+    place, and returns it. h1, h2, score, depth, flag, move (B,) int32
+    views (any stride, 0 for a broadcast scalar); mask (B,) bool; gen
+    None, an int or a (B,) int32 CUDA tensor; B <= TT_STORE_MAX_LANES."""
+    B = h1.shape[0]
+    n = _check_table(table)
+    cols = (("h1", h1), ("h2", h2), ("score", score), ("depth", depth), ("flag", flag),
+            ("move", move))
+    strides = [_check_lanes(t, name, B) for name, t in cols]
+    _check(mask, "mask", torch.bool, (B,))
+    if B > TT_STORE_MAX_LANES:
+        raise ValueError(f"tt_store takes at most {TT_STORE_MAX_LANES} lanes, got {B}")
+    gen_ptr, gen_int = None, 0
+    if torch.is_tensor(gen):
+        _check(gen, "gen", torch.int32, (B,))
+        gen_ptr = gen.data_ptr()
+    elif gen is not None:
+        gen_int = int(gen)
+    if B:
+        args = [a for (_, t), s in zip(cols, strides) for a in (t.data_ptr(), s)]
+        _launch("tt_store", "tt_store", table.data_ptr(), n, *args, mask.data_ptr(),
+                gen_ptr, gen_int, int(bool(prefer_deep)), B)
+    return table

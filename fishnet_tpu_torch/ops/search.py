@@ -1,7 +1,8 @@
 """Lockstep batched alpha-beta search, batched over lanes in PyTorch.
 
 A port of the JAX package's ops/search.py (standard chess and chess960,
-transposition table off). B independent lanes each keep an explicit DFS
+with or without the shared transposition table, with Lazy-SMP lane-group
+metadata). B independent lanes each keep an explicit DFS
 stack and advance together, one ENTER/RETURN/TRYMOVE state-machine step
 per call of `_step`:
 
@@ -23,7 +24,10 @@ rows in place, in the same order, each under the same mask.
 
 Each step runs the Zobrist hash (K4), the leaf eval (K2) and the
 accumulator update (K3) as CUDA kernels on the card; `init_state` runs
-the root refresh (K1). The rest of the step is batched PyTorch code.
+the root refresh (K1). With a table, `run_segment` wraps each step in
+the reference's TT runner: a store of the lanes parked in RETURN (K6), a
+probe of the lanes about to ENTER (K5), the step, and a store of the
+leaves it marked (K6). The rest of the step is batched PyTorch code.
 """
 from __future__ import annotations
 
@@ -156,13 +160,20 @@ def _is_quiet(move: torch.Tensor, board: torch.Tensor) -> torch.Tensor:
 
 def init_state(params: nnue.NnueParams, roots: Board, depth: torch.Tensor,
                node_budget: torch.Tensor, max_ply: int, hist_hash=None,
-               hist_halfmove=None, root_alpha=None,
-               root_beta=None) -> SearchState:
+               hist_halfmove=None, root_alpha=None, root_beta=None,
+               order_jitter=None, group=None) -> SearchState:
     """roots: batched Board on the search's device; depth/node_budget
     (B,). hist_hash (B, MAX_HIST, 2) int32 / hist_halfmove (B, MAX_HIST):
     optional reversible game tail per lane (None: no pre-root
     repetitions possible). root_alpha/root_beta (B,): optional
-    aspiration window at the root."""
+    aspiration window at the root.
+
+    order_jitter (B,): optional move-ordering seed of Lazy-SMP helper
+    lanes. A lane with jitter j != 0 starts from pseudo-random history
+    counters 0..255 hash-mixed from j, so it orders its quiet moves
+    differently from the other lanes of its group; jitter 0 seeds zeros
+    (the lane searches as without the argument). group (B,): an opaque
+    lane-group tag, stored and not read by the search."""
     dev = roots.board.device
     B, P = roots.board.shape[0], max_ply
 
@@ -194,6 +205,10 @@ def init_state(params: nnue.NnueParams, roots: Board, depth: torch.Tensor,
     lane[:, LN_RMOVE] = -1
     lane[:, LN_RALPHA] = -INF if root_alpha is None else root_alpha.to(_I32)
     lane[:, LN_RBETA] = INF if root_beta is None else root_beta.to(_I32)
+    if order_jitter is not None:
+        lane[:, LN_JITTER] = order_jitter.to(_I32)
+    if group is not None:
+        lane[:, LN_GROUP] = group.to(_I32)
 
     if hist_hash is None:
         hist_hash = torch.zeros((B, MAX_HIST, 2), dtype=_I32, device=dev)
@@ -203,9 +218,29 @@ def init_state(params: nnue.NnueParams, roots: Board, depth: torch.Tensor,
         bt=bt, nt=nt, lane=lane, hist_hash=hist_hash.to(_I32),
         hist_halfmove=hist_halfmove.to(_I32),
         moves=full((B, P, MAX_MOVES), -1),
-        hist=torch.zeros((B, 4096), dtype=_I32, device=dev),
+        hist=_jitter_history(order_jitter, B, dev),
         pv=full((B, P, P), -1), acc=acc,
     )
+
+
+def _jitter_history(order_jitter, B: int, dev) -> torch.Tensor:
+    """(B, 4096) int32 initial history counters: zeros, or for lanes with
+    jitter j != 0 the reference's mix (j * 2654435761 ^ idx * 2246822519,
+    then ^ >> 15, then & 255) in uint32 arithmetic, done in int64 and
+    masked so torch's signed int32 does not change the bits."""
+    hist = torch.zeros((B, 4096), dtype=_I32, device=dev)
+    if order_jitter is None:
+        return hist
+    m32 = 0xFFFFFFFF
+    j = order_jitter.to(torch.int64)[:, None] & m32
+    # j * 2654435761 mod 2^32 from two 16-bit halves of the constant, so
+    # no product leaves int64
+    c = 2654435761
+    jm = (j * (c & 0xFFFF) + (((j * (c >> 16)) & 0xFFFF) << 16)) & m32
+    idx = torch.arange(4096, dtype=torch.int64, device=dev)[None, :]
+    mix = jm ^ ((idx * 2246822519) & m32)
+    mix = mix ^ (mix >> 15)
+    return torch.where(j != 0, mix & 255, 0).to(_I32)
 
 
 class _Consts(NamedTuple):
@@ -215,6 +250,9 @@ class _Consts(NamedTuple):
     fm_enter: torch.Tensor  # (NT_W,) bool
     ntp_cols: torch.Tensor  # RETURN's parent-row fields
     nt1_cols: torch.Tensor  # TRYMOVE's own-row fields
+    zero: torch.Tensor  # () int32 scalars the leaf store broadcasts
+    exact: torch.Tensor
+    no_move: torch.Tensor
 
 
 @lru_cache(maxsize=None)
@@ -229,12 +267,20 @@ def _consts(device: torch.device, P1: int, H: int) -> _Consts:
         ntp_cols=t([NT_BEST, NT_BMOVE, NT_ALPHA, NT_SEARCHED, NT_NULL, NT_PVLEN],
                    torch.int64),
         nt1_cols=t([NT_MIDX, NT_NULL, NT_LASTRED, NT_K0, NT_K1], torch.int64),
+        zero=t(0), exact=t(tt_mod.FLAG_EXACT), no_move=t(-1),
     )
 
 
 @torch.inference_mode()
-def _step(params: nnue.NnueParams, s: SearchState, pruning: bool) -> None:
+def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
+          tt_hit=None, tt_score=None, tt_move=None) -> None:
     """One state-machine step for every lane, written into `s` in place.
+
+    keys (B, 2) int32: the Zobrist keys of each lane's current ply row,
+    when the caller has hashed it already (the TT runner); None hashes
+    here. tt_hit (B,) bool / tt_score / tt_move (B,) int32: the TT probe
+    of each lane's ENTER node (a usable cutoff, its score, the stored
+    move for ordering, -1 for none); None runs without the table.
 
     All reads of the state happen before the writes they could see, and
     the writes land in the reference's order (nt: entered row, parent
@@ -274,7 +320,7 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool) -> None:
 
     # twofold repetition along the search path and against the pre-root
     # game history, through unbroken reversible-move chains
-    h = tt_mod.hash_board(b.board, us, b.ep, b.castling)
+    h = tt_mod.hash_board(b.board, us, b.ep, b.castling) if keys is None else keys
     hm = b.halfmove[:, None]
     same = (bt[:, :, BT_PH1:BT_PH2 + 1] == h[:, None]).all(2)
     repet_path = (same & ((hm - bt[:, :, BT_HM]) == (ply0[:, None] - c.ks))
@@ -315,10 +361,31 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool) -> None:
         draw | over_budget | (ply0 >= P) | (qs_like & quiet_node)
         | (in_qs & (leaf_val >= entry_beta))  # stand-pat cut
     )
-    to_return = parent_illegal | is_leaf
+    # TT cutoff: a leaf return with the stored score; never at the root
+    # (it must produce a move), never on a fifty-move or repetition draw
+    # (the key excludes the halfmove clock and the path)
+    if tt_hit is not None:
+        use_tt = tt_hit > (root | draw)
+        to_return = parent_illegal | is_leaf | use_tt
+        no_store = parent_illegal | draw | use_tt
+    else:
+        to_return = parent_illegal | is_leaf
+        no_store = parent_illegal | draw
     expand = enter > to_return
-    leaf_store = ((enter & is_leaf) > (parent_illegal | draw)) & quiet_node
+    # quiet static leaves, for the runner's depth-0 EXACT store
+    leaf_store = ((enter & is_leaf) > no_store) & quiet_node
     store_val = torch.where(leaf_store, leaf_val, 0)
+
+    # the stored move to the front of the list (not in quiescence, where
+    # the swap could pull a quiet move into the noisy prefix)
+    if tt_move is not None:
+        hit = gen_moves == tt_move[:, None]
+        tm_at = hit.to(torch.uint8).argmax(1, keepdim=True)
+        present = (hit.gather(1, tm_at)[:, 0] & (tt_move >= 0)) > qs_like
+        m0 = gen_moves[:, :1]
+        gen_moves = gen_moves.scatter(
+            1, tm_at, torch.where(present[:, None], m0, gen_moves.gather(1, tm_at)))
+        gen_moves[:, :1] = torch.where(present[:, None], tt_move[:, None], gen_moves[:, :1])
 
     if pruning:  # null-move eligibility
         us_base = (us * 6)[:, None]
@@ -358,8 +425,13 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool) -> None:
     _set_row(s.moves, p0.clamp(max=P - 1), gen_moves, expand)
 
     ret_now = enter & to_return
-    ret = torch.where(ret_now, torch.where(parent_illegal, ILLEGAL, leaf_val), lane[:, LN_RET])
-    ret_depth = torch.where(ret_now, 0, lane[:, LN_RETD])
+    if tt_hit is not None:  # a TT-sourced value is already stored: depth -1
+        value = torch.where(use_tt, tt_score, leaf_val)
+        value_depth = -use_tt.to(_I32)
+    else:
+        value, value_depth = leaf_val, 0
+    ret = torch.where(ret_now, torch.where(parent_illegal, ILLEGAL, value), lane[:, LN_RET])
+    ret_depth = torch.where(ret_now, value_depth, lane[:, LN_RETD])
     nodes = nodes + (enter > parent_illegal).to(_I32)
     mode = torch.where(ret_now, MODE_RETURN, torch.where(expand, MODE_TRYMOVE, mode0))
 
@@ -491,17 +563,71 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool) -> None:
     ], 1))
 
 
+@torch.inference_mode()
+def _tt_step(params: nnue.NnueParams, s: SearchState, pruning: bool,
+             table: torch.Tensor, deep_tt: bool, prefer_deep: bool, gen) -> None:
+    """One step under the reference's TT runner (its _run_segment body):
+    hash each lane's ply row once; store the lanes parked in RETURN with
+    the node's finished value; probe the lanes about to ENTER with the
+    window ENTER will give them; step; store the leaves the step marked
+    as depth-0 EXACT under the pre-step keys. Stores from one lane are
+    visible to every lane's probe in the same step."""
+    lane = s.lane
+    ply = lane[:, LN_PLY].long()
+    keys = tt_mod.hash_boards(_board_from_rows(_row(s.bt, ply)))
+    h1, h2 = keys[:, 0], keys[:, 1]
+    mode, ret, ret_depth = lane[:, LN_MODE], lane[:, LN_RET], lane[:, LN_RETD]
+
+    # lanes whose interior node just finished (a TT-sourced value has
+    # depth -1; past the budget, subtrees are degraded and not stored)
+    store_mask = ((mode == MODE_RETURN) & (ret != ILLEGAL) & (ret_depth >= 1)
+                  & (lane[:, LN_NODES] < lane[:, LN_BUDGET]))
+    ntrow = _row(s.nt, ply)
+    flag = torch.where(ret >= ntrow[:, NT_BETA], tt_mod.FLAG_LOWER,
+                       torch.where(ret <= ntrow[:, NT_ALPHA0], tt_mod.FLAG_UPPER,
+                                   tt_mod.FLAG_EXACT)).to(_I32)
+    tt_mod.store(table, h1, h2, ret, ret_depth.clamp(min=0), flag, ntrow[:, NT_BMOVE],
+                 store_mask, prefer_deep=prefer_deep, gen=gen)
+
+    # lanes about to enter a node, probed with the window ENTER gives the
+    # node (the zero-width null window for a null child)
+    enter = mode == MODE_ENTER
+    root = ply == 0
+    ntprow = _row(s.nt, (ply - 1).clamp(min=0))
+    pnull = (ntprow[:, NT_NULL] == 2) > root
+    alpha = torch.where(root, lane[:, LN_RALPHA], -ntprow[:, NT_BETA])
+    beta = torch.where(root, lane[:, LN_RBETA],
+                       torch.where(pnull, 1 - ntprow[:, NT_BETA], -ntprow[:, NT_ALPHA]))
+    usable, score, order_mv = tt_mod.probe(table, h1, h2, ntrow[:, NT_DL], alpha, beta,
+                                           enter, deep_bounds=deep_tt)
+    _step(params, s, pruning, keys, usable, score, order_mv)
+
+    # the leaves the step evaluated: their position is the pre-step one
+    c = _consts(lane.device, s.bt.shape[1], s.hist_halfmove.shape[1])
+    B = h1.shape[0]
+    tt_mod.store(table, h1, h2, lane[:, LN_SVAL], c.zero.expand(B), c.exact.expand(B),
+                 c.no_move.expand(B), lane[:, LN_SMARK] != 0, prefer_deep=prefer_deep,
+                 gen=gen)
+
+
 def run_segment(params: nnue.NnueParams, state: SearchState,
-                segment_steps: int, pruning: bool | None = None):
+                segment_steps: int, pruning: bool | None = None, table=None,
+                deep_tt: bool = False, prefer_deep: bool = False, tt_gen=0):
     """Advance all lanes <= segment_steps steps, stopping once every lane
     is DONE. → (steps, summary): steps counts the steps in which any lane
     was live (the reference's while-loop count); summary is the packed
     (B+1, 4) int32 boundary summary (done, nodes, root score, root move;
     row B carries the step count).
 
+    table: the shared (n, 4) TT, updated in place, or None. deep_tt: the
+    probe also cuts on deeper bounds (ops/tt.py probe deep_bounds).
+    prefer_deep + tt_gen: the depth-preferred, generation-aware store of
+    helper-lane dispatches (ops/tt.py store).
+
     The host checks for DONE lanes every CHECK_EVERY steps, not every
     step: the count is kept on the device, and DONE lanes are inert under
-    the extra steps, so the results are those of the exact loop."""
+    the extra steps (they neither store nor probe), so the results and
+    the table are those of the exact loop."""
     if pruning is None:
         pruning = not settings.get_bool("FISHNET_TPU_NO_PRUNING")
     n_dev = torch.zeros((), dtype=torch.int64, device=state.lane.device)
@@ -510,7 +636,10 @@ def run_segment(params: nnue.NnueParams, state: SearchState,
         k = min(CHECK_EVERY, segment_steps - done_steps)
         for _ in range(k):
             n_dev += (state.lane[:, LN_MODE] != MODE_DONE).any()
-            _step(params, state, pruning)
+            if table is None:
+                _step(params, state, pruning)
+            else:
+                _tt_step(params, state, pruning, table, deep_tt, prefer_deep, tt_gen)
         done_steps += k
         if int(n_dev) < done_steps:
             break
@@ -553,9 +682,16 @@ def search_batch_resumable(
     segment_steps: int | None = None,
     max_steps: int = 4_000_000,
     deadline: float | None = None,
+    tt=None,
     hist=None,
     window=None,
+    deep_tt: bool = False,
     narrow: bool = True,
+    order_jitter=None,
+    group=None,
+    required=None,
+    prefer_deep_store: bool = False,
+    tt_gen: int = 0,
     device=None,
 ) -> dict:
     """Search B roots in lockstep, dispatched in bounded segments.
@@ -566,16 +702,29 @@ def search_batch_resumable(
     window: optional (root_alpha (B,), root_beta (B,)) aspiration window —
     a root whose value falls outside reports the bound.
 
+    tt: optional shared table (ops/tt.py make_table) on `device`; the
+    search updates it in place and returns it as out["tt"], so callers
+    carry it across searches. deep_tt: probes also cut on deeper bounds.
+    prefer_deep_store + tt_gen: the helper dispatches' store policy
+    (ops/tt.py store).
+
+    order_jitter/group (B,): Lazy-SMP lane-group metadata (init_state).
+    required (B,) bool: the lanes the caller needs (helper groups'
+    primaries). Once every required lane is DONE at a segment boundary,
+    the search stops and abandons the rest mid-flight; None requires
+    every lane.
+
     deadline: absolute time.monotonic() stamp checked between segments;
     lanes not DONE at the stop report done=False.
 
     narrow: at segment boundaries, retire DONE lanes and continue the
     live ones at a smaller power-of-two width (floor
     FISHNET_TPU_NARROW_FLOOR). Narrowing relocates lanes and never
-    changes any lane's search.
+    changes any lane's search; it keeps the live lanes' relative order,
+    so colliding TT stores keep the same winners.
 
     Returns numpy arrays keyed score, move, pv (B, P), pv_len, nodes,
-    done, plus the int step count "steps"."""
+    done, the int step count "steps", and "tt" (the table, or None)."""
     dev = device_mod.resolve(device)
     if segment_steps is None:
         segment_steps = settings.get_segment()
@@ -594,7 +743,12 @@ def search_batch_resumable(
         params, roots, _lanes(depth, B, dev), _lanes(node_budget, B, dev),
         max_ply, hist_hash=hist_hash, hist_halfmove=hist_halfmove,
         root_alpha=root_alpha, root_beta=root_beta,
+        order_jitter=None if order_jitter is None else _lanes(order_jitter, B, dev),
+        group=None if group is None else _lanes(group, B, dev),
     )
+    if tt is not None and tt.device != roots.board.device:
+        raise ValueError(f"the table is on {tt.device}, the search on {roots.board.device}")
+    req = None if required is None else np.asarray(required, bool).copy()
 
     # retired-lane results (original lane order); `orig` maps state rows
     # to original lanes, `valid` marks rows that still own their lane
@@ -614,15 +768,18 @@ def search_batch_resumable(
     while total < max_steps:
         if deadline is not None and _time.monotonic() >= deadline:
             break
-        n, summary = run_segment(params, state, segment_steps, pruning)
+        n, summary = run_segment(params, state, segment_steps, pruning, tt, deep_tt,
+                                 prefer_deep_store, tt_gen)
         total += n
         if n < segment_steps:
             break  # every lane parked in DONE
+        cur = state.lane.shape[0]
+        done = summary[:cur, SUM_DONE].cpu().numpy() != 0
+        if req is not None and not np.any(req & valid & ~done):
+            break  # every required lane finished: abandon the helpers
         if deadline is not None and _time.monotonic() >= deadline:
             break
-        cur = state.lane.shape[0]
         if narrow and cur > narrow_floor:
-            done = summary[:cur, SUM_DONE].cpu().numpy() != 0
             live = int((~done & valid).sum())
             new_b = narrow_floor
             while new_b < live:
@@ -635,6 +792,8 @@ def search_batch_resumable(
                 idx = torch.as_tensor(order, device=dev)
                 state = SearchState(*[t[idx].contiguous() for t in state])
                 orig = orig[order]
+                if req is not None:
+                    req = req[order]
                 valid = np.concatenate(
                     [np.ones(len(keep), bool), np.zeros(len(pad), bool)]
                 )
@@ -646,6 +805,7 @@ def search_batch_resumable(
             buf[orig[valid]] = out[k][valid]
         out = flushed
     out["steps"] = total
+    out["tt"] = tt
     return out
 
 

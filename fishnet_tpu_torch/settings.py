@@ -15,6 +15,10 @@ _FALSE_WORDS = ("0", "false", "no", "off")
 # name → default, in string form ("" = unset)
 DEFAULTS = {
     "FISHNET_TPU_MAX_PLY": "32",
+    # Lazy-SMP lanes per analysed position (1 disables helpers)
+    "FISHNET_TPU_HELPERS": "4",
+    # per-dispatch lane ceiling
+    "FISHNET_TPU_MAX_LANES": "1024",
     "FISHNET_TPU_SEGMENT": "20000",
     "FISHNET_TPU_SEGMENT_MAX": "65536",
     "FISHNET_TPU_NARROW_FLOOR": "64",
