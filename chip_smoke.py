@@ -12,20 +12,30 @@ Phases (any failure exits non-zero before the final line):
      shipped f32 net and on its int8 quantization; the TT probe and store
      (K5, K6) on seeded tables with forced slot collisions, plain and
      prefer_deep, deep_bounds off and on, with contiguous inputs and with
-     the runner's strided and broadcast ones; with times (CUDA events and
-     torch.profiler) and bounds from the bytes these inputs need;
+     the runner's strided and broadcast ones; the lane init (K7) over
+     every lane and over a scattered quarter of them; with times (CUDA
+     events and torch.profiler) and bounds from the bytes these inputs
+     need;
   4. where a search step's time goes (torch.profiler: B = 16 and 1024
      without the table, B = 64 with it);
   5. the main path: one standard-chess analysis chunk through GpuEngine()
-     with its defaults (2^21-slot table, FISHNET_TPU_HELPERS helper lanes,
-     MAX_PLY 32, depth 3);
-  6. the same chunk with the table and helpers off (depth 2);
-  7. search_batch on the int8 net, card against CPU, field for field;
-  8. an int8 search with the table and helper lanes, card against CPU,
+     with its defaults (continuous lane refill through the LaneScheduler,
+     2^21-slot table, FISHNET_TPU_HELPERS helper lanes, MAX_PLY 32,
+     depth 3), with each segment's occupancy;
+  6. the same chunk chunk-serially (refill off, table and helpers on,
+     depth 2);
+  7. the same chunk without the table or helpers (depth 2), chunk-
+     serially and through the LaneScheduler, the two with equal
+     responses;
+  8. search_batch on the int8 net, card against CPU, field for field;
+  9. an int8 search with the table and helper lanes, card against CPU,
      field for field and the tables byte for byte;
-  9. search_batch at B = 1024 lanes on the f32 net.
-Phases 4-9 each reset the kernels' launch counters just before they
-search and fail unless every kernel of their path launched during it.
+ 10. search_stream on the int8 net (more positions than lanes, staggered
+     depths, a table), card against CPU: every field, the occupancy rows
+     and the tables byte for byte;
+ 11. search_batch at B = 1024 lanes on the f32 net.
+Phases 4-11 reset the kernels' launch counters just before each search
+and fail unless every kernel of its path launched during it.
 Then a `kernels` JSON line (launches from phase 5, the main path), the
 card's name and power limit, and the result line
 `{"ok": true, "device": {...}}`.
@@ -46,12 +56,15 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 DEPTH = 3  # engine analysis depth (the host-bound step sets the time; PERF.md)
+SERIAL_DEPTH = 2  # the same chunk through the chunk-serial path
 NO_TT_DEPTH = 2  # the same chunk without the table or helpers
 POSITIONS = 10  # positions in the engine's chunk
 PARITY_DEPTH = 3
-TT_PARITY_LOG2 = 16  # table of the card-against-CPU TT search
+TT_PARITY_LOG2 = 16  # table of the card-against-CPU TT searches
+STREAM_POSITIONS = 24  # positions of the card-against-CPU stream
+STREAM_WIDTH = 16
 SCALE_LANES = 1024  # bench.py's default lane count
-SCALE_DEPTH = 3
+SCALE_DEPTH = 2  # cut from 3 to keep the script near half its time limit
 REPS = 200  # launches per kernel timing
 PROFILE_STEPS = 20  # search steps under the profiler
 
@@ -89,7 +102,7 @@ def nvcc_version() -> str:
 
 # the kernels of a search without the transposition table
 NO_TT_KERNELS = ("nnue_refresh_768", "nnue_forward_from_acc", "nnue_acc_update_768",
-                 "zobrist_hash")
+                 "zobrist_hash", "lane_init")
 
 
 def check_launches(path: str, expected=None) -> dict:
@@ -174,7 +187,7 @@ def kernel_phase(params_f32, reps: int) -> dict:
     from fishnet_tpu_torch.ops.board import move_piece_changes
 
     dev = torch.device("cuda")
-    stats = {k: {"max_abs_err": 0.0} for k in NO_TT_KERNELS}
+    stats = {k: {"max_abs_err": 0.0} for k in NO_TT_KERNELS if k != "lane_init"}
     params_i8 = nnue.quantize_int8(params_f32)
     for B in (16, 64, 1024):
         cpu_boards, moves = playout_boards(B, seed=B)
@@ -505,6 +518,118 @@ def tt_kernel_phase(reps: int) -> dict:
     return stats
 
 
+def lane_init_case(params, B: int, n: int, seed: int, dev):
+    """A (B)-lane state of seeded garbage on dev (so untouched lanes show)
+    and K7's inputs for n scattered lanes of it (all B when n == B):
+    playout roots, K1's accumulators, seeded depths, budgets, windows,
+    jitters (zero, large and negative), groups and history seeds.
+    → (state, lane_idx, args)."""
+    import numpy as np
+    import torch
+
+    from fishnet_tpu_torch.models import nnue
+    from fishnet_tpu_torch.ops import search
+
+    rng = np.random.default_rng(seed)
+    P = 32
+    adt = nnue.acc_dtype(params)
+    shapes = [(B, P + 1, search.BT_W), (B, P + 1, search.NT_W), (B, search.LN_W),
+              (B, search.MAX_HIST, 2), (B, search.MAX_HIST), (B, P, search.MAX_MOVES),
+              (B, 4096), (B, P, P)]
+    state = [torch.from_numpy(rng.integers(-2**31, 2**31, s, dtype=np.int64).astype(np.int32))
+             for s in shapes]
+    acc = torch.from_numpy(rng.standard_normal((B, P + 1, 2, params.l1)).astype(np.float32))
+    state.append(acc if adt == torch.float32 else acc.to(torch.int32))
+    state = search.SearchState(*[t.to(dev) for t in state])
+    idx = np.arange(B) if n == B else np.sort(rng.permutation(B)[:n])
+    roots, _ = playout_boards(n, seed=seed)
+
+    def col(lo, hi):
+        return torch.from_numpy(rng.integers(lo, hi, n).astype(np.int32)).to(dev)
+
+    jitter = col(-2**31, 2**31)
+    jitter[::3] = 0
+    hh = rng.integers(-2**31, 2**31, (n, search.MAX_HIST, 2), dtype=np.int64).astype(np.int32)
+    hm = rng.integers(-32000, 100, (n, search.MAX_HIST)).astype(np.int32)
+    args = search._lane_inputs(
+        params, roots.to(dev), col(0, 12), col(0, 2**31 - 1), torch.from_numpy(hh).to(dev),
+        torch.from_numpy(hm).to(dev), col(-32500, 0), col(0, 32501), jitter, col(0, B))
+    return state, torch.from_numpy(idx).to(dev), args
+
+
+def lane_init_bytes(state, lane_idx, args) -> int:
+    """The bytes K7's function must move: each listed lane's whole slice
+    of the nine tables written once; its index, root row, root
+    accumulators, six scalars and history seeds read once."""
+    n = lane_idx.shape[0]
+    written = sum(t[0].numel() * t.element_size() for t in state) * n
+    read = lane_idx.numel() * 8 + sum(t.numel() * t.element_size() for t in args)
+    return written + read
+
+
+def lane_init_phase(reps: int) -> dict:
+    """K7 against its plain version on the card at B = 16, 64 (the
+    engine's width) and 1024, over every lane (init_state's call) and
+    over a scattered quarter (a refill splice), on both nets: every table
+    equal bit for bit, the lanes not listed untouched. Times at B = 1024,
+    every lane, f32 net; the library call is the nine index_copy_ of a
+    prebuilt fresh state's rows."""
+    import torch
+
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.models import nnue
+    from fishnet_tpu_torch.ops import search
+
+    dev = torch.device("cuda")
+    params_f32 = nnue.load_params(device=dev)
+    stats = {"max_abs_err": 0.0}
+    for net, params in (("f32", params_f32), ("int8", nnue.quantize_int8(params_f32))):
+        for B in (16, 64, 1024):
+            for n in (B, B // 4):
+                state, idx, args = lane_init_case(params, B, n, seed=B + n, dev=dev)
+                want = search.SearchState(*[t.clone() for t in state])
+                kernels.lane_init(state, idx, *args)
+                search.lane_init_plain(want, idx, *args)
+                torch.cuda.synchronize()
+                err = 0.0
+                for name, g, w in zip(search.SearchState._fields, state, want):
+                    if g.dtype == torch.float32:  # compared as bits
+                        g, w = g.view(torch.int32), w.view(torch.int32)
+                    err = max(err, float((g.long() - w.long()).abs().max()))
+                    if not torch.equal(g, w):
+                        raise AssertionError(f"lane_init B={B} n={n} {net}: {name} differs")
+                stats["max_abs_err"] = max(stats["max_abs_err"], err)
+                log(f"check lane_init B={B} lanes={n} net={net}: max_abs_err={err} "
+                    f"(tolerance 0, {lane_init_bytes(state, idx, args)} bytes)")
+
+    # times at the widest batch, every lane, f32 net
+    B = 1024
+    state, idx, args = lane_init_case(params_f32, B, B, seed=1, dev=dev)
+    plain_state = search.SearchState(*[t.clone() for t in state])
+    lib_state = search.SearchState(*[t.clone() for t in state])
+    fresh = search._fresh_state(*args, 32)
+    nbytes = lane_init_bytes(state, idx, args)
+    timed = (
+        lambda: kernels.lane_init(state, idx, *args),
+        lambda: search.lane_init_plain(plain_state, idx, *args),
+        lambda: [t.index_copy_(0, idx, f) for t, f in zip(lib_state, fresh)],
+    )
+    (ms, call_ms), (plain_ms, plain_call), (lib_ms, lib_call) = [time_ms(f, reps) for f in timed]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    stats.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=t_bytes,
+                 bound_by="bytes")
+    log(f"time lane_init B={B} lanes={B} f32 (device ms / call ms): kernel {ms:.5f} / "
+        f"{call_ms:.5f}, plain {plain_ms:.5f} / {plain_call:.5f}, library {lib_ms:.5f} / "
+        f"{lib_call:.5f}, bound {t_bytes:.6f} (bytes, {nbytes} bytes)")
+    # the engine's width, for PERF.md
+    state, idx, args = lane_init_case(params_f32, 64, 64, seed=2, dev=dev)
+    ms64, call64 = time_ms(lambda: kernels.lane_init(state, idx, *args), reps)
+    nb64 = lane_init_bytes(state, idx, args)
+    log(f"time lane_init B=64 lanes=64 f32 (device ms / call ms): kernel {ms64:.5f} / "
+        f"{call64:.5f}, bound {nb64 / HBM_BYTES_PER_S * 1e3:.6f} (bytes, {nb64} bytes)")
+    return {"lane_init": stats}
+
+
 def make_chunk(n_positions: int, depth: int):
     from fishnet_tpu_torch.ipc import AnalysisWork, Chunk, EngineFlavor, NodeLimit, WorkPosition
 
@@ -520,18 +645,22 @@ def make_chunk(n_positions: int, depth: int):
                  flavor=EngineFlavor.TPU, positions=positions)
 
 
-def engine_phase(params_f32, depth: int, n_positions: int, tt_on: bool) -> dict:
-    """One chunk through GpuEngine: with its defaults (tt_on: the 2^21
-    table and the helper lanes), or with both off."""
+def engine_phase(params_f32, depth: int, n_positions: int, refill: bool,
+                 tt_on: bool = True):
+    """One chunk through GpuEngine: through the LaneScheduler (refill;
+    each segment's occupancy logged) or chunk-serially (each dispatch
+    logged), with the defaults' 2^21 table and helper lanes (tt_on) or
+    with neither. → (launches, the wire responses without their times)."""
     import numpy as np
     import torch
 
-    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch import ipc, kernels
     from fishnet_tpu_torch.chess import Position
     from fishnet_tpu_torch.engine.gpu import GpuEngine
 
     steps, helpers = [], {}
-    path = "engine chunk, table and helpers" if tt_on else "engine chunk, no table"
+    path = ("engine chunk, " + ("refill" if refill else "chunk-serial")
+            + ("" if tt_on else ", no table") + (" (main path)" if refill and tt_on else ""))
 
     class CountingEngine(GpuEngine):
         def _search(self, roots, depth_arr, *a, order_jitter=None, required=None, **kw):
@@ -546,13 +675,13 @@ def engine_phase(params_f32, depth: int, n_positions: int, tt_on: bool) -> dict:
                 f"{n_help} steps {out['steps']} wall {time.monotonic() - t0:.3f} s")
             return out
 
-    if tt_on:
-        engine = CountingEngine(params=params_f32, max_depth=depth)
-        if engine.tt.shape[0] != 1 << 21:
-            raise AssertionError(f"default table has {engine.tt.shape[0]} slots")
-    else:
-        engine = CountingEngine(params=params_f32, tt_size_log2=0, helper_lanes=1,
-                                refill=False, max_depth=depth)
+    kw = {} if refill else {"refill": False}
+    if not tt_on:
+        kw.update(tt_size_log2=0, helper_lanes=1)
+    engine = (GpuEngine if refill else CountingEngine)(params=params_f32, max_depth=depth, **kw)
+    slots = 0 if engine.tt is None else engine.tt.shape[0]
+    if engine.refill != refill or slots != (1 << 21 if tt_on else 0):
+        raise AssertionError(f"engine: refill {engine.refill}, {slots} slots")
     assert engine.max_ply == 32, engine.max_ply
     chunk = make_chunk(n_positions, depth)
     kernels.reset_launches()
@@ -574,12 +703,40 @@ def engine_phase(params_f32, depth: int, n_positions: int, tt_on: bool) -> dict:
         log(f"{path}: position {wp.position_index} ({len(wp.moves)} plies): "
             f"best {res.best_move} score {score.kind} {score.value} nodes {res.nodes}")
     nodes = sum(r.nodes for r in responses)
-    log(f"{path}: {len(responses)} positions depth {depth} table "
-        f"{0 if engine.tt is None else engine.tt.shape[0]} slots, K={engine.helper_lanes}, "
-        f"nodes {nodes} steps {sum(steps)} dispatches {len(steps)} wall {wall:.3f} s "
-        f"ms/step {wall / max(sum(steps), 1) * 1e3:.3f} nodes/s {nodes / wall:.0f} "
-        f"helpers per depth {helpers}")
-    return launches
+    if refill:
+        for row in engine.occupancy_log:
+            log(f"{path}: occupancy {json.dumps(row)}")
+        tot = engine.occupancy_totals
+        n_steps, extra = tot["steps"], (
+            f"segments {tot['segments']} refills {tot['refills']} lane steps live "
+            f"{tot['live_lane_steps']} helper {tot['helper_lane_steps']} idle "
+            f"{tot['idle_lane_steps']} of {tot['lane_steps']} host_ms {tot['host_ms']:.3f} "
+            f"device_ms {tot['device_ms']:.3f} aspiration {engine.aspiration_stats}")
+        if tot["positions_done"] != len(responses):
+            raise AssertionError(f"scheduler finished {tot['positions_done']} positions")
+    else:
+        n_steps, extra = sum(steps), f"dispatches {len(steps)} helpers per depth {helpers}"
+    log(f"{path}: {len(responses)} positions depth {depth} table {slots} slots, "
+        f"K={engine.helper_lanes}, nodes {nodes} steps {n_steps} wall {wall:.3f} s "
+        f"ms/step {wall / max(n_steps, 1) * 1e3:.3f} nodes/s {nodes / wall:.0f} {extra}")
+    wire = []
+    for r in responses:
+        w = ipc.response_to_wire(r)
+        w.pop("time_s")
+        w.pop("nps")
+        wire.append(w)
+    return launches, wire
+
+
+def no_table_phase(params_f32, depth: int, n_positions: int) -> None:
+    """The chunk without the table or helpers, chunk-serially and through
+    the LaneScheduler: without a table the two give the same responses."""
+    _, serial = engine_phase(params_f32, depth, n_positions, refill=False, tt_on=False)
+    _, sched = engine_phase(params_f32, depth, n_positions, refill=True, tt_on=False)
+    if sched != serial:
+        raise AssertionError(f"no table: scheduler {sched} != chunk-serial {serial}")
+    log(f"no table: the scheduler's {len(sched)} responses equal the chunk-serial path's "
+        f"(score, pv, depth, nodes, best move)")
 
 
 def parity_phase(params_f32, depth: int) -> None:
@@ -653,6 +810,56 @@ def tt_parity_phase(params_f32, depth: int) -> None:
         f"{TT_PARITY_LOG2} slots: card == cpu on score, move, nodes, steps "
         f"({card['steps']}), pv, pv_len and the table ({filled} rows filled); card "
         f"{walls['cuda']:.3f} s, cpu {walls['cpu']:.3f} s")
+
+
+def stream_parity_phase(params_f32, n: int, width: int) -> None:
+    """search_stream on the int8 net, n playout positions through `width`
+    lanes with staggered depths and budgets into a 2^16 table with the
+    helpers' store and per-admission generations, card against CPU:
+    every per-position field, steps, refills, the occupancy rows and the
+    final tables byte for byte."""
+    import numpy as np
+
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.models import nnue
+    from fishnet_tpu_torch.ops import tt
+    from fishnet_tpu_torch.ops.search import search_stream
+
+    params_i8 = nnue.quantize_int8(params_f32)
+    roots, _ = playout_boards(n, seed=23)
+    # depths 1-3 in an irregular order, a quarter of the lanes on a
+    # small budget: lanes finish at different boundaries
+    depth = np.asarray([1 + i % 3 if i % 4 == 1 else 1 + i % 2 for i in range(n)], np.int32)
+    budget = np.asarray([200_000 if i % 4 else 400 for i in range(n)], np.int32)
+    outs, tables, walls = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        kernels.reset_launches()
+        t0 = time.monotonic()
+        outs[dev] = search_stream(params_i8.to(dev), roots.to(dev), depth, budget, max_ply=8,
+                                  width=width, segment_steps=64,
+                                  tt=tt.make_table(TT_PARITY_LOG2, device=dev),
+                                  prefer_deep_store=True, device=dev)
+        walls[dev] = time.monotonic() - t0
+        tables[dev] = outs[dev].pop("tt").cpu().numpy()
+        if dev == "cuda":
+            check_launches("stream parity, card")
+    card, cpu = outs["cuda"], outs["cpu"]
+    for k in ("score", "move", "nodes", "pv", "pv_len", "done"):
+        if not np.array_equal(card[k], cpu[k]):
+            raise AssertionError(f"stream: card and CPU differ in {k}")
+    keys = ("segment", "steps", "live", "idle", "refilled", "queue")
+    occ = [[{k: r[k] for k in keys} for r in o["occupancy"]] for o in (card, cpu)]
+    if (card["steps"], card["refills"], occ[0]) != (cpu["steps"], cpu["refills"], occ[1]):
+        raise AssertionError("stream: card and CPU differ in steps, refills or occupancy")
+    if not np.array_equal(tables["cuda"], tables["cpu"]):
+        raise AssertionError("stream: the card's table differs from the CPU's")
+    if not card["done"].all() or card["refills"] != n - width:
+        raise AssertionError(f"stream: done {card['done'].sum()}/{n}, refills {card['refills']}")
+    log(f"stream parity: int8 search_stream {n} positions through {width} lanes, 2^"
+        f"{TT_PARITY_LOG2} slots: card == cpu on score, move, nodes, steps ({card['steps']}), "
+        f"pv, pv_len, refills ({card['refills']}), {len(occ[0])} occupancy rows and the table "
+        f"({int((tables['cuda'][:, 1] != 0).sum())} rows filled); card {walls['cuda']:.3f} s, "
+        f"cpu {walls['cpu']:.3f} s")
 
 
 def scale_phase(params_f32, lanes: int, depth: int) -> None:
@@ -759,26 +966,26 @@ def main() -> int:
     t0 = time.monotonic()
     stats = kernel_phase(params, REPS)
     stats.update(tt_kernel_phase(REPS))
+    stats.update(lane_init_phase(REPS))
     log(f"kernel phase: {time.monotonic() - t0:.1f} s")
-    t0 = time.monotonic()
-    for lanes, tt_on in ((16, False), (1024, False), (64, True)):
-        profile_phase(params, lanes, PROFILE_STEPS, tt_on)
-    log(f"profile phase: {time.monotonic() - t0:.1f} s")
-    t0 = time.monotonic()
-    launches = engine_phase(params, DEPTH, POSITIONS, tt_on=True)
-    log(f"engine phase: {time.monotonic() - t0:.1f} s")
-    t0 = time.monotonic()
-    engine_phase(params, NO_TT_DEPTH, POSITIONS, tt_on=False)
-    log(f"engine phase without the table: {time.monotonic() - t0:.1f} s")
-    t0 = time.monotonic()
-    parity_phase(params, PARITY_DEPTH)
-    log(f"parity phase: {time.monotonic() - t0:.1f} s")
-    t0 = time.monotonic()
-    tt_parity_phase(params, PARITY_DEPTH)
-    log(f"TT parity phase: {time.monotonic() - t0:.1f} s")
-    t0 = time.monotonic()
-    scale_phase(params, SCALE_LANES, SCALE_DEPTH)
-    log(f"scale phase: {time.monotonic() - t0:.1f} s")
+    phases = [
+        ("profile", lambda: [profile_phase(params, lanes, PROFILE_STEPS, tt_on)
+                             for lanes, tt_on in ((16, False), (1024, False), (64, True))]),
+        ("engine (main path)", lambda: engine_phase(params, DEPTH, POSITIONS, refill=True)[0]),
+        ("engine chunk-serial", lambda: engine_phase(params, SERIAL_DEPTH, POSITIONS,
+                                                     refill=False)),
+        ("engine no table", lambda: no_table_phase(params, NO_TT_DEPTH, POSITIONS)),
+        ("parity", lambda: parity_phase(params, PARITY_DEPTH)),
+        ("TT parity", lambda: tt_parity_phase(params, PARITY_DEPTH)),
+        ("stream parity", lambda: stream_parity_phase(params, STREAM_POSITIONS, STREAM_WIDTH)),
+        ("scale", lambda: scale_phase(params, SCALE_LANES, SCALE_DEPTH)),
+    ]
+    results = {}
+    for name, run in phases:
+        t0 = time.monotonic()
+        results[name] = run()
+        log(f"{name} phase: {time.monotonic() - t0:.1f} s")
+    launches = results["engine (main path)"]
 
     sources = {
         "nnue_refresh_768": "fishnet_tpu/models/nnue.py:160",
@@ -787,6 +994,7 @@ def main() -> int:
         "zobrist_hash": "fishnet_tpu/ops/tt.py:113",
         "tt_probe": "fishnet_tpu/ops/tt.py:188",
         "tt_store": "fishnet_tpu/ops/tt.py:240",
+        "lane_init": "fishnet_tpu/ops/search.py:1061",
     }
     rows = [
         {"name": name, "route": "cuda", "source": f"fishnet_tpu_torch/csrc/{name}.cu",

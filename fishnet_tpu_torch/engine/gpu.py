@@ -1,27 +1,34 @@
 """The batch engine on the card: chunks in, PositionResponses out.
 
-A port of the chunk-serial path of the JAX package's engine/tpu.py
-(`TpuEngine` with refill off): all positions of an analysis chunk become
-lanes of one lockstep search over one shared transposition table (2^21
-slots by default) that persists across dispatches and chunks; spare
-lanes of the dispatch run Lazy-SMP helpers (FISHNET_TPU_HELPERS lanes
-per position, default 4) that search the same roots with jittered move
-ordering, staggered windows and depth offsets and feed the primaries
-only through the table. Iterative deepening and aspiration windows run
-on the host, filling the per-depth score and PV matrices the reference's
-UCI parser would have accumulated (reference: src/stockfish.rs:222-465).
+A port of the JAX package's engine/tpu.py `TpuEngine` on one device. All
+lanes share one transposition table (2^21 slots by default) that
+persists across dispatches and chunks; spare lanes run Lazy-SMP helpers
+(FISHNET_TPU_HELPERS lanes per position, default 4) that search the same
+roots with jittered move ordering, staggered windows and depth offsets
+and feed the primaries only through the table. Iterative deepening and
+aspiration windows run on the host, filling the per-depth score and PV
+matrices the reference's UCI parser would have accumulated (reference:
+src/stockfish.rs:222-465).
+
+With continuous lane refill on (FISHNET_TPU_REFILL, default 1) every
+single-pv analysis chunk goes through the LaneScheduler: one full-width
+search per drive session, into whose DONE lanes each position's next
+depth or re-search, queued positions and helpers are spliced at segment
+boundaries (ops/search.py refill_lanes). With refill off, chunks run
+chunk-serially (`_analyse_single`).
 
 Not ported yet, and refused rather than run another way: move jobs,
-multipv, continuous lane refill, variants other than standard chess and
-chess960.
+multipv, variants other than standard chess and chess960, the mesh.
 """
 from __future__ import annotations
 
+import sys
 import threading
 import time
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from .. import device as device_mod
 from .. import settings
@@ -30,7 +37,9 @@ from ..ipc import AnalysisWork, Chunk, Matrix, PositionResponse, Score, WorkPosi
 from ..models import nnue
 from ..ops import tt as tt_mod
 from ..ops.board import from_position, stack_boards
+from ..ops import search as search_ops
 from ..ops.search import HIST_HM_SENTINEL, INF, MATE, MAX_HIST, search_batch_resumable
+from ..syncstats import SegmentController, SyncStats
 from .base import BatchEngine, EngineError
 
 # lane counts are padded to these widths (then to multiples of 256) so a
@@ -74,7 +83,8 @@ class GpuEngine(BatchEngine):
     power of two (0: no table, and then no helpers); helper_lanes: lanes
     per position (None reads FISHNET_TPU_HELPERS, clamped to 1..16);
     max_lanes: the per-dispatch lane ceiling (None reads
-    FISHNET_TPU_MAX_LANES)."""
+    FISHNET_TPU_MAX_LANES); refill: continuous lane refill through the
+    LaneScheduler (None reads FISHNET_TPU_REFILL)."""
 
     name = "gpu"
 
@@ -86,11 +96,9 @@ class GpuEngine(BatchEngine):
         tt_size_log2: int = 21,
         max_lanes: Optional[int] = None,
         helper_lanes: Optional[int] = None,
-        refill: bool = False,
+        refill: Optional[bool] = None,
         device=None,
     ) -> None:
-        if refill:
-            raise NotImplementedError("continuous lane refill is not ported yet")
         self.device = device_mod.resolve(device)
         # one table for every lane and every chunk (0 disables it); chunks
         # run one at a time under self._lock, so no two searches share it
@@ -119,10 +127,39 @@ class GpuEngine(BatchEngine):
             settings.get_csv_int("FISHNET_TPU_ASPIRATION") or ASPIRATION_DELTAS
         )
         self._lock = threading.Lock()
+        # single-pv analysis chunks through the LaneScheduler; every other
+        # shape (and refill off) takes the chunk-serial path
+        if refill is None:
+            refill = settings.get_bool("FISHNET_TPU_REFILL")
+        self.refill = bool(refill)
+        self._scheduler = LaneScheduler(self)
+        # per-segment occupancy of the scheduler's sessions (the
+        # reference's keys)
+        self.occupancy_log: List[dict] = []
+        self.occupancy_totals = {
+            "segments": 0, "steps": 0, "lane_steps": 0,
+            "live_lane_steps": 0, "helper_lane_steps": 0,
+            "idle_lane_steps": 0, "refills": 0, "positions_done": 0,
+            "host_ms": 0.0, "device_ms": 0.0, "transfers": 0,
+        }
+        # per-delta aspiration accounting {delta: [windowed, fail_lo,
+        # fail_hi, nodes]}
+        self.aspiration_stats: dict = {}
+        # exactly-once delivery hooks, called as (wp, response) and
+        # (chunk, wp, response) when the scheduler finalizes a position
+        self.on_response = None
+        self.on_deliver = None
+
+    def _warn(self, msg: str) -> None:
+        print(f"W: {msg}", file=sys.stderr, flush=True)
 
     # ------------------------------------------------------------- chunks
 
     def _go_multiple_sync(self, chunk: Chunk) -> List[PositionResponse]:
+        work = chunk.work
+        if (self.refill and isinstance(work, AnalysisWork)
+                and work.effective_multipv() == 1):
+            return self._scheduler.run_chunk(chunk)
         with self._lock:
             return self._go_multiple_locked(chunk)
 
@@ -205,10 +242,15 @@ class GpuEngine(BatchEngine):
                     merged[k][live] = out[k][live]
             nodes_acc[live] += out["nodes"][live]
             score = out["score"]
-            fail = live & primary & out["done"] & (
-                ((score <= alpha_w) & (alpha_w > -INF)) | ((score >= beta_w) & (beta_w < INF))
-            )
-            live = fail
+            fail_lo = live & primary & out["done"] & (score <= alpha_w) & (alpha_w > -INF)
+            fail_hi = live & primary & out["done"] & (score >= beta_w) & (beta_w < INF)
+            if delta is not None and use_win.any():
+                st = self.aspiration_stats.setdefault(delta, [0, 0, 0, 0])
+                st[0] += int((use_win & live & primary).sum())
+                st[1] += int(fail_lo.sum())
+                st[2] += int(fail_hi.sum())
+                st[3] += int(out["nodes"][live].sum())
+            live = fail_lo | fail_hi
             if not live.any():
                 break
             if deadline is not None and time.monotonic() >= deadline:
@@ -427,3 +469,623 @@ class GpuEngine(BatchEngine):
         if total <= 0:
             return [elapsed / n] * n
         return [elapsed * nd / total for nd in nodes]
+
+
+# ---------------------------------------------- continuous lane refill
+
+
+class _RefillJob:
+    """One analysed position flowing through the LaneScheduler: its own
+    iterative-deepening and aspiration-window state, the per-lane form of
+    what `_analyse_single` and `_search_windowed` track batch-wide (same
+    window schedule, fail checks and budget charging)."""
+
+    __slots__ = (
+        "entry", "wp", "board", "target_depth", "remaining", "deadline", "hh",
+        "hm", "depth", "delta_idx", "prev_score", "have_prev", "hardness", "scores",
+        "pvs", "depth_reached", "best_move", "nodes_total", "nodes_depth", "lane",
+        "helpers",
+    )
+
+    def __init__(self, entry, wp, board, target_depth, budget, deadline, hh, hm):
+        self.entry = entry
+        self.wp = wp
+        self.board = board
+        self.target_depth = target_depth
+        self.remaining = budget  # node budget left (host int)
+        self.deadline = deadline
+        self.hh = hh  # (MAX_HIST, 2) repetition-history hashes
+        self.hm = hm  # (MAX_HIST,) their halfmove counters
+        self.depth = 1  # depth being searched
+        self.delta_idx = 0  # index into the aspiration deltas + (None,)
+        self.prev_score = 0
+        self.have_prev = False
+        self.hardness = 1  # previous depth's node count (helper planner)
+        self.scores = Matrix()
+        self.pvs = Matrix()
+        self.depth_reached = 0
+        self.best_move: Optional[str] = None
+        self.nodes_total = 0
+        self.nodes_depth = 0  # nodes across the current depth's attempts
+        self.lane = -1  # primary lane while admitted
+        self.helpers: dict = {}  # helper lane -> helper number h
+
+
+class _ChunkEntry:
+    """Per-chunk completion tracking shared between the submitting thread
+    and whichever thread is driving the device."""
+
+    def __init__(self, chunk: Chunk, started: float):
+        self.chunk = chunk
+        self.started = started
+        self.n_open = 0
+        self.responses: dict = {}  # position_index -> PositionResponse
+        self.error: Optional[str] = None
+        self.event = threading.Event()
+
+
+class LaneScheduler:
+    """Occupancy-driven scheduling of the lockstep search (a port of the
+    reference's single-device LaneScheduler).
+
+    One pending-position queue is fed by every concurrently submitted
+    single-pv analysis chunk; one full-width search runs per drive
+    session, and at every segment boundary finished lanes are refilled
+    (ops/search.py refill_lanes) with each position's next depth or
+    re-search and with queued positions, earliest deadline first. Spare
+    lanes run Lazy-SMP helpers (`_plan_helpers`), and each response is
+    delivered the moment its position finishes.
+
+    Concurrency: any number of threads call `run_chunk`. Each submits its
+    positions, then either becomes the one thread that drives, taking the
+    engine lock and running segments that serve every queued job, or
+    waits for its responses. The engine lock is released between
+    sessions. Every admission takes a fresh TT generation, passed per lane
+    into the table's stores.
+
+    The search state is updated in place (the reference donates it), so
+    a lane's PV row is read before the next splice of that lane, and a
+    lane whose admission is staged but not yet spliced reports DONE
+    again at the next boundary and is skipped there."""
+
+    def __init__(self, engine: "GpuEngine"):
+        self.engine = engine
+        self._q_lock = threading.Lock()
+        self._pending: List[_RefillJob] = []
+        self._driving = False
+        self._jitter_seq = 0
+
+    # ------------------------------------------------------- submission
+
+    def run_chunk(self, chunk: Chunk) -> List[PositionResponse]:
+        entry = self._submit(chunk)
+        while not entry.event.is_set():
+            with self._q_lock:
+                drive = not self._driving
+                if drive:
+                    self._driving = True
+            if drive:
+                try:
+                    self._drive(entry)
+                finally:
+                    with self._q_lock:
+                        self._driving = False
+            else:
+                entry.event.wait(0.05)
+        if entry.error:
+            raise EngineError(entry.error)
+        return [entry.responses[wp.position_index] for wp in chunk.positions]
+
+    def _submit(self, chunk: Chunk) -> _ChunkEntry:
+        eng = self.engine
+        if chunk.variant not in VARIANTS:
+            raise NotImplementedError(f"variant {chunk.variant!r} is not ported yet")
+        entry = _ChunkEntry(chunk, time.monotonic())
+        work = chunk.work
+        target_depth = min(work.depth or eng.max_depth, eng.max_depth, eng.max_ply - 1)
+        budget = work.nodes.get(chunk.flavor.eval_flavor())
+        per_pos_budget = budget if budget is not None else 10_000_000
+        deadline = chunk.deadline - 0.25  # slack to package results
+        jobs = []
+        for wp in chunk.positions:
+            pos = from_fen(wp.root_fen, chunk.variant)
+            game = []
+            for uci in wp.moves:
+                game.append(pos)
+                pos = pos.push(pos.parse_uci(uci))
+            if pos.outcome() is not None:
+                self._deliver(entry, wp, eng._terminal_response(chunk, wp, pos, 0.001))
+                continue
+            hh, hm = eng._history_arrays([game], 1)
+            jobs.append(_RefillJob(entry, wp, from_position(pos), target_depth,
+                                   per_pos_budget, deadline, hh[0], hm[0]))
+        entry.n_open = len(jobs)
+        if not jobs:
+            entry.event.set()
+        with self._q_lock:
+            self._pending.extend(jobs)
+        return entry
+
+    def _deliver(self, entry: _ChunkEntry, wp, response) -> None:
+        """Exactly-once delivery point of one position's result: every
+        response lands in entry.responses here and only here, so the
+        hooks fire once per position."""
+        entry.responses[wp.position_index] = response
+        hook = self.engine.on_response
+        if hook is not None:
+            try:
+                hook(wp, response)
+            except Exception as e:
+                self.engine._warn(f"on_response hook failed: {e}")
+        deliver = self.engine.on_deliver
+        if deliver is not None:
+            try:
+                deliver(entry.chunk, wp, response)
+            except Exception as e:
+                self.engine._warn(f"on_deliver hook failed: {e}")
+
+    def _finalize(self, job: _RefillJob, now: float, error: Optional[str] = None) -> None:
+        entry = job.entry
+        if error is not None:
+            entry.error = error
+        else:
+            dt = max(now - entry.started, 1e-6)
+            nps = int(job.nodes_total / dt) if job.nodes_total else None
+            self._deliver(entry, job.wp, PositionResponse(
+                work=entry.chunk.work, position_index=job.wp.position_index,
+                url=job.wp.url, scores=job.scores, pvs=job.pvs, best_move=job.best_move,
+                depth=job.depth_reached, nodes=job.nodes_total, time_s=dt, nps=nps,
+            ))
+            self.engine.occupancy_totals["positions_done"] += 1
+        entry.n_open -= 1
+        if entry.n_open <= 0:
+            entry.event.set()
+
+    # ---------------------------------------------------------- driving
+
+    def _drive(self, entry: _ChunkEntry) -> None:
+        while not entry.event.is_set():
+            with self._q_lock:
+                if not self._pending:
+                    return
+            # the lock is released between sessions, so a chunk of the
+            # serial path gets the device before the next session
+            with self.engine._lock:
+                self._drive_session(entry)
+
+    def _drive_session(self, entry: _ChunkEntry) -> None:
+        """One fixed-width drive session: admit, run segments, process
+        boundaries, until no lane is running. (The reference also groups
+        jobs by device variant; every variant ported here runs one
+        program, so every queued job is admissible.)"""
+        eng = self.engine
+        with self._q_lock:
+            if not self._pending:
+                return
+            self._pending.sort(key=lambda j: j.deadline)
+            n_hint = len(self._pending)
+            filler = self._pending[0].board
+        K = eng.helper_lanes
+        B = eng._helper_width(min(max(n_hint, 1), eng.max_lanes))
+        seg = settings.get_segment()
+        ctrl = None
+        if seg is None:  # FISHNET_TPU_SEGMENT=auto
+            ctrl = SegmentController(settings.get_int("FISHNET_TPU_SEGMENT_MIN"),
+                                     settings.get_int("FISHNET_TPU_SEGMENT_MAX"))
+            seg = ctrl.steps
+        pipeline = settings.get_bool("FISHNET_TPU_PIPELINE")
+        stats = SyncStats()
+        prefer_deep = K > 1 and eng.tt is not None
+        deltas = tuple(eng.aspiration) + (None,)  # None = full window
+        dev = eng.device
+
+        # host-side lane tables
+        lane_job: List[Optional[_RefillJob]] = [None] * B  # primary owner
+        lane_owner: List[Optional[_RefillJob]] = [None] * B  # helper owner
+        lane_alpha = np.full(B, -INF, np.int64)
+        lane_beta = np.full(B, INF, np.int64)
+        gen = np.zeros(B, np.int32)
+        active: List[_RefillJob] = []
+
+        # idle base state: budget-0 lanes park in DONE within two steps
+        zeros = torch.zeros(B, dtype=torch.int32, device=dev)
+        state = search_ops.init_state(eng.params, stack_boards([filler] * B).to(dev), zeros,
+                                      zeros, eng.max_ply)
+        tt = eng.tt
+
+        # admissions accumulated between boundaries, flushed as ONE
+        # refill_lanes call before each segment
+        adm: dict = {k: [] for k in (
+            "lane", "board", "depth", "budget", "alpha", "beta", "jitter", "group", "hh",
+            "hm",
+        )}
+
+        def window_for(job: _RefillJob, scale: int):
+            """The per-lane form of _search_windowed's window: narrow
+            around the previous depth's score, widening per failed
+            attempt; full width at depth 1 and after a mate score."""
+            use_win = job.have_prev and abs(job.prev_score) < MATE - 1000 and job.depth >= 2
+            delta = deltas[min(job.delta_idx, len(deltas) - 1)]
+            if not use_win or delta is None:
+                return -INF, INF, None
+            return (max(job.prev_score - delta * scale, -INF),
+                    min(job.prev_score + delta * scale, INF), delta)
+
+        def admit(lane, board, depth, budget, alpha, beta, jit, grp, hh, hm):
+            adm["lane"].append(lane)
+            adm["board"].append(board)
+            adm["depth"].append(depth)
+            adm["budget"].append(int(np.clip(budget, 1, 2**31 - 1)))
+            adm["alpha"].append(alpha)
+            adm["beta"].append(beta)
+            adm["jitter"].append(jit)
+            adm["group"].append(grp)
+            adm["hh"].append(hh)
+            adm["hm"].append(hm)
+            lane_alpha[lane] = alpha
+            lane_beta[lane] = beta
+            # a fresh TT generation per admission: the depth-preferred
+            # store never protects the lane's previous occupant's entries
+            eng._tt_gen = (eng._tt_gen + 1) & 0x3FFFFFFF
+            gen[lane] = eng._tt_gen
+
+        def admit_primary(job: _RefillJob, lane: int):
+            job.lane = lane
+            lane_job[lane] = job
+            a, b, _delta = window_for(job, 1)
+            admit(lane, job.board, job.depth, job.remaining, a, b, 0, lane, job.hh, job.hm)
+
+        def admit_helper(job: _RefillJob, lane: int, h: int):
+            # _analyse_single's layout: odd h at the primary's depth, even
+            # h one ply deeper; staggered window scale; a nonzero jitter;
+            # group = the primary's lane
+            job.helpers[lane] = h
+            lane_owner[lane] = job
+            self._jitter_seq = (self._jitter_seq & 0xFFFF) + 1
+            a, b, _delta = window_for(job, 1 << min(h, 4))
+            d = min(job.depth + (1 - (h & 1)), job.target_depth)
+            admit(lane, job.board, d, job.remaining, a, b, self._jitter_seq, job.lane,
+                  job.hh, job.hm)
+
+        def release(job: _RefillJob, nodes_row):
+            """Free the job's primary and helper lanes; mid-flight helper
+            work is charged at the last boundary's node count."""
+            if job.lane >= 0:
+                lane_job[job.lane] = None
+                job.lane = -1
+            for hl in list(job.helpers):
+                if nodes_row is not None:
+                    hn = int(nodes_row[hl])
+                    job.nodes_total += hn
+                    job.remaining -= hn
+                lane_owner[hl] = None
+            job.helpers.clear()
+
+        def verdict(job: _RefillJob, lane: int, score: int, nodes: int) -> bool:
+            """The aspiration verdict of a parked primary: True when it
+            failed its window and is re-admitted at the same depth with
+            the next wider one (the per-delta accounting too)."""
+            job.nodes_depth += nodes
+            a_w = int(lane_alpha[lane])
+            b_w = int(lane_beta[lane])
+            fail_lo = score <= a_w and a_w > -INF
+            fail_hi = score >= b_w and b_w < INF
+            delta = deltas[min(job.delta_idx, len(deltas) - 1)]
+            if a_w > -INF or b_w < INF:
+                st = eng.aspiration_stats.setdefault(delta, [0, 0, 0, 0])
+                st[0] += 1
+                st[1] += int(fail_lo)
+                st[2] += int(fail_hi)
+                st[3] += nodes
+            if (fail_lo or fail_hi) and delta is not None:
+                job.delta_idx += 1
+                a, b, _d = window_for(job, 1)
+                admit(lane, job.board, job.depth, job.remaining, a, b, 0, lane, job.hh, job.hm)
+                return True
+            return False
+
+        def depth_done(job: _RefillJob, score: int, move: int, nodes: int, now: float) -> bool:
+            """Record a completed depth and charge its nodes; True when
+            the job is final (target depth, budget or deadline)."""
+            job.prev_score = score
+            job.have_prev = True
+            job.hardness = max(nodes, 1)
+            job.nodes_total += job.nodes_depth
+            job.remaining -= job.nodes_depth
+            job.nodes_depth = 0
+            job.delta_idx = 0
+            job.scores.set(1, job.depth, _score_from_int(score))
+            job.depth_reached = job.depth
+            job.best_move = _decode_uci(move) if move >= 0 else None
+            return job.depth >= job.target_depth or job.remaining <= 0 or now >= job.deadline
+
+        def next_depth(job: _RefillJob, lane: int):
+            job.depth += 1
+            a, b, _d = window_for(job, 1)
+            admit(lane, job.board, job.depth, job.remaining, a, b, 0, lane, job.hh, job.hm)
+
+        def pv_list(row, length) -> list:
+            return [_decode_uci(int(m)) for m in row[: int(length)] if m >= 0]
+
+        def on_primary_done(job: _RefillJob, lane: int, res: dict, now: float):
+            """A primary parked in DONE (synchronous loop, full results):
+            re-search, next depth, or finalize."""
+            score = int(res["score"][lane])
+            nodes = int(res["nodes"][lane])
+            if verdict(job, lane, score, nodes):
+                return
+            final = depth_done(job, score, int(res["move"][lane]), nodes, now)
+            job.pvs.set(1, job.depth, pv_list(res["pv"][lane], res["pv_len"][lane]))
+            if final:
+                release(job, res["nodes"])
+                active.remove(job)
+                self._finalize(job, now)
+                return
+            next_depth(job, lane)
+
+        # pipelined boundary state: PV reads deferred past boundaries as
+        # (job, lane, depth, final); the PV row is the one per-lane result
+        # not in the packed summary
+        pv_pending: List[tuple] = []
+        last_device_s = 0.0
+
+        def q_len_locked() -> int:
+            with self._q_lock:
+                return len(self._pending)
+
+        def on_primary_parked(job: _RefillJob, lane: int, score: int, move: int,
+                              nodes: int, nodes_row, now: float):
+            """The pipelined loop's on_primary_done, from the packed
+            summary; the PV row waits for flush_pv, which reads it before
+            the splice that resets the lane."""
+            if verdict(job, lane, score, nodes):
+                return
+            final = depth_done(job, score, move, nodes, now)
+            pv_pending.append((job, lane, job.depth, final))
+            if final:
+                release(job, nodes_row)
+                active.remove(job)
+                return  # _finalize waits in flush_pv for the PV row
+            next_depth(job, lane)
+
+        def flush_pv(st, now: float):
+            """Read the deferred PV rows (two small gathers), then finalize
+            the jobs that waited only on them. Runs before flush_adm: a
+            splice resets the spliced lanes' PV tables."""
+            if not pv_pending:
+                return
+            rows = torch.as_tensor(np.asarray([e[1] for e in pv_pending], np.int64),
+                                   device=dev)
+            pv_rows = stats.fetch(st.pv[:, 0].index_select(0, rows), "pv")
+            pv_lens = stats.fetch(st.nt[:, 0, search_ops.NT_PVLEN].index_select(0, rows),
+                                  "pv_len")
+            for i, (job, _lane, depth, final) in enumerate(pv_pending):
+                job.pvs.set(1, depth, pv_list(pv_rows[i], pv_lens[i]))
+                if final:
+                    self._finalize(job, now)
+            pv_pending.clear()
+
+        def reap_jobs(now: float, nodes_row):
+            # jobs past their chunk deadline
+            for job in list(active):
+                if now >= job.deadline:
+                    release(job, nodes_row)
+                    active.remove(job)
+                    if pv_pending:
+                        # the response below holds job.pvs by reference: a
+                        # deferred read after it would change a sent response
+                        pv_pending[:] = [e for e in pv_pending if e[0] is not job]
+                    if job.depth_reached == 0:
+                        # no usable result: fail the chunk so the server
+                        # reassigns it (as the serial path does)
+                        self._finalize(job, now, error="chunk deadline expired before "
+                                                       "depth 1 completed")
+                    else:
+                        self._finalize(job, now)
+
+        def admit_new(now: float):
+            # pending positions, earliest deadline first, into the free
+            # lanes in ascending order
+            free = [i for i in range(B) if lane_job[i] is None and lane_owner[i] is None]
+            if not entry.event.is_set():
+                with self._q_lock:
+                    self._pending.sort(key=lambda j: j.deadline)
+                    take = self._pending[:len(free)]
+                    del self._pending[:len(take)]
+                for job in take:
+                    if now >= job.deadline:
+                        self._finalize(job, now, error="chunk deadline expired before "
+                                                       "depth 1 completed")
+                        continue
+                    admit_primary(job, free.pop(0))
+                    active.append(job)
+            # leftover free lanes run Lazy-SMP helpers
+            if K > 1 and tt is not None and free and active:
+                n_act = len(active)
+                cur = sum(len(j.helpers) for j in active)
+                hardness = [j.hardness if j.remaining > 0 else 0 for j in active]
+                plan = GpuEngine._plan_helpers(n_act, n_act + cur + len(free), K, hardness)
+                want: dict = {}
+                for r, _h in plan:
+                    want[r] = want.get(r, 0) + 1
+                for r, job in enumerate(active):
+                    while free and len(job.helpers) < want.get(r, 0):
+                        admit_helper(job, free.pop(0), len(job.helpers) + 1)
+
+        def flush_adm(st):
+            # the staged admissions in ONE in-place splice → admissions
+            n_adm = len(adm["lane"])
+            if not n_adm:
+                return 0
+            search_ops.refill_lanes(
+                eng.params, st, stack_boards(adm["board"]), adm["lane"],
+                np.asarray(adm["depth"], np.int32), np.asarray(adm["budget"], np.int32),
+                hist_hash=np.stack(adm["hh"]), hist_halfmove=np.stack(adm["hm"]),
+                root_alpha=np.asarray(adm["alpha"], np.int32),
+                root_beta=np.asarray(adm["beta"], np.int32),
+                order_jitter=np.asarray(adm["jitter"], np.int32),
+                group=np.asarray(adm["group"], np.int32),
+            )
+            for k in adm:
+                adm[k].clear()
+            return n_adm
+
+        def dispatch(n_steps: int):
+            """One segment over the state and table, in place, with each
+            lane's generation → (steps, packed summary)."""
+            return stats.device_call(search_ops.run_segment, eng.params, state, n_steps,
+                                     None, tt, False, prefer_deep,
+                                     torch.from_numpy(gen.copy()).to(dev))
+
+        def charge_helpers(lane_done, nodes_row, staged=()):
+            # helper lanes that parked on their own: charge and free
+            for lane in range(B):
+                job = lane_owner[lane]
+                if job is not None and lane_done[lane] and lane not in staged:
+                    hn = int(nodes_row[lane])
+                    job.nodes_total += hn
+                    job.remaining -= hn
+                    del job.helpers[lane]
+                    lane_owner[lane] = None
+
+        res: Optional[dict] = None
+        try:
+            if not pipeline:
+                # synchronous loop (FISHNET_TPU_PIPELINE=0): run the
+                # segment, read the full result set, refill, repeat
+                while True:
+                    now = time.monotonic()
+                    reap_jobs(now, res["nodes"] if res is not None else None)
+                    admit_new(now)
+                    n_adm = flush_adm(state)
+                    if not active:
+                        break  # nothing running; the next session continues
+                    live_n = len(active)
+                    helper_n = sum(len(j.helpers) for j in active)
+                    disp_steps = seg
+                    _n, summ = dispatch(seg)
+                    n = int(stats.fetch(summ[B, search_ops.SUM_DONE], "steps"))
+                    q_len = q_len_locked()
+                    lane_done = stats.fetch(
+                        state.lane[:, search_ops.LN_MODE] == search_ops.MODE_DONE, "done")
+                    res = {k: stats.fetch(v, k)
+                           for k, v in search_ops.extract_results(state, 0).items()
+                           if k != "steps"}
+                    now = time.monotonic()
+                    charge_helpers(lane_done, res["nodes"])
+                    for lane in range(B):
+                        job = lane_job[lane]
+                        if job is not None and lane_done[lane]:
+                            on_primary_done(job, lane, res, now)
+                    snap = stats.boundary()
+                    self._record_occupancy(B, n, live_n, helper_n, n_adm, q_len,
+                                           snap["host_ms"], snap["device_ms"],
+                                           snap["transfers"])
+                    if ctrl is not None:
+                        seg = ctrl.update(n >= disp_steps, snap["host_ms"], snap["device_ms"])
+            else:
+                # pipelined loop: each boundary is processed from its packed
+                # summary, and when every decision is already settled the
+                # next segment is dispatched first (in this package it runs
+                # to its end at once, so nothing overlaps yet)
+                now = time.monotonic()
+                reap_jobs(now, None)
+                admit_new(now)
+                n_adm = flush_adm(state)
+                pend = None
+                if active:
+                    pend_meta = (len(active), sum(len(j.helpers) for j in active), n_adm,
+                                 q_len_locked())
+                    pend_steps = seg
+                    pend = dispatch(seg)
+                while pend is not None:
+                    _p_n, p_summ = pend
+                    nxt = None
+                    now = time.monotonic()
+                    margin = now + 2.0 * last_device_s
+                    if (not adm["lane"] and not pv_pending and q_len_locked() == 0
+                            and all(margin < j.deadline for j in active)):
+                        # nothing staged, no PV owed, nothing queued, no
+                        # deadline within ~2 segments: the synchronous loop
+                        # would run the next segment unchanged
+                        nxt_meta = (len(active), sum(len(j.helpers) for j in active), 0, 0)
+                        nxt_steps = seg
+                        nxt = dispatch(seg)
+                    raw = stats.fetch(p_summ, "summary")
+                    summ, n = raw[:B], int(raw[B, search_ops.SUM_DONE])
+                    lane_done = summ[:, search_ops.SUM_DONE].astype(bool)
+                    nodes_row = summ[:, search_ops.SUM_NODES]
+                    # lanes whose park was handled at an earlier boundary
+                    # (admission staged, splice pending) report DONE again
+                    staged = set(adm["lane"])
+                    now = time.monotonic()
+                    charge_helpers(lane_done, nodes_row, staged)
+                    for lane in range(B):
+                        job = lane_job[lane]
+                        if job is None or not lane_done[lane] or lane in staged:
+                            continue
+                        on_primary_parked(job, lane, int(summ[lane, search_ops.SUM_SCORE]),
+                                          int(summ[lane, search_ops.SUM_MOVE]),
+                                          int(nodes_row[lane]), nodes_row, now)
+                    reap_jobs(now, nodes_row)
+                    admit_new(now)
+                    if nxt is None:
+                        # the PV rows are read before the splice below
+                        flush_pv(state, now)
+                    snap = stats.boundary()
+                    last_device_s = snap["device_ms"] / 1000.0
+                    self._record_occupancy(B, n, *pend_meta, snap["host_ms"],
+                                           snap["device_ms"], snap["transfers"])
+                    if ctrl is not None:
+                        seg = ctrl.update(n >= pend_steps, snap["host_ms"], snap["device_ms"])
+                    if nxt is not None:
+                        pend, pend_meta, pend_steps = nxt, nxt_meta, nxt_steps
+                        continue
+                    n_adm = flush_adm(state)
+                    if not active:
+                        break  # the next session handles the rest
+                    pend_meta = (len(active), sum(len(j.helpers) for j in active), n_adm,
+                                 q_len_locked())
+                    pend_steps = seg
+                    pend = dispatch(seg)
+        except BaseException as e:
+            # the drive loop died mid-session: fail every admitted job so no
+            # submitting thread waits forever
+            now = time.monotonic()
+            for job in active:
+                release(job, None)
+                self._finalize(job, now, error=f"gpu engine failed: {e}")
+            # jobs released at a park whose _finalize waited on a PV read
+            for job, _lane, _depth, final in pv_pending:
+                if final:
+                    self._finalize(job, now)
+            pv_pending.clear()
+            raise
+
+    def _record_occupancy(self, width, steps, live, helpers, refilled, queue, host_ms,
+                          device_ms, transfers):
+        tot = self.engine.occupancy_totals
+        idle = width - live - helpers
+        tot["host_ms"] += host_ms
+        tot["device_ms"] += device_ms
+        tot["transfers"] += transfers
+        if steps == 0 and refilled == 0:
+            # a pipelined segment that ran zero steps (every lane finished
+            # in the previous one): its sync costs count, but it is no
+            # occupancy row
+            return
+        tot["segments"] += 1
+        tot["steps"] += steps
+        tot["lane_steps"] += steps * width
+        tot["live_lane_steps"] += steps * live
+        tot["helper_lane_steps"] += steps * helpers
+        tot["idle_lane_steps"] += steps * idle
+        tot["refills"] += refilled
+        log = self.engine.occupancy_log
+        log.append({
+            "segment": tot["segments"], "width": width, "steps": steps, "live": live,
+            "helpers": helpers, "idle": idle, "refilled": refilled, "queue": queue,
+            "transfers": transfers, "host_ms": host_ms, "device_ms": device_ms,
+        })
+        if len(log) > 4096:
+            del log[:-4096]

@@ -6,7 +6,7 @@ cached by a hash of the sources and flags; all sources build at once, one
 nvcc each). The wrappers below take CUDA tensors only: they check device,
 dtype, shape and contiguity, allocate the output with `torch.empty`,
 launch on the current stream, raise if the launch returned an error, and
-count the launch. The callers (models/nnue.py, ops/tt.py) send CPU
+count the launch. The callers (models/nnue.py, ops/tt.py, ops/search.py) send CPU
 tensors to their plain PyTorch versions instead; nothing here falls back.
 """
 from __future__ import annotations
@@ -30,7 +30,7 @@ NVCC_FLAGS = (
 )
 KERNELS = (
     "nnue_refresh_768", "nnue_forward_from_acc", "nnue_acc_update_768",
-    "zobrist_hash", "tt_probe", "tt_store",
+    "zobrist_hash", "tt_probe", "tt_store", "lane_init",
 )
 
 # length of each Zobrist table (ops/tt.py Z_SHAPE; the kernel reads the
@@ -54,10 +54,15 @@ _SIGNATURES = {
     "zobrist_hash": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _P, _I, _P],
     "tt_probe": [_P, _I] + [_P, _L] * 5 + [_P, _I, _P, _P, _P, _I, _P],
     "tt_store": [_P, _I] + [_P, _L] * 6 + [_P, _P, _I, _I, _I, _P],
+    "lane_init": [_P] * 20 + [_I] * 5 + [_P],
 }
 
 # lanes one K6 launch takes (its shared-memory slot array)
 TT_STORE_MAX_LANES = 8192
+
+# the search state's fixed widths K7 writes (ops/search.py BT_W, NT_W,
+# LN_W, MAX_HIST and the history table)
+BT_W, NT_W, LN_W, MAX_HIST, HIST_SIZE = 96, 16, 16, 16, 4096
 
 _lock = threading.Lock()
 _fns: dict = {}
@@ -338,3 +343,47 @@ def tt_store(table: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor,
         _launch("tt_store", "tt_store", table.data_ptr(), n, *args, mask.data_ptr(),
                 gen_ptr, gen_int, int(bool(prefer_deep)), B)
     return table
+
+
+def lane_init(state, lane_idx: torch.Tensor, rows: torch.Tensor, root_acc: torch.Tensor,
+              depth: torch.Tensor, budget: torch.Tensor, alpha: torch.Tensor,
+              beta: torch.Tensor, jitter: torch.Tensor, group: torch.Tensor,
+              hist_hash: torch.Tensor, hist_halfmove: torch.Tensor) -> None:
+    """K7: writes init_state's values into the lanes lane_idx (n,) int64
+    (distinct) of `state` (ops/search.py SearchState, contiguous (B, ...)
+    tables), in place. rows (n, BT_W) int32 root board rows; root_acc
+    (n, 2, L1) in the accumulators' dtype (K1's output); depth, budget,
+    alpha, beta, jitter, group (n,) int32; hist_hash (n, MAX_HIST, 2)
+    and hist_halfmove (n, MAX_HIST) int32."""
+    B, p1 = state.bt.shape[0], state.bt.shape[1]
+    p = p1 - 1
+    max_moves, l1 = state.moves.shape[2], state.acc.shape[3]
+    adt = state.acc.dtype
+    if adt not in (torch.float32, torch.int32):
+        raise TypeError(f"acc must be float32 or int32, got {adt}")
+    for name, t, dt, shape in (
+        ("bt", state.bt, torch.int32, (B, p1, BT_W)),
+        ("nt", state.nt, torch.int32, (B, p1, NT_W)),
+        ("lane", state.lane, torch.int32, (B, LN_W)),
+        ("hist_hash", state.hist_hash, torch.int32, (B, MAX_HIST, 2)),
+        ("hist_halfmove", state.hist_halfmove, torch.int32, (B, MAX_HIST)),
+        ("moves", state.moves, torch.int32, (B, p, max_moves)),
+        ("hist", state.hist, torch.int32, (B, HIST_SIZE)),
+        ("pv", state.pv, torch.int32, (B, p, p)),
+        ("acc", state.acc, adt, (B, p1, 2, l1)),
+    ):
+        _check(t, name, dt, shape)
+    n = lane_idx.shape[0]
+    _check(lane_idx, "lane_idx", torch.int64, (n,))
+    _check(rows, "rows", torch.int32, (n, BT_W))
+    _check(root_acc, "root_acc", adt, (n, 2, l1))
+    cols = (depth, budget, alpha, beta, jitter, group)
+    for name, t in zip(("depth", "budget", "alpha", "beta", "jitter", "group"), cols):
+        _check(t, name, torch.int32, (n,))
+    _check(hist_hash, "hist_hash (rows)", torch.int32, (n, MAX_HIST, 2))
+    _check(hist_halfmove, "hist_halfmove (rows)", torch.int32, (n, MAX_HIST))
+    if n:
+        _launch("lane_init", "lane_init", *[t.data_ptr() for t in state],
+                lane_idx.data_ptr(), rows.data_ptr(), root_acc.data_ptr(),
+                *[t.data_ptr() for t in cols], hist_hash.data_ptr(),
+                hist_halfmove.data_ptr(), B, n, p1, max_moves, l1)

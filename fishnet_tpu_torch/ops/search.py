@@ -24,10 +24,17 @@ rows in place, in the same order, each under the same mask.
 
 Each step runs the Zobrist hash (K4), the leaf eval (K2) and the
 accumulator update (K3) as CUDA kernels on the card; `init_state` runs
-the root refresh (K1). With a table, `run_segment` wraps each step in
-the reference's TT runner: a store of the lanes parked in RETURN (K6), a
-probe of the lanes about to ENTER (K5), the step, and a store of the
-leaves it marked (K6). The rest of the step is batched PyTorch code.
+the root refresh (K1) and writes every lane with K7 (lane_init). With a
+table, `run_segment` wraps each step in the reference's TT runner: a
+store of the lanes parked in RETURN (K6), a probe of the lanes about to
+ENTER (K5), the step, and a store of the leaves it marked (K6). The rest
+of the step is batched PyTorch code.
+
+Continuous lane refill: `refill_lanes` splices fresh roots into chosen
+lanes of a running state in place (K1 on the new roots, then K7 writes
+those lanes; every other lane keeps its state bit for bit), and
+`search_stream` streams N positions through a fixed width, refilling
+DONE lanes at segment boundaries.
 """
 from __future__ import annotations
 
@@ -39,8 +46,9 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
-from .. import settings
+from .. import kernels, settings
 from ..models import nnue
+from ..syncstats import SegmentController, SyncStats
 from . import tt as tt_mod
 from .board import Board, attack_parts, make_move_with_changes, node_rules, rays_of
 from .movegen import MAX_MOVES, generate_moves
@@ -173,20 +181,83 @@ def init_state(params: nnue.NnueParams, roots: Board, depth: torch.Tensor,
     counters 0..255 hash-mixed from j, so it orders its quiet moves
     differently from the other lanes of its group; jitter 0 seeds zeros
     (the lane searches as without the argument). group (B,): an opaque
-    lane-group tag, stored and not read by the search."""
+    lane-group tag, stored and not read by the search.
+
+    On the card the state is allocated uninitialised and K7 (lane_init)
+    writes every lane after K1's root refresh; on the CPU the plain
+    version builds it."""
+    B = roots.board.shape[0]
+    args = _lane_inputs(params, roots, depth, node_budget, hist_hash, hist_halfmove,
+                        root_alpha, root_beta, order_jitter, group)
     dev = roots.board.device
-    B, P = roots.board.shape[0], max_ply
+    if dev.type == "cpu":
+        return _fresh_state(*args, max_ply)
+    state = _empty_state(B, max_ply, params.l1, nnue.acc_dtype(params), dev)
+    kernels.lane_init(state, torch.arange(B, device=dev), *args)
+    return state
+
+
+def _lane_inputs(params, roots: Board, depth, node_budget, hist_hash=None,
+                 hist_halfmove=None, root_alpha=None, root_beta=None,
+                 order_jitter=None, group=None) -> tuple:
+    """init_state's arguments for n lanes → K7's inputs on the roots'
+    device: (rows (n, BT_W), root accumulators (n, 2, L1) from K1,
+    depth, budget, alpha, beta, jitter, group (n,), hist_hash
+    (n, MAX_HIST, 2), hist_halfmove (n, MAX_HIST)), every None expanded
+    to init_state's default."""
+    dev = roots.board.device
+    n = roots.board.shape[0]
+
+    def col(x, default):
+        if x is None:
+            return torch.full((n,), default, dtype=_I32, device=dev)
+        return x.to(device=dev, dtype=_I32).contiguous()
+
+    if hist_hash is None:
+        hist_hash = torch.zeros((n, MAX_HIST, 2), dtype=_I32, device=dev)
+    if hist_halfmove is None:
+        hist_halfmove = torch.full((n, MAX_HIST), HIST_HM_SENTINEL, dtype=_I32, device=dev)
+    return (
+        _rows_from_board(roots).contiguous(),
+        nnue.accumulators_768(params, roots.board.to(_I32).contiguous()),
+        col(depth, 0), col(node_budget, 0), col(root_alpha, -INF), col(root_beta, INF),
+        col(order_jitter, 0), col(group, 0),
+        hist_hash.to(device=dev, dtype=_I32).contiguous(),
+        hist_halfmove.to(device=dev, dtype=_I32).contiguous(),
+    )
+
+
+def _empty_state(B: int, max_ply: int, l1: int, acc_dtype, dev) -> SearchState:
+    P = max_ply
+
+    def empty(shape, dtype=_I32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    return SearchState(
+        bt=empty((B, P + 1, BT_W)), nt=empty((B, P + 1, NT_W)), lane=empty((B, LN_W)),
+        hist_hash=empty((B, MAX_HIST, 2)), hist_halfmove=empty((B, MAX_HIST)),
+        moves=empty((B, P, MAX_MOVES)), hist=empty((B, 4096)), pv=empty((B, P, P)),
+        acc=empty((B, P + 1, 2, l1), acc_dtype),
+    )
+
+
+def _fresh_state(rows, root_acc, depth, budget, alpha, beta, jitter, group, hist_hash,
+                 hist_halfmove, max_ply: int) -> SearchState:
+    """K7's plain version for n lanes: the state init_state gives them,
+    from K7's inputs."""
+    dev = rows.device
+    B, P = rows.shape[0], max_ply
 
     def full(shape, value):
         return torch.full(shape, value, dtype=_I32, device=dev)
 
-    acc = torch.zeros((B, P + 1, 2, params.l1), dtype=nnue.acc_dtype(params), device=dev)
-    acc[:, 0] = nnue.accumulators_768(params, roots.board.to(_I32).contiguous())
+    acc = torch.zeros((B, P + 1) + tuple(root_acc.shape[1:]), dtype=root_acc.dtype, device=dev)
+    acc[:, 0] = root_acc
 
     bt = torch.zeros((B, P + 1, BT_W), dtype=_I32, device=dev)
     bt[:, :, BT_EP] = -1
     bt[:, :, BT_CAST:BT_CAST + 4] = -1
-    bt[:, 0] = _rows_from_board(roots)
+    bt[:, 0] = rows
 
     nt = torch.zeros((B, P + 1, NT_W), dtype=_I32, device=dev)
     nt[:, :, NT_ALPHA] = -INF
@@ -196,51 +267,108 @@ def init_state(params: nnue.NnueParams, roots: Board, depth: torch.Tensor,
     nt[:, :, NT_BMOVE] = -1
     nt[:, :, NT_K0] = -1
     nt[:, :, NT_K1] = -1
-    nt[:, 0, NT_DL] = depth.to(_I32)
+    nt[:, 0, NT_DL] = depth
 
     lane = torch.zeros((B, LN_W), dtype=_I32, device=dev)
-    lane[:, LN_DLIM] = depth.to(_I32)
-    lane[:, LN_BUDGET] = node_budget.to(_I32)
+    lane[:, LN_DLIM] = depth
+    lane[:, LN_BUDGET] = budget
     lane[:, LN_RSCORE] = -INF
     lane[:, LN_RMOVE] = -1
-    lane[:, LN_RALPHA] = -INF if root_alpha is None else root_alpha.to(_I32)
-    lane[:, LN_RBETA] = INF if root_beta is None else root_beta.to(_I32)
-    if order_jitter is not None:
-        lane[:, LN_JITTER] = order_jitter.to(_I32)
-    if group is not None:
-        lane[:, LN_GROUP] = group.to(_I32)
-
-    if hist_hash is None:
-        hist_hash = torch.zeros((B, MAX_HIST, 2), dtype=_I32, device=dev)
-    if hist_halfmove is None:
-        hist_halfmove = full((B, MAX_HIST), HIST_HM_SENTINEL)
+    lane[:, LN_RALPHA] = alpha
+    lane[:, LN_RBETA] = beta
+    lane[:, LN_JITTER] = jitter
+    lane[:, LN_GROUP] = group
     return SearchState(
-        bt=bt, nt=nt, lane=lane, hist_hash=hist_hash.to(_I32),
-        hist_halfmove=hist_halfmove.to(_I32),
-        moves=full((B, P, MAX_MOVES), -1),
-        hist=_jitter_history(order_jitter, B, dev),
-        pv=full((B, P, P), -1), acc=acc,
+        bt=bt, nt=nt, lane=lane, hist_hash=hist_hash.clone(),
+        hist_halfmove=hist_halfmove.clone(), moves=full((B, P, MAX_MOVES), -1),
+        hist=_jitter_history(jitter), pv=full((B, P, P), -1), acc=acc,
     )
 
 
-def _jitter_history(order_jitter, B: int, dev) -> torch.Tensor:
-    """(B, 4096) int32 initial history counters: zeros, or for lanes with
-    jitter j != 0 the reference's mix (j * 2654435761 ^ idx * 2246822519,
-    then ^ >> 15, then & 255) in uint32 arithmetic, done in int64 and
-    masked so torch's signed int32 does not change the bits."""
-    hist = torch.zeros((B, 4096), dtype=_I32, device=dev)
-    if order_jitter is None:
-        return hist
+def _jitter_history(order_jitter: torch.Tensor) -> torch.Tensor:
+    """(B, 4096) int32 initial history counters: zeros for lanes with
+    jitter 0, and for jitter j != 0 the reference's mix (j * 2654435761
+    ^ idx * 2246822519, then ^ >> 15, then & 255) in uint32 arithmetic,
+    done in int64 and masked so torch's signed int32 does not change the
+    bits."""
     m32 = 0xFFFFFFFF
     j = order_jitter.to(torch.int64)[:, None] & m32
     # j * 2654435761 mod 2^32 from two 16-bit halves of the constant, so
     # no product leaves int64
     c = 2654435761
     jm = (j * (c & 0xFFFF) + (((j * (c >> 16)) & 0xFFFF) << 16)) & m32
-    idx = torch.arange(4096, dtype=torch.int64, device=dev)[None, :]
+    idx = torch.arange(4096, dtype=torch.int64, device=order_jitter.device)[None, :]
     mix = jm ^ ((idx * 2246822519) & m32)
     mix = mix ^ (mix >> 15)
     return torch.where(j != 0, mix & 255, 0).to(_I32)
+
+
+def lane_init_plain(state: SearchState, lane_idx: torch.Tensor, *args) -> None:
+    """K7's plain version: the n fresh lanes built whole (_fresh_state),
+    then copied into the listed lanes of every table."""
+    fresh = _fresh_state(*args, state.bt.shape[1] - 1)
+    for t, f in zip(state, fresh):
+        t.index_copy_(0, lane_idx, f)
+
+
+def lane_init(state: SearchState, lane_idx: torch.Tensor, *args) -> None:
+    """K7 wrapper: plain version on the CPU, kernel on the card. args are
+    _lane_inputs' (rows, root accumulators, depth, budget, alpha, beta,
+    jitter, group, hist_hash, hist_halfmove), one row per listed lane."""
+    if state.lane.device.type == "cpu":
+        lane_init_plain(state, lane_idx, *args)
+    else:
+        kernels.lane_init(state, lane_idx, *args)
+
+
+def _refill_inputs(params, state: SearchState, new_roots: Board, lane_idx, depth,
+                   node_budget, hist_hash=None, hist_halfmove=None, root_alpha=None,
+                   root_beta=None, order_jitter=None, group=None) -> tuple:
+    """refill_lanes' arguments → (lane index (n,) int64, K7's inputs) on
+    the state's device; the lane indices must be distinct and in range."""
+    dev = state.lane.device
+    B = state.lane.shape[0]
+    idx = np.asarray(lane_idx, np.int64).reshape(-1)
+    if idx.size and (idx.min() < 0 or idx.max() >= B or np.unique(idx).size != idx.size):
+        raise ValueError(f"lane indices must be distinct and in [0, {B}): {idx.tolist()}")
+    if not idx.size:
+        return None, None
+    rows = [None if x is None else _to_dev(x, dev) for x in (
+        depth, node_budget, hist_hash, hist_halfmove, root_alpha, root_beta, order_jitter,
+        group)]
+    return torch.from_numpy(idx).to(dev), _lane_inputs(params, new_roots.to(dev), *rows)
+
+
+def refill_lanes(params: nnue.NnueParams, state: SearchState, new_roots: Board, lane_idx,
+                 depth, node_budget, *, hist_hash=None, hist_halfmove=None,
+                 root_alpha=None, root_beta=None, order_jitter=None,
+                 group=None) -> SearchState:
+    """Splice fresh root positions into selected lanes of a running state,
+    in place; returns `state`.
+
+    new_roots: batched Board with n rows; lane_idx: host sequence of n
+    distinct lane indices; depth/node_budget (n,) and the optional (n,)
+    / (n, ...) per-lane arrays follow init_state (None: its defaults).
+    The listed lanes take init_state's values (K1 on the n roots, then
+    K7 writes those lanes); every other lane keeps its exact state, so
+    live searches are unaffected. The caller refills only DONE lanes and
+    gives them fresh TT generations before the next segment."""
+    idx, args = _refill_inputs(params, state, new_roots, lane_idx, depth, node_budget,
+                               hist_hash, hist_halfmove, root_alpha, root_beta,
+                               order_jitter, group)
+    if idx is not None:
+        lane_init(state, idx, *args)
+    return state
+
+
+def _merge_lanes_plain(params: nnue.NnueParams, state: SearchState, new_roots: Board,
+                       lane_idx, depth, node_budget, **kw) -> SearchState:
+    """refill_lanes' plain version: init_state's plain build of the n
+    roots, then one index_copy_ per field."""
+    idx, args = _refill_inputs(params, state, new_roots, lane_idx, depth, node_budget, **kw)
+    if idx is not None:
+        lane_init_plain(state, idx, *args)
+    return state
 
 
 class _Consts(NamedTuple):
@@ -627,12 +755,15 @@ def run_segment(params: nnue.NnueParams, state: SearchState,
     The host checks for DONE lanes every CHECK_EVERY steps, not every
     step: the count is kept on the device, and DONE lanes are inert under
     the extra steps (they neither store nor probe), so the results and
-    the table are those of the exact loop."""
+    the table are those of the exact loop. A segment that starts with
+    every lane DONE (a speculative one after the last park) runs no step,
+    as the reference's loop does not."""
     if pruning is None:
         pruning = not settings.get_bool("FISHNET_TPU_NO_PRUNING")
     n_dev = torch.zeros((), dtype=torch.int64, device=state.lane.device)
     done_steps = 0
-    while done_steps < segment_steps:
+    live = bool((state.lane[:, LN_MODE] != MODE_DONE).any())
+    while live and done_steps < segment_steps:
         k = min(CHECK_EVERY, segment_steps - done_steps)
         for _ in range(k):
             n_dev += (state.lane[:, LN_MODE] != MODE_DONE).any()
@@ -807,6 +938,261 @@ def search_batch_resumable(
     out["steps"] = total
     out["tt"] = tt
     return out
+
+
+def search_stream(
+    params: nnue.NnueParams,
+    roots: Board,
+    depth,
+    node_budget,
+    max_ply: int,
+    width: int,
+    segment_steps: int | None = None,
+    max_steps: int = 50_000_000,
+    deadline: float | None = None,
+    tt=None,
+    mesh=None,
+    hist=None,
+    prefer_deep_store: bool = False,
+    tt_gen_start: int = 1,
+    pipeline: bool | None = None,
+    sync_stats=None,
+    device=None,
+) -> dict:
+    """Stream N root positions through a fixed `width`-lane search.
+
+    The occupancy-driven counterpart of `search_batch_resumable`: instead
+    of narrowing as lanes finish, the host refills DONE lanes with queued
+    positions at every segment boundary (refill_lanes), keeping the width
+    until the queue drains. Positions 0..width-1 start in lanes
+    0..width-1 (surplus lanes start with budget 0 and park in DONE within
+    two steps); each admission gets the next TT generation from
+    tt_gen_start, carried per lane into the table's stores
+    (prefer_deep_store: the helpers' depth-preferred store). hist:
+    optional (hist_hash (N, MAX_HIST, 2), hist_halfmove (N, MAX_HIST)).
+
+    pipeline (default FISHNET_TPU_PIPELINE): the boundary reads one packed
+    summary and, when no refill is pending, dispatches the next segment
+    before processing the boundary, as the reference does; False is the
+    synchronous loop that reads the full result set. Both give the same
+    results. In this package a segment runs to its end before its call
+    returns, so the pipelined loop makes the reference's decisions
+    without overlapping host and device. sync_stats: optional
+    syncstats.SyncStats to count transfers into. segment_steps None reads
+    FISHNET_TPU_SEGMENT; "auto" runs the SegmentController. mesh: not
+    ported (raises NotImplementedError).
+
+    Returns per-position (N,) numpy results keyed as extract_results,
+    the int step count "steps", "tt", and:
+      occupancy: per-segment dicts {segment, steps, live, idle, refilled,
+                 queue, transfers, elements, host_ms, device_ms};
+      refills:   the number of lanes spliced across the run.
+    Positions not finished by deadline/max_steps report done=False."""
+    if mesh is not None:
+        raise NotImplementedError("the sharded stream (mesh) is not ported yet")
+    dev = device_mod.resolve(device)
+    if pipeline is None:
+        pipeline = settings.get_bool("FISHNET_TPU_PIPELINE")
+    stats = sync_stats if sync_stats is not None else SyncStats()
+    ctrl = None
+    if segment_steps is None:
+        segment_steps = settings.get_segment()
+        if segment_steps is None:  # FISHNET_TPU_SEGMENT=auto
+            ctrl = SegmentController(settings.get_int("FISHNET_TPU_SEGMENT_MIN"),
+                                     settings.get_int("FISHNET_TPU_SEGMENT_MAX"))
+            segment_steps = ctrl.steps
+    pruning = not settings.get_bool("FISHNET_TPU_NO_PRUNING")
+    params = params.to(dev)
+    roots = roots.to(dev)
+    if tt is not None and tt.device != roots.board.device:
+        raise ValueError(f"the table is on {tt.device}, the search on {roots.board.device}")
+    N = int(roots.board.shape[0])
+    P = max_ply
+    depth = np.broadcast_to(np.asarray(depth, np.int32), (N,)).copy()
+    node_budget = np.broadcast_to(np.asarray(node_budget, np.int32), (N,)).copy()
+    hist_hash, hist_halfmove = hist if hist is not None else (None, None)
+    if hist_hash is not None:
+        hist_hash = np.asarray(hist_hash)
+        hist_halfmove = np.asarray(hist_halfmove)
+
+    def gather_roots(pos_idx) -> Board:
+        ix = torch.as_tensor(np.asarray(pos_idx, np.int64), device=dev)
+        return Board(*[t[ix] for t in roots])
+
+    def hist_rows(pos_idx):
+        if hist_hash is None:
+            return None, None
+        return hist_hash[pos_idx], hist_halfmove[pos_idx]
+
+    # initial admission: positions 0..k-1 into lanes 0..k-1; surplus
+    # lanes start with budget 0 so they park in DONE within two steps
+    lane_pos = np.full(width, -1, np.int64)
+    k = min(width, N)
+    lane_pos[:k] = np.arange(k)
+    queue = list(range(k, N))
+    take0 = np.where(lane_pos >= 0, lane_pos, 0)
+    assigned0 = lane_pos >= 0
+    hh0, hm0 = hist_rows(take0)
+    state = init_state(
+        params, gather_roots(take0),
+        _to_dev(np.where(assigned0, depth[take0], 0), dev),
+        _to_dev(np.where(assigned0, node_budget[take0], 0), dev), max_ply,
+        hist_hash=None if hh0 is None else _to_dev(hh0, dev),
+        hist_halfmove=None if hm0 is None else _to_dev(hm0, dev),
+    )
+    gen = np.zeros(width, np.int32)
+    next_gen = int(tt_gen_start)
+    gen[assigned0] = np.arange(next_gen, next_gen + k, dtype=np.int32)
+    next_gen += k
+
+    out = {
+        "score": np.zeros(N, np.int32),
+        "move": np.full(N, -1, np.int32),
+        "pv": np.full((N, P), -1, np.int32),
+        "pv_len": np.zeros(N, np.int32),
+        "nodes": np.zeros(N, np.int32),
+    }
+    done_out = np.zeros(N, bool)
+    occupancy: list[dict] = []
+    refills_total = 0
+    total = 0
+    seg_i = 0
+
+    def dispatch(seg_n):
+        """One segment over the state and the table, in place, with each
+        lane's current generation → (steps, packed summary)."""
+        return stats.device_call(run_segment, params, state, seg_n, pruning, tt, False,
+                                 prefer_deep_store, torch.from_numpy(gen.copy()).to(dev))
+
+    def do_refill(free, n_ref):
+        nonlocal next_gen, refills_total
+        take_pos = np.asarray(queue[:n_ref], np.int64)
+        del queue[:n_ref]
+        sel = free[:n_ref]
+        lane_pos[sel] = take_pos
+        gen[sel] = (np.arange(next_gen, next_gen + n_ref) & 0x3FFFFFFF).astype(np.int32)
+        next_gen += n_ref
+        hh, hm = hist_rows(take_pos)
+        refills_total += n_ref
+        refill_lanes(params, state, gather_roots(take_pos), sel, depth[take_pos],
+                     node_budget[take_pos], hist_hash=hh, hist_halfmove=hm)
+
+    def pull_pv(lanes, pos):
+        """PV rows of finished lanes only: two small gathers."""
+        rows = torch.as_tensor(np.asarray(lanes, np.int64), device=dev)
+        out["pv"][pos] = stats.fetch(state.pv[:, 0].index_select(0, rows), "pv")
+        out["pv_len"][pos] = stats.fetch(state.nt[:, 0, NT_PVLEN].index_select(0, rows),
+                                         "pv_len")
+
+    def record(n, live, n_ref, pend_steps):
+        nonlocal seg_i, segment_steps
+        seg_i += 1
+        snap = stats.boundary()
+        occupancy.append({
+            "segment": seg_i, "steps": int(n), "live": live, "refilled": int(n_ref),
+            "idle": width - live - int(n_ref), "queue": len(queue), **snap,
+        })
+        if ctrl is not None:
+            segment_steps = ctrl.update(int(n) >= pend_steps, snap["host_ms"],
+                                        snap["device_ms"])
+
+    if not pipeline:
+        # synchronous loop: run the segment, read the full result set,
+        # refill, repeat
+        while total < max_steps:
+            if deadline is not None and _time.monotonic() >= deadline:
+                break
+            _n, summ = dispatch(segment_steps)
+            pend_steps = segment_steps
+            n = int(stats.fetch(summ[width, SUM_DONE], "steps"))
+            total += n
+            lane_done = stats.fetch(state.lane[:, LN_MODE] == MODE_DONE, "done")
+            res = extract_results(state, total)
+            fin = np.nonzero(lane_done & (lane_pos >= 0))[0]
+            if fin.size:
+                for key in out:
+                    out[key][lane_pos[fin]] = stats.fetch(res[key], key)[fin]
+                done_out[lane_pos[fin]] = True
+                lane_pos[fin] = -1
+            live = int((lane_pos >= 0).sum())
+            free = np.nonzero(lane_pos < 0)[0]
+            n_ref = min(len(free), len(queue))
+            if n_ref and (deadline is None or _time.monotonic() < deadline):
+                do_refill(free, n_ref)
+            else:
+                n_ref = 0
+            record(n, live, n_ref, pend_steps)
+            if live == 0 and n_ref == 0 and not queue:
+                break
+    else:
+        # pipelined loop: the boundary is processed from the segment's
+        # packed summary; when no refill decision is pending the next
+        # segment is dispatched first (here it runs to its end at once)
+        pend = None
+        pend_steps = segment_steps
+        prev_live = k > 0
+        pv_pending: list[tuple[int, int]] = []  # deferred (lane, pos)
+        if total < max_steps and (deadline is None or _time.monotonic() < deadline):
+            pend = dispatch(segment_steps)
+        while pend is not None:
+            _p_n, p_summ = pend
+            nxt = None
+            nxt_steps = segment_steps
+            if (prev_live and not queue and total + pend_steps < max_steps
+                    and (deadline is None or _time.monotonic() < deadline)):
+                # the queue is empty, so the synchronous loop would run
+                # this exact segment after the boundary anyway
+                nxt = dispatch(nxt_steps)
+            raw = stats.fetch(p_summ, "summary")
+            summ, n = raw[:width], int(raw[width, SUM_DONE])
+            total += n
+            lane_done = summ[:, SUM_DONE].astype(bool)
+            fin = np.nonzero(lane_done & (lane_pos >= 0))[0]
+            if fin.size:
+                pos = lane_pos[fin]
+                out["score"][pos] = summ[fin, SUM_SCORE]
+                out["move"][pos] = summ[fin, SUM_MOVE]
+                out["nodes"][pos] = summ[fin, SUM_NODES]
+                done_out[pos] = True
+                if nxt is None:
+                    pull_pv(fin, pos)
+                else:
+                    # the next segment already ran; DONE lanes stay
+                    # frozen and the empty queue never resplices them,
+                    # so their PV rows are read at a later boundary
+                    pv_pending.extend(zip(fin.tolist(), pos.tolist()))
+                lane_pos[fin] = -1
+            if pv_pending and nxt is None:
+                lanes = np.asarray([ln for ln, _ in pv_pending], np.int64)
+                pos = np.asarray([p for _, p in pv_pending], np.int64)
+                pull_pv(lanes, pos)
+                pv_pending.clear()
+            live = int((lane_pos >= 0).sum())
+            free = np.nonzero(lane_pos < 0)[0]
+            n_ref = min(len(free), len(queue))
+            if n_ref and nxt is None and (deadline is None or _time.monotonic() < deadline):
+                do_refill(free, n_ref)
+            else:
+                n_ref = 0
+            record(n, live, n_ref, pend_steps)
+            if nxt is not None:
+                pend = nxt
+                pend_steps = nxt_steps
+                prev_live = live > 0
+                continue
+            stop = ((live == 0 and n_ref == 0 and not queue) or total >= max_steps
+                    or (deadline is not None and _time.monotonic() >= deadline))
+            if stop:
+                pend = None
+            else:
+                pend = dispatch(segment_steps)
+                pend_steps = segment_steps
+                prev_live = live > 0 or n_ref > 0
+
+    return {
+        **out, "done": done_out, "steps": total, "occupancy": occupancy,
+        "refills": refills_total, "tt": tt,
+    }
 
 
 def _to_dev(x, dev) -> torch.Tensor:

@@ -19,7 +19,13 @@ DEFAULTS = {
     "FISHNET_TPU_HELPERS": "4",
     # per-dispatch lane ceiling
     "FISHNET_TPU_MAX_LANES": "1024",
+    # continuous lane refill: single-pv analysis through the LaneScheduler
+    "FISHNET_TPU_REFILL": "1",
+    # the streaming loops' pipelined boundary (0: the synchronous loop)
+    "FISHNET_TPU_PIPELINE": "1",
     "FISHNET_TPU_SEGMENT": "20000",
+    # bounds of FISHNET_TPU_SEGMENT=auto (the lower one is its start)
+    "FISHNET_TPU_SEGMENT_MIN": "2048",
     "FISHNET_TPU_SEGMENT_MAX": "65536",
     "FISHNET_TPU_NARROW_FLOOR": "64",
     "FISHNET_TPU_NO_PRUNING": "0",
@@ -43,9 +49,11 @@ def get_int(name: str) -> int:
 
 
 def get_segment() -> Optional[int]:
-    """FISHNET_TPU_SEGMENT: device steps per segment, or None for "auto"
-    (this package has no segment controller: callers then take
-    FISHNET_TPU_SEGMENT_MAX)."""
+    """FISHNET_TPU_SEGMENT: device steps per segment, or None for "auto".
+    Under "auto" the streaming loops (ops/search.py search_stream, the
+    engine's LaneScheduler) tune the length with syncstats.SegmentController
+    within FISHNET_TPU_SEGMENT_MIN/_MAX; the batch path
+    (search_batch_resumable) takes FISHNET_TPU_SEGMENT_MAX."""
     value = raw("FISHNET_TPU_SEGMENT").strip().lower()
     return None if value == "auto" else int(value)
 

@@ -1,8 +1,10 @@
 """fishnet_tpu_torch's CUDA kernels on the card: each against its plain
 PyTorch version (the TT probe and store on seeded tables with forced
-slot collisions), the wrappers' checks and launch counts, and the int8
-searches on the card against the CPU, with the transposition table and
-helper lanes too (tables compared byte for byte). Needs an NVIDIA card; skipped
+slot collisions, the lane init over every lane and over scattered
+ones), the wrappers' checks and launch counts, and the int8 searches on
+the card against the CPU, with the transposition table and helper lanes
+too, and a refill splice and a refill stream (tables compared byte for
+byte). Needs an NVIDIA card; skipped
 elsewhere. Imports no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_card.py -q -p no:cacheprovider
@@ -13,13 +15,14 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import TT_PROBE_ARGS, TT_STORE_ARGS, tt_inputs, tt_runner_layout
+from chip_smoke import TT_PROBE_ARGS, TT_STORE_ARGS, lane_init_case, tt_inputs, tt_runner_layout
 from fishnet_tpu_torch import kernels
 from fishnet_tpu_torch.chess import Position
 from fishnet_tpu_torch.models import nnue
 from fishnet_tpu_torch.ops import board as tb
 from fishnet_tpu_torch.ops import tt
-from fishnet_tpu_torch.ops.search import search_batch, search_batch_resumable
+from fishnet_tpu_torch.ops import search
+from fishnet_tpu_torch.ops.search import search_batch, search_batch_resumable, search_stream
 
 pytestmark = pytest.mark.cuda
 
@@ -174,3 +177,72 @@ def test_int8_tt_helper_search_card_equals_cpu(nets, lanes):
     assert card["steps"] == cpu["steps"]
     assert torch.equal(card["tt"].cpu(), cpu["tt"])
     assert (cpu["tt"][:, 1] != 0).any()
+
+
+@pytest.mark.parametrize("net", ["f32", "int8"])
+@pytest.mark.parametrize("batch,lanes", [(16, 16), (16, 4), (64, 64), (64, 16), (1024, 1024),
+                                         (1024, 256)])
+def test_lane_init_matches_plain_version(nets, net, batch, lanes):
+    """K7 over every lane (init_state's call) and over a scattered
+    quarter (a refill splice) of a state of seeded garbage: every table
+    equals the plain version's bit for bit, so the lanes not listed are
+    untouched."""
+    state, idx, args = lane_init_case(nets[net], batch, lanes, batch + lanes, nets[net].device)
+    want = search.SearchState(*[t.clone() for t in state])
+    kernels.reset_launches()
+    kernels.lane_init(state, idx, *args)
+    search.lane_init_plain(want, idx, *args)
+    assert kernels.LAUNCHES["lane_init"] == 1
+    for g, w in zip(state, want):
+        assert torch.equal(g, w)
+
+
+def test_lane_init_wrapper_checks_inputs(nets):
+    state, idx, args = lane_init_case(nets["int8"], 16, 4, 3, nets["int8"].device)
+    kernels.reset_launches()
+    with pytest.raises(TypeError):  # the int8 net's accumulators are int32
+        kernels.lane_init(state, idx, args[0], args[1].float(), *args[2:])
+    with pytest.raises(TypeError):
+        kernels.lane_init(state, idx.int(), *args)
+    with pytest.raises(ValueError):
+        kernels.lane_init(state, idx[:2], *args)
+    with pytest.raises(ValueError):
+        kernels.lane_init(search.SearchState(*[t.cpu() for t in state]), idx.cpu(),
+                          *[a.cpu() for a in args])
+    assert kernels.LAUNCHES["lane_init"] == 0
+
+
+def test_int8_refill_and_stream_card_equal_cpu(nets, lanes):
+    """A 16-lane int8 state stepped mid-search then spliced (K1 + K7),
+    and a stream of 24 positions through 16 lanes into a table: the card
+    equals the CPU, states and tables byte for byte."""
+    b, _ = lanes
+    roots = tb.Board(*[t[:16] for t in b])
+    new = tb.Board(*[t[16:21] for t in b])
+    depth = np.asarray([1 + i % 3 for i in range(16)], np.int32)
+    states = {}
+    for dev in ("cuda", "cpu"):
+        p = nets["int8"].to(dev)
+        st = search.init_state(p, roots.to(dev), torch.from_numpy(depth).to(dev),
+                               torch.full((16,), 100_000, dtype=torch.int32, device=dev), 6)
+        search.run_segment(p, st, 40)
+        search.refill_lanes(p, st, new.to(dev), [3, 0, 9, 15, 7], [2, 3, 1, 2, 1],
+                            [500, 1, 0, 99_999, 12], order_jitter=np.asarray([0, 5, -3, 9, 1]),
+                            root_alpha=np.asarray([-50, -32500, 10, -100, 0]),
+                            root_beta=np.asarray([50, 32500, 40, 100, 20]))
+        states[dev] = st
+    for g, w in zip(states["cuda"], states["cpu"]):
+        assert torch.equal(g.cpu(), w)
+    roots = tb.Board(*[t[:24] for t in b])
+    depth = np.asarray([1 + i % 3 for i in range(24)], np.int32)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        outs[dev] = search_stream(nets["int8"].to(dev), roots.to(dev), depth, 100_000,
+                                  max_ply=6, width=16, segment_steps=48,
+                                  tt=tt.make_table(14, device=dev), prefer_deep_store=True,
+                                  device=dev)
+    card, cpu = outs["cuda"], outs["cpu"]
+    for k in ("score", "move", "nodes", "pv", "pv_len", "done"):
+        assert (card[k] == cpu[k]).all(), k
+    assert (card["steps"], card["refills"]) == (cpu["steps"], cpu["refills"])
+    assert torch.equal(card["tt"].cpu(), cpu["tt"])

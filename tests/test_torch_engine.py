@@ -2,8 +2,9 @@
 chunk, serialised by the JAX package's chunk_to_wire and loaded by the
 port's chunk_from_wire, must give the same responses (response_to_wire
 equal but for time and nps) on the int8-quantized shipped net, with the
-table and helper lanes off on both sides (tests/test_torch_helpers.py
-compares them on). Also: the
+table, helper lanes and refill off on both sides (tests/test_torch_helpers.py
+compares them on, tests/test_torch_refill.py and
+tests/test_torch_scheduler.py the refill path). Also: the
 engine refuses what is not ported, raises without a card unless given a
 device, and the port imports neither JAX nor the JAX package."""
 import asyncio
@@ -100,17 +101,24 @@ def test_terminal_position_response():
     assert res.scores.best() == ipc.Score.mate(0)
 
 
-def test_unported_paths_are_refused():
+def test_unported_paths_are_refused(monkeypatch):
+    """refill=None follows FISHNET_TPU_REFILL (conftest pins 0) and an
+    explicit argument wins; multipv (always the serial path) and a
+    variant that is not ported are refused with refill off and on."""
     tp = tn.load_params(device="cpu")
-    with pytest.raises(NotImplementedError):
-        GpuEngine(params=tp, device="cpu", refill=True)
-    engine = GpuEngine(params=tp, tt_size_log2=4, device="cpu")
-    with pytest.raises(NotImplementedError):
-        asyncio.run(engine.go_multiple(ipc.chunk_from_wire(
-            chunk_to_wire(_chunk(_analysis(depth=1, multipv=3))))))
-    with pytest.raises(NotImplementedError):
-        asyncio.run(engine.go_multiple(ipc.chunk_from_wire(
-            chunk_to_wire(_chunk(_analysis(depth=1), variant="atomic")))))
+    assert GpuEngine(params=tp, tt_size_log2=4, device="cpu").refill is False
+    monkeypatch.setenv("FISHNET_TPU_REFILL", "1")
+    assert GpuEngine(params=tp, tt_size_log2=4, device="cpu").refill is True
+    assert GpuEngine(params=tp, tt_size_log2=4, device="cpu", refill=False).refill is False
+    for refill in (False, True):
+        engine = GpuEngine(params=tp, tt_size_log2=4, device="cpu", refill=refill)
+        with pytest.raises(NotImplementedError):
+            asyncio.run(engine.go_multiple(ipc.chunk_from_wire(
+                chunk_to_wire(_chunk(_analysis(depth=1, multipv=3))))))
+        with pytest.raises(NotImplementedError):
+            asyncio.run(engine.go_multiple(ipc.chunk_from_wire(
+                chunk_to_wire(_chunk(_analysis(depth=1), variant="atomic")))))
+        assert engine.occupancy_totals["positions_done"] == 0
     move_chunk = chunk_to_wire(_chunk(MoveWork(id="mv1", level=SkillLevel(3))))
     with pytest.raises(NotImplementedError):
         ipc.chunk_from_wire(move_chunk)
@@ -144,9 +152,10 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'fishnet_tpu'))\n"
         "assert not bad, bad\n"
+        "assert 'fishnet_tpu_torch.syncstats' in sys.modules\n"
         "print(len([m for m in sys.modules if m.startswith('fishnet_tpu_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", prog], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    assert int(out.stdout.split()[-1]) >= 16

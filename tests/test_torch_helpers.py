@@ -100,17 +100,25 @@ def test_jittered_history_matches_reference():
 def test_engine_defaults_and_refusals(monkeypatch):
     tp = tn.load_params(device="cpu")
     monkeypatch.delenv("FISHNET_TPU_HELPERS", raising=False)
+    monkeypatch.delenv("FISHNET_TPU_REFILL", raising=False)
     engine = GpuEngine(params=tp, device="cpu")
     assert engine.tt.shape == (1 << 21, 4) and engine.tt.dtype == torch.int32
     assert engine.tt.device.type == "cpu" and engine.helper_lanes == 4
     assert engine.max_lanes == 1024
+    assert engine.refill is True  # the reference's default: the LaneScheduler
     monkeypatch.setenv("FISHNET_TPU_HELPERS", "40")
     assert GpuEngine(params=tp, tt_size_log2=4, device="cpu").helper_lanes == 16
     # helpers talk only through the table: none without it
     no_tt = GpuEngine(params=tp, tt_size_log2=0, helper_lanes=4, device="cpu")
     assert no_tt.tt is None and no_tt.helper_lanes == 1
+    # refill=True constructs; on the refill path a variant that is not
+    # ported is refused before anything is queued
+    engine = GpuEngine(params=tp, tt_size_log2=4, device="cpu", refill=True)
+    assert engine.refill is True
     with pytest.raises(NotImplementedError):
-        GpuEngine(params=tp, tt_size_log2=4, device="cpu", refill=True)
+        asyncio.run(engine.go_multiple(ipc.chunk_from_wire(chunk_to_wire(
+            _chunk((0,), 1, variant="atomic")))))
+    assert not engine._scheduler._pending
 
 
 START = "rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR w KQkq - 0 1"
@@ -118,7 +126,7 @@ GAME = ["e2e4", "c7c5", "g1f3", "d7d6", "d2d4", "c5d4", "f3d4", "g8f6", "b1c3",
         "a7a6", "c1e3", "e7e5", "d4b3"]
 
 
-def _chunk(plies, depth):
+def _chunk(plies, depth, variant="standard"):
     work = AnalysisWork(id="torchhelp", nodes=NodeLimit(sf16=400_000, classical=400_000),
                         timeout_s=60.0, depth=depth, multipv=None)
     positions = [
@@ -126,7 +134,7 @@ def _chunk(plies, depth):
                      moves=GAME[:k])
         for i, k in enumerate(plies)
     ]
-    return Chunk(work=work, deadline=time.monotonic() + 600, variant="standard",
+    return Chunk(work=work, deadline=time.monotonic() + 600, variant=variant,
                  flavor=EngineFlavor.TPU, positions=positions)
 
 
