@@ -13,9 +13,12 @@ Phases (any failure exits non-zero before the final line):
      (K5, K6) on seeded tables with forced slot collisions, plain and
      prefer_deep, deep_bounds off and on, with contiguous inputs and with
      the runner's strided and broadcast ones; the lane init (K7) over
-     every lane and over a scattered quarter of them; with times (CUDA
-     events and torch.profiler) and bounds from the bytes these inputs
-     need;
+     every lane and over a scattered quarter of them; the board rules,
+     move generator and make-move (K8-K10) on seeded tactical, promotion,
+     en-passant, check and chess960 castling positions and playouts from
+     them, with and without killers and history, over every generated
+     move; with times (CUDA events and torch.profiler) and bounds from the
+     bytes these inputs need;
   4. where a search step's time goes (torch.profiler: B = 16 and 1024
      without the table, B = 64 with it);
   5. the main path: one standard-chess analysis chunk through GpuEngine()
@@ -102,7 +105,7 @@ def nvcc_version() -> str:
 
 # the kernels of a search without the transposition table
 NO_TT_KERNELS = ("nnue_refresh_768", "nnue_forward_from_acc", "nnue_acc_update_768",
-                 "zobrist_hash", "lane_init")
+                 "zobrist_hash", "lane_init", "node_rules", "generate_moves", "make_move")
 
 
 def check_launches(path: str, expected=None) -> dict:
@@ -150,23 +153,31 @@ def time_ms(fn, reps: int):
     return (dev_us / reps / 1e3 if dev_us > 0 else call_ms), call_ms
 
 
-def playout_boards(n: int, seed: int):
-    """n positions from seeded random playouts → (Board, legal moves)."""
+def playout_positions(n: int, seed: int):
+    """n positions from seeded random playouts → (Positions, the legal
+    move played from each)."""
     from fishnet_tpu_torch.chess import Position
-    from fishnet_tpu_torch.ops.board import from_position, stack_boards
 
     rng = random.Random(seed)
-    boards, moves = [], []
+    positions, moves = [], []
     pos = Position.initial()
-    while len(boards) < n:
+    while len(positions) < n:
         legal = pos.legal_moves()
         if not legal or pos.halfmove >= 90:
             pos = Position.initial()
             continue
-        boards.append(from_position(pos))
+        positions.append(pos)
         moves.append(rng.choice(legal))
         pos = pos.push(moves[-1])
-    return stack_boards(boards), moves
+    return positions, moves
+
+
+def playout_boards(n: int, seed: int):
+    """n positions from seeded random playouts → (Board, legal moves)."""
+    from fishnet_tpu_torch.ops.board import from_position, stack_boards
+
+    positions, moves = playout_positions(n, seed)
+    return stack_boards([from_position(p) for p in positions]), moves
 
 
 def encode(m) -> int:
@@ -630,6 +641,173 @@ def lane_init_phase(reps: int) -> dict:
     return {"lane_init": stats}
 
 
+# K8-K10's fixed positions (chess960?, FEN): tactical middlegames, both
+# sides' promotions (pushes and captures), en passant, positions in check,
+# standard castling both ways and chess960 starts (castling paths through
+# the rook's square, partly attacked); rules_case adds playouts from them
+RULES_FENS = [
+    (False, "r3k2r/p1ppqpb1/bn2pnp1/3PN3/1p2P3/2N2Q1p/PPPBBPPP/R3K2R w KQkq - 0 1"),
+    (False, "r3k2r/Pppp1ppp/1b3nbN/nP6/BBP1P3/q4N2/Pp1P2PP/R2Q1RK1 w kq - 0 1"),
+    (False, "8/2p5/3p4/KP5r/1R3p1k/8/4P1P1/8 w - - 0 1"),
+    (False, "r3k2r/8/8/8/8/8/8/R3K2R w KQkq - 0 1"),
+    (False, "r3k2r/8/8/8/8/8/8/R3K2R b KQkq - 0 1"),
+    (False, "r3k2r/8/8/8/8/8/5q2/R3K2R w KQkq - 0 1"),
+    (False, "rnbqkbnr/ppp1p1pp/8/3pPp2/8/8/PPPP1PPP/RNBQKBNR w KQkq f6 0 3"),
+    (False, "rnbqkbnr/pppp1ppp/8/8/3Pp3/5N2/PPP1PPPP/RNBQKB1R b KQkq d3 0 3"),
+    (False, "1r2k3/P1P5/8/8/8/8/1p1p4/R3K1N1 w Q - 0 1"),
+    (False, "1r2k3/P1P5/8/8/8/8/1p1p4/R1N4K b - - 0 1"),
+    (False, "4k3/8/8/1b6/8/8/8/R3K2R w KQ - 0 1"),
+    (False, "4k3/8/8/8/8/8/4q3/4K3 w - - 0 1"),
+    (True, "bqnb1rkr/pp3ppp/3ppn2/2p5/5P2/P2P4/NPP1P1PP/BQ1BNRKR w HFhf - 2 9"),
+    (True, "b1q1rrkb/pppppppp/3nn3/8/P7/1PPP4/4PPPP/BQNNRKRB w GE - 1 9"),
+    (True, "1rk1r3/8/8/8/8/8/8/1RK1R3 w EBeb - 0 1"),
+]
+
+
+def rules_case(B: int, seed: int) -> dict:
+    """B seeded positions for K8-K10: RULES_FENS, random playouts from
+    them (a quarter of the lanes; chess960 rules where the start is one),
+    then playout_positions, with seeded killers (two pseudo-legal moves or
+    -1) and history counters. → dict of int32 numpy arrays: board (B, 64),
+    stm, ep, halfmove (B,), castling (B, 4), killers (B, 2), hist
+    (B, 4096)."""
+    import numpy as np
+
+    from fishnet_tpu_torch.chess import Chess960Position, Position
+    from fishnet_tpu_torch.ops.board import from_position
+
+    rng = random.Random(seed)
+    starts = [(Chess960Position if c960 else Position).from_fen(f) for c960, f in RULES_FENS]
+    positions = starts[:B]
+    pos = None
+    while len(positions) < min(B, len(starts) + B // 4):
+        legal = [] if pos is None else pos.legal_moves()
+        if not legal or pos.halfmove >= 90 or rng.random() < 0.04:
+            pos = rng.choice(starts)
+            continue
+        pos = pos.push(rng.choice(legal))
+        positions.append(pos)
+    positions += playout_positions(B - len(positions), seed)[0]
+    nrng = np.random.default_rng(seed)
+    killers = np.full((B, 2), -1, np.int32)
+    for lane, p in enumerate(positions):
+        moves = [encode(m) for m in p.generate_pseudo_legal()]
+        for k in range(2):
+            if moves and nrng.random() < 0.75:
+                killers[lane, k] = moves[nrng.integers(len(moves))]
+    boards = [from_position(p) for p in positions]
+    case = {f: np.concatenate([getattr(b, f).numpy() for b in boards]).astype(np.int32)
+            for f in ("board", "stm", "ep", "castling", "halfmove")}
+    case["killers"] = killers
+    case["hist"] = nrng.integers(-64, 1 << 13, (B, 4096)).astype(np.int32)
+    return case
+
+
+def rules_inputs(B: int, seed: int, dev):
+    """rules_case on dev → (Board, killers, hist)."""
+    import torch
+
+    from fishnet_tpu_torch.ops.board import Board
+
+    c = {k: torch.from_numpy(v).to(dev) for k, v in rules_case(B, seed).items()}
+    return Board(*[c[f] for f in Board._fields]), c["killers"], c["hist"]
+
+
+def every_move(b, moves, count):
+    """Each lane's board repeated once per generated move → (boards, moves)."""
+    import torch
+
+    lane = torch.arange(moves.shape[0], device=moves.device)[:, None].expand_as(moves)
+    live = torch.arange(moves.shape[1], device=moves.device)[None] < count[:, None]
+    idx = lane[live]
+    return type(b)(*[t[idx] for t in b]), moves[live].contiguous()
+
+
+def rules_kernel_phase(reps: int) -> dict:
+    """K8-K10 against their plain versions on the card at B = 16, 64 (the
+    engine's width) and 1024 on rules_case's positions: K8 on the boards
+    and on every child K10 makes, K9 with and without the killers and
+    history, K10 over every generated move, also from packed rows (as the
+    step calls it). Max error 0 everywhere. Times at B = 64 and 1024, one
+    call each as the step makes it (K9 with killers and history, K10 one
+    move a lane); the bounds count the bytes each lane must move."""
+    import torch
+
+    from fishnet_tpu_torch.ops import board as tb
+    from fishnet_tpu_torch.ops import movegen as tm
+
+    dev = torch.device("cuda")
+    stats = {k: {"max_abs_err": 0.0} for k in ("node_rules", "generate_moves", "make_move")}
+
+    def check(name, label, got, want):
+        err = max(float((g.long() - w.long()).abs().max()) if g.numel() else 0.0
+                  for g, w in zip(got, want))
+        same = all(g.shape == w.shape and g.dtype == w.dtype for g, w in zip(got, want))
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+        if err != 0 or not same:
+            raise AssertionError(f"{name} {label}: max_abs_err {err}, shapes/dtypes equal {same}")
+        log(f"check {name} {label}: max_abs_err={err} (tolerance 0)")
+
+    for B in (16, 64, 1024):
+        b, killers, hist = rules_inputs(B, seed=B, dev=dev)
+        for label, kw in (("plain ordering", {}), ("killers+history",
+                                                   {"killers": killers, "hist": hist})):
+            got = tm.generate_moves(b, **kw)
+            want = tm.generate_moves_plain(b, **kw)
+            torch.cuda.synchronize()
+            check("generate_moves", f"B={B} {label} (moves {int(want[1].sum())})", got, want)
+        moves, count, _ = want
+        pb, pm = every_move(b, moves, count)
+        rows = tb.rows_from_board(pb)
+        got = tb.make_move_rows(rows, pm)
+        want = tb.make_move_rows_plain(rows, pm)
+        child = tb.board_from_rows(want[0])
+        torch.cuda.synchronize()
+        check("make_move", f"B={B} every move ({pm.shape[0]} lanes) from rows", got, want)
+        for label, boards in (("boards", b), ("children", child)):
+            got, want = tb.node_rules(boards), tb.node_rules_plain(boards)
+            torch.cuda.synchronize()
+            check("node_rules", f"B={B} {label} ({int(want[0].sum())} illegal, "
+                  f"{int(want[1].sum())} in check of {boards.board.shape[0]})", got, want)
+        if B == 16:
+            continue
+
+        # one call as the step makes it: the lane's board rows, its killers
+        # and history; K10 on one generated move a lane
+        rows = tb.rows_from_board(b)
+        rb = tb.board_from_rows(rows)
+        pick = torch.div(count, 2, rounding_mode="floor").long()[:, None]
+        move = moves.gather(1, pick)[:, 0].clamp(min=0).contiguous()
+        # history words the quiet moves read, each (lane, from|to) once
+        flat_moves, flat_valid, flat_keys = tm._candidate_space(b)
+        lane = torch.arange(B, device=dev)[:, None] * 4096
+        quiet = flat_valid & (flat_keys == tm.QUIET_KEY)
+        n_hist = int((lane + (flat_moves & 4095))[quiet].unique().numel())
+        timed = {  # kernel, plain version, bytes: board, scalars, extras in; out
+            "node_rules": (
+                lambda: tb.node_rules(rb), lambda: tb.node_rules_plain(rb),
+                B * (64 + 1) * 4 + B * 2),
+            "generate_moves": (
+                lambda: tm.generate_moves(rb, killers, hist),
+                lambda: tm.generate_moves_plain(rb, killers, hist),
+                B * (64 + 6 + 2) * 4 + n_hist * 4 + B * (tm.MAX_MOVES + 2) * 4),
+            "make_move": (
+                # out: the child's 71 words and the 12 change words; the
+                # row's zero tail is not the function's output
+                lambda: tb.make_move_rows(rows, move), lambda: tb.make_move_rows_plain(rows, move),
+                B * (64 + 7 + 1) * 4 + B * (64 + 7 + 12) * 4),
+        }
+        for name, (kern, plain, nbytes) in timed.items():
+            (ms, call_ms), (plain_ms, plain_call) = time_ms(kern, reps), time_ms(plain, reps)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            stats[name].update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+                               bound_by="bytes")
+            log(f"time {name} B={B} (device ms / call ms): kernel {ms:.5f} / {call_ms:.5f}, "
+                f"plain {plain_ms:.5f} / {plain_call:.5f}, library none, bound {bound:.6f} "
+                f"(bytes, {nbytes} bytes)")
+    return stats
+
+
 def make_chunk(n_positions: int, depth: int):
     from fishnet_tpu_torch.ipc import AnalysisWork, Chunk, EngineFlavor, NodeLimit, WorkPosition
 
@@ -967,6 +1145,7 @@ def main() -> int:
     stats = kernel_phase(params, REPS)
     stats.update(tt_kernel_phase(REPS))
     stats.update(lane_init_phase(REPS))
+    stats.update(rules_kernel_phase(REPS))
     log(f"kernel phase: {time.monotonic() - t0:.1f} s")
     phases = [
         ("profile", lambda: [profile_phase(params, lanes, PROFILE_STEPS, tt_on)
@@ -995,6 +1174,9 @@ def main() -> int:
         "tt_probe": "fishnet_tpu/ops/tt.py:188",
         "tt_store": "fishnet_tpu/ops/tt.py:240",
         "lane_init": "fishnet_tpu/ops/search.py:1061",
+        "node_rules": "fishnet_tpu/ops/board.py:256",
+        "generate_moves": "fishnet_tpu/ops/movegen.py:124",
+        "make_move": "fishnet_tpu/ops/board.py:345",
     }
     rows = [
         {"name": name, "route": "cuda", "source": f"fishnet_tpu_torch/csrc/{name}.cu",

@@ -1,0 +1,183 @@
+// The board rules of one lane as warp-cooperative device functions: the
+// attack query, node_rules (K8) and make_move with its piece changes
+// (K10). One warp serves one lane; `t` is the thread's index in the warp,
+// and every thread of the warp calls each function (they use __any_sync
+// and __ballot_sync over the full warp). K9 (movegen.cuh) and the segment
+// kernel build on the same functions.
+//
+// The static tables and constants come from rules_tables.cuh, which
+// kernels.build() generates from the plain versions' own tables
+// (ops/tables.py, ops/board.py, ops/movegen.py).
+//
+// Boards are the search's packed codes (0 empty, 1-6 white PNBRQK, 7-12
+// black), a lane's 64 codes staged in shared memory by load_board.
+#pragma once
+#include "common.cuh"
+#include "rules_tables.cuh"
+
+namespace rules {
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int WARP = 32;
+// make_move_warp writes the board words and then one word per thread
+static_assert(BT_BOARD == 0 && BT_STM == 64 && BT_W == BT_STM + WARP, "board row layout");
+
+__device__ __forceinline__ int ray_sq(int sq, int dir, int step) {
+    return __ldg(&RAYS[(sq * 8 + dir) * 7 + step]);
+}
+__device__ __forceinline__ int knight_sq(int sq, int i) { return __ldg(&KNIGHT_TARGETS[sq * 8 + i]); }
+__device__ __forceinline__ int king_sq(int sq, int i) { return __ldg(&KING_TARGETS[sq * 8 + i]); }
+// the squares a pawn of `color` on sq attacks
+__device__ __forceinline__ int pawn_cap_sq(int color, int sq, int i) {
+    return __ldg(&PAWN_CAPTURES[(color * 64 + sq) * 2 + i]);
+}
+__device__ __forceinline__ int ptype(int code) { return __ldg(&PIECE_TYPE[code]); }
+__device__ __forceinline__ int pcolor(int code) { return __ldg(&PIECE_COLOR[code]); }
+__device__ __forceinline__ bool slides(int code, int dir) { return __ldg(&SLIDER_MASK[dir * 13 + code]); }
+
+// The lane's 64 codes (a row of `src`, element stride 1) into shared sb.
+__device__ __forceinline__ void load_board(int* sb, const int32_t* src, int t) {
+    sb[t] = src[t];
+    sb[t + WARP] = src[t + WARP];
+    __syncwarp();
+}
+
+// Is sq attacked by color `by`? One thread's scalar query (board.py
+// attack_parts at one square): a knight, king or pawn of `by` on a square
+// that attacks sq, or a slider of `by` first on one of sq's rays that
+// moves along that ray. The sliders' rays read lift_a and lift_b (-1:
+// none) as empty: K9's castling check lifts the king and its rook.
+__device__ bool attacked(const int* sb, int sq, int by, int lift_a, int lift_b) {
+    const int knight = W_KNIGHT + 6 * by, king = W_KING + 6 * by, pawn = W_PAWN + 6 * by;
+    for (int i = 0; i < 8; ++i) {
+        int s = knight_sq(sq, i);
+        if (s >= 0 && sb[s] == knight) return true;
+        s = king_sq(sq, i);
+        if (s >= 0 && sb[s] == king) return true;
+    }
+    for (int i = 0; i < 2; ++i) {  // `by`'s pawns attack sq from where the other color's would
+        int s = pawn_cap_sq(1 - by, sq, i);
+        if (s >= 0 && sb[s] == pawn) return true;
+    }
+    for (int d = 0; d < 8; ++d) {
+        for (int i = 0; i < 7; ++i) {
+            int s = ray_sq(sq, d, i);
+            if (s < 0) break;
+            if (s == lift_a || s == lift_b) continue;
+            int code = sb[s];
+            if (code == 0) continue;
+            if (pcolor(code) == by && slides(code, d)) return true;
+            break;
+        }
+    }
+    return false;
+}
+
+// K8's body: node_rules for standard chess and chess960 (board.py
+// node_rules_plain). parent_illegal: the side that just moved left its
+// king attacked, or has none; checked: the side to move is in check.
+// Every square holding a king is tested, as the plain version's maps do.
+__device__ void node_rules_warp(const int* sb, int stm, int t, bool* parent_illegal,
+                                bool* checked) {
+    const int us = stm == 0 ? 0 : 1;
+    const int our_king = W_KING + 6 * stm, their_king = B_KING - 6 * stm;
+    bool seen = false, their_hit = false, our_hit = false;
+    for (int sq = t; sq < 64; sq += WARP) {
+        int code = sb[sq];
+        if (code == their_king) {
+            seen = true;
+            their_hit |= attacked(sb, sq, us, -1, -1);
+        }
+        if (code == our_king) our_hit |= attacked(sb, sq, 1 - us, -1, -1);
+    }
+    *parent_illegal = !__any_sync(FULL_MASK, seen) || __any_sync(FULL_MASK, their_hit);
+    *checked = __any_sync(FULL_MASK, our_hit);
+}
+
+// A move decoded against its board (board.py _move_parts).
+struct MoveParts {
+    int frm, to, piece, target, placed, rook;
+    bool is_pawn, is_king, is_castle, is_ep, capture;
+    int ep_victim, king_to, r_dest, cleared;
+};
+
+__device__ __forceinline__ MoveParts decode_move(const int* sb, int stm, int ep, int move) {
+    MoveParts m;
+    m.frm = move & 63;
+    m.to = (move >> 6) & 63;
+    const int promo = move >> 12;
+    m.piece = sb[m.frm];
+    m.target = sb[m.to];
+    const int us6 = 6 * stm;
+    const int pt = ptype(m.piece);
+    m.is_pawn = pt == 0;
+    m.is_king = pt == 5;
+    m.rook = W_ROOK + us6;
+    m.is_castle = m.is_king && m.target == m.rook;  // king takes own rook
+    m.capture = pcolor(m.target) == 1 - stm;
+    m.is_ep = m.is_pawn && m.to == ep && m.target == 0 && (m.to & 7) != (m.frm & 7);
+    m.ep_victim = min(max(m.to - 8 + 16 * stm, 0), 63);
+    m.placed = promo > 0 ? __ldg(&PROMO_TO_PIECE[min(promo, 5)]) + us6 : m.piece;
+    const int slot = 2 * stm + (m.to > m.frm ? 0 : 1);  // kingside, queenside
+    m.r_dest = __ldg(&CASTLE_ROOK_TO[slot]);
+    m.king_to = m.is_castle ? __ldg(&CASTLE_KING_TO[slot]) : m.to;
+    m.cleared = m.is_castle ? m.to : (m.is_ep ? m.ep_victim : m.frm);
+    return m;
+}
+
+// The child's code on sq: the origin and the capture (or castling rook)
+// square cleared, then the mover placed (board.py _apply's scatters; the
+// two placements never share a square unless they place the same code).
+__device__ __forceinline__ int child_code(const int* sb, const MoveParts& m, int sq) {
+    int code = (sq == m.frm || sq == m.cleared) ? 0 : sb[sq];
+    if (sq == m.king_to) code = m.is_castle ? m.piece : m.placed;
+    if (sq == (m.is_castle ? m.r_dest : m.to)) code = m.is_castle ? m.rook : m.placed;
+    return code;
+}
+
+// K10's body: the child of `move` as a packed board row (BT_W words: the
+// board, side to move, ep square, castling rooks, halfmove clock, then
+// zeros, as board.py rows_from_board writes them) and the four piece-
+// change slots [mover out, capture out, mover in, rook in] (codes, sqs,
+// signs; board.py _changes). Each thread writes its own words.
+__device__ void make_move_warp(const int* sb, int stm, int ep, const int32_t* castling,
+                               int halfmove, int move, int t, int32_t* child,
+                               int32_t* codes, int32_t* sqs, int32_t* signs) {
+    const MoveParts m = decode_move(sb, stm, ep, move);
+    child[BT_BOARD + t] = child_code(sb, m, t);
+    child[BT_BOARD + t + WARP] = child_code(sb, m, t + WARP);
+    const int w = BT_STM + t;  // one word of the rest of the row a thread
+    int v = 0;
+    if (w == BT_STM) {
+        v = 1 - stm;
+    } else if (w == BT_EP) {
+        const bool dbl = m.is_pawn && abs(m.to - m.frm) == 16;
+        v = dbl ? (m.frm + m.to) >> 1 : -1;
+    } else if (w >= BT_CAST && w < BT_CAST + 4) {
+        const int i = w - BT_CAST;
+        const int rook_sq = castling[i];
+        const bool gone = (m.is_king && __ldg(&CASTLE_SLOT_COLOR[i]) == stm)
+                          || rook_sq == m.frm || rook_sq == m.to;
+        v = gone ? -1 : rook_sq;
+    } else if (w == BT_HM) {
+        v = (m.is_pawn || m.capture || m.is_ep) ? 0 : halfmove + 1;
+    }
+    child[w] = v;
+    if (t < 4) {
+        int code, sq;
+        switch (t) {
+            case 0: code = m.piece; sq = m.frm; break;
+            case 1:
+                code = m.is_ep ? sb[m.ep_victim] : ((m.is_castle || m.capture) ? m.target : 0);
+                sq = m.is_ep ? m.ep_victim : m.to;
+                break;
+            case 2: code = m.placed; sq = m.king_to; break;
+            default: code = m.is_castle ? m.rook : 0; sq = m.r_dest; break;
+        }
+        codes[t] = code;
+        sqs[t] = sq;
+        signs[t] = __ldg(&CHANGE_SIGNS[t]);
+    }
+}
+
+}  // namespace rules

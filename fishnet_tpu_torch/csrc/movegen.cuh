@@ -1,0 +1,191 @@
+// K9's body: the pseudo-legal moves of one lane, ordered, as a warp-
+// cooperative device function (ops/movegen.py generate_moves_plain).
+//
+// The plain version fills ~4,962 fixed candidate slots and sorts them all:
+// the TPU's answer to fixed shapes. Here the warp enumerates the moves
+// themselves (each thread the pieces on two squares; two threads the two
+// castling rooks, sixteen the squares of their king paths) into a list in
+// shared memory, then ranks the list. Each move is packed as
+// (key << 16) | move with the plain version's key; the packed values of a
+// position are distinct, so a value's rank (how many values are smaller)
+// is its place in the plain version's sorted list, and the list is that
+// list bit for bit. (Equal values, which only a castling right without
+// its rook could make, are ranked by list position: a stable sort.) The
+// rank sort costs n^2 / 32 shared-memory reads per thread for n moves
+// (~40 in a middlegame), and no thread waits on another's order.
+#pragma once
+#include "board.cuh"
+
+namespace rules {
+
+// Room for every move of any board: at most 64 * 64 / 4 = 1,024 moves
+// from an own piece to a square that is empty or the opponent's, the 72
+// promotion variants beyond the first of 24 pawn moves, 2 castling moves
+// and 2 en-passant captures onto an own piece that the plain version's
+// en-passant test also admits.
+constexpr int MOVE_LIST_CAP = 1152;
+
+struct MoveList {
+    int packed[MOVE_LIST_CAP];
+    int n;
+    int noisy;
+};
+
+// The quiet-ordering state of a lane: history counters (4096, nullptr for
+// none) and two killer moves (-1 for none: no move encodes as -1).
+struct Ordering {
+    const int32_t* hist;
+    int killer0, killer1;
+};
+
+__device__ __forceinline__ void emit(MoveList& list, const Ordering& o, int key, int move) {
+    if (o.hist != nullptr && key == QUIET_KEY) {
+        const int bonus = min(max(__ldg(&o.hist[move & 4095]) >> HIST_SHIFT, 0), HIST_MAX_BONUS);
+        key = HIST_BASE - bonus;
+    }
+    if (key >= NOISY_BELOW && (move == o.killer0 || move == o.killer1)) {
+        key = KILLER_KEY;
+    }
+    if (key < NOISY_BELOW) atomicAdd(&list.noisy, 1);
+    const int slot = atomicAdd(&list.n, 1);
+    if (slot < MOVE_LIST_CAP) list.packed[slot] = (key << 16) | move;
+}
+
+__device__ __forceinline__ int pair_key(int mover, int target) {
+    return __ldg(&PAIR_KEY[mover * 13 + target]);
+}
+__device__ __forceinline__ bool pair_take(int mover, int target) {
+    return __ldg(&PAIR_TAKE[mover * 13 + target]);
+}
+
+// The moves of the piece on sq, if it is the side to move's.
+__device__ void piece_moves(const int* sb, int us, int ep, int sq, MoveList& list,
+                            const Ordering& o) {
+    const int code = sb[sq];
+    if (code == 0 || pcolor(code) != us) return;
+    const int pt = ptype(code);
+    if (code == W_PAWN + 6 * us) {
+        const int to1 = __ldg(&PAWN_PUSH[(us * 2) * 64 + sq]);
+        const int to2 = __ldg(&PAWN_PUSH[(us * 2 + 1) * 64 + sq]);
+        const bool to1_ok = sb[to1] == 0;
+        const bool pre_promo = __ldg(&PAWN_PRE_PROMO[us * 64 + sq]);
+        if (to1_ok && __ldg(&PAWN_START[us * 64 + sq]) && sb[to2] == 0) {
+            emit(list, o, QUIET_KEY, sq | (to2 << 6));
+        }
+        for (int i = -1; i < 2; ++i) {  // the push, then the two captures
+            int to = to1, key = QUIET_KEY;
+            bool ok = to1_ok;
+            if (i >= 0) {
+                to = pawn_cap_sq(us, sq, i);
+                const int target = to >= 0 ? sb[to] : 0;
+                ok = (to >= 0 && pcolor(target) == 1 - us) || (to >= 0 ? to : 64) == ep;
+                key = __ldg(&PAWN_CAP_KEY[target]);
+            }
+            if (!ok) continue;
+            const int base = sq | (max(to, 0) << 6);
+            if (!pre_promo) {
+                emit(list, o, key, base);
+                continue;
+            }
+            for (int p = 0; p < 4; ++p) {
+                const int promo = __ldg(&PROMOS[p]);
+                emit(list, o, key - (promo == PROMO_Q ? QUEEN_PROMO_BONUS : 0), base | (promo << 12));
+            }
+        }
+    } else if (pt == 1 || pt == 5) {
+        const int8_t* targets = pt == 1 ? KNIGHT_TARGETS : KING_TARGETS;
+        for (int i = 0; i < 8; ++i) {
+            const int to = __ldg(&targets[sq * 8 + i]);
+            if (to >= 0 && pair_take(code, sb[to])) emit(list, o, pair_key(code, sb[to]), sq | (to << 6));
+        }
+    } else {
+        for (int d = 0; d < 8; ++d) {
+            if (!slides(code, d)) continue;
+            for (int i = 0; i < 7; ++i) {
+                const int to = ray_sq(sq, d, i);
+                if (to < 0) break;
+                const int target = sb[to];
+                if (pair_take(code, target)) emit(list, o, pair_key(code, target), sq | (to << 6));
+                if (target != 0) break;
+            }
+        }
+    }
+}
+
+// Castling, encoded king-takes-rook (ops/movegen.py _castling): for each
+// of the side to move's castling rooks, the squares between king and rook
+// and their destinations must be empty but for the two, and no square of
+// the king's path attacked with both lifted off the board.
+__device__ void castling_moves(const int* sb, int us, const int32_t* castling, int t,
+                               MoveList& list, const Ordering& o) {
+    const int king_code = W_KING + 6 * us;
+    const unsigned lo = __ballot_sync(FULL_MASK, sb[t] == king_code);
+    const unsigned hi = __ballot_sync(FULL_MASK, sb[t + WARP] == king_code);
+    const int ksq = lo ? __ffs(lo) - 1 : (hi ? WARP + __ffs(hi) - 1 : -1);  // the first king
+    bool blocked[2], unsafe[2], has[2];
+    int rsq[2], lo_k[2], hi_k[2];
+    for (int side = 0; side < 2; ++side) {
+        const int slot = 2 * us + side;
+        const int raw = castling[slot];
+        has[side] = raw >= 0 && ksq >= 0;
+        rsq[side] = min(max(raw, 0), 63);
+        const int kq = max(ksq, 0);
+        const int k_dest = __ldg(&CASTLE_KING_TO[slot]), r_dest = __ldg(&CASTLE_ROOK_TO[slot]);
+        lo_k[side] = min(kq, k_dest);
+        hi_k[side] = max(kq, k_dest);
+        const int lo_r = min(rsq[side], r_dest), hi_r = max(rsq[side], r_dest);
+        bool occupied = false;
+        for (int sq = t; sq < 64; sq += WARP) {
+            const bool span = (sq >= lo_k[side] && sq <= hi_k[side]) || (sq >= lo_r && sq <= hi_r);
+            occupied |= span && sq != kq && sq != rsq[side] && sb[sq] != 0;
+        }
+        blocked[side] = __any_sync(FULL_MASK, occupied);
+    }
+    // threads 0-7 walk the kingside path, 8-15 the queenside one
+    const int side = (t >> 3) & 1;
+    bool hit = false;
+    if (t < 16 && has[side] && !blocked[side]) {
+        for (int sq = lo_k[side] + (t & 7); sq <= hi_k[side]; sq += 8) {
+            hit |= attacked(sb, sq, 1 - us, max(ksq, 0), rsq[side]);
+        }
+    }
+    const unsigned hits = __ballot_sync(FULL_MASK, hit);
+    unsafe[0] = (hits & 0x00ffu) != 0;
+    unsafe[1] = (hits & 0xff00u) != 0;
+    if (t < 2 && has[t] && !blocked[t] && !unsafe[t]) {
+        emit(list, o, CASTLE_KEY, max(ksq, 0) | (rsq[t] << 6));
+    }
+}
+
+// The lane's ordered move list: moves (MAX_MOVES words, -1 padded), and
+// the count and the noisy prefix's length, each clamped to MAX_MOVES.
+// list is the warp's shared scratch; sb the lane's board in shared memory.
+__device__ void generate_moves_warp(const int* sb, int stm, int ep, const int32_t* castling,
+                                    const Ordering& o, int t, MoveList& list, int32_t* moves,
+                                    int* count, int* noisy) {
+    if (t == 0) {
+        list.n = 0;
+        list.noisy = 0;
+    }
+    __syncwarp();
+    piece_moves(sb, stm, ep, t, list, o);
+    piece_moves(sb, stm, ep, t + WARP, list, o);
+    castling_moves(sb, stm, castling, t, list, o);
+    __syncwarp();
+    const int n = min(list.n, MOVE_LIST_CAP);
+    for (int j = t; j < n; j += WARP) {
+        const int v = list.packed[j];
+        int rank = 0;
+        for (int k = 0; k < n; ++k) {
+            const int w = list.packed[k];
+            rank += w < v || (w == v && k < j);  // equal values (none in play) stay apart
+        }
+        if (rank < MAX_MOVES) moves[rank] = v & 0xFFFF;
+    }
+    for (int j = min(n, MAX_MOVES) + t; j < MAX_MOVES; j += WARP) moves[j] = -1;
+    *count = min(list.n, MAX_MOVES);
+    *noisy = min(list.noisy, MAX_MOVES);
+    __syncwarp();  // the list may be reused by the warp's next lane
+}
+
+}  // namespace rules

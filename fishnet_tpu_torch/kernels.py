@@ -2,12 +2,17 @@
 
 Each `csrc/<name>.cu` compiles with nvcc for sm_90a into its own shared
 library with a plain C interface (`build/kernels-<hash>/lib<name>.so`,
-cached by a hash of the sources and flags; all sources build at once, one
-nvcc each). The wrappers below take CUDA tensors only: they check device,
-dtype, shape and contiguity, allocate the output with `torch.empty`,
-launch on the current stream, raise if the launch returned an error, and
-count the launch. The callers (models/nnue.py, ops/tt.py, ops/search.py) send CPU
-tensors to their plain PyTorch versions instead; nothing here falls back.
+cached by a hash of the sources, the generated header and the flags; all
+sources build at once, one nvcc each). The board kernels (K8-K10) include
+`rules_tables.cuh`, which `rules_header` writes into the build directory
+from the plain versions' own tables (ops/tables.py, ops/board.py,
+ops/movegen.py), so no table is typed twice. The wrappers below take
+CUDA tensors only: they check device, dtype, shape and contiguity,
+allocate the output with `torch.empty`, launch on the current stream,
+raise if the launch returned an error, and count the launch. The callers
+(models/nnue.py, ops/tt.py, ops/board.py, ops/movegen.py, ops/search.py)
+send CPU tensors to their plain PyTorch versions instead; nothing here
+falls back.
 """
 from __future__ import annotations
 
@@ -20,7 +25,10 @@ import threading
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
+
+from .ops.tables import MAX_MOVES  # K9's move-list width
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build"
@@ -31,6 +39,7 @@ NVCC_FLAGS = (
 KERNELS = (
     "nnue_refresh_768", "nnue_forward_from_acc", "nnue_acc_update_768",
     "zobrist_hash", "tt_probe", "tt_store", "lane_init",
+    "node_rules", "generate_moves", "make_move",
 )
 
 # length of each Zobrist table (ops/tt.py Z_SHAPE; the kernel reads the
@@ -55,6 +64,9 @@ _SIGNATURES = {
     "tt_probe": [_P, _I] + [_P, _L] * 5 + [_P, _I, _P, _P, _P, _I, _P],
     "tt_store": [_P, _I] + [_P, _L] * 6 + [_P, _P, _I, _I, _I, _P],
     "lane_init": [_P] * 20 + [_I] * 5 + [_P],
+    "node_rules": [_P, _L, _P, _L, _P, _P, _I, _P],
+    "generate_moves": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _P, _I, _P],
+    "make_move": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _P, _P, _I, _P],
 }
 
 # lanes one K6 launch takes (its shared-memory slot array)
@@ -80,8 +92,66 @@ def _nvcc() -> str:
     return found
 
 
-def _build_dir() -> Path:
+def _c_array(name: str, ctype: str, values) -> str:
+    flat = np.asarray(values).astype(np.int64).reshape(-1)
+    return (f"static __device__ const {ctype} {name}[{flat.size}] = {{"
+            + ", ".join(str(v) for v in flat) + "};")
+
+
+def rules_header() -> str:
+    """The text of `rules_tables.cuh`: the board kernels' static tables
+    and constants, written from the modules the plain versions read."""
+    from .ops import board, movegen
+    from .ops import tables as T
+
+    consts = {
+        **{k: getattr(T, k) for k in (
+            "W_PAWN", "W_KNIGHT", "W_BISHOP", "W_ROOK", "W_QUEEN", "W_KING", "B_KING",
+            "PROMO_Q", "MAX_MOVES")},
+        **{k: getattr(movegen, k) for k in (
+            "QUIET_KEY", "CASTLE_KEY", "KILLER_KEY", "NOISY_BELOW", "HIST_BASE",
+            "HIST_SHIFT", "HIST_MAX_BONUS", "QUEEN_PROMO_BONUS")},
+        **{k: getattr(board, k) for k in (
+            "BT_BOARD", "BT_STM", "BT_EP", "BT_CAST", "BT_HM", "BT_W")},
+    }
+    arrays = (
+        ("RAYS", "int8_t", T.RAYS),  # [sq][dir][step], -1 past the edge
+        ("KNIGHT_TARGETS", "int8_t", T.KNIGHT_TARGETS),  # [sq][i], -1 padded
+        ("KING_TARGETS", "int8_t", T.KING_TARGETS),
+        ("PAWN_CAPTURES", "int8_t", T.PAWN_CAPTURES),  # [color][sq][i]
+        ("SLIDER_MASK", "uint8_t", T.SLIDER_MASK),  # [dir][code]
+        ("PROMO_TO_PIECE", "int8_t", T.PROMO_TO_PIECE),  # white codes, +6 black
+        ("PIECE_TYPE", "int8_t", board.PIECE_TYPE),  # [code], -1 empty
+        ("PIECE_COLOR", "int8_t", board.PIECE_COLOR),
+        ("CASTLE_KING_TO", "int8_t", board.CASTLE_KING_TO),  # [color * 2 + side]
+        ("CASTLE_ROOK_TO", "int8_t", board.CASTLE_ROOK_TO),
+        ("CASTLE_SLOT_COLOR", "int8_t", board.CASTLE_SLOT_COLOR),
+        ("CHANGE_SIGNS", "int8_t", board.CHANGE_SIGNS),
+        # [color][single, double][sq], clipped to the board as the plain version's
+        ("PAWN_PUSH", "int8_t", [[movegen._TO1[c], movegen._TO2[c]] for c in (0, 1)]),
+        ("PAWN_START", "uint8_t", movegen._START_RANK),  # [color][sq]
+        ("PAWN_PRE_PROMO", "uint8_t", movegen._PRE_PROMO),
+        ("PROMOS", "int8_t", movegen._PROMOS),
+        ("PAIR_KEY", "int16_t", movegen._PAIR_KEY),  # [mover * 13 + target]
+        ("PAIR_TAKE", "uint8_t", movegen._PAIR_TAKE),
+        ("PAWN_CAP_KEY", "int16_t", movegen._PAWN_CAP_KEY),  # [target code]
+    )
+    lines = [
+        "// Generated by fishnet_tpu_torch/kernels.py rules_header() from",
+        "// ops/tables.py, ops/board.py and ops/movegen.py; not a source file.",
+        "#pragma once",
+        "#include <cstdint>",
+        "namespace rules {",
+        *[f"constexpr int {k} = {int(v)};" for k, v in consts.items()],
+        *[_c_array(name, ctype, values) for name, ctype, values in arrays],
+        "}  // namespace rules",
+    ]
+    return "\n".join(lines) + "\n"
+
+
+def _build_dir(header: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(header.encode())
     for p in sorted(CSRC.iterdir()):
         if p.suffix in (".cu", ".cuh"):
             h.update(p.name.encode())
@@ -96,8 +166,14 @@ def build() -> float:
         if _fns:
             return 0.0
         t0 = time.monotonic()
-        out = _build_dir()
+        header = rules_header()
+        out = _build_dir(header)
         out.mkdir(parents=True, exist_ok=True)
+        dest = out / "rules_tables.cuh"  # the build directory is keyed by its text
+        if not dest.exists():  # another process may be compiling against it
+            tmp = out / f"rules_tables.cuh.tmp{os.getpid()}"
+            tmp.write_text(header)
+            os.replace(tmp, dest)
         procs = {}
         for name in KERNELS:
             lib = out / f"lib{name}.so"
@@ -105,7 +181,8 @@ def build() -> float:
                 continue
             tmp = out / f"lib{name}.so.tmp{os.getpid()}"
             procs[name] = (subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                [_nvcc(), *NVCC_FLAGS, "-I", str(out), "-o", str(tmp),
+                 str(CSRC / f"{name}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             ), tmp, lib)
         errors = []
@@ -387,3 +464,60 @@ def lane_init(state, lane_idx: torch.Tensor, rows: torch.Tensor, root_acc: torch
                 lane_idx.data_ptr(), rows.data_ptr(), root_acc.data_ptr(),
                 *[t.data_ptr() for t in cols], hist_hash.data_ptr(),
                 hist_halfmove.data_ptr(), B, n, p1, max_moves, l1)
+
+
+def node_rules(board: torch.Tensor, stm: torch.Tensor):
+    """K8: board (B, 64), stm (B,) — int32, rows may be strided views —
+    → (parent_illegal, checked), (B,) bool."""
+    B = board.shape[0]
+    sb = _check_rows(board, "board", (B, 64))
+    ss = _check_rows(stm, "stm", (B,))
+    out = torch.empty((2, B), dtype=torch.bool, device=board.device)
+    if B:
+        _launch("node_rules", "node_rules", board.data_ptr(), sb, stm.data_ptr(), ss,
+                out[0].data_ptr(), out[1].data_ptr(), B)
+    return out[0], out[1]
+
+
+def generate_moves(board: torch.Tensor, stm: torch.Tensor, ep: torch.Tensor,
+                   castling: torch.Tensor, killers=None, hist=None):
+    """K9: board (B, 64), stm/ep (B,), castling (B, 4), killers (B, 2) or
+    None, hist (B, 4096) or None — int32, rows may be strided views with
+    contiguous rows — → (moves (B, MAX_MOVES), count (B,), noisy (B,))
+    int32, moves ordered and -1 padded."""
+    B = board.shape[0]
+    strides = [_check_rows(t, name, shape) for name, t, shape in (
+        ("board", board, (B, 64)), ("stm", stm, (B,)), ("ep", ep, (B,)),
+        ("castling", castling, (B, 4)))]
+    opt = []
+    for name, t, width in (("killers", killers, 2), ("hist", hist, HIST_SIZE)):
+        if t is None:
+            opt += [None, 0]
+        else:
+            opt += [t.data_ptr(), _check_rows(t, name, (B, width))]
+    moves = torch.empty((B, MAX_MOVES), dtype=torch.int32, device=board.device)
+    counts = torch.empty((2, B), dtype=torch.int32, device=board.device)
+    if B:
+        args = [a for t, s in zip((board, stm, ep, castling), strides) for a in (t.data_ptr(), s)]
+        _launch("generate_moves", "generate_moves", *args, *opt, moves.data_ptr(),
+                counts[0].data_ptr(), counts[1].data_ptr(), B)
+    return moves, counts[0], counts[1]
+
+
+def make_move(board: torch.Tensor, stm: torch.Tensor, ep: torch.Tensor,
+              castling: torch.Tensor, halfmove: torch.Tensor, move: torch.Tensor):
+    """K10: the parent board (B, 64), stm/ep/halfmove (B,), castling
+    (B, 4) and move (B,) (from | to<<6 | promo<<12, >= 0) — int32, rows
+    may be strided views — → (child rows (B, BT_W), codes, sqs, signs
+    (B, 4)) int32."""
+    B = board.shape[0]
+    fields = (("board", board, (B, 64)), ("stm", stm, (B,)), ("ep", ep, (B,)),
+              ("castling", castling, (B, 4)), ("halfmove", halfmove, (B,)),
+              ("move", move, (B,)))
+    args = [a for name, t, shape in fields for a in (t.data_ptr(), _check_rows(t, name, shape))]
+    child = torch.empty((B, BT_W), dtype=torch.int32, device=board.device)
+    changes = torch.empty((3, B, 4), dtype=torch.int32, device=board.device)
+    if B:
+        _launch("make_move", "make_move", *args, child.data_ptr(),
+                *[c.data_ptr() for c in changes], B)
+    return child, changes[0], changes[1], changes[2]

@@ -13,10 +13,17 @@ Board tensors (one row per lane):
             black-queenside] (chess960-ready: actual rook squares)
   halfmove: (B,) int32
 
-On the card every PyTorch call is a kernel launch, so the functions keep
-their call count low: square tables index a board padded with one empty
-off-board square (index 64, where the reference's tables hold -1), and
-piece attributes are read from small lookup tables.
+The search keeps boards as packed int32 rows (`BT_*` below); a Board of
+views into such rows is what the step passes around.
+
+On a CUDA tensor, `node_rules` launches K8 and `make_move_rows` launches
+K10 (csrc/board.cuh, bound by kernels.py); `in_check` and the Board forms
+of make-move (`make_move_with_changes`, `make_move`, `move_piece_changes`)
+reach the kernels only through those two. On a CPU tensor they run the
+plain versions below (`*_plain`). The plain versions keep their call
+count low: square tables index a board padded with one empty off-board
+square (index 64, where the reference's tables hold -1), and piece
+attributes are read from small lookup tables.
 """
 from __future__ import annotations
 
@@ -26,11 +33,32 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..chess.position import Position
 from ..chess.types import scan
 from . import tables as T
 
 OFF = 64  # the padded board's empty off-board square
+
+# the search's packed board row (int32): the 64 codes, side to move, ep
+# square, castling rooks, halfmove clock, then words the port leaves zero
+# (variant side-state) and the path-hash words the step writes
+BT_BOARD = 0
+BT_STM = 64
+BT_EP = 65
+BT_CAST = 66
+BT_HM = 70
+BT_EXTRA = 71  # variant side-state: zeros for standard chess
+BT_PH1 = 83  # path-hash words (uint32 bits as int32)
+BT_PH2 = 84
+BT_W = 96
+
+# castling destinations by [color * 2 + side] (side 0 kingside, 1
+# queenside): the king lands on the g/c file, the rook on the f/d file
+CASTLE_KING_TO = np.array([6, 2, 62, 58], np.int32)
+CASTLE_ROOK_TO = np.array([5, 3, 61, 59], np.int32)
+CASTLE_SLOT_COLOR = np.array([0, 0, 1, 1], np.int32)  # castling slot → color
+CHANGE_SIGNS = np.array([-1, -1, 1, 1], np.int32)  # move_piece_changes slot signs
 
 
 class Board(NamedTuple):
@@ -75,6 +103,26 @@ def from_position(pos: Position) -> Board:
     )
 
 
+def board_from_rows(rows: torch.Tensor) -> Board:
+    """(B, >= BT_HM + 1) packed rows → a Board of views into them."""
+    return Board(
+        board=rows[:, BT_BOARD:BT_BOARD + 64], stm=rows[:, BT_STM],
+        ep=rows[:, BT_EP], castling=rows[:, BT_CAST:BT_CAST + 4],
+        halfmove=rows[:, BT_HM],
+    )
+
+
+def rows_from_board(b: Board) -> torch.Tensor:
+    """(B, BT_W) rows; extra and path-hash words zero."""
+    B = b.board.shape[0]
+    z = torch.zeros((B, BT_W - BT_EXTRA), dtype=torch.int32, device=b.board.device)
+    return torch.cat([
+        b.board.to(torch.int32), b.stm.to(torch.int32)[:, None],
+        b.ep.to(torch.int32)[:, None], b.castling.to(torch.int32),
+        b.halfmove.to(torch.int32)[:, None], z,
+    ], 1)
+
+
 def stack_boards(boards) -> Board:
     """Sequence of Boards → one Board with their lanes concatenated."""
     return Board(*[torch.cat([getattr(b, f) for b in boards]) for f in Board._fields])
@@ -87,8 +135,8 @@ def pad_squares(a) -> np.ndarray:
 
 
 _CODES = np.arange(13)
-_PTYPE = np.where(_CODES == 0, -1, (_CODES - 1) % 6)
-_PCOLOR = np.where(_CODES == 0, -1, np.where(_CODES <= 6, 0, 1))
+PIECE_TYPE = np.where(_CODES == 0, -1, (_CODES - 1) % 6)  # per code, -1 empty
+PIECE_COLOR = np.where(_CODES == 0, -1, np.where(_CODES <= 6, 0, 1))
 
 
 class _Tables(NamedTuple):
@@ -108,6 +156,8 @@ class _Tables(NamedTuple):
     below: torch.Tensor  # (7,) int16: bits of the steps before step i
     slot_color: torch.Tensor  # (1, 4) int32: color of each castling slot
     signs: torch.Tensor  # (1, 4) int32: move_piece_changes slot signs
+    castle_king_to: torch.Tensor  # (4,) int32 [color * 2 + side]
+    castle_rook_to: torch.Tensor  # (4,) int32 [color * 2 + side]
 
 
 @lru_cache(maxsize=None)
@@ -117,7 +167,7 @@ def tables(device: torch.device) -> _Tables:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
     return _Tables(
-        ptype=t(_PTYPE, torch.int32), pcolor=t(_PCOLOR, torch.int32),
+        ptype=t(PIECE_TYPE, torch.int32), pcolor=t(PIECE_COLOR, torch.int32),
         rays=t(pad_squares(T.RAYS)), rvalid=t(T.RAYS >= 0, torch.bool),
         slide_dir=t(T.SLIDER_MASK.T.reshape(-1), torch.bool),
         dirs=t(np.arange(8)[:, None]),
@@ -127,7 +177,10 @@ def tables(device: torch.device) -> _Tables:
         sq=t(np.arange(64), torch.int32), promo_piece=t(T.PROMO_TO_PIECE, torch.int32),
         step_bit=t(1 << np.arange(7), torch.int16),
         below=t((1 << np.arange(7)) - 1, torch.int16),
-        slot_color=t([[0, 0, 1, 1]], torch.int32), signs=t([[-1, -1, 1, 1]], torch.int32),
+        slot_color=t(CASTLE_SLOT_COLOR[None], torch.int32),
+        signs=t(CHANGE_SIGNS[None], torch.int32),
+        castle_king_to=t(CASTLE_KING_TO, torch.int32),
+        castle_rook_to=t(CASTLE_ROOK_TO, torch.int32),
     )
 
 
@@ -198,16 +251,15 @@ def king_square(board: torch.Tensor, color: torch.Tensor) -> torch.Tensor:
 
 
 def in_check(b: Board) -> torch.Tensor:
-    att_w, att_b = attack_maps(rays_of(b.board))
-    att_them = torch.where((b.stm == 0)[:, None], att_b, att_w)
-    return (att_them & (b.board == (T.W_KING + 6 * b.stm)[:, None])).any(1)
+    """(B,) bool: the side to move is in check (node_rules' `checked`)."""
+    return node_rules(b)[1]
 
 
-def node_rules(b: Board, r: Rays | None = None, attacks=None):
-    """Per-node legality for standard chess and chess960 → (B,) bools
-    (parent_illegal: the move that led here left the mover's king en
-    prise or took it; checked: the side to move is in check).
-    attacks: attack_parts(r) when the caller already has it."""
+def node_rules_plain(b: Board, r: Rays | None = None, attacks=None):
+    """K8's plain version: per-node legality for standard chess and
+    chess960 → (B,) bools (parent_illegal: the move that led here left
+    the mover's king en prise or took it; checked: the side to move is
+    in check). attacks: attack_parts(r) when the caller already has it."""
     if attacks is None:
         attacks = attack_parts(rays_of(b.board) if r is None else r)
     slider_w, slider_b, other_w, other_b = attacks
@@ -219,6 +271,16 @@ def node_rules(b: Board, r: Rays | None = None, attacks=None):
     self_check = ~their_king.any(1) | (att_us & their_king).any(1)
     checked = (att_them & our_king).any(1)
     return self_check, checked
+
+
+def node_rules(b: Board, r: Rays | None = None, attacks=None):
+    """→ (parent_illegal, checked), (B,) bools: K8 for CUDA tensors (the
+    board and side to move may be views of packed rows), the plain
+    version for CPU tensors, which may share the caller's ray view r and
+    attack_parts(r)."""
+    if b.board.device.type == "cpu":
+        return node_rules_plain(b, r, attacks)
+    return kernels.node_rules(b.board, b.stm)
 
 
 class _MoveParts(NamedTuple):
@@ -257,10 +319,9 @@ def _move_parts(b: Board, move: torch.Tensor) -> _MoveParts:
     is_ep = is_pawn & (to == b.ep) & (target == 0) & ((to & 7) != (frm & 7))
     ep_victim = (to - 8 + 16 * us).clamp(0, 63)
     placed = torch.where(promo > 0, c.promo_piece[promo.clamp(max=5).long()] + us6, piece)
-    rank_base = 56 * us
-    kingside = (to > frm).to(torch.int32)
-    r_dest = rank_base + 3 + 2 * kingside
-    king_to = torch.where(is_castle, rank_base + 2 + 4 * kingside, to)
+    slot = (2 * us + (to <= frm)).long()  # [color * 2 + side], 0 kingside
+    r_dest = c.castle_rook_to[slot]
+    king_to = torch.where(is_castle, c.castle_king_to[slot], to)
     return _MoveParts(frm, to, piece, target, placed, rook, is_pawn, is_king,
                       is_castle, is_ep, capture, ep_victim, king_to, r_dest)
 
@@ -298,24 +359,51 @@ def _changes(b: Board, m: _MoveParts):
     return codes, sqs, signs
 
 
-def make_move(b: Board, move: torch.Tensor) -> Board:
-    """Apply encoded moves (from | to<<6 | promo<<12), one per lane.
-
-    Castling is encoded king-takes-own-rook; en passant and promotion are
-    read off the board."""
-    return _apply(b, _move_parts(b, move))
-
-
-def move_piece_changes(b: Board, move: torch.Tensor):
-    """The <= 4 piece placements/removals each lane's move causes, as
-    fixed slots (codes, squares, signs — each (B, 4) int32; code 0 marks
-    an unused slot): [mover out, capture out, mover in, rook in (castle)].
-    Feeds the incremental accumulator update."""
-    return _changes(b, _move_parts(b, move))
+def make_move_with_changes_plain(b: Board, move: torch.Tensor):
+    """K10's plain version: make_move and move_piece_changes of the same
+    moves, sharing the decode → (child Board, codes, sqs, signs)."""
+    m = _move_parts(b, move)
+    return (_apply(b, m), *_changes(b, m))
 
 
 def make_move_with_changes(b: Board, move: torch.Tensor):
-    """make_move and move_piece_changes of the same moves, sharing the
-    decode → (child Board, codes, sqs, signs)."""
-    m = _move_parts(b, move)
-    return (_apply(b, m), *_changes(b, m))
+    """Apply encoded moves (from | to<<6 | promo<<12, move >= 0), one per
+    lane → (child Board, codes, sqs, signs).
+
+    Castling is encoded king-takes-own-rook; en passant and promotion are
+    read off the board. codes, sqs, signs (B, 4) int32 are the <= 4 piece
+    placements/removals each move causes, as fixed slots (code 0 marks an
+    unused slot): [mover out, capture out, mover in, rook in (castle)];
+    they feed the incremental accumulator update. K10 through
+    make_move_rows for CUDA tensors (the child is then a Board of views
+    into packed rows), the plain version for CPU tensors."""
+    if b.board.device.type == "cpu":
+        return make_move_with_changes_plain(b, move)
+    rows, codes, sqs, signs = make_move_rows(rows_from_board(b), move)
+    return board_from_rows(rows), codes, sqs, signs
+
+
+def make_move_rows_plain(rows: torch.Tensor, move: torch.Tensor):
+    """K10's plain version in the packed row layout: the plain child,
+    packed."""
+    child, *changes = make_move_with_changes_plain(board_from_rows(rows), move)
+    return (rows_from_board(child), *changes)
+
+
+def make_move_rows(rows: torch.Tensor, move: torch.Tensor):
+    """make_move_with_changes on packed board rows (B, >= BT_HM + 1) →
+    (child rows (B, BT_W) with zero extra and path-hash words, codes,
+    sqs, signs). K10 writes the child rows directly on the card."""
+    if rows.device.type == "cpu":
+        return make_move_rows_plain(rows, move)
+    return kernels.make_move(*board_from_rows(rows), move)
+
+
+def make_move(b: Board, move: torch.Tensor) -> Board:
+    """The child boards of make_move_with_changes."""
+    return make_move_with_changes(b, move)[0]
+
+
+def move_piece_changes(b: Board, move: torch.Tensor):
+    """The (codes, sqs, signs) slots of make_move_with_changes."""
+    return make_move_with_changes(b, move)[1:]

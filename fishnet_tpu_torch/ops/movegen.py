@@ -12,6 +12,13 @@ this module lays the knight and king slots out square by square (one
 gather serves both) where the reference keeps them in two sections.
 Legality is left to the search's king-capture refutation, except
 castling, whose path is checked for attacks here.
+
+That candidate space is the TPU's answer to fixed shapes. On a CUDA
+tensor `generate_moves` launches K9 (csrc/movegen.cuh) instead, which
+enumerates the pseudo-legal moves directly and sorts only those; the
+packed values are distinct, so its list is this module's bit for bit.
+The ordering constants and tables below are the one source of both: the
+kernels' header is generated from them (kernels.rules_header).
 """
 from __future__ import annotations
 
@@ -21,21 +28,41 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import kernels
 from . import tables as T
 from .board import (
-    OFF, Board, Rays, attack_parts, clear_before, king_square, pad_squares, rays_of,
+    OFF, PIECE_COLOR, PIECE_TYPE, Board, Rays, attack_parts, clear_before, king_square,
+    pad_squares, rays_of,
 )
 from .board import tables as board_tables
 
 MAX_MOVES = T.MAX_MOVES
 INT32_MAX = 2**31 - 1
 
+# ordering keys (smaller first; packed as key << 16 | move): captures
+# 100 + MVV-LVA (queen promotions QUEEN_PROMO_BONUS less), castling
+# CASTLE_KEY, quiet moves QUIET_KEY, or HIST_BASE less the history bonus
+# clamp(hist >> HIST_SHIFT, 0, HIST_MAX_BONUS) where a quiet key is
+# exactly QUIET_KEY; a killer among the keys >= NOISY_BELOW gets
+# KILLER_KEY. Keys below NOISY_BELOW are the noisy prefix.
+QUIET_KEY = 1000
+CASTLE_KEY = 900
+KILLER_KEY = 901
+NOISY_BELOW = 900
+HIST_BASE = 1010
+HIST_SHIFT = 5
+HIST_MAX_BONUS = 99
+QUEEN_PROMO_BONUS = 90
+
 _SQ = np.arange(64)
 _TO1 = np.stack([np.clip(_SQ + 8, 0, 63), np.clip(_SQ - 8, 0, 63)])  # (2, 64)
 _TO2 = np.stack([np.clip(_SQ + 16, 0, 63), np.clip(_SQ - 16, 0, 63)])
 _CAPS = np.asarray(T.PAWN_CAPTURES)  # (2, 64, 2), -1 padded
+# per color: the pawns' start rank, and the rank they promote from
+_START_RANK = np.stack([_SQ >> 3 == 1, _SQ >> 3 == 6])  # (2, 64) bool
+_PRE_PROMO = np.stack([_SQ >> 3 == 6, _SQ >> 3 == 1])
 # promotion origins per color: white promotes from 48..55, black from 8..15
-_PROMO_FROM = np.stack([np.arange(48, 56), np.arange(8, 16)])  # (2, 8)
+_PROMO_FROM = np.stack([np.flatnonzero(_PRE_PROMO[c]) for c in (0, 1)])  # (2, 8)
 _PROMOS = np.array([T.PROMO_N, T.PROMO_B, T.PROMO_R, T.PROMO_Q])
 # knight and king targets side by side, and the piece type each column wants
 _KK = np.concatenate([T.KNIGHT_TARGETS, T.KING_TARGETS], 1)  # (64, 16)
@@ -45,17 +72,24 @@ _KK_TYPE = np.array([1] * 8 + [5] * 8)
 def _pair_tables():
     """Keys and take-ability of a mover (code a) onto a square holding
     code v, indexed a * 13 + v: MVV-LVA (smaller first) for a capture of
-    an enemy piece, 1000 for a quiet move."""
+    an enemy piece, QUIET_KEY for a quiet move."""
     codes = np.arange(13)
-    ptype = np.where(codes == 0, -1, (codes - 1) % 6)
-    color = np.where(codes == 0, -1, codes > 6)
     a, v = np.meshgrid(codes, codes, indexing="ij")
-    capture = (a > 0) & (v > 0) & (color[a] != color[v])
-    key = np.where(capture, 100 + (5 - ptype[v]) * 8 + ptype[a], 1000)
+    capture = (a > 0) & (v > 0) & (PIECE_COLOR[a] != PIECE_COLOR[v])
+    key = np.where(capture, _mvv_lva(PIECE_TYPE[v], PIECE_TYPE[a]), QUIET_KEY)
     return key.reshape(-1), (capture | (v == 0)).reshape(-1)
 
 
+def _mvv_lva(victim_type, attacker_type):
+    """Capture ordering key (smaller = searched first): victim desc,
+    attacker asc; quiet moves key QUIET_KEY."""
+    return 100 + (5 - victim_type) * 8 + attacker_type
+
+
 _PAIR_KEY, _PAIR_TAKE = _pair_tables()
+# a pawn capture's key by the code on its target square (an empty one is
+# an en-passant capture of a pawn)
+_PAWN_CAP_KEY = _mvv_lva(np.maximum(PIECE_TYPE, 0), 0)
 
 
 def max_moves_for(variant: str) -> int:
@@ -111,6 +145,7 @@ class _Tables(NamedTuple):
     castle_side: torch.Tensor  # (1, 2) int32: 0 kingside, 1 queenside
     pair_key: torch.Tensor  # (13 * 13,) int32: ordering key of mover code x target code
     pair_take: torch.Tensor  # (13 * 13,) bool: the target square is empty or the mover's enemy's
+    pawn_cap_key: torch.Tensor  # (13,) int32: a pawn capture's key by target code
 
 
 @lru_cache(maxsize=None)
@@ -119,7 +154,6 @@ def _tables(device: torch.device) -> _Tables:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
     caps = np.where(_CAPS >= 0, _CAPS, OFF)
-    ranks = _SQ >> 3
     return _Tables(
         moves=t(np.stack([_static_moves(0), _static_moves(1)]), torch.int32),
         hist_idx=t(np.stack(_hist_idx_tables("standard"))),
@@ -127,19 +161,14 @@ def _tables(device: torch.device) -> _Tables:
         kk_type=t(_KK_TYPE, torch.int32),
         pawn_tgt=t(np.stack([np.stack([_TO1[c], _TO2[c], caps[c][:, 0], caps[c][:, 1]], 1)
                              for c in (0, 1)])),
-        start_rank=t(np.stack([ranks == 1, ranks == 6]), torch.bool),
-        not_pre_promo=t(np.stack([ranks != 6, ranks != 1]), torch.bool),
-        promo_from=t(_PROMO_FROM), q_promo=t(90 * (_PROMOS == T.PROMO_Q), torch.int32),
-        rays=t(pad_squares(T.RAYS)), castle_key=t([[900, 900]], torch.int32),
+        start_rank=t(_START_RANK, torch.bool), not_pre_promo=t(~_PRE_PROMO, torch.bool),
+        promo_from=t(_PROMO_FROM),
+        q_promo=t(QUEEN_PROMO_BONUS * (_PROMOS == T.PROMO_Q), torch.int32),
+        rays=t(pad_squares(T.RAYS)), castle_key=t([[CASTLE_KEY, CASTLE_KEY]], torch.int32),
         castle_side=t([[0, 1]], torch.int32),
         pair_key=t(_PAIR_KEY, torch.int32), pair_take=t(_PAIR_TAKE, torch.bool),
+        pawn_cap_key=t(_PAWN_CAP_KEY, torch.int32),
     )
-
-
-def _mvv_lva(victim_type: torch.Tensor, attacker_type) -> torch.Tensor:
-    """Capture ordering key (smaller = searched first): victim desc,
-    attacker asc; quiet moves key 1000."""
-    return 100 + (5 - victim_type) * 8 + attacker_type
 
 
 def _candidate_space(b: Board, r: Rays | None = None, attacks=None):
@@ -186,8 +215,8 @@ def _candidate_space(b: Board, r: Rays | None = None, attacks=None):
     not_pre = c.not_pre_promo[s]
     pawn_ok = torch.cat([(to1_ok & not_pre)[..., None], to2_ok[..., None],
                          cap_ok & not_pre[..., None]], 2)
-    cap_key = torch.where(cap_ok, _mvv_lva(bt.ptype[tb[..., 2:]].clamp(min=0), 0), 1000)
-    keys_pw = torch.cat([torch.full_like(cap_key, 1000), cap_key], 2)
+    cap_key = torch.where(cap_ok, c.pawn_cap_key[tb[..., 2:]], QUIET_KEY)
+    keys_pw = torch.cat([torch.full_like(cap_key, QUIET_KEY), cap_key], 2)
 
     # promotions from the 8 pre-promotion squares: [push, capL, capR] x N B R Q
     pf = c.promo_from[s]  # (B, 8)
@@ -220,9 +249,9 @@ def _castling(b: Board, r: Rays, by_them: torch.Tensor, attacks):
     has = (rsq >= 0) & (ksq >= 0)[:, None]  # (B, 2): kingside, queenside
     ksq = ksq.clamp(min=0)
     rsq = rsq.clamp(0, 63)
-    rank_base = (56 * us)[:, None]
-    k_dest = rank_base + 6 - 4 * c.castle_side
-    r_dest = rank_base + 5 - 2 * c.castle_side
+    slot = 2 * us.long()[:, None] + c.castle_side
+    k_dest = bt.castle_king_to[slot]
+    r_dest = bt.castle_rook_to[slot]
     kq = ksq[:, None]
     lo_k, hi_k = torch.minimum(kq, k_dest), torch.maximum(kq, k_dest)
     lo_r, hi_r = torch.minimum(rsq, r_dest), torch.maximum(rsq, r_dest)
@@ -245,6 +274,27 @@ def _castling(b: Board, r: Rays, by_them: torch.Tensor, attacks):
     return has & empty_ok & safe, (ksq[:, None] | (rsq << 6)).to(torch.int32)
 
 
+def generate_moves_plain(b: Board, killers=None, hist=None, rays: Rays | None = None,
+                         attacks=None):
+    """K9's plain version: the candidate space, the ordering refinements
+    and one sort of the packed values (see generate_moves)."""
+    flat_moves, flat_valid, flat_keys = _candidate_space(b, rays, attacks)
+    if hist is not None:
+        idx = _tables(b.board.device).hist_idx[b.stm.long()]
+        hbonus = (hist.gather(1, idx) >> HIST_SHIFT).clamp(0, HIST_MAX_BONUS)
+        flat_keys = torch.where(flat_keys == QUIET_KEY, HIST_BASE - hbonus, flat_keys)
+    if killers is not None:
+        is_k = (flat_moves == killers[:, :1]) | (flat_moves == killers[:, 1:2])
+        flat_keys = torch.where(is_k & (flat_keys >= NOISY_BELOW), KILLER_KEY, flat_keys)
+    packed = torch.where(flat_valid, (flat_keys << 16) | flat_moves, INT32_MAX)
+    top = torch.sort(packed, dim=1, stable=True).values[:, :MAX_MOVES]
+    moves = torch.where(top != INT32_MAX, top & 0xFFFF, -1)
+    count = flat_valid.sum(1, dtype=torch.int32).clamp(max=MAX_MOVES)
+    noisy = (flat_valid & (flat_keys < NOISY_BELOW)).sum(1, dtype=torch.int32).clamp(
+        max=MAX_MOVES)
+    return moves, count, noisy
+
+
 def generate_moves(b: Board, killers=None, hist=None, rays: Rays | None = None,
                    attacks=None):
     """→ (moves (B, MAX_MOVES) sorted by ordering key, -1 padded;
@@ -252,18 +302,10 @@ def generate_moves(b: Board, killers=None, hist=None, rays: Rays | None = None,
 
     noisy counts the leading captures / queen promotions (they sort
     first). killers (B, 2) / hist (B, 4096): optional quiet-move ordering
-    state; they reorder only the quiet tail (keys >= 900)."""
-    flat_moves, flat_valid, flat_keys = _candidate_space(b, rays, attacks)
-    if hist is not None:
-        idx = _tables(b.board.device).hist_idx[b.stm.long()]
-        hbonus = (hist.gather(1, idx) >> 5).clamp(0, 99)
-        flat_keys = torch.where(flat_keys == 1000, 1010 - hbonus, flat_keys)
-    if killers is not None:
-        is_k = (flat_moves == killers[:, :1]) | (flat_moves == killers[:, 1:2])
-        flat_keys = torch.where(is_k & (flat_keys >= 900), 901, flat_keys)
-    packed = torch.where(flat_valid, (flat_keys << 16) | flat_moves, INT32_MAX)
-    top = torch.sort(packed, dim=1, stable=True).values[:, :MAX_MOVES]
-    moves = torch.where(top != INT32_MAX, top & 0xFFFF, -1)
-    count = flat_valid.sum(1, dtype=torch.int32).clamp(max=MAX_MOVES)
-    noisy = (flat_valid & (flat_keys < 900)).sum(1, dtype=torch.int32).clamp(max=MAX_MOVES)
-    return moves, count, noisy
+    state; they reorder only the quiet tail (keys >= NOISY_BELOW). K9 for
+    CUDA tensors (the board fields, killers and history may be views with
+    contiguous rows); the plain version for CPU tensors, which may share
+    the caller's rays_of(b.board) and attack_parts(rays)."""
+    if b.board.device.type == "cpu":
+        return generate_moves_plain(b, killers, hist, rays, attacks)
+    return kernels.generate_moves(b.board, b.stm, b.ep, b.castling, killers, hist)

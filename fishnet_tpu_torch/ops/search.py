@@ -22,7 +22,8 @@ lists, history counters, PV table and incremental NNUE accumulators. The
 JAX reference builds a new state each step; this port writes the same
 rows in place, in the same order, each under the same mask.
 
-Each step runs the Zobrist hash (K4), the leaf eval (K2) and the
+Each step runs the board rules (K8), the move generator (K9), the
+make-move (K10), the Zobrist hash (K4), the leaf eval (K2) and the
 accumulator update (K3) as CUDA kernels on the card; `init_state` runs
 the root refresh (K1) and writes every lane with K7 (lane_init). With a
 table, `run_segment` wraps each step in the reference's TT runner: a
@@ -50,7 +51,10 @@ from .. import kernels, settings
 from ..models import nnue
 from ..syncstats import SegmentController, SyncStats
 from . import tt as tt_mod
-from .board import Board, attack_parts, make_move_with_changes, node_rules, rays_of
+from .board import (
+    BT_BOARD, BT_CAST, BT_EP, BT_HM, BT_PH1, BT_PH2, BT_STM, BT_W, Board,
+    attack_parts, board_from_rows, make_move_rows, node_rules, rays_of, rows_from_board,
+)
 from .movegen import MAX_MOVES, generate_moves
 
 INF = 32500
@@ -77,16 +81,7 @@ HIST_HM_SENTINEL = -32000
  NT_BMOVE, NT_NULL, NT_LASTRED, NT_PVLEN, NT_DL, NT_INCHECK, NT_K0,
  NT_K1) = range(15)
 NT_W = 16
-# bt fields (one int32 row per node's board)
-BT_BOARD = 0
-BT_STM = 64
-BT_EP = 65
-BT_CAST = 66
-BT_HM = 70
-BT_EXTRA = 71  # variant side-state: zeros for standard chess
-BT_PH1 = 83  # path-hash words (uint32 bits as int32)
-BT_PH2 = 84
-BT_W = 96
+# bt fields (one int32 row per node's board): BT_BOARD..BT_W, board.py
 # lane fields
 (LN_PLY, LN_MODE, LN_RET, LN_RETD, LN_SMARK, LN_SVAL, LN_NODES, LN_DLIM,
  LN_BUDGET, LN_RSCORE, LN_RMOVE, LN_RALPHA, LN_RBETA, LN_RESEARCH) = range(14)
@@ -102,6 +97,16 @@ _FM_ENTER = np.zeros(NT_W, bool)
 _FM_ENTER[[NT_PVLEN, NT_INCHECK]] = True
 
 NULL_R = 2  # base null-move depth reduction (+1 at depth_left >= 7)
+# the null child's board row from its parent's: the same board and
+# castling rooks, the other side to move, no ep square, halfmove 0, the
+# extra and path-hash words 0 (as rows_from_board writes them)
+_NULL_MUL = np.zeros(BT_W, np.int32)
+_NULL_MUL[BT_BOARD:BT_BOARD + 64] = 1
+_NULL_MUL[BT_CAST:BT_CAST + 4] = 1
+_NULL_MUL[BT_STM] = -1
+_NULL_ADD = np.zeros(BT_W, np.int32)
+_NULL_ADD[BT_STM] = 1
+_NULL_ADD[BT_EP] = -1
 
 # steps between the host's checks for "every lane DONE"; the step count
 # itself is kept on the device, so this only bounds the wasted steps
@@ -120,24 +125,6 @@ class SearchState(NamedTuple):
     hist: torch.Tensor  # (B, 4096) int32 from|to history counters
     pv: torch.Tensor  # (B, P, P) int32
     acc: torch.Tensor  # (B, P+1, 2, L1) incremental NNUE accumulators
-
-
-def _board_from_rows(rows: torch.Tensor) -> Board:
-    return Board(
-        board=rows[:, BT_BOARD:BT_BOARD + 64], stm=rows[:, BT_STM],
-        ep=rows[:, BT_EP], castling=rows[:, BT_CAST:BT_CAST + 4],
-        halfmove=rows[:, BT_HM],
-    )
-
-
-def _rows_from_board(b: Board) -> torch.Tensor:
-    """(B, BT_W) rows; extra and path-hash words zero."""
-    B = b.board.shape[0]
-    z = torch.zeros((B, BT_W - BT_EXTRA), dtype=_I32, device=b.board.device)
-    return torch.cat([
-        b.board.to(_I32), b.stm.to(_I32)[:, None], b.ep.to(_I32)[:, None],
-        b.castling.to(_I32), b.halfmove.to(_I32)[:, None], z,
-    ], 1)
 
 
 def _row(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -218,7 +205,7 @@ def _lane_inputs(params, roots: Board, depth, node_budget, hist_hash=None,
     if hist_halfmove is None:
         hist_halfmove = torch.full((n, MAX_HIST), HIST_HM_SENTINEL, dtype=_I32, device=dev)
     return (
-        _rows_from_board(roots).contiguous(),
+        rows_from_board(roots).contiguous(),
         nnue.accumulators_768(params, roots.board.to(_I32).contiguous()),
         col(depth, 0), col(node_budget, 0), col(root_alpha, -INF), col(root_beta, INF),
         col(order_jitter, 0), col(group, 0),
@@ -378,6 +365,8 @@ class _Consts(NamedTuple):
     fm_enter: torch.Tensor  # (NT_W,) bool
     ntp_cols: torch.Tensor  # RETURN's parent-row fields
     nt1_cols: torch.Tensor  # TRYMOVE's own-row fields
+    null_mul: torch.Tensor  # (BT_W,) the null child's row is parent * null_mul
+    null_add: torch.Tensor  # + null_add: side flipped, no ep, halfmove and extras 0
     zero: torch.Tensor  # () int32 scalars the leaf store broadcasts
     exact: torch.Tensor
     no_move: torch.Tensor
@@ -395,6 +384,7 @@ def _consts(device: torch.device, P1: int, H: int) -> _Consts:
         ntp_cols=t([NT_BEST, NT_BMOVE, NT_ALPHA, NT_SEARCHED, NT_NULL, NT_PVLEN],
                    torch.int64),
         nt1_cols=t([NT_MIDX, NT_NULL, NT_LASTRED, NT_K0, NT_K1], torch.int64),
+        null_mul=t(_NULL_MUL), null_add=t(_NULL_ADD),
         zero=t(0), exact=t(tt_mod.FLAG_EXACT), no_move=t(-1),
     )
 
@@ -434,11 +424,13 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
     # ---------------------------------------------------------- ENTER
     enter = mode0 == MODE_ENTER
     root = ply0 == 0
-    b = _board_from_rows(btr0)
+    b = board_from_rows(btr0)
     us = b.stm
-    rays = rays_of(b.board)
-    attacks = attack_parts(rays)
-    illegal_raw, we_are_checked = node_rules(b, rays, attacks)
+    rays = attacks = None
+    if b.board.device.type == "cpu":  # the plain versions share one ray view
+        rays = rays_of(b.board)
+        attacks = attack_parts(rays)
+    illegal_raw, we_are_checked = node_rules(b, rays, attacks)  # K8 on the card
     # on bools `a > b` is `a & ~b` in one launch
     parent_illegal = illegal_raw > root
     depth_left = ntr0[:, NT_DL]
@@ -471,7 +463,7 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
     draw = fifty | repet
     leaf_val = torch.where(draw, DRAW, static_val)
 
-    gen_moves, gen_count, gen_noisy = generate_moves(
+    gen_moves, gen_count, gen_noisy = generate_moves(  # K9 on the card
         b, killers=ntr0[:, NT_K0:NT_K1 + 1], hist=s.hist, rays=rays, attacks=attacks
     )
     quiet_node = gen_noisy == 0
@@ -605,7 +597,7 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
     nt1 = torch.where(ex, ntE, ntP)
     moves_row1 = torch.where(ex, gen_moves, moves_p_row)
     bt1 = torch.where(ex, btE, btp0)
-    parent_b = _board_from_rows(bt1)
+    parent_board = bt1[:, BT_BOARD:BT_BOARD + 64]
     midx = nt1[:, NT_MIDX]
     exhausted = midx >= nt1[:, NT_COUNT]
     cutoff = nt1[:, NT_ALPHA] >= nt1[:, NT_BETA]
@@ -618,7 +610,7 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
 
     # killer/history credit on fail-high by a quiet move
     cause = nt1[:, NT_BMOVE]
-    k_upd = try_m & cutoff & (cause >= 0) & _is_quiet(cause.clamp(min=0), parent_b.board)
+    k_upd = try_m & cutoff & (cause >= 0) & _is_quiet(cause.clamp(min=0), parent_board)
     k_new = k_upd & (cause != nt1[:, NT_K0])
     h_idx = (cause.clamp(min=0) & 4095).long()
     dl = dl_node.clamp(min=0)
@@ -634,23 +626,17 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
 
     m_ix = torch.where(re_push, midx - 1, midx).clamp(0, moves_row1.shape[1] - 1)
     move = moves_row1.gather(1, m_ix.long()[:, None])[:, 0].clamp(min=0)
-    child, codes, sqs, signs = make_move_with_changes(parent_b, move)
+    child, codes, sqs, signs = make_move_rows(bt1, move)  # K10 on the card
     if pruning:
         # late-move reduction; the null child is the same position with
         # the opponent to move, no ep square and a reset halfmove clock
         lmr_ok = (
             (dl_node >= 3) & (midx >= 3) & (nt1[:, NT_INCHECK] == 0)
-            & _is_quiet(move, parent_b.board)
+            & _is_quiet(move, parent_board)
         )
         red = torch.where(lmr_ok > (re_push | do_null), torch.where(midx >= 8, 2, 1), 0)
         dn = do_null[:, None]
-        child = Board(
-            board=torch.where(dn, parent_b.board, child.board),
-            stm=torch.where(do_null, 1 - parent_b.stm, child.stm),
-            ep=torch.where(do_null, -1, child.ep),
-            castling=torch.where(dn, parent_b.castling, child.castling),
-            halfmove=torch.where(do_null, 0, child.halfmove),
-        )
+        child = torch.where(dn, bt1 * c.null_mul + c.null_add, child)
         null_r = NULL_R + (dl_node >= 7).to(_I32)
         child_dl = (dl_node - 1 - torch.where(do_null, null_r, red)).clamp(min=0)
         # a null move changes no pieces: zeroed slots are no-ops
@@ -673,7 +659,7 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
     _set_row(nt.view(B, -1), pn * NT_W + NT_DL, child_dl.to(_I32), advance)
     research = research > try_m
 
-    _set_row(bt, pn, _rows_from_board(child), advance)
+    _set_row(bt, pn, child, advance)
     child_acc = nnue.apply_acc_updates_768(params, _row(s.acc, p1), codes, sqs, signs)
     _set_row(s.acc, pn, child_acc, advance)
 
@@ -702,7 +688,7 @@ def _tt_step(params: nnue.NnueParams, s: SearchState, pruning: bool,
     visible to every lane's probe in the same step."""
     lane = s.lane
     ply = lane[:, LN_PLY].long()
-    keys = tt_mod.hash_boards(_board_from_rows(_row(s.bt, ply)))
+    keys = tt_mod.hash_boards(board_from_rows(_row(s.bt, ply)))
     h1, h2 = keys[:, 0], keys[:, 1]
     mode, ret, ret_depth = lane[:, LN_MODE], lane[:, LN_RET], lane[:, LN_RETD]
 

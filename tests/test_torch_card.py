@@ -1,10 +1,12 @@
 """fishnet_tpu_torch's CUDA kernels on the card: each against its plain
 PyTorch version (the TT probe and store on seeded tables with forced
 slot collisions, the lane init over every lane and over scattered
-ones), the wrappers' checks and launch counts, and the int8 searches on
-the card against the CPU, with the transposition table and helper lanes
-too, and a refill splice and a refill stream (tables compared byte for
-byte). Needs an NVIDIA card; skipped
+ones, the board rules, move generator and make-move on chip_smoke's
+seeded positions, exactly), the wrappers' checks and launch counts, a
+search step on the card that runs none of the plain board code, and the
+int8 searches on the card against the CPU, with the transposition table
+and helper lanes too, and a refill splice and a refill stream (tables
+compared byte for byte). Needs an NVIDIA card; skipped
 elsewhere. Imports no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_card.py -q -p no:cacheprovider
@@ -15,11 +17,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import TT_PROBE_ARGS, TT_STORE_ARGS, lane_init_case, tt_inputs, tt_runner_layout
+from chip_smoke import (
+    TT_PROBE_ARGS, TT_STORE_ARGS, every_move, lane_init_case, rules_inputs, tt_inputs,
+    tt_runner_layout,
+)
 from fishnet_tpu_torch import kernels
 from fishnet_tpu_torch.chess import Position
 from fishnet_tpu_torch.models import nnue
 from fishnet_tpu_torch.ops import board as tb
+from fishnet_tpu_torch.ops import movegen as tm
 from fishnet_tpu_torch.ops import tt
 from fishnet_tpu_torch.ops import search
 from fishnet_tpu_torch.ops.search import search_batch, search_batch_resumable, search_stream
@@ -246,3 +252,74 @@ def test_int8_refill_and_stream_card_equal_cpu(nets, lanes):
         assert (card[k] == cpu[k]).all(), k
     assert (card["steps"], card["refills"]) == (cpu["steps"], cpu["refills"])
     assert torch.equal(card["tt"].cpu(), cpu["tt"])
+
+
+@pytest.mark.parametrize("lanes", [16, 64, 1024])
+def test_board_kernels_match_plain_versions(card, lanes):
+    """K9 with and without killers and history, K10 over every generated
+    move, K8 on the boards and on every child: equal to the plain
+    versions, exactly."""
+    b, killers, hist = rules_inputs(lanes, lanes, card)
+    for kw in ({}, {"killers": killers, "hist": hist}):
+        got, want = tm.generate_moves(b, **kw), tm.generate_moves_plain(b, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    pb, pm = every_move(b, *want[:2])
+    rows = tb.rows_from_board(pb)
+    want = tb.make_move_rows_plain(rows, pm)
+    for g, w in zip(tb.make_move_rows(rows, pm), want):
+        assert torch.equal(g, w)
+    for boards in (b, tb.board_from_rows(want[0])):
+        for g, w in zip(tb.node_rules(boards), tb.node_rules_plain(boards)):
+            assert torch.equal(g, w)
+
+
+def test_board_wrappers_check_inputs_and_count_launches(card):
+    b, killers, hist = rules_inputs(16, 3, card)
+    kernels.reset_launches()
+    tb.node_rules(b)
+    moves, count, _ = tm.generate_moves(b, killers, hist)
+    tb.make_move_with_changes(b, moves[:, 0].clamp(min=0))
+    assert [kernels.LAUNCHES[k] for k in ("node_rules", "generate_moves", "make_move")] == [1] * 3
+    mv = moves[:, 0].clamp(min=0)
+    with pytest.raises(TypeError):
+        kernels.node_rules(b.board.long(), b.stm)
+    with pytest.raises(ValueError):  # rows must be contiguous
+        kernels.node_rules(b.board.t().contiguous().t(), b.stm)
+    with pytest.raises(ValueError):
+        kernels.generate_moves(b.board, b.stm, b.ep, b.castling, killers[:, :1], hist)
+    with pytest.raises(ValueError):
+        kernels.generate_moves(b.board, b.stm, b.ep, b.castling, killers, hist[:8])
+    with pytest.raises(TypeError):
+        kernels.make_move(*b, mv.long())
+    with pytest.raises(ValueError):
+        kernels.make_move(*b.to("cpu"), mv.cpu())
+    assert [kernels.LAUNCHES[k] for k in ("node_rules", "generate_moves", "make_move")] == [1] * 3
+
+
+def test_step_on_the_card_runs_no_plain_board_code(card, nets, lanes, monkeypatch):
+    """On a CUDA state the step reaches K8-K10, never the plain versions'
+    ray views, attack maps, candidate space or sort; the state it leaves
+    equals the CPU step's."""
+    b, _ = lanes
+    roots = tb.Board(*[t[:16] for t in b])
+    depth = torch.full((16,), 3, dtype=torch.int32)
+    budget = torch.full((16,), 100_000, dtype=torch.int32)
+    cpu = search.init_state(nets["int8"].to("cpu"), roots.to("cpu"), depth, budget, 6)
+    for _ in range(30):
+        search._step(nets["int8"].to("cpu"), cpu, True)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain board code on a CUDA state")
+
+    for mod, name in ((search, "rays_of"), (search, "attack_parts"), (tb, "rays_of"),
+                      (tb, "attack_parts"), (tm, "rays_of"), (tm, "attack_parts"),
+                      (tm, "_candidate_space"), (torch, "sort")):
+        monkeypatch.setattr(mod, name, refuse)
+    st = search.init_state(nets["int8"], roots.to(card), depth.to(card), budget.to(card), 6)
+    kernels.reset_launches()
+    for _ in range(30):
+        search._step(nets["int8"], st, True)
+    assert [kernels.LAUNCHES[k] for k in ("node_rules", "generate_moves", "make_move")] == [30] * 3
+    for g, w in zip(st, cpu):
+        assert torch.equal(g.cpu(), w)
