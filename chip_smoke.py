@@ -17,10 +17,17 @@ Phases (any failure exits non-zero before the final line):
      move generator and make-move (K8-K10) on seeded tactical, promotion,
      en-passant, check and chess960 castling positions and playouts from
      them, with and without killers and history, over every generated
-     move; with times (CUDA events and torch.profiler) and bounds from the
-     bytes these inputs need;
-  4. where a search step's time goes (torch.profiler: B = 16 and 1024
-     without the table, B = 64 with it);
+     move; the segment kernel (K11) against run_segment_plain on seeded
+     playout states at 16, 64 and 1024 lanes on both nets, without a
+     table, with a 2^21 table, with jittered helpers and the prefer_deep
+     store into a 2^12 table (colliding slots), and with deep_tt probes,
+     over segments of 1, 7, 33 and 200 steps and (16 lanes) one in which
+     every lane finishes: states, tables, summaries and step counts byte
+     for byte; with times (CUDA events and torch.profiler) and bounds from
+     the bytes these inputs need;
+  4. where a segment's time goes (torch.profiler over one K11 segment of
+     PROFILE_STEPS steps: B = 16 and 1024 without the table, B = 64 with
+     it): host ms/step, device busy ms/step, the device's idle share;
   5. the main path: one standard-chess analysis chunk through GpuEngine()
      with its defaults (continuous lane refill through the LaneScheduler,
      2^21-slot table, FISHNET_TPU_HELPERS helper lanes, MAX_PLY 32,
@@ -38,10 +45,12 @@ Phases (any failure exits non-zero before the final line):
      and the tables byte for byte;
  11. search_batch at B = 1024 lanes on the f32 net.
 Phases 4-11 reset the kernels' launch counters just before each search
-and fail unless every kernel of its path launched during it.
-Then a `kernels` JSON line (launches from phase 5, the main path), the
-card's name and power limit, and the result line
-`{"ok": true, "device": {...}}`.
+and fail unless every kernel of its path launched during it (K1, K7 and
+K11) and none of the kernels whose bodies run inside K11 launched on its
+own (but K4, which hashes the engine's game history once a chunk).
+Then a `kernels` JSON line (launches from phase 5, the main path; for the
+bodies inside K11 their calls per main-path step), the card's name and
+power limit, and the result line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -58,7 +67,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-DEPTH = 3  # engine analysis depth (the host-bound step sets the time; PERF.md)
+DEPTH = 3  # engine analysis depth (PERF.md)
 SERIAL_DEPTH = 2  # the same chunk through the chunk-serial path
 NO_TT_DEPTH = 2  # the same chunk without the table or helpers
 POSITIONS = 10  # positions in the engine's chunk
@@ -67,9 +76,13 @@ TT_PARITY_LOG2 = 16  # table of the card-against-CPU TT searches
 STREAM_POSITIONS = 24  # positions of the card-against-CPU stream
 STREAM_WIDTH = 16
 SCALE_LANES = 1024  # bench.py's default lane count
-SCALE_DEPTH = 2  # cut from 3 to keep the script near half its time limit
+SCALE_DEPTH = 3
 REPS = 200  # launches per kernel timing
-PROFILE_STEPS = 20  # search steps under the profiler
+PROFILE_STEPS = 200  # steps of the profiled segment
+SEGMENT_STEPS = (1, 7, 33, 200)  # K11's checked segments, in turn on one state
+FINISH_STEPS = 20_000  # then, at 16 lanes, one segment in which every lane finishes
+SEGMENT_CONFIGS = ("no table", "table", "helpers", "deep_tt")
+SEGMENT_REPS = 10  # K11 launches per timing
 
 START = "rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR w KQkq - 0 1"
 # a Sicilian and a Ruy Lopez with repetitions near the end (so the
@@ -103,21 +116,27 @@ def nvcc_version() -> str:
     return out.strip().splitlines()[-1]
 
 
-# the kernels of a search without the transposition table
-NO_TT_KERNELS = ("nnue_refresh_768", "nnue_forward_from_acc", "nnue_acc_update_768",
-                 "zobrist_hash", "lane_init", "node_rules", "generate_moves", "make_move")
+# the kernels every search path launches: the root refresh (K1), the
+# lane init (K7) and the segment kernel (K11), with or without the table
+SEARCH_KERNELS = ("nnue_refresh_768", "lane_init", "search_segment")
 
 
-def check_launches(path: str, expected=None) -> dict:
-    """The kernels' launch counts since the last reset; every kernel of
-    the path (default: all) must have launched at least once."""
+def check_launches(path: str, engine: bool = False) -> dict:
+    """The kernels' launch counts since the last reset: every kernel of a
+    search path must have launched, and no kernel whose body runs inside
+    K11 may have launched on its own — but on the engine's paths K4,
+    which hashes the game history before each chunk."""
     from fishnet_tpu_torch import kernels
 
     launches = dict(kernels.LAUNCHES)
-    missing = [name for name in (expected or kernels.KERNELS) if launches[name] <= 0]
+    missing = [name for name in SEARCH_KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f"{path}: kernels {missing} were not launched ({launches})")
-    log(f"launches {path}: {launches}")
+    alone = [name for name in kernels.K11_BODIES if launches[name] > 0
+             and not (engine and name == "zobrist_hash")]
+    if alone:
+        raise AssertionError(f"{path}: kernels {alone} launched outside K11 ({launches})")
+    log(f"launches {path}: {launches}; inside K11: {kernels.body_calls()}")
     return launches
 
 
@@ -198,7 +217,8 @@ def kernel_phase(params_f32, reps: int) -> dict:
     from fishnet_tpu_torch.ops.board import move_piece_changes
 
     dev = torch.device("cuda")
-    stats = {k: {"max_abs_err": 0.0} for k in NO_TT_KERNELS if k != "lane_init"}
+    stats = {k: {"max_abs_err": 0.0} for k in (
+        "nnue_refresh_768", "nnue_forward_from_acc", "nnue_acc_update_768", "zobrist_hash")}
     params_i8 = nnue.quantize_int8(params_f32)
     for B in (16, 64, 1024):
         cpu_boards, moves = playout_boards(B, seed=B)
@@ -808,6 +828,166 @@ def rules_kernel_phase(reps: int) -> dict:
     return stats
 
 
+def segment_case(params, B: int, cfg: str, seed: int, dev):
+    """A seeded B-lane search state on dev for K11 and its table setup:
+    playout roots at depths 1-3 with node budgets of 100-1500 (so lanes
+    finish at different steps), MAX_PLY 32. cfg: "no table"; "table" (a
+    2^21-slot table, the plain store); "helpers" (three of four lanes
+    jittered helpers with group tags, the prefer_deep store with per-lane
+    generations into 2^12 slots, so lanes collide); "deep_tt" (2^21
+    slots, deep_bounds probes, the prefer_deep store of one generation);
+    "engine" (the main path's: 2^21 slots, prefer_deep, per-lane
+    generations). → (state, table or None, run_segment's keywords)."""
+    import numpy as np
+    import torch
+
+    from fishnet_tpu_torch.ops import search, tt
+
+    rng = np.random.default_rng(seed)
+    roots = playout_boards(B, seed=seed)[0].to(dev)
+
+    def col(values):
+        return torch.from_numpy(np.asarray(values, np.int32)).to(dev)
+
+    kw = {}
+    if cfg == "helpers":
+        jitter = rng.integers(1, 2**31 - 1, B).astype(np.int32)
+        jitter[::4] = 0
+        kw = dict(order_jitter=col(jitter), group=col(np.arange(B) // 4))
+    state = search.init_state(params, roots, col(1 + np.arange(B) % 3),
+                              col(rng.integers(100, 1500, B)), 32, **kw)
+    size = {"no table": None, "table": 21, "helpers": 12, "deep_tt": 21, "engine": 21}[cfg]
+    table = None if size is None else tt.make_table(size, device=dev)
+    gen = col(rng.integers(1, 4, B)) if cfg in ("helpers", "engine") else 5
+    run_kw = dict(table=table, deep_tt=cfg == "deep_tt",
+                  prefer_deep=cfg in ("helpers", "deep_tt", "engine"), tt_gen=gen)
+    return state, table, run_kw
+
+
+def _clone(state, table):
+    from fishnet_tpu_torch.ops import search
+
+    return (search.SearchState(*[t.clone() for t in state]),
+            None if table is None else table.clone())
+
+
+def _state_diff(a, b, ta, tb) -> float:
+    """The largest difference between two states' tables (floats compared
+    as their bits) and two transposition tables; 0 when byte-equal."""
+    import torch
+
+    err = 0.0
+    for x, y in list(zip(a, b)) + ([] if ta is None else [(ta, tb)]):
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if x.numel():
+            err = max(err, float((x.long() - y.long()).abs().max()))
+    return err
+
+
+def segment_bytes(calls: dict, acc_bytes: int) -> int:
+    """The bytes a segment must move, from K11's counters of its body
+    calls and live lane-steps: each live lane-step reads and writes the
+    lane's 64-byte row; each entering lane (one eval) reads its board row
+    (71 words), its and its parent's node rows and its accumulator pair,
+    and writes its node row and two path-hash words; each lane that
+    advances (one make-move) reads the parent's accumulator pair and
+    writes the child's, its board row (96 words) and node row; each probe
+    reads and each masked store writes one 16-byte table row."""
+    enters, advances = calls["nnue_forward_from_acc"], calls["make_move"]
+    return (calls["live_lane_steps"] * 128
+            + enters * (71 * 4 + 2 * 64 + acc_bytes + 64 + 8)
+            + advances * (2 * acc_bytes + 96 * 4 + 64)
+            + (calls["tt_probe"] + calls["tt_store"]) * 16)
+
+
+def segment_phase(params_f32, reps: int) -> dict:
+    """K11 against run_segment_plain on the card: seeded states at 16, 64
+    and 1024 lanes, both nets, every SEGMENT_CONFIGS setup, segments of
+    SEGMENT_STEPS steps in turn and (16 lanes) one of FINISH_STEPS in
+    which every lane finishes: every state table, the transposition table
+    and the summary byte for byte and the step counts equal. Then K11's
+    time per segment and per step (CUDA events) at 16, 64 and 1024 lanes
+    on the main path's table setup ("engine"), the plain version's, and
+    the bound from the bytes the timed segment moves."""
+    import torch
+
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.models import nnue
+    from fishnet_tpu_torch.ops import search
+
+    dev = torch.device("cuda")
+    nets = {"f32": params_f32, "int8": nnue.quantize_int8(params_f32)}
+    stats = {"max_abs_err": 0.0}
+    for B in (16, 64, 1024):
+        for net, params in nets.items():
+            for cfg in SEGMENT_CONFIGS:
+                state, table, kw = segment_case(params, B, cfg, seed=B + len(cfg), dev=dev)
+                plain, plain_table = _clone(state, table)
+                plain_kw = dict(kw, table=plain_table)
+                segs = SEGMENT_STEPS + ((FINISH_STEPS,) if B == 16 else ())
+                for steps in segs:
+                    n_k, sum_k = search.run_segment(params, state, steps, True, **kw)
+                    n_p, sum_p = search.run_segment_plain(params, plain, steps, True, **plain_kw)
+                    torch.cuda.synchronize()
+                    err = _state_diff(state, plain, table, plain_table)
+                    err = max(err, float((sum_k.long() - sum_p.long()).abs().max()))
+                    done = int(sum_k[:B, search.SUM_DONE].sum())
+                    label = f"B={B} {net} {cfg} segment {steps}"
+                    log(f"check search_segment {label}: steps {n_k} (plain {n_p}), done "
+                        f"{done}/{B}, max_abs_err={err} (tolerance 0, grid "
+                        f"{kernels.LAST_GRID['blocks']} blocks)")
+                    stats["max_abs_err"] = max(stats["max_abs_err"], err)
+                    if err != 0 or n_k != n_p:
+                        raise AssertionError(f"search_segment {label}: K11 differs from "
+                                             f"run_segment_plain (steps {n_k} / {n_p})")
+                    if steps == FINISH_STEPS and (done != B or n_k >= steps):
+                        raise AssertionError(f"search_segment {label}: lanes did not finish")
+
+    # times on the main path's table setup, f32 net, one segment of 200
+    # steps from a fresh state (the state and table restored between runs)
+    for B in (16, 1024, 64):
+        state0, table0, kw = segment_case(params_f32, B, "engine", seed=B, dev=dev)
+        state, table = _clone(state0, table0)
+        kw = dict(kw, table=table)
+        steps = SEGMENT_STEPS[-1]
+        search.run_segment(params_f32, state, steps, True, **kw)  # warm up
+        times = []
+        for _ in range(reps):
+            for t, t0 in zip(list(state) + [table], list(state0) + [table0]):
+                t.copy_(t0)
+            kernels.reset_launches()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            n, _ = search.run_segment(params_f32, state, steps, True, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        calls = kernels.body_calls()
+        ms = sum(times) / len(times)
+        plain, plain_table = _clone(state0, table0)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        search.run_segment_plain(params_f32, plain, steps, True, **dict(kw, table=plain_table))
+        torch.cuda.synchronize()
+        plain_ms = (time.monotonic() - t0) * 1e3
+        nbytes = segment_bytes(calls, 2 * 64 * 4)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"time search_segment B={B} engine table (CUDA events, {reps} launches): "
+            f"{ms:.4f} ms per segment of {n} steps, {ms / n * 1e3:.2f} us/step; plain "
+            f"{plain_ms:.1f} ms ({plain_ms / n:.3f} ms/step); bound {bound:.6f} ms, "
+            f"{bound / n * 1e3:.4f} us/step (bytes, {nbytes} bytes; counters {calls}); "
+            f"grid {kernels.LAST_GRID['blocks']} blocks")
+        if n != steps:
+            raise AssertionError(f"timed segment B={B} ran {n} of {steps} steps")
+        stats.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                     library_ms=None, steps=n)
+    return {"search_segment": stats}
+
+
+
 def make_chunk(n_positions: int, depth: int):
     from fishnet_tpu_torch.ipc import AnalysisWork, Chunk, EngineFlavor, NodeLimit, WorkPosition
 
@@ -828,13 +1008,15 @@ def engine_phase(params_f32, depth: int, n_positions: int, refill: bool,
     """One chunk through GpuEngine: through the LaneScheduler (refill;
     each segment's occupancy logged) or chunk-serially (each dispatch
     logged), with the defaults' 2^21 table and helper lanes (tt_on) or
-    with neither. → (launches, the wire responses without their times)."""
+    with neither. → (launches, the wire responses without their times,
+    steps, K11's body calls)."""
     import numpy as np
     import torch
 
     from fishnet_tpu_torch import ipc, kernels
     from fishnet_tpu_torch.chess import Position
     from fishnet_tpu_torch.engine.gpu import GpuEngine
+    from fishnet_tpu_torch.ops import search
 
     steps, helpers = [], {}
     path = ("engine chunk, " + ("refill" if refill else "chunk-serial")
@@ -862,12 +1044,27 @@ def engine_phase(params_f32, depth: int, n_positions: int, refill: bool,
         raise AssertionError(f"engine: refill {engine.refill}, {slots} slots")
     assert engine.max_ply == 32, engine.max_ply
     chunk = make_chunk(n_positions, depth)
+    ran = []  # each segment call's step count
+    run_segment = search.run_segment
+
+    def counted_segment(*args, **kwargs):
+        out = run_segment(*args, **kwargs)
+        ran.append(out[0])
+        return out
+
+    search.run_segment = counted_segment
     kernels.reset_launches()
     t0 = time.monotonic()
-    responses = asyncio.run(engine.go_multiple(chunk))
-    torch.cuda.synchronize()
+    try:
+        responses = asyncio.run(engine.go_multiple(chunk))
+        torch.cuda.synchronize()
+    finally:
+        search.run_segment = run_segment
     wall = time.monotonic() - t0
-    launches = check_launches(path, None if tt_on else NO_TT_KERNELS)
+    launches = check_launches(path, engine=True)
+    log(f"{path}: {len(ran)} segment calls, {sum(n > 0 for n in ran)} of them ran steps "
+        f"({sum(ran)} steps)")
+    body_calls = kernels.body_calls()
     if len(responses) != len(chunk.positions):
         raise AssertionError(f"{len(responses)} responses for {len(chunk.positions)} positions")
     for wp, res in zip(chunk.positions, responses):
@@ -903,14 +1100,14 @@ def engine_phase(params_f32, depth: int, n_positions: int, refill: bool,
         w.pop("time_s")
         w.pop("nps")
         wire.append(w)
-    return launches, wire
+    return launches, wire, n_steps, body_calls
 
 
 def no_table_phase(params_f32, depth: int, n_positions: int) -> None:
     """The chunk without the table or helpers, chunk-serially and through
     the LaneScheduler: without a table the two give the same responses."""
-    _, serial = engine_phase(params_f32, depth, n_positions, refill=False, tt_on=False)
-    _, sched = engine_phase(params_f32, depth, n_positions, refill=True, tt_on=False)
+    serial = engine_phase(params_f32, depth, n_positions, refill=False, tt_on=False)[1]
+    sched = engine_phase(params_f32, depth, n_positions, refill=True, tt_on=False)[1]
     if sched != serial:
         raise AssertionError(f"no table: scheduler {sched} != chunk-serial {serial}")
     log(f"no table: the scheduler's {len(sched)} responses equal the chunk-serial path's "
@@ -931,7 +1128,7 @@ def parity_phase(params_f32, depth: int) -> None:
     t0 = time.monotonic()
     card = search_batch(params_i8, roots, depth, 200_000, max_ply=8, device="cuda")
     t1 = time.monotonic()
-    check_launches("parity, card", NO_TT_KERNELS)
+    check_launches("parity, card")
     cpu = search_batch(params_i8.to("cpu"), roots, depth, 200_000, max_ply=8, device="cpu")
     t2 = time.monotonic()
     for k in ("score", "move", "nodes", "pv", "pv_len", "done"):
@@ -1053,7 +1250,7 @@ def scale_phase(params_f32, lanes: int, depth: int) -> None:
     out = search_batch(params_f32, roots, depth, 10_000_000, max_ply=32, device="cuda")
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    check_launches(f"scale B={lanes}", NO_TT_KERNELS)
+    check_launches(f"scale B={lanes}")
     nodes = int(out["nodes"].sum())
     if not out["done"].all():
         raise AssertionError("scale search did not finish")
@@ -1063,58 +1260,62 @@ def scale_phase(params_f32, lanes: int, depth: int) -> None:
 
 
 def profile_phase(params_f32, lanes: int, steps: int, tt_on: bool = False) -> None:
-    """Where a search step's time goes: steps of the lockstep search at
-    `lanes` lanes under torch.profiler — host wall per step, device time
-    per step, the device's idle share, launches per step and the largest
-    device-time entries (the hand kernels among them). tt_on: steps under
-    the TT runner, on a 2^21-slot table with the helpers' store."""
+    """Where a segment's time goes: one K11 segment of `steps` steps at
+    `lanes` lanes (depth-6 searches from playout positions, MAX_PLY 32)
+    under torch.profiler, after a warm-up segment: the host wall per step
+    (the launch and the read of the step count included), the device's
+    busy time per step, its idle share and the device entries per step.
+    tt_on: under the TT runner, on a 2^21-slot table with the helpers'
+    store."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from fishnet_tpu_torch import kernels
     from fishnet_tpu_torch.ops import tt
-    from fishnet_tpu_torch.ops.search import _step, _tt_step, init_state
+    from fishnet_tpu_torch.ops.search import init_state, run_segment
 
     dev = torch.device("cuda")
     roots = playout_boards(lanes, seed=13)[0].to(dev)
     kernels.reset_launches()
     state = init_state(params_f32, roots, torch.full((lanes,), 6, dtype=torch.int32, device=dev),
                        torch.full((lanes,), 10_000_000, dtype=torch.int32, device=dev), 32)
+    kw = {}
     if tt_on:
-        table = tt.make_table(21, device=dev)
-
-        def step():
-            _tt_step(params_f32, state, True, table, False, True, 1)
-    else:
-        def step():
-            _step(params_f32, state, True)
+        kw = dict(table=tt.make_table(21, device=dev), prefer_deep=True, tt_gen=1)
     name = f"profile B={lanes}{' with table' if tt_on else ''}"
-    for _ in range(20):  # warm up past the root
-        step()
+    run_segment(params_f32, state, 20, True, **kw)  # warm up past the root
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    for _ in range(steps):
-        step()
-    torch.cuda.synchronize()
+    n, _ = run_segment(params_f32, state, steps, True, **kw)
     plain_wall = time.monotonic() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
+        start.record()
+        n2, _ = run_segment(params_f32, state, steps, True, **kw)
+        end.record()
         wall = time.monotonic() - t0
-    check_launches(name, None if tt_on else NO_TT_KERNELS)
+        torch.cuda.synchronize()
+    check_launches(name)
+    if n != steps or n2 != steps:
+        raise AssertionError(f"{name}: segments ran {n} and {n2} of {steps} steps")
 
-    # the kernels themselves (device-side entries), not the ops that launched them
+    # the kernels themselves (device-side entries), not the ops that launched
+    # them; where the profiler records no device time, the CUDA events'
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     dev_us = sum(_device_us(e) for e in events)
+    source = "torch.profiler"
+    if dev_us <= 0:
+        dev_us, source = start.elapsed_time(end) * 1e3, "CUDA events"
     launches = sum(e.count for e in events)
-    log(f"{name}: wall {plain_wall / steps * 1e3:.3f} ms/step (profiled "
-        f"{wall / steps * 1e3:.3f}), device busy {dev_us / steps / 1e3:.3f} ms/step, device "
-        f"idle share {1 - dev_us / 1e6 / plain_wall:.3f}, device entries {launches / steps:.1f}/step")
-    for e in sorted(events, key=lambda e: -_device_us(e))[:12]:
+    log(f"{name}: wall {plain_wall / steps * 1e3:.4f} ms/step (profiled "
+        f"{wall / steps * 1e3:.4f}), device busy {dev_us / steps / 1e3:.4f} ms/step ({source}), "
+        f"device idle share {max(0.0, 1 - dev_us / 1e3 / (wall * 1e3)):.3f} (of the profiled "
+        f"segment), device entries {launches / steps:.3f}/step, segment {steps} steps")
+    for e in sorted(events, key=lambda e: -_device_us(e))[:6]:
         log(f"{name}: {_device_us(e) / steps:9.2f} us/step "
-            f"x{e.count / steps:<6.1f} {e.key[:90]}")
+            f"x{e.count / steps:<6.3f} {e.key[:90]}")
 
 
 def main() -> int:
@@ -1146,11 +1347,12 @@ def main() -> int:
     stats.update(tt_kernel_phase(REPS))
     stats.update(lane_init_phase(REPS))
     stats.update(rules_kernel_phase(REPS))
+    stats.update(segment_phase(params, SEGMENT_REPS))
     log(f"kernel phase: {time.monotonic() - t0:.1f} s")
     phases = [
         ("profile", lambda: [profile_phase(params, lanes, PROFILE_STEPS, tt_on)
                              for lanes, tt_on in ((16, False), (1024, False), (64, True))]),
-        ("engine (main path)", lambda: engine_phase(params, DEPTH, POSITIONS, refill=True)[0]),
+        ("engine (main path)", lambda: engine_phase(params, DEPTH, POSITIONS, refill=True)),
         ("engine chunk-serial", lambda: engine_phase(params, SERIAL_DEPTH, POSITIONS,
                                                      refill=False)),
         ("engine no table", lambda: no_table_phase(params, NO_TT_DEPTH, POSITIONS)),
@@ -1164,7 +1366,7 @@ def main() -> int:
         t0 = time.monotonic()
         results[name] = run()
         log(f"{name} phase: {time.monotonic() - t0:.1f} s")
-    launches = results["engine (main path)"]
+    launches, _, main_steps, body_calls = results["engine (main path)"]
 
     sources = {
         "nnue_refresh_768": "fishnet_tpu/models/nnue.py:160",
@@ -1177,14 +1379,17 @@ def main() -> int:
         "node_rules": "fishnet_tpu/ops/board.py:256",
         "generate_moves": "fishnet_tpu/ops/movegen.py:124",
         "make_move": "fishnet_tpu/ops/board.py:345",
+        "search_segment": "fishnet_tpu/ops/search.py:875",
     }
-    rows = [
-        {"name": name, "route": "cuda", "source": f"fishnet_tpu_torch/csrc/{name}.cu",
-         "replaces": sources[name], "launches": launches[name],
-         **{k: stats[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")}}
-        for name in kernels.KERNELS
-    ]
+    rows = []
+    for name in kernels.KERNELS:
+        row = {"name": name, "route": "cuda", "source": f"fishnet_tpu_torch/csrc/{name}.cu",
+               "replaces": sources[name], "launches": launches[name],
+               **{k: stats[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")}}
+        if name in kernels.K11_BODIES:  # its body's calls inside K11, per main-path step
+            row["in_k11_calls_per_step"] = body_calls[name] / max(main_steps, 1)
+        rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

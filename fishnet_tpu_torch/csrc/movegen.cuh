@@ -32,7 +32,10 @@ struct MoveList {
 };
 
 // The quiet-ordering state of a lane: history counters (4096, nullptr for
-// none) and two killer moves (-1 for none: no move encodes as -1).
+// none) and two killer moves (-1 for none: no move encodes as -1). The
+// counters are lane state that the segment kernel (K11) updates in the
+// same launch, so they are read with plain loads, never through the
+// read-only cache (__ldg): only the generated tables go through it.
 struct Ordering {
     const int32_t* hist;
     int killer0, killer1;
@@ -40,7 +43,7 @@ struct Ordering {
 
 __device__ __forceinline__ void emit(MoveList& list, const Ordering& o, int key, int move) {
     if (o.hist != nullptr && key == QUIET_KEY) {
-        const int bonus = min(max(__ldg(&o.hist[move & 4095]) >> HIST_SHIFT, 0), HIST_MAX_BONUS);
+        const int bonus = min(max(o.hist[move & 4095] >> HIST_SHIFT, 0), HIST_MAX_BONUS);
         key = HIST_BASE - bonus;
     }
     if (key >= NOISY_BELOW && (move == o.killer0 || move == o.killer1)) {

@@ -11,22 +11,17 @@
 // a lane, so ~0.3 us of HBM time at B = 1024 — far below launch overhead.
 //
 // Design: one thread per accumulator column, a block holds 4 (lane,
-// perspective) rows. Each thread recomputes the row's <= 4 (feature,
-// sign) pairs (cheap integer work, no shared memory needed), merges equal
-// features into one signed weight (a chess960 castle can move a piece
-// onto its own square: +1 and -1 cancel, as the reference's weight vector
-// does), and adds the rows in the order XLA:CPU reduces the reference's
-// 768-long contraction (measured bit-exact): increasing feature index,
-// rows of one 32-row block summed in order, block sums added in order;
-// only then is the delta added to the parent. Integer accumulators are
-// exact in any order.
-#include "common.cuh"
+// perspective) rows. Each thread computes the row's delta with nnue.cuh
+// acc_delta (the body the segment kernel K11 calls too): the <= 4
+// (feature, sign) pairs recomputed per thread (cheap integer work, no
+// shared memory), equal features merged, rows added in XLA:CPU's order
+// (measured bit-exact); only then is the delta added to the parent.
+// Integer accumulators are exact in any order.
+#include "nnue.cuh"
 
 namespace {
 
 constexpr int ROWS_PER_BLOCK = 4;
-constexpr int SLOTS = 4;
-constexpr int NONE = 1 << 20;
 
 template <typename W, typename A>
 __global__ void update_kernel(const A* __restrict__ acc_in,
@@ -39,42 +34,8 @@ __global__ void update_kernel(const A* __restrict__ acc_in,
     int row = blockIdx.x * ROWS_PER_BLOCK + threadIdx.y;
     if (row >= n_rows || col >= l1) return;
     int lane = row >> 1;
-    int persp = row & 1;
-    int idx[SLOTS], w[SLOTS];
-    for (int i = 0; i < SLOTS; ++i) {
-        int code = codes[lane * SLOTS + i];
-        idx[i] = code > 0 ? feature_768(code, sqs[lane * SLOTS + i], persp) : NONE;
-        w[i] = signs[lane * SLOTS + i];
-    }
-    for (int i = 1; i < SLOTS; ++i) {  // merge repeated features
-        for (int j = 0; j < i; ++j) {
-            if (idx[i] != NONE && idx[j] == idx[i]) {
-                w[j] += w[i];
-                idx[i] = NONE;
-            }
-        }
-    }
-    for (int i = 1; i < SLOTS; ++i) {  // insertion sort by feature index
-        int ki = idx[i], wi = w[i], j = i - 1;
-        while (j >= 0 && idx[j] > ki) {
-            idx[j + 1] = idx[j];
-            w[j + 1] = w[j];
-            --j;
-        }
-        idx[j + 1] = ki;
-        w[j + 1] = wi;
-    }
-    A total = 0, block = 0;
-    int cur = -1;
-    for (int i = 0; i < SLOTS && idx[i] != NONE; ++i) {
-        if ((idx[i] >> 5) != cur) {
-            total = total + block;
-            block = 0;
-            cur = idx[i] >> 5;
-        }
-        block = block + (A)ft_w[(int64_t)idx[i] * l1 + col] * (A)w[i];
-    }
-    total = total + block;
+    int s = lane * nnue::SLOTS;
+    A total = nnue::acc_delta<W, A>(codes + s, sqs + s, signs + s, row & 1, col, ft_w, l1);
     int64_t o = (int64_t)row * l1 + col;
     acc_out[o] = acc_in[o] + total;
 }

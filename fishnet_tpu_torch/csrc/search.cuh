@@ -1,0 +1,578 @@
+// One lane's search step and its table stores as warp-cooperative device
+// functions: the reference's _step_lane (fishnet_tpu/ops/search.py:343)
+// and the store halves of its TT runner (:903-980), for the segment
+// kernel K11 (search_segment.cu).
+//
+// The step follows the port's batched `_step` (ops/search.py) line for
+// line: ENTER (the board rules, the keys, the repetition scan over the
+// path and the game history, the leaf eval, futility, stand-pat, the TT
+// cutoff, move ordering with the TT move, null-move eligibility, the
+// entered row), RETURN (the fold into the parent, the null-move and LMR
+// re-search handling, the PV row) and TRYMOVE (killers and history,
+// mate/stalemate, LMR, the null child, make-move, the child's row,
+// accumulators and depth). One warp serves one lane: every thread computes
+// the lane's scalars (the same values, read from the warp's shared copies
+// of the rows), the board rules, move generator and make-move run as
+// K8-K10's warp bodies, the eval (K2) and the child accumulators (K3) as
+// their bodies. The rows the step reads are staged in shared memory before
+// any write, and the writes land in the reference's order, each under its
+// mask: the entered row (ply0), the folded parent (parent0), the PV row,
+// the TRYMOVE row (ply1), the child's depth word (nply), then the child's
+// board row and accumulators.
+//
+// Lane state (rows, history counters, accumulators) is read with plain
+// loads: a lane's warp writes it in the same launch. The table and the
+// cross-block words (claims, flags) go through L2 (ld/st.cg and atomics).
+// Constants come from search_consts.cuh and rules_tables.cuh, which
+// kernels.build() writes from the plain versions' modules.
+#pragma once
+#include "movegen.cuh"
+#include "nnue.cuh"
+#include "search_consts.cuh"
+#include "tt.cuh"
+
+namespace search {
+
+using namespace consts;
+using rules::FULL_MASK;
+using rules::MAX_MOVES;
+using rules::WARP;
+
+using rules::BT_CAST;
+using rules::BT_EP;
+using rules::BT_HM;
+using rules::BT_PH1;
+using rules::BT_PH2;
+using rules::BT_STM;
+using rules::BT_W;
+constexpr int L1 = nnue::L1;
+// a PV row is staged in two words a thread; a lane's scratch holds a
+// pending table row and its slot
+static_assert(SEGMENT_MAX_PLY <= 2 * WARP && SEGMENT_SCRATCH >= 5, "K11 layout");
+
+// the body calls and live lane-steps a launch counts (kernels.py K11_COUNTERS)
+enum Body { B_FORWARD, B_ACC_UPDATE, B_HASH, B_PROBE, B_STORE, B_NODE_RULES, B_MOVEGEN,
+            B_MAKE_MOVE, B_LIVE, N_BODY };
+
+struct NetF32 {
+    using Acc = float;
+    using FtW = float;
+    using HeadW = float;
+    using HeadB = float;
+};
+struct NetI8 {
+    using Acc = int32_t;
+    using FtW = int16_t;
+    using HeadW = int8_t;
+    using HeadB = int32_t;
+};
+
+// A segment's arguments: the state's nine tables ((B, ...) contiguous,
+// ops/search.py SearchState), the net, the key tables, the table (null
+// for none) with its claim words, and the launch's scratch and outputs.
+template <class Net>
+struct Segment {
+    int32_t* bt;  // (B, P+1, BT_W)
+    int32_t* nt;  // (B, P+1, NT_W)
+    int32_t* lane;  // (B, LN_W)
+    const int32_t* hist_hash;  // (B, H, 2)
+    const int32_t* hist_halfmove;  // (B, H)
+    int32_t* moves;  // (B, P, MAX_MOVES)
+    int32_t* hist;  // (B, HIST_SIZE)
+    int32_t* pv;  // (B, P, P)
+    typename Net::Acc* acc;  // (B, P+1, 2, L1)
+    const typename Net::FtW* ft_w;  // (768, L1)
+    nnue::Head<typename Net::HeadW, typename Net::HeadB> head;
+    const uint32_t* z1;
+    const uint32_t* z2;
+    int4* table;  // (n, 4) or null
+    uint32_t nmask;  // n - 1
+    int* claims;  // (n,): -1, or the highest lane claiming the slot in a store
+    const int32_t* gen_lanes;  // (B,) or null: every lane stores generation `gen`
+    int gen;
+    int* scratch;  // (B, SEGMENT_SCRATCH), then three live flags
+    unsigned long long* body_calls;  // (N_BODY,)
+    int32_t* summary;  // (B+1, 4)
+    int B, P, H, steps;
+    bool pruning, deep_tt, prefer_deep;
+};
+
+// The rows a lane's step reads, staged by its warp.
+struct WarpRows {
+    int btr[BT_W];  // the ply row; after ENTER, with its path hash (btE)
+    int btp[BT_W];  // the parent's row
+    int child[BT_W];  // the child's row
+    int ntr[NT_W];  // the ply's node row; after ENTER, the entered row (ntE)
+    int ntp[NT_W];  // the parent's node row; after RETURN, the folded row (ntP)
+    int gen[MAX_MOVES];  // the ordered move list ENTER generates
+    int chg[12];  // the child's piece changes: codes, squares, signs
+    rules::MoveList list;  // K9's scratch
+};
+
+__device__ __forceinline__ bool is_quiet(int move, const int* board) {
+    return board[(move >> 6) & 63] == 0 && ((move >> 12) & 7) == 0;
+}
+
+// A masked store's half before the barrier (K6's rules, tt.cuh): the lane
+// decides against the pre-store row, records its row and slot (-1: stores
+// nothing) in its scratch and claims the slot; the highest claiming lane
+// of a slot wins, as the reference's scatter gives on XLA:CPU.
+template <class Net>
+__device__ void store_claim(const Segment<Net>& a, int lane, bool mask, uint32_t h1,
+                            uint32_t h2, int score, int depth, int flag, int move, int t,
+                            unsigned* calls) {
+    int slot = -1;
+    const int gen = a.gen_lanes ? a.gen_lanes[lane] : a.gen;
+    if (mask && tt::storable(score)) {
+        const uint32_t s = h1 & a.nmask;
+        if (!(a.prefer_deep && tt::keep_old(__ldcg(a.table + s), gen, depth))) slot = (int)s;
+    }
+    if (t == 0) {
+        int* sc = a.scratch + (int64_t)lane * SEGMENT_SCRATCH;
+        if (slot >= 0) {
+            const int4 row = tt::store_row((int32_t)h2, score, depth, flag, move, gen);
+            sc[0] = row.x;
+            sc[1] = row.y;
+            sc[2] = row.z;
+            sc[3] = row.w;
+            atomicMax(a.claims + slot, lane);
+        }
+        sc[4] = slot;
+        calls[B_STORE] += mask;
+    }
+}
+
+// A store's half after the barrier: the slot's owner writes its row whole
+// and frees the claim word for the next store.
+template <class Net>
+__device__ void store_commit(const Segment<Net>& a, int lane, int t) {
+    if (t != 0) return;
+    const int* sc = a.scratch + (int64_t)lane * SEGMENT_SCRATCH;
+    const int slot = sc[4];
+    if (slot < 0 || __ldcg(a.claims + slot) != lane) return;
+    __stcg(a.table + slot, make_int4(sc[0], sc[1], sc[2], sc[3]));
+    atomicExch(a.claims + slot, -1);
+}
+
+// The runner's first store: a lane parked in RETURN whose interior node
+// finished (not illegal, not a TT-sourced value of depth -1, within its
+// budget) stores the node's value with its bound flag and best move.
+template <class Net>
+__device__ void interior_store_claim(const Segment<Net>& a, int lane, WarpRows& s, int t,
+                                     unsigned* calls) {
+    const int32_t* L = a.lane + (int64_t)lane * LN_W;
+    const int ret = L[LN_RET], retd = L[LN_RETD];
+    const bool mask = L[LN_MODE] == MODE_RETURN && ret != ILLEGAL && retd >= 1
+                      && L[LN_NODES] < L[LN_BUDGET];
+    uint32_t h1 = 0, h2 = 0;
+    int flag = 0, move = 0;
+    if (mask) {
+        const int ply = L[LN_PLY];
+        const int64_t row = (int64_t)lane * (a.P + 1) + ply;
+        const int32_t* ntrow = a.nt + row * NT_W;
+        for (int j = t; j < BT_W; j += WARP) s.btr[j] = a.bt[row * BT_W + j];
+        __syncwarp();
+        tt::zobrist_keys_warp(s.btr, s.btr[BT_STM], s.btr[BT_EP], &s.btr[BT_CAST], a.z1, a.z2,
+                              t, h1, h2);
+        flag = ret >= ntrow[NT_BETA] ? FLAG_LOWER
+                                     : (ret <= ntrow[NT_ALPHA0] ? FLAG_UPPER : FLAG_EXACT);
+        move = ntrow[NT_BMOVE];
+        __syncwarp();  // the rows are free for the warp's next lane
+        if (t == 0) calls[B_HASH] += 1;
+    }
+    store_claim(a, lane, mask, h1, h2, ret, max(retd, 0), flag, move, t, calls);
+}
+
+// One step of one lane (the port's `_step`, its TT-runner arguments from
+// the probe made here, with the window ENTER gives the node), written into
+// the state in place; with a table, then the claim half of the leaf store
+// (depth-0 EXACT under the pre-step keys). Returns whether the lane is
+// still live. Every thread of the warp calls it; branches are warp-uniform.
+template <class Net>
+__device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows& s, int t,
+                          unsigned* calls) {
+    using Acc = typename Net::Acc;
+    int32_t* L = a.lane + (int64_t)lane * LN_W;
+    const int P = a.P, P1 = P + 1;
+    const int mode0 = L[LN_MODE];
+    if (mode0 == MODE_DONE) {
+        // a parked lane: the step only clears its leaf mark
+        const int research = L[LN_RESEARCH] != 0;
+        __syncwarp();
+        if (t == 0) {
+            L[LN_SMARK] = 0;
+            L[LN_SVAL] = 0;
+            L[LN_RESEARCH] = research;
+        }
+        if (a.table) store_claim(a, lane, false, 0, 0, 0, 0, 0, 0, t, calls);
+        return false;
+    }
+    if (t == 0) calls[B_LIVE] += 1;
+    const int ply0 = L[LN_PLY];
+    int nodes = L[LN_NODES];
+    const int p0 = ply0, pp = max(p0 - 1, 0);
+    int32_t* nt = a.nt + (int64_t)lane * P1 * NT_W;
+    int32_t* bt = a.bt + (int64_t)lane * P1 * BT_W;
+    int32_t* mv = a.moves + (int64_t)lane * P * MAX_MOVES;
+    int32_t* pv = a.pv + (int64_t)lane * P * P;
+    Acc* acc = a.acc + (int64_t)lane * P1 * 2 * L1;
+    if (t < NT_W) {
+        s.ntr[t] = nt[p0 * NT_W + t];
+        s.ntp[t] = nt[pp * NT_W + t];
+    }
+    for (int j = t; j < BT_W; j += WARP) {
+        s.btr[j] = bt[p0 * BT_W + j];
+        s.btp[j] = bt[pp * BT_W + j];
+    }
+    // the move a fold credits to the parent, read before any write
+    const int tried = mv[pp * MAX_MOVES
+                         + min(max(nt[pp * NT_W + NT_MIDX] - 1, 0), MAX_MOVES - 1)];
+    const int budget = L[LN_BUDGET];
+    int ret = L[LN_RET], ret_depth = L[LN_RETD];
+    const int root_alpha = L[LN_RALPHA], root_beta = L[LN_RBETA];
+    int root_score = L[LN_RSCORE], root_move = L[LN_RMOVE];
+    bool research = L[LN_RESEARCH] != 0;
+    __syncwarp();
+    const int ntp0_bmove = s.ntp[NT_BMOVE];
+
+    // ---------------------------------------------------------- ENTER
+    const bool enter = mode0 == MODE_ENTER;
+    const bool root = ply0 == 0;
+    bool expand = false, leaf_store = false;
+    int store_val = 0, mode = mode0;
+    uint32_t h1 = 0, h2 = 0;
+    if (enter) {
+        const int stm = s.btr[BT_STM];
+        bool illegal_raw, checked;
+        rules::node_rules_warp(s.btr, stm, t, &illegal_raw, &checked);  // K8
+        const bool parent_illegal = illegal_raw && !root;
+        const int depth_left = s.ntr[NT_DL];
+        const bool parent_null = s.ntp[NT_NULL] == 2 && !root;
+        const bool over_budget = nodes >= budget;
+        const int hm = s.btr[BT_HM];
+        const bool fifty = hm >= FIFTY_PLIES;
+
+        // twofold repetition along the search path and against the
+        // pre-root game history, through unbroken reversible-move chains
+        tt::zobrist_keys_warp(s.btr, stm, s.btr[BT_EP], &s.btr[BT_CAST], a.z1, a.z2, t, h1,
+                              h2);  // K4
+        bool rep = false;
+        for (int k = t; k < ply0; k += WARP) {
+            const int32_t* r = bt + k * BT_W;
+            rep |= r[BT_PH1] == (int32_t)h1 && r[BT_PH2] == (int32_t)h2
+                   && hm - r[BT_HM] == ply0 - k;
+        }
+        const int32_t* hh = a.hist_hash + (int64_t)lane * a.H * 2;
+        const int32_t* hhm = a.hist_halfmove + (int64_t)lane * a.H;
+        for (int j = t; j < a.H; j += WARP) {
+            rep |= hh[2 * j] == (int32_t)h1 && hh[2 * j + 1] == (int32_t)h2
+                   && hm - hhm[j] == ply0 + a.H - j;
+        }
+        const bool draw = fifty || __any_sync(FULL_MASK, rep);
+        const int entry_alpha = root ? root_alpha : -s.ntp[NT_BETA];
+        const int entry_beta = root ? root_beta
+                                    : (parent_null ? 1 - s.ntp[NT_BETA] : -s.ntp[NT_ALPHA]);
+        const bool in_qs = depth_left <= 0;
+
+        // leaf value: K2's body on the lane's accumulator pair, one thread
+        const int pieces = __popc(__ballot_sync(FULL_MASK, s.btr[t] > 0))
+                           + __popc(__ballot_sync(FULL_MASK, s.btr[t + WARP] > 0));
+        const int bucket = min(max((pieces - 1) / 4, 0), 7);
+        float ev = 0.0f;
+        if (t == 0) {
+            const Acc* pair = acc + p0 * 2 * L1;
+            ev = nnue::forward_lane(pair + stm * L1, pair + (1 - stm) * L1, bucket, a.head);
+        }
+        ev = __shfl_sync(FULL_MASK, ev, 0);
+        const int static_val = min(max((int)ev, -MATE_BOUND), MATE_BOUND);
+        const int leaf_val = draw ? DRAW : static_val;
+
+        rules::Ordering o;
+        o.hist = a.hist + (int64_t)lane * HIST_SIZE;
+        o.killer0 = s.ntr[NT_K0];
+        o.killer1 = s.ntr[NT_K1];
+        int count, noisy;
+        rules::generate_moves_warp(s.btr, stm, s.btr[BT_EP], &s.btr[BT_CAST], o, t, s.list,
+                                   s.gen, &count, &noisy);  // K9
+        const bool quiet_node = noisy == 0;
+        const bool window_ok_a = entry_alpha > -MATE_BOUND && entry_alpha < MATE_BOUND;
+        bool qs_like = in_qs;
+        if (a.pruning) {  // futility at frontier nodes
+            const int f_margin = depth_left == 1 ? FUTILITY_MARGIN_1 : FUTILITY_MARGIN_2;
+            qs_like = qs_like
+                      || (depth_left <= FUTILITY_DEPTH && !(in_qs || checked || root)
+                          && static_val + f_margin <= entry_alpha && window_ok_a);
+        }
+        const bool is_leaf = draw || over_budget || ply0 >= P || (qs_like && quiet_node)
+                             || (in_qs && leaf_val >= entry_beta);  // stand-pat cut
+        // TT cutoff: a leaf return with the stored score; never at the
+        // root, never on a fifty-move or repetition draw
+        bool use_tt = false, to_return, no_store;
+        int tt_score = 0, tt_move = -1;
+        if (a.table) {
+            bool usable;
+            tt::probe_row(__ldcg(a.table + (h1 & a.nmask)), (int32_t)h2, depth_left,
+                          entry_alpha, entry_beta, true, a.deep_tt, usable, tt_score,
+                          tt_move);  // K5
+            use_tt = usable && !(root || draw);
+            to_return = parent_illegal || is_leaf || use_tt;
+            no_store = parent_illegal || draw || use_tt;
+        } else {
+            to_return = parent_illegal || is_leaf;
+            no_store = parent_illegal || draw;
+        }
+        expand = !to_return;
+        // quiet static leaves, for the runner's depth-0 EXACT store
+        leaf_store = is_leaf && !no_store && quiet_node;
+        store_val = leaf_store ? leaf_val : 0;
+
+        // the stored move to the front of the list (not in quiescence)
+        if (tt_move >= 0 && !qs_like) {
+            int at = -1;
+            for (int j0 = 0; j0 < MAX_MOVES && at < 0; j0 += WARP) {
+                const unsigned hit = __ballot_sync(FULL_MASK, s.gen[j0 + t] == tt_move);
+                if (hit) at = j0 + __ffs(hit) - 1;
+            }
+            if (at >= 0) {
+                __syncwarp();
+                if (t == 0) {
+                    s.gen[at] = s.gen[0];
+                    s.gen[0] = tt_move;
+                }
+                __syncwarp();
+            }
+        }
+
+        int null_v = 0;
+        if (a.pruning) {  // null-move eligibility
+            const int lo = stm * 6 + 2, hi = stm * 6 + 5;
+            const int c0 = s.btr[t], c1 = s.btr[t + WARP];
+            const bool nonpawn = __any_sync(FULL_MASK, (c0 >= lo && c0 <= hi)
+                                                       || (c1 >= lo && c1 <= hi));
+            null_v = depth_left >= NULL_MIN_DEPTH && !(checked || parent_null || root)
+                     && static_val >= entry_beta && entry_beta < MATE_BOUND
+                     && entry_beta > -MATE_BOUND && nonpawn;
+        }
+
+        // the entered row: every field on expansion, pv_len and the check
+        // flag on every entry (ops/search.py _FM_EXPAND, _FM_ENTER)
+        __syncwarp();
+        if (t == 0) {
+            if (expand) {
+                s.ntr[NT_COUNT] = qs_like ? noisy : count;
+                s.ntr[NT_MIDX] = 0;
+                s.ntr[NT_SEARCHED] = 0;
+                s.ntr[NT_ALPHA] = qs_like ? max(entry_alpha, leaf_val) : entry_alpha;
+                s.ntr[NT_ALPHA0] = entry_alpha;
+                s.ntr[NT_BETA] = entry_beta;
+                s.ntr[NT_BEST] = qs_like ? leaf_val : -INF;
+                s.ntr[NT_BMOVE] = -1;
+                s.ntr[NT_NULL] = null_v;
+                s.ntr[NT_LASTRED] = 0;
+            }
+            s.ntr[NT_PVLEN] = 0;
+            s.ntr[NT_INCHECK] = checked;
+            s.btr[BT_PH1] = (int32_t)h1;
+            s.btr[BT_PH2] = (int32_t)h2;
+        }
+        __syncwarp();
+        if (t < NT_W) nt[p0 * NT_W + t] = s.ntr[t];
+        if (t == 0) {
+            bt[p0 * BT_W + BT_PH1] = (int32_t)h1;
+            bt[p0 * BT_W + BT_PH2] = (int32_t)h2;
+        }
+        if (expand) {
+            for (int j = t; j < MAX_MOVES; j += WARP) mv[min(p0, P - 1) * MAX_MOVES + j] = s.gen[j];
+        }
+        __syncwarp();
+
+        if (to_return) {  // a TT-sourced value is already stored: depth -1
+            ret = parent_illegal ? ILLEGAL : (use_tt ? tt_score : leaf_val);
+            ret_depth = use_tt ? -1 : 0;
+        }
+        nodes += !parent_illegal;
+        mode = to_return ? MODE_RETURN : MODE_TRYMOVE;
+        if (t == 0) {
+            calls[B_NODE_RULES] += 1;
+            calls[B_HASH] += 1;
+            calls[B_FORWARD] += 1;
+            calls[B_MOVEGEN] += 1;
+            calls[B_PROBE] += a.table != nullptr;
+        }
+    }
+
+    // --------------------------------------------------------- RETURN
+    const bool ret_m = mode == MODE_RETURN;
+    const bool fold = ret_m && !root;
+    bool better = false;
+    if (fold) {
+        const int v = -ret;
+        const bool is_null_ret = s.ntp[NT_NULL] == 2;
+        const bool legal_fold = ret != ILLEGAL;
+        const bool null_cut = is_null_ret && legal_fold && v >= s.ntp[NT_BETA] && v < MATE_BOUND;
+        const bool real_fold = legal_fold && !is_null_ret;
+        const bool need_rs = real_fold && s.ntp[NT_LASTRED] > 0 && v > s.ntp[NT_ALPHA];
+        const bool counted = real_fold && !need_rs;
+        better = counted && v > s.ntp[NT_BEST];
+        const int best_p = (better || null_cut) ? v : s.ntp[NT_BEST];
+        const int alpha_p = max(s.ntp[NT_ALPHA], best_p);
+        const int searched = s.ntp[NT_SEARCHED] + 1;
+        const int pv_len = min(s.ntr[NT_PVLEN] + 1, P);  // the child's post-ENTER pv_len
+        research = need_rs;
+        __syncwarp();
+        if (t == 0) {
+            s.ntp[NT_BEST] = best_p;
+            if (better) {
+                s.ntp[NT_BMOVE] = tried;
+                s.ntp[NT_PVLEN] = pv_len;
+            }
+            s.ntp[NT_ALPHA] = alpha_p;
+            if (counted) s.ntp[NT_SEARCHED] = searched;
+            if (is_null_ret) s.ntp[NT_NULL] = 0;
+        }
+        __syncwarp();
+        if (t < NT_W) nt[pp * NT_W + t] = s.ntp[t];
+        __syncwarp();
+    } else if (ret_m) {
+        research = false;
+    }
+    if (better) {
+        // pv[parent] = tried + pv[ply]; a ply past the PV table's last row
+        // reads the last row
+        const int32_t* child_pv = pv + min(p0, P - 1) * P;
+        int v0 = 0, v1 = 0;
+        if (t < P) v0 = t == 0 ? tried : child_pv[t - 1];
+        if (t + WARP < P) v1 = child_pv[t + WARP - 1];
+        __syncwarp();
+        if (t < P) pv[pp * P + t] = v0;
+        if (t + WARP < P) pv[pp * P + t + WARP] = v1;
+        __syncwarp();
+    }
+    const bool root_ret = ret_m && root;
+    if (root_ret) {
+        root_score = ret;
+        root_move = ntp0_bmove;
+    }
+    const int ply1 = fold ? ply0 - 1 : ply0;
+    mode = root_ret ? MODE_DONE : (fold ? MODE_TRYMOVE : mode);
+
+    // -------------------------------------------------------- TRYMOVE
+    int ply_f = ply1;
+    if (mode == MODE_TRYMOVE) {
+        const int* nt1 = expand ? s.ntr : s.ntp;
+        const int* bt1 = expand ? s.btr : s.btp;
+        const int midx = nt1[NT_MIDX];
+        const bool exhausted = midx >= nt1[NT_COUNT];
+        const bool cutoff = nt1[NT_ALPHA] >= nt1[NT_BETA];
+        const bool re_push = research;
+        const bool do_null = !(re_push || cutoff) && nt1[NT_NULL] == 1;
+        const bool finish = !(do_null || re_push) && (exhausted || cutoff);
+        const bool advance = !finish;
+        const bool normal_adv = advance && !(re_push || do_null);
+        const int dl_node = nt1[NT_DL];
+
+        // killer/history credit on fail-high by a quiet move
+        const int cause = nt1[NT_BMOVE];
+        const bool k_upd = cutoff && cause >= 0 && is_quiet(max(cause, 0), bt1);
+        const bool k_new = k_upd && cause != nt1[NT_K0];
+        if (k_upd && t == 0) {
+            int32_t* h = a.hist + (int64_t)lane * HIST_SIZE + (cause & (HIST_SIZE - 1));
+            const int dl = max(dl_node, 0);
+            *h = min(*h + min(dl * dl + 1, HIST_BONUS_MAX), HIST_MAX);
+        }
+
+        // finished node value: best, or mate/stalemate when no legal child
+        const bool no_legal = (nt1[NT_SEARCHED] == 0 && dl_node > 0) && nt1[NT_BEST] == -INF;
+        const int mate_val = nt1[NT_INCHECK] != 0 ? ply1 - MATE : DRAW;
+        const int fin_val = (no_legal && exhausted) ? mate_val : nt1[NT_BEST];
+
+        const int m_ix = min(max(re_push ? midx - 1 : midx, 0), MAX_MOVES - 1);
+        const int move = max(expand ? s.gen[m_ix] : mv[pp * MAX_MOVES + m_ix], 0);
+        int red = 0, child_dl;
+        if (a.pruning) {
+            // late-move reduction; the null child is the same position
+            // with the opponent to move, no ep square and a reset clock
+            const bool lmr_ok = dl_node >= LMR_MIN_DEPTH && midx >= LMR_MIN_MOVE
+                                && nt1[NT_INCHECK] == 0 && is_quiet(move, bt1);
+            red = (lmr_ok && !(re_push || do_null)) ? (midx >= LMR_DEEP_MOVE ? 2 : 1) : 0;
+            const int null_r = NULL_R + (dl_node >= NULL_DEEP_DEPTH);
+            child_dl = max(dl_node - 1 - (do_null ? null_r : red), 0);
+        } else {
+            child_dl = max(dl_node - 1, 0);
+        }
+        const int nply = min(ply1 + 1, P);
+
+        // own-row fields [MIDX, NULL, LASTRED, K0, K1]
+        __syncwarp();  // the history word above lands before the warp's next read
+        if (t < NT_W) {
+            int x = nt1[t];
+            if (t == NT_MIDX && normal_adv) x = midx + 1;
+            if (t == NT_NULL && do_null) x = 2;
+            if (t == NT_LASTRED && advance) x = red;
+            if (t == NT_K0 && k_new) x = cause;
+            if (t == NT_K1 && k_new) x = nt1[NT_K0];
+            nt[ply1 * NT_W + t] = x;
+        }
+        __syncwarp();
+        if (advance) {
+            if (t == 0) nt[nply * NT_W + NT_DL] = child_dl;
+            rules::make_move_warp(bt1, bt1[BT_STM], bt1[BT_EP], &bt1[BT_CAST], bt1[BT_HM], move,
+                                  t, s.child, s.chg, s.chg + 4, s.chg + 8);  // K10
+            __syncwarp();
+            if (a.pruning && do_null) {  // a null move changes no pieces
+                for (int j = t; j < BT_W; j += WARP) {
+                    s.child[j] = bt1[j] * NULL_MUL[j] + NULL_ADD[j];
+                }
+                if (t < 4) {
+                    s.chg[t] = 0;
+                    s.chg[8 + t] = 0;
+                }
+                __syncwarp();
+            }
+            for (int j = t; j < BT_W; j += WARP) bt[nply * BT_W + j] = s.child[j];
+            // the child's accumulators: K3's body, four columns a thread
+            const Acc* src = acc + ply1 * 2 * L1;
+            Acc out[4];
+            for (int i = 0; i < 4; ++i) {
+                const int col = t + WARP * i;
+                const int persp = col / L1, c = col % L1;
+                out[i] = src[col] + nnue::acc_delta<typename Net::FtW, Acc>(
+                                        s.chg, s.chg + 4, s.chg + 8, persp, c, a.ft_w, L1);
+            }
+            __syncwarp();
+            Acc* dst = acc + nply * 2 * L1;
+            for (int i = 0; i < 4; ++i) dst[t + WARP * i] = out[i];
+            __syncwarp();
+            if (t == 0) {
+                calls[B_MAKE_MOVE] += 1;
+                calls[B_ACC_UPDATE] += 1;
+            }
+        }
+        research = false;
+        if (finish) {
+            ret = fin_val;
+            ret_depth = dl_node;
+        }
+        mode = finish ? MODE_RETURN : MODE_ENTER;
+        ply_f = advance ? nply : ply1;
+    }
+
+    __syncwarp();
+    if (t == 0) {
+        L[LN_PLY] = ply_f;
+        L[LN_MODE] = mode;
+        L[LN_RET] = ret;
+        L[LN_RETD] = ret_depth;
+        L[LN_SMARK] = leaf_store;
+        L[LN_SVAL] = store_val;
+        L[LN_NODES] = nodes;
+        L[LN_RSCORE] = root_score;
+        L[LN_RMOVE] = root_move;
+        L[LN_RESEARCH] = research;
+    }
+    // the leaves the step evaluated: their position is the pre-step one
+    if (a.table) store_claim(a, lane, leaf_store, h1, h2, store_val, 0, FLAG_EXACT, -1, t, calls);
+    return mode != MODE_DONE;
+}
+
+}  // namespace search

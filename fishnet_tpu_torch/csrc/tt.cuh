@@ -1,0 +1,127 @@
+// The transposition table's per-lane bodies as device functions: the
+// Zobrist keys of a position (K4), a probe of one row (K5) and the store's
+// row and keep-old rule (K6). K4-K6's kernels wrap them; the segment
+// kernel (K11) calls the same functions. The table is (n, 4) int32 rows
+// [check, meta, move, generation] with meta = (score + 32768) << 10 |
+// depth << 2 | flag; a row is valid when check ^ meta ^ move == h2 and
+// meta != 0 (ops/tt.py).
+//
+// The constants (the key tables' layout: piece-square | ep | castling |
+// stm; the meta packing, the flags, the largest storable score) come from
+// search_consts.cuh, which kernels.build() writes from ops/tt.py.
+#pragma once
+#include "common.cuh"
+#include "search_consts.cuh"
+
+namespace tt {
+
+using consts::CASTLE_OFF;
+using consts::DEPTH_MASK;
+using consts::EP_OFF;
+using consts::FLAG_EXACT;
+using consts::FLAG_LOWER;
+using consts::MAX_STORE;
+using consts::SCORE_BIAS;
+using consts::STM_OFF;
+
+// The keys of the squares, ep square, castling rooks and side to move
+// outside the pieces: XORed into every position's pair.
+__device__ __forceinline__ void side_keys(int stm, int ep, const int32_t* castling,
+                                          const uint32_t* z1, const uint32_t* z2,
+                                          uint32_t& h1, uint32_t& h2) {
+    int e = ep + 1;
+    if (e >= 0 && e < 65) {
+        h1 ^= z1[EP_OFF + e];
+        h2 ^= z2[EP_OFF + e];
+    }
+    for (int i = 0; i < 4; ++i) {
+        int c = castling[i] + 1;
+        if (c >= 0 && c < 65) {
+            h1 ^= z1[CASTLE_OFF + i * 65 + c];
+            h2 ^= z2[CASTLE_OFF + i * 65 + c];
+        }
+    }
+    int s = stm == 0 ? 0 : 1;
+    h1 ^= z1[STM_OFF + s];
+    h2 ^= z2[STM_OFF + s];
+}
+
+__device__ __forceinline__ void piece_key(int code, int sq, const uint32_t* z1,
+                                          const uint32_t* z2, uint32_t& h1, uint32_t& h2) {
+    if (code > 0 && code <= 12) {
+        h1 ^= z1[code * 64 + sq];
+        h2 ^= z2[code * 64 + sq];
+    }
+}
+
+// K4's body: one thread hashes one position (board: 64 codes).
+__device__ __forceinline__ void zobrist_keys(const int32_t* board, int stm, int ep,
+                                             const int32_t* castling, const uint32_t* z1,
+                                             const uint32_t* z2, uint32_t& h1, uint32_t& h2) {
+    h1 = 0;
+    h2 = 0;
+    for (int sq = 0; sq < 64; ++sq) piece_key(board[sq], sq, z1, z2, h1, h2);
+    side_keys(stm, ep, castling, z1, z2, h1, h2);
+}
+
+// The same keys from a warp: each thread XORs two squares, the warp folds
+// them (XOR is order free, so the keys equal zobrist_keys' bit for bit);
+// every thread returns the pair.
+__device__ __forceinline__ void zobrist_keys_warp(const int* board, int stm, int ep,
+                                                  const int* castling, const uint32_t* z1,
+                                                  const uint32_t* z2, int t, uint32_t& h1,
+                                                  uint32_t& h2) {
+    h1 = 0;
+    h2 = 0;
+    piece_key(board[t], t, z1, z2, h1, h2);
+    piece_key(board[t + 32], t + 32, z1, z2, h1, h2);
+    for (int off = 16; off > 0; off >>= 1) {
+        h1 ^= __shfl_xor_sync(0xffffffffu, h1, off);
+        h2 ^= __shfl_xor_sync(0xffffffffu, h2, off);
+    }
+    side_keys(stm, ep, (const int32_t*)castling, z1, z2, h1, h2);
+}
+
+// K5's body on the row in the lane's slot: usable (a valid row of the
+// exact depth — deep_bounds: at least that deep — whose bound cuts
+// (alpha, beta), for an entering lane), its unpacked score, and the
+// valid row's move for ordering (-1 otherwise).
+__device__ __forceinline__ void probe_row(int4 row, int32_t h2, int32_t depth_left,
+                                          int32_t alpha, int32_t beta, bool enter,
+                                          bool deep_bounds, bool& usable, int32_t& score,
+                                          int32_t& order_move) {
+    int32_t meta = row.y;
+    int32_t move = row.z;
+    bool valid = (row.x ^ meta ^ move) == h2 && meta != 0;
+    int32_t sc = (meta >> 10) - SCORE_BIAS;
+    int32_t depth = (meta >> 2) & DEPTH_MASK;
+    int32_t flag = meta & 3;
+    int32_t dl = max(depth_left, 0);
+    bool deep_enough = deep_bounds ? depth >= dl : depth == dl;
+    bool cuts = flag == FLAG_EXACT ? true : flag == FLAG_LOWER ? sc >= beta : sc <= alpha;
+    usable = valid && deep_enough && cuts && enter;
+    score = sc;
+    order_move = (valid && enter) ? move : -1;
+}
+
+// K6's rules for one masked lane: a score in the mate range stores
+// nothing; with prefer_deep a non-empty pre-store row of the lane's
+// generation that is strictly deeper is kept.
+__device__ __forceinline__ bool storable(int32_t score) {
+    // |score| with int32 wraparound, as jnp.abs and torch.abs give
+    int32_t mag = (int32_t)(score < 0 ? 0u - (uint32_t)score : (uint32_t)score);
+    return mag <= MAX_STORE;
+}
+
+__device__ __forceinline__ bool keep_old(int4 old, int32_t gen, int32_t depth) {
+    return old.y != 0 && old.w == gen && ((old.y >> 2) & DEPTH_MASK) > depth;
+}
+
+__device__ __forceinline__ int4 store_row(int32_t h2, int32_t score, int32_t depth,
+                                          int32_t flag, int32_t move, int32_t gen) {
+    uint32_t meta = ((uint32_t)(score + SCORE_BIAS) << 10) | ((uint32_t)depth << 2)
+                    | (uint32_t)flag;
+    return make_int4(h2 ^ (int32_t)meta ^ move, (int32_t)meta, move, gen);
+}
+
+}  // namespace tt

@@ -14,21 +14,19 @@
 // of HBM time, so the launch and one dependent DRAM round trip set the
 // time.
 //
-// Design: one thread per lane, 128 lanes a block; the row is one int4
-// load (the table is 16-byte aligned, rows are 16 bytes). Slot = h1 &
+// Design: one thread per lane, 128 lanes a block, each running tt.cuh
+// probe_row (the body K11 calls too); the row is one int4 load (the table
+// is 16-byte aligned, rows are 16 bytes). Slot = h1 &
 // (n - 1) on uint32 bits. A row is valid when check ^ meta ^ move == h2
 // and meta != 0; score/depth/flag unpack from meta with the reference's
 // arithmetic shifts, so every output equals the plain version's bits.
 // The (B,) int32 inputs take an element stride, so the runner passes
 // columns of its lane table and of the hash output without copying.
-#include "common.cuh"
+#include "tt.cuh"
 
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int SCORE_BIAS = 32768;
-constexpr int FLAG_EXACT = 0;
-constexpr int FLAG_LOWER = 1;
 
 __global__ void probe_kernel(const int4* __restrict__ table, uint32_t nmask,
                              const int32_t* __restrict__ h1, int64_t s_h1,
@@ -42,22 +40,11 @@ __global__ void probe_kernel(const int4* __restrict__ table, uint32_t nmask,
     int lane = blockIdx.x * THREADS + threadIdx.x;
     if (lane >= batch) return;
     uint32_t slot = (uint32_t)h1[lane * s_h1] & nmask;
-    int4 row = table[slot];
-    int32_t meta = row.y;
-    int32_t move = row.z;
-    bool valid = (row.x ^ meta ^ move) == h2[lane * s_h2] && meta != 0;
-    int32_t sc = (meta >> 10) - SCORE_BIAS;
-    int32_t depth = (meta >> 2) & 0xFF;
-    int32_t flag = meta & 3;
-    int32_t dl = max(depth_left[lane * s_dl], 0);
-    bool deep_enough = deep_bounds ? depth >= dl : depth == dl;
-    bool cuts = flag == FLAG_EXACT ? true
-              : flag == FLAG_LOWER ? sc >= beta[lane * s_b]
-                                   : sc <= alpha[lane * s_a];
-    bool in = enter[lane] != 0;
-    usable[lane] = (valid && deep_enough && cuts && in) ? 1 : 0;
-    score[lane] = sc;
-    order_move[lane] = (valid && in) ? move : -1;
+    bool use;
+    tt::probe_row(table[slot], h2[lane * s_h2], depth_left[lane * s_dl], alpha[lane * s_a],
+                  beta[lane * s_b], enter[lane] != 0, deep_bounds != 0, use, score[lane],
+                  order_move[lane]);
+    usable[lane] = use ? 1 : 0;
 }
 
 }  // namespace

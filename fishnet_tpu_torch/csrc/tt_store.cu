@@ -17,7 +17,9 @@
 // in shared memory (at most 1M at B = 1024, a few microseconds), and one
 // block runs it, which is fine while the step launches ~700 kernels.
 //
-// Design: one block of up to 1024 threads; each thread walks lanes i,
+// Design: one block of up to 1024 threads (the row and the keep-old rule
+// are tt.cuh's, which K11 shares; K11 resolves collisions across blocks
+// with per-slot claims instead of this scan); each thread walks lanes i,
 // i + blockDim, ... Phase 1 reads every old row it needs and writes the
 // lane's effective slot (-1: stores nothing) to shared memory; after
 // __syncthreads no thread reads the table again, so the keep-old
@@ -25,13 +27,11 @@
 // slots and lets only the last lane of each slot write its row with one
 // int4 store. Lanes narrowing compacts keep their relative order, so the
 // rule gives the reference's table through narrowing too.
-#include "common.cuh"
+#include "tt.cuh"
 
 namespace {
 
 constexpr int MAX_LANES = 8192;  // 32 KB of shared slots
-constexpr int SCORE_BIAS = 32768;
-constexpr int MAX_STORE = 30000;
 
 __global__ void store_kernel(int4* __restrict__ table, uint32_t nmask,
                              const int32_t* __restrict__ h1, int64_t s_h1,
@@ -46,18 +46,10 @@ __global__ void store_kernel(int4* __restrict__ table, uint32_t nmask,
     __shared__ int eff[MAX_LANES];
     for (int i = threadIdx.x; i < batch; i += blockDim.x) {
         int slot = -1;
-        int32_t sc = score[i * s_sc];
-        // |score| with int32 wraparound, as jnp.abs and torch.abs give
-        int32_t mag = (int32_t)(sc < 0 ? 0u - (uint32_t)sc : (uint32_t)sc);
-        if (mask[i] && mag <= MAX_STORE) {
+        if (mask[i] && tt::storable(score[i * s_sc])) {
             uint32_t s = (uint32_t)h1[i * s_h1] & nmask;
-            bool keep_old = false;
-            if (prefer_deep) {
-                int4 old = table[s];
-                int32_t g = gen_lanes ? gen_lanes[i] : gen;
-                keep_old = old.y != 0 && old.w == g && ((old.y >> 2) & 0xFF) > depth[i * s_d];
-            }
-            if (!keep_old) slot = (int)s;
+            int32_t g = gen_lanes ? gen_lanes[i] : gen;
+            if (!(prefer_deep && tt::keep_old(table[s], g, depth[i * s_d]))) slot = (int)s;
         }
         eff[i] = slot;
     }
@@ -73,11 +65,9 @@ __global__ void store_kernel(int4* __restrict__ table, uint32_t nmask,
             }
         }
         if (!last) continue;
-        uint32_t meta = ((uint32_t)(score[i * s_sc] + SCORE_BIAS) << 10)
-                      | ((uint32_t)depth[i * s_d] << 2) | (uint32_t)flag[i * s_f];
-        int32_t mv = move[i * s_m];
-        int32_t g = gen_lanes ? gen_lanes[i] : gen;
-        table[slot] = make_int4(h2[i * s_h2] ^ (int32_t)meta ^ mv, (int32_t)meta, mv, g);
+        table[slot] = tt::store_row(h2[i * s_h2], score[i * s_sc], depth[i * s_d],
+                                    flag[i * s_f], move[i * s_m],
+                                    gen_lanes ? gen_lanes[i] : gen);
     }
 }
 

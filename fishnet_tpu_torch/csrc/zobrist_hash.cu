@@ -13,19 +13,18 @@
 // 4.6 KB that stay in L1. At B = 1024 that is 0.3 MB, ~0.1 us of HBM time,
 // so the launch dominates.
 //
-// Design: one thread per lane, 128 lanes a block; the XOR fold is order
-// free, so the keys equal the reference's bit for bit. The board, stm, ep
+// Design: one thread per lane, 128 lanes a block, each running tt.cuh
+// zobrist_keys (the segment kernel K11 folds the same keys over a warp);
+// the XOR fold is order free, so the keys equal the reference's bit for
+// bit. The board, stm, ep
 // and castling arguments take a row stride, so the search passes views of
 // its packed board rows without copying them. Keys are carried as int32
 // bit patterns (torch has few uint32 operators; XOR is the same bits).
-#include "common.cuh"
+#include "tt.cuh"
 
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int EP_OFF = 13 * 64;
-constexpr int CASTLE_OFF = EP_OFF + 65;
-constexpr int STM_OFF = CASTLE_OFF + 4 * 65;
 
 __global__ void hash_kernel(const int32_t* __restrict__ board, int64_t board_stride,
                             const int32_t* __restrict__ stm, int64_t stm_stride,
@@ -36,31 +35,9 @@ __global__ void hash_kernel(const int32_t* __restrict__ board, int64_t board_str
                             uint32_t* __restrict__ out, int batch) {
     int lane = blockIdx.x * THREADS + threadIdx.x;
     if (lane >= batch) return;
-    const int32_t* bd = board + lane * board_stride;
-    uint32_t h1 = 0, h2 = 0;
-    for (int sq = 0; sq < 64; ++sq) {
-        int code = bd[sq];
-        if (code > 0 && code <= 12) {
-            h1 ^= z1[code * 64 + sq];
-            h2 ^= z2[code * 64 + sq];
-        }
-    }
-    int e = ep[lane * ep_stride] + 1;
-    if (e >= 0 && e < 65) {
-        h1 ^= z1[EP_OFF + e];
-        h2 ^= z2[EP_OFF + e];
-    }
-    const int32_t* cs = castling + lane * cast_stride;
-    for (int i = 0; i < 4; ++i) {
-        int c = cs[i] + 1;
-        if (c >= 0 && c < 65) {
-            h1 ^= z1[CASTLE_OFF + i * 65 + c];
-            h2 ^= z2[CASTLE_OFF + i * 65 + c];
-        }
-    }
-    int s = stm[lane * stm_stride] == 0 ? 0 : 1;
-    h1 ^= z1[STM_OFF + s];
-    h2 ^= z2[STM_OFF + s];
+    uint32_t h1, h2;
+    tt::zobrist_keys(board + lane * board_stride, stm[lane * stm_stride], ep[lane * ep_stride],
+                     castling + lane * cast_stride, z1, z2, h1, h2);
     out[lane * 2] = h1;
     out[lane * 2 + 1] = h2;
 }

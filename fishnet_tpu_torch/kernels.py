@@ -2,11 +2,13 @@
 
 Each `csrc/<name>.cu` compiles with nvcc for sm_90a into its own shared
 library with a plain C interface (`build/kernels-<hash>/lib<name>.so`,
-cached by a hash of the sources, the generated header and the flags; all
+cached by a hash of the sources, the generated headers and the flags; all
 sources build at once, one nvcc each). The board kernels (K8-K10) include
 `rules_tables.cuh`, which `rules_header` writes into the build directory
 from the plain versions' own tables (ops/tables.py, ops/board.py,
-ops/movegen.py), so no table is typed twice. The wrappers below take
+ops/movegen.py), and the table and search kernels (K4-K6, K11)
+`search_consts.cuh`, which `search_header` writes from ops/search.py and
+ops/tt.py, so no table or constant is typed twice. The wrappers below take
 CUDA tensors only: they check device, dtype, shape and contiguity,
 allocate the output with `torch.empty`, launch on the current stream,
 raise if the launch returned an error, and count the launch. The callers
@@ -39,8 +41,16 @@ NVCC_FLAGS = (
 KERNELS = (
     "nnue_refresh_768", "nnue_forward_from_acc", "nnue_acc_update_768",
     "zobrist_hash", "tt_probe", "tt_store", "lane_init",
+    "node_rules", "generate_moves", "make_move", "search_segment",
+)
+# the kernels whose bodies K11 runs inside a segment, and its per-launch
+# counters: those bodies' calls, then the live lane-steps (csrc/search.cuh
+# Body)
+K11_BODIES = (
+    "nnue_forward_from_acc", "nnue_acc_update_768", "zobrist_hash", "tt_probe", "tt_store",
     "node_rules", "generate_moves", "make_move",
 )
+K11_COUNTERS = K11_BODIES + ("live_lane_steps",)
 
 # length of each Zobrist table (ops/tt.py Z_SHAPE; the kernel reads the
 # piece-square, en-passant, castling and side-to-move keys at its head)
@@ -49,6 +59,11 @@ Z_KEYS = 1409
 # launches per kernel since the last reset; a wrapper adds one where it
 # launches its kernel and nowhere else
 LAUNCHES = {name: 0 for name in KERNELS}
+# K11's counters since the last reset, on the device: (K11_COUNTERS,)
+# int64 per device, each launch adding its warps' counts at its end
+_body_calls: dict = {}
+# K11's per-slot claim words per device (_claim_words)
+_claims: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -67,6 +82,8 @@ _SIGNATURES = {
     "node_rules": [_P, _L, _P, _L, _P, _P, _I, _P],
     "generate_moves": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _P, _I, _P],
     "make_move": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _P, _P, _I, _P],
+    "search_segment_f32": [_P] * 18 + [_P, _I, _P, _P, _I, _P, _P, _P] + [_I] * 7 + [_P, _P],
+    "search_segment_i8": [_P] * 18 + [_P, _I, _P, _P, _I, _P, _P, _P] + [_I] * 7 + [_P, _P],
 }
 
 # lanes one K6 launch takes (its shared-memory slot array)
@@ -75,6 +92,14 @@ TT_STORE_MAX_LANES = 8192
 # the search state's fixed widths K7 writes (ops/search.py BT_W, NT_W,
 # LN_W, MAX_HIST and the history table)
 BT_W, NT_W, LN_W, MAX_HIST, HIST_SIZE = 96, 16, 16, 16, 4096
+# K11: the deepest stack it takes (it stages a PV row in two words a
+# thread), the accumulator width of K2's layer stack, and its per-lane
+# scratch words (a pending table row and its slot)
+SEGMENT_MAX_PLY = 64
+SEGMENT_L1 = 64
+SEGMENT_SCRATCH = 8
+# the grid of K11's last launch (blocks), for the logs
+LAST_GRID = {"blocks": 0}
 
 _lock = threading.Lock()
 _fns: dict = {}
@@ -83,6 +108,17 @@ _fns: dict = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for counts in _body_calls.values():
+        counts.zero_()
+
+
+def body_calls() -> dict:
+    """K11's counters since the last reset, summed over the devices:
+    {name: count} for K11_COUNTERS (a host read of the counters)."""
+    total = np.zeros(len(K11_COUNTERS), np.int64)
+    for counts in _body_calls.values():
+        total += counts.cpu().numpy()
+    return dict(zip(K11_COUNTERS, total.tolist()))
 
 
 def _nvcc() -> str:
@@ -112,7 +148,7 @@ def rules_header() -> str:
             "QUIET_KEY", "CASTLE_KEY", "KILLER_KEY", "NOISY_BELOW", "HIST_BASE",
             "HIST_SHIFT", "HIST_MAX_BONUS", "QUEEN_PROMO_BONUS")},
         **{k: getattr(board, k) for k in (
-            "BT_BOARD", "BT_STM", "BT_EP", "BT_CAST", "BT_HM", "BT_W")},
+            "BT_BOARD", "BT_STM", "BT_EP", "BT_CAST", "BT_HM", "BT_PH1", "BT_PH2", "BT_W")},
     }
     arrays = (
         ("RAYS", "int8_t", T.RAYS),  # [sq][dir][step], -1 past the edge
@@ -149,6 +185,46 @@ def rules_header() -> str:
     return "\n".join(lines) + "\n"
 
 
+def search_header() -> str:
+    """The text of `search_consts.cuh`: the search's and the table's
+    constants (the state's field indices, modes, scores, pruning margins,
+    the TT flags and key layout, the null child's row map), written from
+    ops/search.py and ops/tt.py, the modules the plain versions read, and
+    the two limits of K11's layout that its wrapper checks."""
+    from .ops import search, tt
+
+    names = [k for k in vars(search) if k.startswith(("NT_", "LN_", "MODE_", "SUM_"))]
+    names += ["MATE", "INF", "ILLEGAL", "DRAW", "MATE_BOUND", "NULL_R", "NULL_MIN_DEPTH",
+              "NULL_DEEP_DEPTH", "FIFTY_PLIES", "FUTILITY_DEPTH", "FUTILITY_MARGIN_1",
+              "FUTILITY_MARGIN_2", "LMR_MIN_DEPTH", "LMR_MIN_MOVE", "LMR_DEEP_MOVE",
+              "MAX_HIST", "HIST_SIZE", "HIST_BONUS_MAX", "HIST_MAX"]
+    consts = {k: getattr(search, k) for k in names}
+    consts.update({k: getattr(tt, k) for k in ("FLAG_EXACT", "FLAG_LOWER", "FLAG_UPPER")})
+    consts.update(SEGMENT_MAX_PLY=SEGMENT_MAX_PLY, SEGMENT_SCRATCH=SEGMENT_SCRATCH)
+    consts.update({k.lstrip("_"): getattr(tt, k) for k in (
+        "_SCORE_BIAS", "_DEPTH_MASK", "_MAX_STORE", "_EP_OFF", "_CASTLE_OFF", "_STM_OFF")})
+    arrays = (
+        ("NULL_MUL", "int32_t", search._NULL_MUL),  # the null child's row: parent * MUL + ADD
+        ("NULL_ADD", "int32_t", search._NULL_ADD),
+    )
+    lines = [
+        "// Generated by fishnet_tpu_torch/kernels.py search_header() from",
+        "// ops/search.py and ops/tt.py; not a source file.",
+        "#pragma once",
+        "#include <cstdint>",
+        "namespace consts {",
+        *[f"constexpr int {k} = {int(v)};" for k, v in consts.items()],
+        *[_c_array(name, ctype, values) for name, ctype, values in arrays],
+        "}  // namespace consts",
+    ]
+    return "\n".join(lines) + "\n"
+
+
+def _headers() -> dict:
+    """The generated headers the kernels include, by file name."""
+    return {"rules_tables.cuh": rules_header(), "search_consts.cuh": search_header()}
+
+
 def _build_dir(header: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(header.encode())
@@ -166,14 +242,15 @@ def build() -> float:
         if _fns:
             return 0.0
         t0 = time.monotonic()
-        header = rules_header()
-        out = _build_dir(header)
+        headers = _headers()
+        out = _build_dir("".join(headers.values()))
         out.mkdir(parents=True, exist_ok=True)
-        dest = out / "rules_tables.cuh"  # the build directory is keyed by its text
-        if not dest.exists():  # another process may be compiling against it
-            tmp = out / f"rules_tables.cuh.tmp{os.getpid()}"
-            tmp.write_text(header)
-            os.replace(tmp, dest)
+        for fname, text in headers.items():  # the build directory is keyed by their text
+            dest = out / fname
+            if not dest.exists():  # another process may be compiling against it
+                tmp = out / f"{fname}.tmp{os.getpid()}"
+                tmp.write_text(text)
+                os.replace(tmp, dest)
         procs = {}
         for name in KERNELS:
             lib = out / f"lib{name}.so"
@@ -224,8 +301,16 @@ def _launch(kernel: str, sym: str, *args) -> None:
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
+    _check_device(t, name)
+    _check_layout(t, name, dtype, shape)
+
+
+def _check_device(t: torch.Tensor, name: str) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+
+
+def _check_layout(t: torch.Tensor, name: str, dtype, shape) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -282,26 +367,34 @@ def nnue_acc_update_768(acc: torch.Tensor, codes: torch.Tensor,
     return out
 
 
-def nnue_forward_from_acc(acc: torch.Tensor, stm: torch.Tensor,
-                          bucket: torch.Tensor, params) -> torch.Tensor:
-    """K2: acc (B, 2, 64), stm/bucket (B,) int32 → eval (B,) f32, for
-    the shipped net's widths (L1 64, 8 buckets of 128→16→32→1)."""
-    B = acc.shape[0]
+def _head_types(params):
+    """The layer stack's net tag and accumulator dtype (K2, K11), after
+    checking the head weights have the shipped net's widths (L1 64, 8
+    buckets of 128→16→32→1)."""
     if params.ft_w.dtype == torch.float32:
         tag, adt, wdt, bdt = "f32", torch.float32, torch.float32, torch.float32
     elif params.ft_w.dtype == torch.int16:
         tag, adt, wdt, bdt = "i8", torch.int32, torch.int8, torch.int32
     else:
         raise TypeError(f"unsupported net dtype {params.ft_w.dtype}")
-    _check(acc, "acc", adt, (B, 2, 64))
-    _check(stm, "stm", torch.int32, (B,))
-    _check(bucket, "bucket", torch.int32, (B,))
     for name, shape, dt in (
         ("l1_w", (8, 128, 16), wdt), ("l1_b", (8, 16), bdt),
         ("l2_w", (8, 16, 32), wdt), ("l2_b", (8, 32), bdt),
         ("out_w", (8, 32), wdt), ("out_b", (8,), bdt),
     ):
         _check(getattr(params, name), name, dt, shape)
+    return tag, adt
+
+
+def nnue_forward_from_acc(acc: torch.Tensor, stm: torch.Tensor,
+                          bucket: torch.Tensor, params) -> torch.Tensor:
+    """K2: acc (B, 2, 64), stm/bucket (B,) int32 → eval (B,) f32, for
+    the shipped net's widths (L1 64, 8 buckets of 128→16→32→1)."""
+    B = acc.shape[0]
+    tag, adt = _head_types(params)
+    _check(acc, "acc", adt, (B, 2, 64))
+    _check(stm, "stm", torch.int32, (B,))
+    _check(bucket, "bucket", torch.int32, (B,))
     out = torch.empty((B,), dtype=torch.float32, device=acc.device)
     if B:
         _launch("nnue_forward_from_acc", f"nnue_forward_from_acc_{tag}",
@@ -422,16 +515,10 @@ def tt_store(table: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor,
     return table
 
 
-def lane_init(state, lane_idx: torch.Tensor, rows: torch.Tensor, root_acc: torch.Tensor,
-              depth: torch.Tensor, budget: torch.Tensor, alpha: torch.Tensor,
-              beta: torch.Tensor, jitter: torch.Tensor, group: torch.Tensor,
-              hist_hash: torch.Tensor, hist_halfmove: torch.Tensor) -> None:
-    """K7: writes init_state's values into the lanes lane_idx (n,) int64
-    (distinct) of `state` (ops/search.py SearchState, contiguous (B, ...)
-    tables), in place. rows (n, BT_W) int32 root board rows; root_acc
-    (n, 2, L1) in the accumulators' dtype (K1's output); depth, budget,
-    alpha, beta, jitter, group (n,) int32; hist_hash (n, MAX_HIST, 2)
-    and hist_halfmove (n, MAX_HIST) int32."""
+def _check_state(state) -> tuple:
+    """The nine tables of a search state (ops/search.py SearchState):
+    contiguous tensors of consistent shapes → (B, P + 1, the move list's
+    width, L1). Their device is _check_devices'."""
     B, p1 = state.bt.shape[0], state.bt.shape[1]
     p = p1 - 1
     max_moves, l1 = state.moves.shape[2], state.acc.shape[3]
@@ -449,7 +536,28 @@ def lane_init(state, lane_idx: torch.Tensor, rows: torch.Tensor, root_acc: torch
         ("pv", state.pv, torch.int32, (B, p, p)),
         ("acc", state.acc, adt, (B, p1, 2, l1)),
     ):
-        _check(t, name, dt, shape)
+        _check_layout(t, name, dt, shape)
+    return B, p1, max_moves, l1
+
+
+def _check_devices(state) -> None:
+    for name, t in zip(state._fields, state):
+        _check_device(t, name)
+
+
+def lane_init(state, lane_idx: torch.Tensor, rows: torch.Tensor, root_acc: torch.Tensor,
+              depth: torch.Tensor, budget: torch.Tensor, alpha: torch.Tensor,
+              beta: torch.Tensor, jitter: torch.Tensor, group: torch.Tensor,
+              hist_hash: torch.Tensor, hist_halfmove: torch.Tensor) -> None:
+    """K7: writes init_state's values into the lanes lane_idx (n,) int64
+    (distinct) of `state` (ops/search.py SearchState, contiguous (B, ...)
+    tables), in place. rows (n, BT_W) int32 root board rows; root_acc
+    (n, 2, L1) in the accumulators' dtype (K1's output); depth, budget,
+    alpha, beta, jitter, group (n,) int32; hist_hash (n, MAX_HIST, 2)
+    and hist_halfmove (n, MAX_HIST) int32."""
+    B, p1, max_moves, l1 = _check_state(state)
+    _check_devices(state)
+    adt = state.acc.dtype
     n = lane_idx.shape[0]
     _check(lane_idx, "lane_idx", torch.int64, (n,))
     _check(rows, "rows", torch.int32, (n, BT_W))
@@ -521,3 +629,78 @@ def make_move(board: torch.Tensor, stm: torch.Tensor, ep: torch.Tensor,
         _launch("make_move", "make_move", *args, child.data_ptr(),
                 *[c.data_ptr() for c in changes], B)
     return child, changes[0], changes[1], changes[2]
+
+
+def _claim_words(device: torch.device, n: int) -> torch.Tensor:
+    """K11's per-slot claim words for a table of n rows on `device`: one
+    int32 a slot, all -1 between stores (a store's winners reset theirs),
+    so one buffer, grown to the largest table, serves every table."""
+    words = _claims.get(device.index)
+    if words is None or words.shape[0] < n:
+        words = _claims[device.index] = torch.full((n,), -1, dtype=torch.int32, device=device)
+    return words
+
+
+def search_segment(params, state, steps: int, pruning: bool, table=None,
+                   deep_tt: bool = False, prefer_deep: bool = False, gen=0) -> torch.Tensor:
+    """K11: up to `steps` lockstep search steps of every lane of `state`
+    (ops/search.py SearchState on the card, updated in place), stopping
+    once every lane is DONE, with the TT runner around each step when
+    `table` ((n, 4) int32, updated in place) is given → the packed
+    (B+1, 4) int32 summary (done, nodes, root score, root move; row B the
+    step count). params: the f32 or int8 net (K2's widths); gen: an int
+    or a (B,) int32 CUDA tensor of generations for the prefer_deep store.
+    One cooperative launch; raises if the card refuses it."""
+    B, p1, max_moves, l1 = _check_state(state)
+    p = p1 - 1
+    if l1 != SEGMENT_L1 or max_moves != MAX_MOVES:
+        raise ValueError(f"K11 takes L1 {SEGMENT_L1} and {MAX_MOVES}-move lists, got {l1}, "
+                         f"{max_moves}")
+    if not 1 <= p <= SEGMENT_MAX_PLY:
+        raise ValueError(f"K11 takes MAX_PLY 1..{SEGMENT_MAX_PLY}, got {p}")
+    adt = {torch.float32: torch.float32, torch.int16: torch.int32}.get(params.ft_w.dtype)
+    if state.acc.dtype != adt:
+        raise TypeError(f"acc must be {adt} for a net of {params.ft_w.dtype}, got "
+                        f"{state.acc.dtype}")
+    _check_devices(state)
+    tag, _ = _head_types(params)
+    _check(params.ft_w, "ft_w", params.ft_w.dtype, (768, SEGMENT_L1))
+    dev = state.lane.device
+    if params.ft_w.device != dev:
+        raise ValueError(f"the net is on {params.ft_w.device}, the state on {dev}")
+    n_rows, claims = 0, None
+    if table is not None:
+        n_rows = _check_table(table)
+        if table.device != dev:
+            raise ValueError(f"the table is on {table.device}, the state on {dev}")
+        claims = _claim_words(dev, n_rows)
+    gen_ptr, gen_int = None, 0
+    if torch.is_tensor(gen):
+        _check(gen, "gen", torch.int32, (B,))
+        gen_ptr = gen.data_ptr()
+    else:
+        gen_int = int(gen)
+    steps = max(0, min(int(steps), 2**31 - 1))
+    if not B:  # no lane: no step
+        return torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    counts = _body_calls.get(dev.index)
+    if counts is None:
+        counts = _body_calls[dev.index] = torch.zeros(len(K11_COUNTERS), dtype=torch.int64,
+                                                      device=dev)
+    from .ops.tt import tables as zobrist_tables
+
+    z1, z2 = zobrist_tables(dev)
+    scratch = torch.empty(B * SEGMENT_SCRATCH + 4, dtype=torch.int32, device=dev)
+    summary = torch.empty((B + 1, 4), dtype=torch.int32, device=dev)
+    grid = ctypes.c_int(0)
+    _launch("search_segment", f"search_segment_{tag}",
+            *[t.data_ptr() for t in state],
+            *[t.data_ptr() for t in params[:1] + params[2:]],
+            z1.data_ptr(), z2.data_ptr(),
+            None if table is None else table.data_ptr(), n_rows,
+            None if claims is None else claims.data_ptr(), gen_ptr, gen_int,
+            scratch.data_ptr(), counts.data_ptr(), summary.data_ptr(),
+            B, p, MAX_HIST, steps, int(bool(pruning)), int(bool(deep_tt)),
+            int(bool(prefer_deep)), ctypes.addressof(grid))
+    LAST_GRID["blocks"] = grid.value
+    return summary

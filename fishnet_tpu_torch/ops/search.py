@@ -22,14 +22,21 @@ lists, history counters, PV table and incremental NNUE accumulators. The
 JAX reference builds a new state each step; this port writes the same
 rows in place, in the same order, each under the same mask.
 
-Each step runs the board rules (K8), the move generator (K9), the
-make-move (K10), the Zobrist hash (K4), the leaf eval (K2) and the
-accumulator update (K3) as CUDA kernels on the card; `init_state` runs
-the root refresh (K1) and writes every lane with K7 (lane_init). With a
-table, `run_segment` wraps each step in the reference's TT runner: a
-store of the lanes parked in RETURN (K6), a probe of the lanes about to
-ENTER (K5), the step, and a store of the leaves it marked (K6). The rest
-of the step is batched PyTorch code.
+On the card a whole segment is one kernel, K11 (csrc/search_segment.cu,
+csrc/search.cuh): `run_segment` launches it once, and it runs up to
+segment_steps steps of every lane (a warp per lane), the TT runner
+around each step, the exit test and the packed summary, with the lane
+tables and the table in device memory. `init_state` runs the root
+refresh (K1) and writes every lane with K7 (lane_init).
+
+`run_segment_plain` is K11's plain version: the batched PyTorch step
+`_step` (and `_tt_step`, the reference's TT runner: a store of the
+lanes parked in RETURN, a probe of the lanes about to ENTER, the step,
+and a store of the leaves it marked) in the reference's while loop. The
+CPU runs it; on the card only the comparison with K11 does, and there
+its calls of the board rules (K8), move generator (K9), make-move (K10),
+Zobrist hash (K4), leaf eval (K2), accumulator update (K3) and TT probe
+and store (K5, K6) launch those kernels.
 
 Continuous lane refill: `refill_lanes` splices fresh roots into chosen
 lanes of a running state in place (K1 on the new roots, then K7 writes
@@ -96,7 +103,20 @@ _FM_EXPAND[[NT_COUNT, NT_MIDX, NT_SEARCHED, NT_ALPHA, NT_ALPHA0, NT_BETA,
 _FM_ENTER = np.zeros(NT_W, bool)
 _FM_ENTER[[NT_PVLEN, NT_INCHECK]] = True
 
-NULL_R = 2  # base null-move depth reduction (+1 at depth_left >= 7)
+NULL_R = 2  # base null-move depth reduction (+1 at depth_left >= NULL_DEEP_DEPTH)
+NULL_MIN_DEPTH = 3  # null move from depth_left 3
+NULL_DEEP_DEPTH = 7
+MATE_BOUND = MATE - 1000  # static evals are clamped to +-MATE_BOUND; windows past it prune nothing
+FIFTY_PLIES = 100  # the halfmove clock of a fifty-move draw
+FUTILITY_DEPTH = 2  # futility pruning at depth_left <= 2, margins by depth_left
+FUTILITY_MARGIN_1 = 150
+FUTILITY_MARGIN_2 = 300
+LMR_MIN_DEPTH = 3  # late-move reduction from depth_left 3 and the fourth move,
+LMR_MIN_MOVE = 3  # by one ply, by two from the ninth move
+LMR_DEEP_MOVE = 8
+HIST_SIZE = 4096  # from|to history counters per lane
+HIST_BONUS_MAX = 1024  # a fail-high's history bonus: min(depth^2 + 1, 1024)
+HIST_MAX = 1 << 20
 # the null child's board row from its parent's: the same board and
 # castling rooks, the other side to move, no ep square, halfmove 0, the
 # extra and path-hash words 0 (as rows_from_board writes them)
@@ -108,10 +128,6 @@ _NULL_ADD = np.zeros(BT_W, np.int32)
 _NULL_ADD[BT_STM] = 1
 _NULL_ADD[BT_EP] = -1
 
-# steps between the host's checks for "every lane DONE"; the step count
-# itself is kept on the device, so this only bounds the wasted steps
-CHECK_EVERY = 32
-
 _I32 = torch.int32
 
 
@@ -122,7 +138,7 @@ class SearchState(NamedTuple):
     hist_hash: torch.Tensor  # (B, MAX_HIST, 2) int32 pre-root game hashes
     hist_halfmove: torch.Tensor  # (B, MAX_HIST) int32
     moves: torch.Tensor  # (B, P, MAX_MOVES) int32
-    hist: torch.Tensor  # (B, 4096) int32 from|to history counters
+    hist: torch.Tensor  # (B, HIST_SIZE) int32 from|to history counters
     pv: torch.Tensor  # (B, P, P) int32
     acc: torch.Tensor  # (B, P+1, 2, L1) incremental NNUE accumulators
 
@@ -223,7 +239,7 @@ def _empty_state(B: int, max_ply: int, l1: int, acc_dtype, dev) -> SearchState:
     return SearchState(
         bt=empty((B, P + 1, BT_W)), nt=empty((B, P + 1, NT_W)), lane=empty((B, LN_W)),
         hist_hash=empty((B, MAX_HIST, 2)), hist_halfmove=empty((B, MAX_HIST)),
-        moves=empty((B, P, MAX_MOVES)), hist=empty((B, 4096)), pv=empty((B, P, P)),
+        moves=empty((B, P, MAX_MOVES)), hist=empty((B, HIST_SIZE)), pv=empty((B, P, P)),
         acc=empty((B, P + 1, 2, l1), acc_dtype),
     )
 
@@ -273,7 +289,7 @@ def _fresh_state(rows, root_acc, depth, budget, alpha, beta, jitter, group, hist
 
 
 def _jitter_history(order_jitter: torch.Tensor) -> torch.Tensor:
-    """(B, 4096) int32 initial history counters: zeros for lanes with
+    """(B, HIST_SIZE) int32 initial history counters: zeros for lanes with
     jitter 0, and for jitter j != 0 the reference's mix (j * 2654435761
     ^ idx * 2246822519, then ^ >> 15, then & 255) in uint32 arithmetic,
     done in int64 and masked so torch's signed int32 does not change the
@@ -284,7 +300,7 @@ def _jitter_history(order_jitter: torch.Tensor) -> torch.Tensor:
     # no product leaves int64
     c = 2654435761
     jm = (j * (c & 0xFFFF) + (((j * (c >> 16)) & 0xFFFF) << 16)) & m32
-    idx = torch.arange(4096, dtype=torch.int64, device=order_jitter.device)[None, :]
+    idx = torch.arange(HIST_SIZE, dtype=torch.int64, device=order_jitter.device)[None, :]
     mix = jm ^ ((idx * 2246822519) & m32)
     mix = mix ^ (mix >> 15)
     return torch.where(j != 0, mix & 255, 0).to(_I32)
@@ -392,7 +408,8 @@ def _consts(device: torch.device, P1: int, H: int) -> _Consts:
 @torch.inference_mode()
 def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
           tt_hit=None, tt_score=None, tt_move=None) -> None:
-    """One state-machine step for every lane, written into `s` in place.
+    """One state-machine step for every lane, written into `s` in place
+    (K11's step, csrc/search.cuh step_lane, in batched PyTorch).
 
     keys (B, 2) int32: the Zobrist keys of each lane's current ply row,
     when the caller has hashed it already (the TT runner); None hashes
@@ -436,7 +453,7 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
     depth_left = ntr0[:, NT_DL]
     parent_null = (ntp0[:, NT_NULL] == 2) > root
     over_budget = nodes >= lane[:, LN_BUDGET]
-    fifty = b.halfmove >= 100
+    fifty = b.halfmove >= FIFTY_PLIES
 
     # twofold repetition along the search path and against the pre-root
     # game history, through unbroken reversible-move chains
@@ -459,7 +476,7 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
     ev = nnue.forward_from_acc(
         params, _row(s.acc, p0), us.contiguous(), nnue.output_bucket(b.board)
     )
-    static_val = ev.to(_I32).clamp(-(MATE - 1000), MATE - 1000)
+    static_val = ev.to(_I32).clamp(-MATE_BOUND, MATE_BOUND)
     draw = fifty | repet
     leaf_val = torch.where(draw, DRAW, static_val)
 
@@ -467,11 +484,11 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
         b, killers=ntr0[:, NT_K0:NT_K1 + 1], hist=s.hist, rays=rays, attacks=attacks
     )
     quiet_node = gen_noisy == 0
-    window_ok_a = (entry_alpha > -(MATE - 1000)) & (entry_alpha < MATE - 1000)
+    window_ok_a = (entry_alpha > -MATE_BOUND) & (entry_alpha < MATE_BOUND)
     if pruning:  # futility at frontier nodes
-        f_margin = torch.where(depth_left == 1, 150, 300)
+        f_margin = torch.where(depth_left == 1, FUTILITY_MARGIN_1, FUTILITY_MARGIN_2)
         futile = (
-            ((depth_left <= 2) > (in_qs | we_are_checked | root))
+            ((depth_left <= FUTILITY_DEPTH) > (in_qs | we_are_checked | root))
             & (static_val + f_margin <= entry_alpha) & window_ok_a
         )
         qs_like = in_qs | futile
@@ -511,9 +528,9 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
         us_base = (us * 6)[:, None]
         nonpawn = ((b.board >= us_base + 2) & (b.board <= us_base + 5)).any(1)
         null_v = (
-            ((depth_left >= 3) > (we_are_checked | parent_null | root))
-            & (static_val >= entry_beta) & (entry_beta < MATE - 1000)
-            & (entry_beta > -(MATE - 1000)) & nonpawn
+            ((depth_left >= NULL_MIN_DEPTH) > (we_are_checked | parent_null | root))
+            & (static_val >= entry_beta) & (entry_beta < MATE_BOUND)
+            & (entry_beta > -MATE_BOUND) & nonpawn
         ).to(_I32)
     else:
         null_v = torch.zeros_like(ply0)
@@ -562,7 +579,7 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
     tried = moves_p_row.gather(1, (ntp0[:, NT_MIDX:NT_MIDX + 1] - 1).clamp(min=0).long())[:, 0]
     is_null_ret = fold & (ntp0[:, NT_NULL] == 2)
     legal_fold = fold & (ret != ILLEGAL)
-    null_cut = is_null_ret & legal_fold & (v >= ntp0[:, NT_BETA]) & (v < MATE - 1000)
+    null_cut = is_null_ret & legal_fold & (v >= ntp0[:, NT_BETA]) & (v < MATE_BOUND)
     real_fold = legal_fold > is_null_ret
     need_rs = real_fold & (ntp0[:, NT_LASTRED] > 0) & (v > ntp0[:, NT_ALPHA])
     counted = real_fold > need_rs
@@ -615,8 +632,8 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
     h_idx = (cause.clamp(min=0) & 4095).long()
     dl = dl_node.clamp(min=0)
     hist_old = s.hist.gather(1, h_idx[:, None])[:, 0]
-    _set_row(s.hist, h_idx, (hist_old + (dl * dl + 1).clamp(max=1024)).clamp(max=1 << 20),
-             k_upd)
+    _set_row(s.hist, h_idx,
+             (hist_old + (dl * dl + 1).clamp(max=HIST_BONUS_MAX)).clamp(max=HIST_MAX), k_upd)
 
     # finished node value: best, or mate/stalemate when no legal child
     node_in_qs = dl_node <= 0
@@ -631,13 +648,14 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
         # late-move reduction; the null child is the same position with
         # the opponent to move, no ep square and a reset halfmove clock
         lmr_ok = (
-            (dl_node >= 3) & (midx >= 3) & (nt1[:, NT_INCHECK] == 0)
+            (dl_node >= LMR_MIN_DEPTH) & (midx >= LMR_MIN_MOVE) & (nt1[:, NT_INCHECK] == 0)
             & _is_quiet(move, parent_board)
         )
-        red = torch.where(lmr_ok > (re_push | do_null), torch.where(midx >= 8, 2, 1), 0)
+        red = torch.where(lmr_ok > (re_push | do_null),
+                          torch.where(midx >= LMR_DEEP_MOVE, 2, 1), 0)
         dn = do_null[:, None]
         child = torch.where(dn, bt1 * c.null_mul + c.null_add, child)
-        null_r = NULL_R + (dl_node >= 7).to(_I32)
+        null_r = NULL_R + (dl_node >= NULL_DEEP_DEPTH).to(_I32)
         child_dl = (dl_node - 1 - torch.where(do_null, null_r, red)).clamp(min=0)
         # a null move changes no pieces: zeroed slots are no-ops
         codes = torch.where(dn, 0, codes)
@@ -680,7 +698,8 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
 @torch.inference_mode()
 def _tt_step(params: nnue.NnueParams, s: SearchState, pruning: bool,
              table: torch.Tensor, deep_tt: bool, prefer_deep: bool, gen) -> None:
-    """One step under the reference's TT runner (its _run_segment body):
+    """One step under the reference's TT runner (its _run_segment body;
+    K11's four phases a step, csrc/search_segment.cu, in batched PyTorch):
     hash each lane's ply row once; store the lanes parked in RETURN with
     the node's finished value; probe the lanes about to ENTER with the
     window ENTER will give them; step; store the leaves the step marked
@@ -735,33 +754,39 @@ def run_segment(params: nnue.NnueParams, state: SearchState,
 
     table: the shared (n, 4) TT, updated in place, or None. deep_tt: the
     probe also cuts on deeper bounds (ops/tt.py probe deep_bounds).
-    prefer_deep + tt_gen: the depth-preferred, generation-aware store of
-    helper-lane dispatches (ops/tt.py store).
+    prefer_deep + tt_gen (an int or a (B,) int32 tensor): the
+    depth-preferred, generation-aware store of helper-lane dispatches
+    (ops/tt.py store).
 
-    The host checks for DONE lanes every CHECK_EVERY steps, not every
-    step: the count is kept on the device, and DONE lanes are inert under
-    the extra steps (they neither store nor probe), so the results and
-    the table are those of the exact loop. A segment that starts with
-    every lane DONE (a speculative one after the last park) runs no step,
-    as the reference's loop does not."""
+    On the card the segment is one launch of K11 (kernels.search_segment)
+    and one host read of the step count; a CPU state runs the plain
+    version, run_segment_plain. A segment that starts with every lane
+    DONE runs no step, as the reference's loop does not."""
     if pruning is None:
         pruning = not settings.get_bool("FISHNET_TPU_NO_PRUNING")
-    n_dev = torch.zeros((), dtype=torch.int64, device=state.lane.device)
-    done_steps = 0
-    live = bool((state.lane[:, LN_MODE] != MODE_DONE).any())
-    while live and done_steps < segment_steps:
-        k = min(CHECK_EVERY, segment_steps - done_steps)
-        for _ in range(k):
-            n_dev += (state.lane[:, LN_MODE] != MODE_DONE).any()
-            if table is None:
-                _step(params, state, pruning)
-            else:
-                _tt_step(params, state, pruning, table, deep_tt, prefer_deep, tt_gen)
-        done_steps += k
-        if int(n_dev) < done_steps:
-            break
-    n = int(n_dev)
+    if state.lane.device.type == "cpu":
+        return run_segment_plain(params, state, segment_steps, pruning, table, deep_tt,
+                                 prefer_deep, tt_gen)
+    summary = kernels.search_segment(params, state, segment_steps, pruning, table, deep_tt,
+                                     prefer_deep, tt_gen)
+    return int(summary[-1, SUM_DONE]), summary
+
+
+def run_segment_plain(params: nnue.NnueParams, state: SearchState, segment_steps: int,
+                      pruning: bool, table=None, deep_tt: bool = False,
+                      prefer_deep: bool = False, tt_gen=0):
+    """K11's plain version: the reference's while loop (a step while any
+    lane is live, at most segment_steps) over `_step`, or `_tt_step` with
+    a table, then the packed summary; the same arguments and results as
+    run_segment. The host reads the live test after every step."""
     lane = state.lane
+    n = 0
+    while n < segment_steps and bool((lane[:, LN_MODE] != MODE_DONE).any()):
+        if table is None:
+            _step(params, state, pruning)
+        else:
+            _tt_step(params, state, pruning, table, deep_tt, prefer_deep, tt_gen)
+        n += 1
     summary = torch.cat([
         torch.stack([
             (lane[:, LN_MODE] == MODE_DONE).to(_I32), lane[:, LN_NODES],

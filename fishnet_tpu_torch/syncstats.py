@@ -15,9 +15,9 @@ The split reported per segment:
              staging, result bookkeeping.
 
 The reference dispatches a segment asynchronously and then blocks in a
-fetch until the device has run it. In this package `run_segment` drives
-the device itself and returns only once the segment is done (it
-synchronizes every CHECK_EVERY steps), so the loops run it through
+fetch until the device has run it. In this package `run_segment`
+returns only once the segment is done (on the card it launches the
+segment kernel K11 and reads its step count), so the loops run it through
 device_call and its wall-clock is the segment's device time; a fetch
 alone would see almost none of it, and FISHNET_TPU_SEGMENT=auto would
 then read every boundary as host-bound.

@@ -2,12 +2,14 @@
 PyTorch version (the TT probe and store on seeded tables with forced
 slot collisions, the lane init over every lane and over scattered
 ones, the board rules, move generator and make-move on chip_smoke's
-seeded positions, exactly), the wrappers' checks and launch counts, a
-search step on the card that runs none of the plain board code, and the
-int8 searches on the card against the CPU, with the transposition table
-and helper lanes too, and a refill splice and a refill stream (tables
-compared byte for byte). Needs an NVIDIA card; skipped
-elsewhere. Imports no JAX, so it runs where only PyTorch is installed:
+seeded positions, the segment kernel K11 against run_segment_plain on
+chip_smoke's seeded search states, exactly), the wrappers' checks and
+launch counts, a plain step on the card that runs none of the plain
+board code, a segment on the card that runs no PyTorch step, and the
+int8 searches (all through K11) on the card against the CPU, with the
+transposition table and helper lanes too, and a refill splice and a
+refill stream (tables compared byte for byte). Needs an NVIDIA card;
+skipped elsewhere. Imports no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_card.py -q -p no:cacheprovider
 """
@@ -18,8 +20,8 @@ import pytest
 import torch
 
 from chip_smoke import (
-    TT_PROBE_ARGS, TT_STORE_ARGS, every_move, lane_init_case, rules_inputs, tt_inputs,
-    tt_runner_layout,
+    TT_PROBE_ARGS, TT_STORE_ARGS, every_move, lane_init_case, rules_inputs, segment_case,
+    tt_inputs, tt_runner_layout,
 )
 from fishnet_tpu_torch import kernels
 from fishnet_tpu_torch.chess import Position
@@ -100,7 +102,10 @@ def test_wrappers_check_inputs_and_count_launches(nets, lanes):
 def test_int8_search_card_equals_cpu(nets, lanes):
     b, _ = lanes
     roots = tb.Board(*[t[:16] for t in b])
+    kernels.reset_launches()
     card = search_batch(nets["int8"], roots, 2, 100_000, max_ply=6)
+    assert kernels.LAUNCHES["search_segment"] >= 1
+    assert all(kernels.LAUNCHES[k] == 0 for k in kernels.K11_BODIES), kernels.LAUNCHES
     cpu = search_batch(nets["int8"].to("cpu"), roots.to("cpu"), 2, 100_000, max_ply=6,
                        device="cpu")
     for k in ("score", "move", "nodes", "pv", "pv_len", "done"):
@@ -323,3 +328,81 @@ def test_step_on_the_card_runs_no_plain_board_code(card, nets, lanes, monkeypatc
     assert [kernels.LAUNCHES[k] for k in ("node_rules", "generate_moves", "make_move")] == [30] * 3
     for g, w in zip(st, cpu):
         assert torch.equal(g.cpu(), w)
+
+
+def _same_state(a, b, ta=None, tb_=None):
+    for x, y in zip(a, b):
+        if x.dtype == torch.float32:  # compared as bits
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y)
+    if ta is not None:
+        assert torch.equal(ta, tb_)
+
+
+@pytest.mark.parametrize("cfg", ["no table", "table", "helpers"])
+@pytest.mark.parametrize("net", ["f32", "int8"])
+@pytest.mark.parametrize("batch", [16, 64, 1024])
+def test_segment_kernel_matches_plain_version(nets, batch, net, cfg):
+    """K11 against run_segment_plain on chip_smoke's seeded states, over
+    segments of 1, 33 and 100 steps: every state table (floats as bits),
+    the table and the summary equal, the step counts equal, one launch a
+    segment."""
+    params = nets[net]
+    state, table, kw = segment_case(params, batch, cfg, batch + 1, params.device)
+    plain = search.SearchState(*[t.clone() for t in state])
+    plain_table = None if table is None else table.clone()
+    for steps in (1, 33, 100):
+        kernels.reset_launches()
+        n_k, sum_k = search.run_segment(params, state, steps, True, **kw)
+        assert kernels.LAUNCHES["search_segment"] == 1
+        n_p, sum_p = search.run_segment_plain(params, plain, steps, True,
+                                              **dict(kw, table=plain_table))
+        assert n_k == n_p == steps
+        assert torch.equal(sum_k, sum_p)
+        _same_state(state, plain, table, plain_table)
+
+
+def test_segment_on_the_card_runs_no_pytorch_step(card, nets, lanes, monkeypatch):
+    """On a CUDA state run_segment is one K11 launch: it reaches none of
+    the plain step, the TT runner or the step kernels' wrappers, and the
+    state and table it leaves equal the CPU's plain segment's."""
+    b, _ = lanes
+    roots = tb.Board(*[t[:16] for t in b])
+    depth = torch.full((16,), 3, dtype=torch.int32)
+    budget = torch.full((16,), 100_000, dtype=torch.int32)
+    cpu = search.init_state(nets["int8"].to("cpu"), roots.to("cpu"), depth, budget, 6)
+    cpu_table = tt.make_table(12, device="cpu")
+    search.run_segment_plain(nets["int8"].to("cpu"), cpu, 60, True, cpu_table, False, True, 3)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("PyTorch step code on a CUDA state")
+
+    st = search.init_state(nets["int8"], roots.to(card), depth.to(card), budget.to(card), 6)
+    table = tt.make_table(12, device=card)
+    for mod, name in ((search, "_step"), (search, "_tt_step"), (search, "run_segment_plain"),
+                      (nnue, "forward_from_acc"), (nnue, "apply_acc_updates_768"),
+                      (tt, "hash_board"), (tt, "probe"), (tt, "store"), (tb, "node_rules"),
+                      (tb, "make_move_rows"), (tm, "generate_moves")):
+        monkeypatch.setattr(mod, name, refuse)
+    kernels.reset_launches()
+    n, summary = search.run_segment(nets["int8"], st, 60, True, table, False, True, 3)
+    assert n == 60 and int(summary[16, search.SUM_DONE]) == 60
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {"search_segment": 1}
+    calls = kernels.body_calls()
+    assert calls["generate_moves"] > 0 and calls["tt_store"] > 0
+    _same_state([t.cpu() for t in st], cpu, table.cpu(), cpu_table)
+
+
+def test_segment_wrapper_checks_inputs(card, nets):
+    params = nets["int8"]
+    state, table, kw = segment_case(params, 16, "helpers", 5, card)
+    kernels.reset_launches()
+    with pytest.raises(ValueError):  # the table on another device
+        kernels.search_segment(params, state, 5, True, table.cpu())
+    with pytest.raises(ValueError):  # per-lane generations of another width
+        kernels.search_segment(params, state, 5, True, table, gen=kw["tt_gen"][:8])
+    with pytest.raises(TypeError):  # the f32 net on int32 accumulators
+        kernels.search_segment(nets["f32"], state, 5, True)
+    with pytest.raises(ValueError):
+        kernels.search_segment(params.to("cpu"), state, 5, True)
+    assert kernels.LAUNCHES["search_segment"] == 0
