@@ -23,8 +23,13 @@ Phases (any failure exits non-zero before the final line):
      store into a 2^12 table (colliding slots), and with deep_tt probes,
      over segments of 1, 7, 33 and 200 steps and (16 lanes) one in which
      every lane finishes: states, tables, summaries and step counts byte
-     for byte; with times (CUDA events and torch.profiler) and bounds from
-     the bytes these inputs need;
+     for byte; the full evals (K12 on a seeded king-bucketed net at L1
+     256, f32 and int8; K13 on seeded Stockfish nets at L1 128 and 3072,
+     written and read as .nnue files) at 16, 64 and 1024 lanes; K11 on
+     the int8 king-bucketed net (without and with a 2^21 table) and on
+     the L1 3072 Stockfish net (jittered helpers, 2^12 slots) against
+     run_segment_plain, byte for byte; with times (CUDA events and
+     torch.profiler) and bounds from the bytes these inputs need;
   4. where a segment's time goes (torch.profiler over one K11 segment of
      PROFILE_STEPS steps: B = 16 and 1024 without the table, B = 64 with
      it): host ms/step, device busy ms/step, the device's idle share;
@@ -32,24 +37,30 @@ Phases (any failure exits non-zero before the final line):
      with its defaults (continuous lane refill through the LaneScheduler,
      2^21-slot table, FISHNET_TPU_HELPERS helper lanes, MAX_PLY 32,
      depth 3), with each segment's occupancy;
-  6. the same chunk chunk-serially (refill off, table and helpers on,
-     depth 2);
-  7. the same chunk without the table or helpers (depth 2), chunk-
+  6. the same main path on the seeded L1 3072 Stockfish net, through
+     GpuEngine(weights_path=<its .nnue file>) (K13 inside K11, no K1);
+  7. the board768 chunk chunk-serially (refill off, table and helpers
+     on, depth 2);
+  8. the same chunk without the table or helpers (depth 2), chunk-
      serially and through the LaneScheduler, the two with equal
      responses;
-  8. search_batch on the int8 net, card against CPU, field for field;
-  9. an int8 search with the table and helper lanes, card against CPU,
-     field for field and the tables byte for byte;
- 10. search_stream on the int8 net (more positions than lanes, staggered
+  9. search_batch on the int8 net, card against CPU, field for field;
+ 10. an int8 search with the table and helper lanes, card against CPU,
+     field for field and the tables byte for byte, on the board768 net
+     and on the king-bucketed net (K12 inside K11);
+ 11. search_stream on the int8 net (more positions than lanes, staggered
      depths, a table), card against CPU: every field, the occupancy rows
      and the tables byte for byte;
- 11. search_batch at B = 1024 lanes on the f32 net.
-Phases 4-11 reset the kernels' launch counters just before each search
-and fail unless every kernel of its path launched during it (K1, K7 and
-K11) and none of the kernels whose bodies run inside K11 launched on its
-own (but K4, which hashes the engine's game history once a chunk).
-Then a `kernels` JSON line (launches from phase 5, the main path; for the
-bodies inside K11 their calls per main-path step), the card's name and
+ 12. search_batch at B = 1024 lanes on the f32 net.
+Phases 4-12 reset the kernels' launch counters just before each search
+and fail unless every kernel of its path launched during it (K7 and K11,
+and K1 on a board768 net but never on the others), its net's eval body
+ran inside K11, and none of the kernels whose bodies run inside K11
+launched on its own (but K4, which hashes the engine's game history once
+a chunk).
+Then a `kernels` JSON line (launches from phase 5, the board768 main
+path, for K13 from phase 6 and for K12 from its parity search in phase
+10; for the bodies inside K11 their calls per step of that path), the card's name and
 power limit, and the result line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
@@ -83,6 +94,18 @@ SEGMENT_STEPS = (1, 7, 33, 200)  # K11's checked segments, in turn on one state
 FINISH_STEPS = 20_000  # then, at 16 lanes, one segment in which every lane finishes
 SEGMENT_CONFIGS = ("no table", "table", "helpers", "deep_tt")
 SEGMENT_REPS = 10  # K11 launches per timing
+# the full-eval nets: a king-bucketed net at the JAX
+# package's init_params defaults, and seeded Stockfish nets, the main
+# path's at Stockfish's big net's width
+KB_WIDTHS = (256, 16, 32)  # L1, H1, H2
+SF_L1 = 3072
+SF_SMALL_L1 = 128
+NET_REPS = 20  # launches per full-eval kernel timing
+# bytes the card writes before each cold-L2 call (time_cold_ms): 21x the
+# H100's 50 MB L2, and about 0.3 ms of writes, in which the host queues
+# the timed call
+L2_SCRUB_BYTES = 1 << 30
+NET_SEGMENT_STEPS = (1, 7, 33, 120)  # K11's checked segments on these nets
 
 START = "rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR w KQkq - 0 1"
 # a Sicilian and a Ruy Lopez with repetitions near the end (so the
@@ -116,27 +139,39 @@ def nvcc_version() -> str:
     return out.strip().splitlines()[-1]
 
 
-# the kernels every search path launches: the root refresh (K1), the
-# lane init (K7) and the segment kernel (K11), with or without the table
-SEARCH_KERNELS = ("nnue_refresh_768", "lane_init", "search_segment")
+# the kernels every search path launches: the lane init (K7) and the
+# segment kernel (K11), with or without the table, and on a board768 net
+# the root refresh (K1), which the full-eval nets do not run; and the eval
+# body K11 runs on each net kind
+SEARCH_KERNELS = ("lane_init", "search_segment")
+EVAL_BODY = {"board768": "nnue_forward_from_acc", "king": "nnue_evaluate",
+             "stockfish": "nnue_evaluate_sf"}
 
 
-def check_launches(path: str, engine: bool = False) -> dict:
+def check_launches(path: str, engine: bool = False, net: str = "board768") -> dict:
     """The kernels' launch counts since the last reset: every kernel of a
-    search path must have launched, and no kernel whose body runs inside
-    K11 may have launched on its own — but on the engine's paths K4,
-    which hashes the game history before each chunk."""
+    search path must have launched (K1 on a board768 net and never on the
+    full-eval nets), its net's eval body must have run inside K11, and no
+    kernel whose body runs inside K11 may have launched on its own — but
+    on the engine's paths K4, which hashes the game history before each
+    chunk."""
     from fishnet_tpu_torch import kernels
 
     launches = dict(kernels.LAUNCHES)
-    missing = [name for name in SEARCH_KERNELS if launches[name] <= 0]
+    calls = kernels.body_calls()
+    need = SEARCH_KERNELS + (("nnue_refresh_768",) if net == "board768" else ())
+    missing = [name for name in need if launches[name] <= 0]
+    if calls[EVAL_BODY[net]] <= 0:
+        missing.append(f"{EVAL_BODY[net]} (inside K11)")
     if missing:
         raise AssertionError(f"{path}: kernels {missing} were not launched ({launches})")
+    if net != "board768" and launches["nnue_refresh_768"]:
+        raise AssertionError(f"{path}: K1 launched on a {net} net ({launches})")
     alone = [name for name in kernels.K11_BODIES if launches[name] > 0
              and not (engine and name == "zobrist_hash")]
     if alone:
         raise AssertionError(f"{path}: kernels {alone} launched outside K11 ({launches})")
-    log(f"launches {path}: {launches}; inside K11: {kernels.body_calls()}")
+    log(f"launches {path}: {launches}; inside K11: {calls}")
     return launches
 
 
@@ -170,6 +205,28 @@ def time_ms(fn, reps: int):
         torch.cuda.synchronize()
     dev_us = sum(_device_us(e) for e in prof.key_averages() if e.device_type.name == "CUDA")
     return (dev_us / reps / 1e3 if dev_us > 0 else call_ms), call_ms
+
+
+def time_cold_ms(fn, reps: int, scrub) -> float:
+    """ms of one fn() on the card with a cold L2: before each call the
+    card overwrites `scrub` (L2_SCRUB_BYTES, far more than the L2 holds),
+    and CUDA events time the call alone. The scrub keeps the card behind
+    the host, so the events see the card's time, not the host's."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    marks = []
+    for _ in range(reps):
+        scrub.fill_(len(marks) + 1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in marks) / reps
 
 
 def playout_positions(n: int, seed: int):
@@ -327,6 +384,37 @@ def kernel_phase(params_f32, reps: int) -> dict:
                     f"{lib_ms} / {lib_call}, bound {stats[name]['bound_ms']:.6f} "
                     f"({stats[name]['bound_by']})")
     return stats
+
+
+def sf_case(l1: int, seed: int) -> dict:
+    """A seeded quantized HalfKAv2_hm net of width l1 in the `.nnue`
+    writer's layout (models/nnue_import.py write_nnue), scaled so that
+    accumulators spread over the clipped range and evals stay within a few
+    thousand centipawns: ft_b ~U[-20, 140), ft_w ~N(0, 12), psqt ~N(0,
+    500), fc0_w ~N(0, 400/sqrt(l1)), fc1_w ~N(0, 20), fc2_w ~N(0, 30),
+    biases ~N(0, 2000). → dict of numpy arrays."""
+    import numpy as np
+
+    from fishnet_tpu_torch.models import nnue_import as ni
+
+    rng = np.random.default_rng(seed)
+
+    def normal(std, shape, dtype, lim):
+        return np.clip(np.round(rng.normal(0.0, std, shape)), -lim, lim).astype(dtype)
+
+    nf = ni.NUM_FEATURES
+    return {
+        "ft_b": rng.integers(-20, 140, l1).astype(np.int16),
+        "ft_w": normal(12.0, (nf, l1), np.int16, 127),
+        "psqt": normal(500.0, (nf, 8), np.int32, 2**20),
+        "fc0_b": normal(2000.0, (8, ni.FC0_OUT), np.int32, 2**20),
+        "fc0_w": normal(max(1.0, 400.0 / l1 ** 0.5), (8, ni.FC0_OUT, l1), np.int8, 127),
+        "fc1_b": normal(2000.0, (8, ni.FC1_OUT), np.int32, 2**20),
+        "fc1_w": normal(20.0, (8, ni.FC1_OUT, ni.FC1_IN), np.int8, 127),
+        "fc2_b": normal(2000.0, (8, 1), np.int32, 2**20),
+        "fc2_w": normal(30.0, (8, 1, ni.FC1_OUT), np.int8, 127),
+        "description": f"chip_smoke seeded net L1={l1} seed={seed}".encode(),
+    }
 
 
 def tt_case(B: int, size_log2: int, seed: int) -> dict:
@@ -988,6 +1076,239 @@ def segment_phase(params_f32, reps: int) -> dict:
 
 
 
+def kb_case(l1: int, h1: int, h2: int, seed: int) -> dict:
+    """A seeded king-bucketed (HalfKAv2_hm) net with the JAX package's
+    init_params distributions: ft_w ~N(0, 0.02), ft_b 0.5, each layer's
+    weights ~N(0, 1/fan_in), zero biases. → dict of f32 numpy arrays
+    under the NnueParams field names."""
+    import numpy as np
+
+    from fishnet_tpu_torch.models import nnue
+
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, scale):
+        return (rng.standard_normal(shape, dtype=np.float32) * np.float32(scale))
+
+    return {
+        "ft_w": normal((nnue.NUM_FEATURES, l1), 0.02),
+        "ft_b": np.full((l1,), 0.5, np.float32),
+        "l1_w": normal((8, 2 * l1, h1), 1.0 / np.sqrt(2 * l1)),
+        "l1_b": np.zeros((8, h1), np.float32),
+        "l2_w": normal((8, h1, h2), 1.0 / np.sqrt(h1)),
+        "l2_b": np.zeros((8, h2), np.float32),
+        "out_w": normal((8, h2), 1.0 / np.sqrt(h2)),
+        "out_b": np.zeros((8,), np.float32),
+    }
+
+
+def sf_file(l1: int, seed: int):
+    """sf_case(l1, seed) written through write_nnue into the build
+    directory (once per checkout) → its path."""
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.models import nnue_import as ni
+
+    path = kernels.BUILD_ROOT / "chip_smoke" / f"sf-l1-{l1}-seed-{seed}.nnue"
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".tmp{os.getpid()}")
+        ni.write_nnue(tmp, sf_case(l1, seed))
+        os.replace(tmp, path)
+    return path
+
+
+def full_eval_nets(dev) -> dict:
+    """The full-eval nets on dev: "kb f32" / "kb int8" (kb_case at
+    KB_WIDTHS and its int8 quantization), "sf 128" / "sf 3072" (sf_case
+    through a file and load_nnue)."""
+    from fishnet_tpu_torch.models import nnue
+    from fishnet_tpu_torch.models import nnue_import as ni
+
+    kb = nnue.params_from_numpy(kb_case(*KB_WIDTHS, seed=5), dev)
+    return {"kb f32": kb, "kb int8": nnue.quantize_int8(kb),
+            f"sf {SF_SMALL_L1}": ni.load_nnue(sf_file(SF_SMALL_L1, 7), device=dev),
+            f"sf {SF_L1}": ni.load_nnue(sf_file(SF_L1, 7), device=dev)}
+
+
+def full_eval_features(boards):
+    """(B, 2, 64) HalfKAv2_hm feature rows of each board's pieces from
+    both perspectives, -1 on empty squares."""
+    import torch
+
+    from fishnet_tpu_torch.models import nnue
+
+    return torch.stack([nnue.feature_indices(boards, p, nnue.king_square(boards, p))
+                        for p in (0, 1)], 1)
+
+
+def full_eval_cost(net, boards) -> tuple:
+    """(bytes, operations) a full eval (K12 or K13) of these boards must
+    move and do: the boards and side to move in and the scores out; of
+    the feature transform each distinct row the batch's pieces select
+    once, and ft_b; of the layer stack the weights of each bucket the
+    batch uses once; a Stockfish net's PSQT word of each distinct (row,
+    bucket) pair. Operations: an add a column of every board's rows (and
+    of its PSQT words), then its layer stack's multiply-adds (two each;
+    a Stockfish net's pairwise products one each)."""
+    from fishnet_tpu_torch.models import nnue
+
+    B, l1 = boards.shape[0], net.l1
+    feats = full_eval_features(boards)
+    live = feats >= 0
+    n_rows = int(live.sum())
+    buckets = nnue.output_bucket(boards)
+    nbytes = (B * (64 * 4 + 4 + 4) + int(feats[live].unique().numel()) * l1 * net.ft_w.element_size()
+              + l1 * net.ft_b.element_size())
+    nops = n_rows * l1
+    if nnue.net_kind(net) == nnue.KING:
+        h1, h2 = net.l1_w.shape[-1], net.l2_w.shape[-1]
+        head = sum(t[0].numel() * t.element_size() for t in net[2:])
+        nops += B * 2 * (2 * l1 * h1 + h1 * h2 + h2)
+    else:
+        pairs = (feats.long() * 8 + buckets.long()[:, None, None])[live]
+        nbytes += int(pairs.unique().numel()) * 4
+        head = sum(getattr(net, f)[0].numel() * 4 for f in (
+            "fc0_w", "fc0_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b"))
+        nops += n_rows + B * (l1 + 2 * (16 * l1 + 32 * 30 + 32))
+    return nbytes + int(buckets.unique().numel()) * head, nops
+
+
+def nets_kernel_phase(nets: dict, reps: int) -> dict:
+    """K12 and K13 against their plain versions on the card at 16, 64 and
+    1024 lanes of seeded playout boards: K12 on the king-bucketed net (L1
+    256) f32 (within F32_EVAL_TOL) and int8 (exactly), K13 on the
+    Stockfish nets at L1 128 and 3072 (within F32_EVAL_TOL). Times at 64
+    and 1024 lanes (K12 f32, K13 L1 3072), beside the plain version, the
+    library yardstick (embedding_bag sums of the feature rows, the refresh
+    alone) and the bound from full_eval_cost. The bound reads each row
+    from HBM, so the row keeps 1024 lanes' cold-L2 times (time_cold_ms),
+    with the kernel's repeated-call device time beside them (ms_l2_warm:
+    the batch's distinct rows, 34 MB at L1 3072, fit the L2)."""
+    import torch
+    import torch.nn.functional as F
+
+    from fishnet_tpu_torch.models import nnue
+    from fishnet_tpu_torch.models import nnue_import as ni
+
+    dev = torch.device("cuda")
+    stats = {k: {"max_abs_err": 0.0} for k in ("nnue_evaluate", "nnue_evaluate_sf")}
+    scrub = torch.empty(L2_SCRUB_BYTES, dtype=torch.uint8, device=dev)
+    cases = (
+        ("nnue_evaluate", "kb f32", nnue.evaluate, nnue.evaluate_plain, nnue.F32_EVAL_TOL),
+        ("nnue_evaluate", "kb int8", nnue.evaluate, nnue.evaluate_plain, 0.0),
+        ("nnue_evaluate_sf", f"sf {SF_SMALL_L1}", ni.evaluate_sf, ni.evaluate_sf_plain,
+         nnue.F32_EVAL_TOL),
+        ("nnue_evaluate_sf", f"sf {SF_L1}", ni.evaluate_sf, ni.evaluate_sf_plain,
+         nnue.F32_EVAL_TOL),
+    )
+    for B in (16, 64, 1024):
+        b = playout_boards(B, seed=100 + B)[0].to(dev)
+        for name, label, kern, plain, tol in cases:
+            net = nets[label]
+            got, want = kern(net, b.board, b.stm), plain(net, b.board, b.stm)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f"{name} {label} B={B}: {got.shape}/{got.dtype} vs plain "
+                                     f"{want.shape}/{want.dtype}")
+            err = float((got.double() - want.double()).abs().max())
+            log(f"check {name} B={B} net={label} L1={net.l1}: max_abs_err={err} (tolerance "
+                f"{tol}; evals {float(want.min()):.1f}..{float(want.max()):.1f})")
+            if not err <= tol:
+                raise AssertionError(f"{name} {label} B={B}: error {err} > {tol}")
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+            if B == 16 or label not in ("kb f32", f"sf {SF_L1}"):
+                continue
+            feats = full_eval_features(b.board).view(B * 2, 64)
+            keep = feats >= 0
+            bag_idx = feats[keep].long()
+            bag_off = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                                 keep.sum(1).cumsum(0)[:-1]])
+            nbytes, nops = full_eval_cost(net, b.board)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = nops / F32_OPS_PER_S * 1e3
+            fns = (lambda: kern(net, b.board, b.stm), lambda: plain(net, b.board, b.stm),
+                   lambda: F.embedding_bag(bag_idx, net.ft_w, bag_off, mode="sum") + net.ft_b)
+            (ms, call_ms), (plain_ms, plain_call), (lib_ms, lib_call) = [
+                time_ms(f, reps) for f in fns]
+            cold, plain_cold, lib_cold = [time_cold_ms(f, reps, scrub) for f in fns]
+            bound = max(t_bytes, t_ops)
+            log(f"time {name} B={B} net={label} L1={net.l1} (device ms / call ms / cold-L2 "
+                f"ms): kernel {ms:.5f} / {call_ms:.5f} / {cold:.5f}, plain {plain_ms:.5f} / "
+                f"{plain_call:.5f} / {plain_cold:.5f}, library (refresh only) {lib_ms:.5f} / "
+                f"{lib_call:.5f} / {lib_cold:.5f}, bound {bound:.6f} "
+                f"({'bytes' if t_bytes >= t_ops else 'operations'}, {nbytes} bytes, {nops} ops)")
+            if B == 1024:
+                stats[name].update(ms=cold, ms_l2_warm=ms, plain_ms=plain_cold,
+                                   library_ms=lib_cold, bound_ms=bound,
+                                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return stats
+
+
+def nets_segment_phase(nets: dict, reps: int) -> None:
+    """K11 against run_segment_plain on the card on the full-eval nets:
+    the int8 king-bucketed net without and with a 2^21 table, and the
+    L1 3072 Stockfish net with jittered helpers and the prefer_deep store
+    into 2^12 slots, at 16 and 64 lanes, segments of NET_SEGMENT_STEPS in
+    turn: states, tables and summaries byte for byte (the plain step on
+    the card runs K12's and K13's standalone kernels, K11 their bodies).
+    Then K11's time per step on each net's engine setup at 64 lanes, with
+    its body calls per step."""
+    import torch
+
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.ops import search
+
+    dev = torch.device("cuda")
+    runs = (("kb int8", ("no table", "table")), (f"sf {SF_L1}", ("helpers",)))
+    for label, cfgs in runs:
+        params = nets[label]
+        for B in (16, 64):
+            for cfg in cfgs:
+                state, table, kw = segment_case(params, B, cfg, seed=B + len(cfg), dev=dev)
+                plain, plain_table = _clone(state, table)
+                plain_kw = dict(kw, table=plain_table)
+                for steps in NET_SEGMENT_STEPS:
+                    t0 = time.monotonic()
+                    n_p, sum_p = search.run_segment_plain(params, plain, steps, True, **plain_kw)
+                    torch.cuda.synchronize()
+                    plain_s = time.monotonic() - t0
+                    n_k, sum_k = search.run_segment(params, state, steps, True, **kw)
+                    torch.cuda.synchronize()
+                    err = _state_diff(state, plain, table, plain_table)
+                    err = max(err, float((sum_k.long() - sum_p.long()).abs().max()))
+                    done = int(sum_k[:B, search.SUM_DONE].sum())
+                    tag = f"B={B} {label} {cfg} segment {steps}"
+                    log(f"check search_segment {tag}: steps {n_k} (plain {n_p}, {plain_s:.2f} s), "
+                        f"done {done}/{B}, max_abs_err={err} (tolerance 0)")
+                    if err != 0 or n_k != n_p:
+                        raise AssertionError(f"search_segment {tag}: K11 differs from "
+                                             f"run_segment_plain (steps {n_k} / {n_p})")
+        # K11's time on the engine's table setup, 64 lanes, one segment
+        state0, table0, kw = segment_case(params, 64, "engine", seed=64, dev=dev)
+        state, table = _clone(state0, table0)
+        kw = dict(kw, table=table)
+        steps = NET_SEGMENT_STEPS[-1]
+        search.run_segment(params, state, steps, True, **kw)  # warm up
+        times = []
+        for _ in range(reps):
+            for t, t0 in zip(list(state) + [table], list(state0) + [table0]):
+                t.copy_(t0)
+            kernels.reset_launches()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            n, _ = search.run_segment(params, state, steps, True, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        calls = kernels.body_calls()
+        ms = sum(times) / len(times)
+        log(f"time search_segment B=64 {label} engine table (CUDA events, {reps} launches): "
+            f"{ms:.4f} ms per segment of {n} steps, {ms / n * 1e3:.2f} us/step; body calls per "
+            f"step {({k: round(v / n, 3) for k, v in calls.items()})}")
+
+
 def make_chunk(n_positions: int, depth: int):
     from fishnet_tpu_torch.ipc import AnalysisWork, Chunk, EngineFlavor, NodeLimit, WorkPosition
 
@@ -1004,23 +1325,23 @@ def make_chunk(n_positions: int, depth: int):
 
 
 def engine_phase(params_f32, depth: int, n_positions: int, refill: bool,
-                 tt_on: bool = True):
+                 tt_on: bool = True, weights_path=None):
     """One chunk through GpuEngine: through the LaneScheduler (refill;
     each segment's occupancy logged) or chunk-serially (each dispatch
     logged), with the defaults' 2^21 table and helper lanes (tt_on) or
-    with neither. → (launches, the wire responses without their times,
-    steps, K11's body calls)."""
+    with neither; on params_f32, or on the net GpuEngine(weights_path=)
+    loads. → (launches, the wire
+    responses without their times, steps, K11's body calls)."""
     import numpy as np
     import torch
 
     from fishnet_tpu_torch import ipc, kernels
     from fishnet_tpu_torch.chess import Position
     from fishnet_tpu_torch.engine.gpu import GpuEngine
+    from fishnet_tpu_torch.models import nnue
     from fishnet_tpu_torch.ops import search
 
     steps, helpers = [], {}
-    path = ("engine chunk, " + ("refill" if refill else "chunk-serial")
-            + ("" if tt_on else ", no table") + (" (main path)" if refill and tt_on else ""))
 
     class CountingEngine(GpuEngine):
         def _search(self, roots, depth_arr, *a, order_jitter=None, required=None, **kw):
@@ -1038,7 +1359,16 @@ def engine_phase(params_f32, depth: int, n_positions: int, refill: bool,
     kw = {} if refill else {"refill": False}
     if not tt_on:
         kw.update(tt_size_log2=0, helper_lanes=1)
-    engine = (GpuEngine if refill else CountingEngine)(params=params_f32, max_depth=depth, **kw)
+    if weights_path is None:
+        kw["params"] = params_f32
+    else:
+        kw["weights_path"] = str(weights_path)
+    engine = (GpuEngine if refill else CountingEngine)(max_depth=depth, **kw)
+    net = nnue.net_kind(engine.params)
+    path = ("engine chunk, " + ("refill" if refill else "chunk-serial")
+            + ("" if tt_on else ", no table")
+            + ("" if weights_path is None else f", {net} net {os.path.basename(weights_path)}")
+            + (" (main path)" if refill and tt_on else ""))
     slots = 0 if engine.tt is None else engine.tt.shape[0]
     if engine.refill != refill or slots != (1 << 21 if tt_on else 0):
         raise AssertionError(f"engine: refill {engine.refill}, {slots} slots")
@@ -1061,7 +1391,7 @@ def engine_phase(params_f32, depth: int, n_positions: int, refill: bool,
     finally:
         search.run_segment = run_segment
     wall = time.monotonic() - t0
-    launches = check_launches(path, engine=True)
+    launches = check_launches(path, engine=True, net=net)
     log(f"{path}: {len(ran)} segment calls, {sum(n > 0 for n in ran)} of them ran steps "
         f"({sum(ran)} steps)")
     body_calls = kernels.body_calls()
@@ -1140,11 +1470,12 @@ def parity_phase(params_f32, depth: int) -> None:
         f"nodes, steps ({card['steps']}), pv, pv_len; card {t1 - t0:.3f} s, cpu {t2 - t1:.3f} s")
 
 
-def tt_parity_phase(params_f32, depth: int) -> None:
+def tt_parity_phase(params_i8, depth: int) -> tuple:
     """An int8 search with the table and a helper-lane layout (jittered
     helpers one ply deeper, group tags, the required-lane stop, the
     depth-preferred generation store), card against CPU: every field and
-    the final tables byte for byte."""
+    the final tables byte for byte. → the card run's (launches, steps,
+    K11's body calls)."""
     import numpy as np
 
     from fishnet_tpu_torch import kernels
@@ -1152,7 +1483,6 @@ def tt_parity_phase(params_f32, depth: int) -> None:
     from fishnet_tpu_torch.ops import tt
     from fishnet_tpu_torch.ops.search import search_batch_resumable
 
-    params_i8 = nnue.quantize_int8(params_f32)
     roots, _ = playout_boards(4, seed=17)
     B, n = 16, 4
     pick = [i % n for i in range(B)]
@@ -1162,6 +1492,7 @@ def tt_parity_phase(params_f32, depth: int) -> None:
               required=np.arange(B) < n, prefer_deep_store=True, tt_gen=5, segment_steps=256)
     depth_arr = np.asarray([depth] * n + [depth + (i % 2) for i in range(B - n)], np.int32)
     outs, tables, walls = {}, {}, {}
+    net = nnue.net_kind(params_i8)
     for dev in ("cuda", "cpu"):
         table = tt.make_table(TT_PARITY_LOG2, device=dev)
         kernels.reset_launches()
@@ -1171,7 +1502,8 @@ def tt_parity_phase(params_f32, depth: int) -> None:
         walls[dev] = time.monotonic() - t0
         tables[dev] = outs[dev].pop("tt").cpu().numpy()
         if dev == "cuda":
-            check_launches("TT parity, card")
+            launches = check_launches(f"TT parity, {net} int8 net, card", net=net)
+            body_calls = kernels.body_calls()
     card, cpu = outs["cuda"], outs["cpu"]
     for k in ("score", "move", "nodes", "pv", "pv_len", "done"):
         if not np.array_equal(card[k], cpu[k]):
@@ -1181,10 +1513,11 @@ def tt_parity_phase(params_f32, depth: int) -> None:
     if not np.array_equal(tables["cuda"], tables["cpu"]):
         raise AssertionError("TT search: the card's table differs from the CPU's")
     filled = int((tables["cuda"][:, 1] != 0).sum())
-    log(f"TT parity: int8 B={B} ({n} primaries, {B - n} helpers) depth {depth}, 2^"
+    log(f"TT parity: {net} int8 net B={B} ({n} primaries, {B - n} helpers) depth {depth}, 2^"
         f"{TT_PARITY_LOG2} slots: card == cpu on score, move, nodes, steps "
         f"({card['steps']}), pv, pv_len and the table ({filled} rows filled); card "
         f"{walls['cuda']:.3f} s, cpu {walls['cpu']:.3f} s")
+    return launches, card["steps"], body_calls
 
 
 def stream_parity_phase(params_f32, n: int, width: int) -> None:
@@ -1343,21 +1676,31 @@ def main() -> int:
 
     params = nnue.load_params(device="cuda")
     t0 = time.monotonic()
+    nets = full_eval_nets(torch.device("cuda"))
+    log(f"full-eval nets (seeded, L1 {SF_SMALL_L1} and {SF_L1} through .nnue files): "
+        f"{time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
     stats = kernel_phase(params, REPS)
     stats.update(tt_kernel_phase(REPS))
     stats.update(lane_init_phase(REPS))
     stats.update(rules_kernel_phase(REPS))
     stats.update(segment_phase(params, SEGMENT_REPS))
+    stats.update(nets_kernel_phase(nets, NET_REPS))
+    nets_segment_phase(nets, SEGMENT_REPS)
     log(f"kernel phase: {time.monotonic() - t0:.1f} s")
     phases = [
         ("profile", lambda: [profile_phase(params, lanes, PROFILE_STEPS, tt_on)
                              for lanes, tt_on in ((16, False), (1024, False), (64, True))]),
         ("engine (main path)", lambda: engine_phase(params, DEPTH, POSITIONS, refill=True)),
+        ("engine, Stockfish net (main path)", lambda: engine_phase(
+            None, DEPTH, POSITIONS, refill=True, weights_path=sf_file(SF_L1, 7))),
         ("engine chunk-serial", lambda: engine_phase(params, SERIAL_DEPTH, POSITIONS,
                                                      refill=False)),
         ("engine no table", lambda: no_table_phase(params, NO_TT_DEPTH, POSITIONS)),
         ("parity", lambda: parity_phase(params, PARITY_DEPTH)),
-        ("TT parity", lambda: tt_parity_phase(params, PARITY_DEPTH)),
+        ("TT parity", lambda: tt_parity_phase(nnue.quantize_int8(params), PARITY_DEPTH)),
+        ("TT parity, king-bucketed net", lambda: tt_parity_phase(
+            nets["kb int8"], PARITY_DEPTH)),
         ("stream parity", lambda: stream_parity_phase(params, STREAM_POSITIONS, STREAM_WIDTH)),
         ("scale", lambda: scale_phase(params, SCALE_LANES, SCALE_DEPTH)),
     ]
@@ -1367,6 +1710,8 @@ def main() -> int:
         results[name] = run()
         log(f"{name} phase: {time.monotonic() - t0:.1f} s")
     launches, _, main_steps, body_calls = results["engine (main path)"]
+    sf_launches, _, sf_steps, sf_calls = results["engine, Stockfish net (main path)"]
+    kb_launches, kb_steps, kb_calls = results["TT parity, king-bucketed net"]
 
     sources = {
         "nnue_refresh_768": "fishnet_tpu/models/nnue.py:160",
@@ -1380,15 +1725,27 @@ def main() -> int:
         "generate_moves": "fishnet_tpu/ops/movegen.py:124",
         "make_move": "fishnet_tpu/ops/board.py:345",
         "search_segment": "fishnet_tpu/ops/search.py:875",
+        "nnue_evaluate": "fishnet_tpu/models/nnue.py:324",
+        "nnue_evaluate_sf": "fishnet_tpu/models/nnue_import.py:298",
     }
     rows = []
     for name in kernels.KERNELS:
+        # launches and K11 body calls per step on the main path that runs
+        # the kernel: the board768 chunk, or for K13 the Stockfish net's
+        # (K12's body runs on the king-bucketed TT parity search)
+        path, counts, calls, steps = {
+            "nnue_evaluate_sf": ("engine, Stockfish L1 3072 net", sf_launches, sf_calls, sf_steps),
+            "nnue_evaluate": ("TT parity, king-bucketed int8 net", kb_launches, kb_calls,
+                              kb_steps),
+        }.get(name, ("engine, board768 net", launches, body_calls, main_steps))
         row = {"name": name, "route": "cuda", "source": f"fishnet_tpu_torch/csrc/{name}.cu",
-               "replaces": sources[name], "launches": launches[name],
+               "replaces": sources[name], "launches": counts[name], "path": path,
                **{k: stats[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms")}}
-        if name in kernels.K11_BODIES:  # its body's calls inside K11, per main-path step
-            row["in_k11_calls_per_step"] = body_calls[name] / max(main_steps, 1)
+        if "ms_l2_warm" in stats[name]:  # K12, K13: ms is the cold-L2 time
+            row["ms_l2_warm"] = stats[name]["ms_l2_warm"]
+        if name in kernels.K11_BODIES:  # its body's calls inside K11, per step of its path
+            row["in_k11_calls_per_step"] = calls[name] / max(steps, 1)
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -1,17 +1,29 @@
-// The board768 net's per-lane bodies as device functions: the layer stack
-// from an accumulator pair (K2) and one column of the incremental
-// accumulator update (K3). K2's and K3's kernels wrap them one lane (one
-// column) a thread; the segment kernel (K11) calls the same functions, so
-// its f32 evals and accumulators are K2's and K3's bit for bit.
+// The NNUE nets' per-lane bodies as device functions: the board768 layer
+// stack from an accumulator pair (K2) and one column of its incremental
+// accumulator update (K3), and the full evals of the nets without
+// incremental accumulators: a king-bucketed (HalfKAv2_hm) NnueParams net
+// (K12) and an imported Stockfish net (K13). K2's and K3's kernels wrap
+// their bodies one lane (one column) a thread, K12's and K13's one lane a
+// warp; the segment kernel (K11) calls the same functions, so its evals
+// and accumulators are the standalone kernels' bit for bit.
+//
+// Float order: every add and multiply of the K12/K13 bodies outside an
+// explicit fmaf is written with __fadd_rn/__fmul_rn, which the compiler
+// never contracts into a fused multiply-add, so a body gives the same bits
+// wherever it is inlined; a warp sum is an xor butterfly, which leaves the
+// same bits in every thread.
 #pragma once
 #include "common.cuh"
+#include "search_consts.cuh"
 
 namespace nnue {
 
-constexpr int L1 = 64;  // K2's widths: the shipped net's
+// K2's widths: the shipped board768 net's (kernels.py SEGMENT_L1/H1/H2)
+constexpr int L1 = consts::SEGMENT_L1;
 constexpr int IN = 2 * L1;
-constexpr int H1 = 16;
-constexpr int H2 = 32;
+constexpr int H1 = consts::SEGMENT_H1;
+constexpr int H2 = consts::SEGMENT_H2;
+constexpr int MAX_H = 32;  // the hidden widths K12's layer stack takes (kernels.py MAX_HIDDEN)
 constexpr int QA = 127;
 constexpr int QW_SHIFT = 6;
 constexpr float OUTPUT_SCALE = 600.0f;
@@ -19,9 +31,18 @@ constexpr float OUTPUT_SCALE = 600.0f;
 constexpr float INT8_SCALE = (float)(600.0 / (127.0 * 64.0));
 constexpr int SLOTS = 4;  // piece changes a move makes
 constexpr int NONE = 1 << 20;
+constexpr int NUM_PIECE_KINDS = 11;  // HalfKAv2_hm: P N B R Q of each side, the kings
+constexpr unsigned FULL = 0xffffffffu;
+// an imported Stockfish net's layer stack (models/nnue_import.py)
+constexpr int FC0_OUT = 16;  // 15 hidden + the skip row
+constexpr int FC1_IN = 30;
+constexpr int FC1_OUT = 32;
+constexpr int PSQT_BUCKETS = 8;
+constexpr float NNUE2SCORE = 600.0f;
 
-// The output buckets' head weights: l1_w (8, IN, H1), l1_b (8, H1), l2_w
-// (8, H1, H2), l2_b (8, H2), out_w (8, H2), out_b (8,).
+// The output buckets' head weights: l1_w (8, 2*L1, H1), l1_b (8, H1),
+// l2_w (8, H1, H2), l2_b (8, H2), out_w (8, H2), out_b (8,), and the
+// widths, which K12 reads (H1, H2 <= MAX_H; K2 runs at its own).
 template <typename W, typename B>
 struct Head {
     const W* l1_w;
@@ -30,10 +51,60 @@ struct Head {
     const B* l2_b;
     const W* out_w;
     const B* out_b;
+    int l1, h1, h2;
+};
+
+// A board768 or king-bucketed NnueParams net: ft_w (features, L1), ft_b
+// (L1,) in the accumulators' type, the head. F/W/B: float for the f32
+// net; int16/int8/int32 for the int8 net.
+template <typename F, typename W, typename B>
+struct Net {
+    using Ft = F;
+    const F* ft_w;
+    const B* ft_b;
+    Head<W, B> head;
+};
+
+// An imported Stockfish net, f32: ft_w (22528, L1), ft_b (L1,), psqt_w
+// (22528, 8), fc0_w (8, 16, L1), fc0_b (8, 16), fc1_w (8, 32, 30), fc1_b
+// (8, 32), fc2_w (8, 1, 32), fc2_b (8, 1).
+struct SfNet {
+    const float* ft_w;
+    const float* ft_b;
+    const float* psqt_w;
+    const float* fc0_w;
+    const float* fc0_b;
+    const float* fc1_w;
+    const float* fc1_b;
+    const float* fc2_w;
+    const float* fc2_b;
+    int l1;
 };
 
 __device__ __forceinline__ float crelu(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
 __device__ __forceinline__ int clip_qa(int x) { return min(max(x, 0), QA); }
+
+// the layer stack's steps on each net: the input activation, one
+// multiply-add, a hidden unit's activation after its bias, the score
+__device__ __forceinline__ float act_in(float x) { return crelu(x); }
+__device__ __forceinline__ int act_in(int x) { return clip_qa(x); }
+__device__ __forceinline__ float mac(float x, float w, float a) { return fmaf(x, w, a); }
+__device__ __forceinline__ int mac(int x, int8_t w, int a) { return a + x * (int)w; }
+__device__ __forceinline__ float act_hidden(float v, float b) { return crelu(__fadd_rn(v, b)); }
+__device__ __forceinline__ int act_hidden(int v, int b) { return clip_qa((v + b) >> QW_SHIFT); }
+__device__ __forceinline__ float times(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ int times(int a, int8_t b) { return a * (int)b; }
+__device__ __forceinline__ float score(float o, float b) { return __fadd_rn(o, b) * OUTPUT_SCALE; }
+__device__ __forceinline__ float score(int o, int b) { return (float)(o + b) * INT8_SCALE; }
+
+__device__ __forceinline__ float warp_sum(float v) {
+    for (int m = 16; m; m >>= 1) v = __fadd_rn(v, __shfl_xor_sync(FULL, v, m));
+    return v;
+}
+__device__ __forceinline__ int warp_sum(int v) {
+    for (int m = 16; m; m >>= 1) v += __shfl_xor_sync(FULL, v, m);
+    return v;
+}
 
 // K2's body on the f32 net: own/opp are the side to move's and the other
 // side's L1 accumulator columns, b the output bucket. Sums run in input
@@ -129,6 +200,196 @@ __device__ __forceinline__ A acc_delta(const int32_t* codes, const int32_t* sqs,
         block = block + (A)ft_w[(int64_t)idx[i] * l1 + col] * (A)w[i];
     }
     return total + block;
+}
+
+// ------------------------------------------------ the full-eval nets (K12, K13)
+
+// The HalfKAv2_hm feature rows of one board's pieces for both
+// perspectives, in square order: idx[p][0, lo[p]) from squares 0-31,
+// idx[p][lo[p], n[p]) from squares 32-63.
+struct Features {
+    int idx[2][64];
+    int lo[2];
+    int n[2];
+};
+
+// HalfKAv2_hm piece kind of a code seen from perspective p: own P..Q 0-4,
+// the opponent's 5-9, either king 10 (models/nnue.py feature_indices).
+__device__ __forceinline__ int feature_kind(int code, int p) {
+    const int pt = (code - 1) % 6;
+    const int color = code <= 6 ? 0 : 1;
+    return pt == 5 ? 10 : (color == p ? pt : 5 + pt);
+}
+
+// One board's feature lists (a warp; board: its 64 codes, global or
+// shared). Each perspective's king square is its first king (a square 0
+// without one); black's view flips ranks, then files mirror so that king
+// sits on files a-d, whose rank and file give the bucket.
+__device__ __forceinline__ void features_warp(const int32_t* board, int t, Features& f) {
+    const int c0 = board[t], c1 = board[t + 32];
+    const unsigned below = (1u << t) - 1u;
+    const unsigned m0 = __ballot_sync(FULL, c0 > 0), m1 = __ballot_sync(FULL, c1 > 0);
+    const int lo = __popc(m0);
+    for (int p = 0; p < 2; ++p) {
+        const int king = 6 + 6 * p;
+        const unsigned k0 = __ballot_sync(FULL, c0 == king);
+        const unsigned k1 = __ballot_sync(FULL, c1 == king);
+        const int ksq = k0 ? __ffs(k0) - 1 : (k1 ? 31 + __ffs(k1) : 0);
+        const int flip = p ? 56 : 0;
+        const int mirror = ((ksq ^ flip) & 7) > 3 ? 7 : 0;
+        const int o_ksq = (ksq ^ flip) ^ mirror;
+        const int base = ((o_ksq >> 3) * 4 + (o_ksq & 7)) * (NUM_PIECE_KINDS * 64);
+        if (c0 > 0) {
+            f.idx[p][__popc(m0 & below)] = base + feature_kind(c0, p) * 64 + ((t ^ flip) ^ mirror);
+        }
+        if (c1 > 0) {
+            f.idx[p][lo + __popc(m1 & below)] =
+                base + feature_kind(c1, p) * 64 + (((t + 32) ^ flip) ^ mirror);
+        }
+    }
+    if (t == 0) {
+        f.lo[0] = f.lo[1] = lo;
+        f.n[0] = f.n[1] = lo + __popc(m1);
+    }
+    __syncwarp();
+}
+
+// The output bucket from the piece count (models/nnue.py output_bucket).
+__device__ __forceinline__ int output_bucket(const Features& f) {
+    return min(max((f.n[0] - 1) / 4, 0), 7);
+}
+
+// One column of perspective p's refresh without its bias: the pieces'
+// rows summed in the reference's order (squares 0-31 and 32-63 each in
+// order, then the halves added; models/nnue.py sum_rows).
+template <typename F, typename A>
+__device__ __forceinline__ A refresh_column(const Features& f, int p, const F* ft_w, int l1,
+                                            int c) {
+    A s0 = 0, s1 = 0;
+    const int lo = f.lo[p], n = f.n[p];
+    for (int i = 0; i < lo; ++i) s0 = s0 + (A)ft_w[(int64_t)f.idx[p][i] * l1 + c];
+    for (int i = lo; i < n; ++i) s1 = s1 + (A)ft_w[(int64_t)f.idx[p][i] * l1 + c];
+    return s0 + s1;
+}
+
+// K12's body: a king-bucketed net's full eval of one lane (a warp), f32
+// (F, W, B float) or int8 (int16, int8, int32). Each thread refreshes the
+// columns c = t, t + 32, ... of both perspectives (ft_b + the pieces'
+// rows, the reference's order, so the accumulators are the plain
+// version's bit for bit) and folds them straight into its partial sums
+// of the H1 first-layer units; a warp sum finishes each unit, thread j
+// computes second-layer unit j, and a warp sum the output.
+template <typename F, typename W, typename B>
+__device__ float evaluate_warp(const Features& f, int stm, int bucket, const Net<F, W, B>& net,
+                               int t) {
+    const Head<W, B>& w = net.head;
+    const int l1 = w.l1, n1 = w.h1, n2 = w.h2;
+    const W* w1 = w.l1_w + (int64_t)bucket * 2 * l1 * n1;
+    B part[MAX_H];
+#pragma unroll
+    for (int j = 0; j < MAX_H; ++j) part[j] = 0;
+    for (int c = t; c < l1; c += 32) {
+        const B x_own = act_in(net.ft_b[c] + refresh_column<F, B>(f, stm, net.ft_w, l1, c));
+        const B x_opp = act_in(net.ft_b[c] + refresh_column<F, B>(f, 1 - stm, net.ft_w, l1, c));
+        const W* r_own = w1 + (int64_t)c * n1;
+        const W* r_opp = w1 + (int64_t)(l1 + c) * n1;
+#pragma unroll
+        for (int j = 0; j < MAX_H; ++j) {
+            if (j < n1) part[j] = mac(x_opp, r_opp[j], mac(x_own, r_own[j], part[j]));
+        }
+    }
+    B h1[MAX_H];
+#pragma unroll
+    for (int j = 0; j < MAX_H; ++j) {
+        h1[j] = 0;
+        if (j < n1) h1[j] = act_hidden(warp_sum(part[j]), w.l1_b[bucket * n1 + j]);
+    }
+    B v = 0;
+    if (t < n2) {
+        const W* w2 = w.l2_w + (int64_t)bucket * n1 * n2 + t;
+        B u = 0;
+#pragma unroll
+        for (int k = 0; k < MAX_H; ++k) {
+            if (k < n1) u = mac(h1[k], w2[k * n2], u);
+        }
+        v = times(act_hidden(u, w.l2_b[bucket * n2 + t]), w.out_w[bucket * n2 + t]);
+    }
+    return score(warp_sum(v), w.out_b[bucket]);
+}
+
+// K13's body: an imported Stockfish net's full eval of one lane (a warp),
+// f32. Each thread takes the column pairs (c, c + L1/2), c = t, t + 32,
+// ... of both perspectives: it sums their pieces' rows (the reference's
+// order) with ft_b, forms the pairwise clipped product and folds it
+// straight into its partial sums of the bucket's 16 fc0 rows, so no
+// (2, L1) accumulator is kept anywhere. A warp sum finishes fc0; thread j
+// computes fc1 unit j on [clip(h), clip(h)^2] and its fc2 term, a warp
+// sum the output; the PSQT column of the bucket is summed in the
+// reference's order from one value a feature, loaded by all threads.
+__device__ float evaluate_sf_warp(const Features& f, int stm, int bucket, const SfNet& net,
+                                  int t) {
+    const int l1 = net.l1, half = l1 / 2;
+    const float* fc0 = net.fc0_w + (int64_t)bucket * FC0_OUT * l1;
+    float part[FC0_OUT];
+#pragma unroll
+    for (int i = 0; i < FC0_OUT; ++i) part[i] = 0.0f;
+    for (int c = t; c < half; c += 32) {
+        float x[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+            const int p = q ? 1 - stm : stm;
+            const float a = __fadd_rn(net.ft_b[c],
+                                      refresh_column<float, float>(f, p, net.ft_w, l1, c));
+            const float b = __fadd_rn(net.ft_b[c + half],
+                                      refresh_column<float, float>(f, p, net.ft_w, l1, c + half));
+            x[q] = __fmul_rn(crelu(a), crelu(b));
+        }
+#pragma unroll
+        for (int i = 0; i < FC0_OUT; ++i) {
+            part[i] = fmaf(fc0[(int64_t)i * l1 + half + c], x[1],
+                           fmaf(fc0[(int64_t)i * l1 + c], x[0], part[i]));
+        }
+    }
+    float h0[FC0_OUT];
+#pragma unroll
+    for (int i = 0; i < FC0_OUT; ++i) {
+        h0[i] = __fadd_rn(warp_sum(part[i]), net.fc0_b[bucket * FC0_OUT + i]);
+    }
+    // fc1 unit t (FC1_OUT == 32 == the warp) and its fc2 term
+    const float* w1 = net.fc1_w + ((int64_t)bucket * FC1_OUT + t) * FC1_IN;
+    float u = 0.0f;
+#pragma unroll
+    for (int k = 0; k < FC0_OUT - 1; ++k) u = fmaf(w1[k], crelu(h0[k]), u);
+#pragma unroll
+    for (int k = 0; k < FC0_OUT - 1; ++k) {
+        const float h = crelu(h0[k]);
+        u = fmaf(w1[FC0_OUT - 1 + k], __fmul_rn(h, h), u);
+    }
+    const float v = __fmul_rn(crelu(__fadd_rn(u, net.fc1_b[bucket * FC1_OUT + t])),
+                              net.fc2_w[bucket * FC1_OUT + t]);
+    const float out = __fadd_rn(warp_sum(v), net.fc2_b[bucket]);
+    // the PSQT sums of the bucket, side to move first
+    float ps[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+        const int p = q ? 1 - stm : stm;
+        const int lo = f.lo[p], n = f.n[p];
+        const float v0 = t < n ? net.psqt_w[(int64_t)f.idx[p][t] * PSQT_BUCKETS + bucket] : 0.0f;
+        const float v1 =
+            t + 32 < n ? net.psqt_w[(int64_t)f.idx[p][t + 32] * PSQT_BUCKETS + bucket] : 0.0f;
+        float s0 = 0.0f, s1 = 0.0f;
+        for (int i = 0; i < n; ++i) {
+            const float e = __shfl_sync(FULL, i < 32 ? v0 : v1, i & 31);
+            if (i < lo) {
+                s0 = __fadd_rn(s0, e);
+            } else {
+                s1 = __fadd_rn(s1, e);
+            }
+        }
+        ps[q] = __fadd_rn(s0, s1);
+    }
+    const float psqt = __fsub_rn(ps[0], ps[1]) / 2.0f;
+    return __fmul_rn(__fadd_rn(__fadd_rn(out, h0[FC0_OUT - 1]), psqt), NNUE2SCORE);
 }
 
 }  // namespace nnue

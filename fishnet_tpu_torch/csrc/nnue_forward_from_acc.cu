@@ -45,7 +45,8 @@ int launch(const void* acc, const void* stm, const void* bucket, const void* l1_
            const void* l1_b, const void* l2_w, const void* l2_b, const void* out_w,
            const void* out_b, void* out, int batch, void* stream) {
     nnue::Head<W, B> head{(const W*)l1_w, (const B*)l1_b, (const W*)l2_w,
-                          (const B*)l2_b, (const W*)out_w, (const B*)out_b};
+                          (const B*)l2_b, (const W*)out_w, (const B*)out_b,
+                          nnue::L1, nnue::H1, nnue::H2};
     int grid = (batch + THREADS - 1) / THREADS;
     forward_kernel<A, W, B><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
         (const A*)acc, (const int32_t*)stm, (const int32_t*)bucket, head, (float*)out, batch);

@@ -14,8 +14,13 @@
 // the lane's scalars (the same values, read from the warp's shared copies
 // of the rows), the board rules, move generator and make-move run as
 // K8-K10's warp bodies, the eval (K2) and the child accumulators (K3) as
-// their bodies. The rows the step reads are staged in shared memory before
-// any write, and the writes land in the reference's order, each under its
+// their bodies. The net is a template parameter (its `Net` traits): a
+// board768 net carries accumulators down the stack (K3) and evaluates a
+// leaf from them (K2); a king-bucketed or an imported Stockfish net
+// evaluates every leaf from its board (K12's or K13's warp body) and
+// leaves the state's accumulator table as it is, as the reference does.
+// The rows the step reads are staged in shared memory before any write,
+// and the writes land in the reference's order, each under its
 // mask: the entered row (ply0), the folded parent (parent0), the PV row,
 // the TRYMOVE row (ply1), the child's depth word (nply), then the child's
 // board row and accumulators.
@@ -45,26 +50,45 @@ using rules::BT_PH1;
 using rules::BT_PH2;
 using rules::BT_STM;
 using rules::BT_W;
-constexpr int L1 = nnue::L1;
+constexpr int L1 = nnue::L1;  // a board768 net's accumulator width
 // a PV row is staged in two words a thread; a lane's scratch holds a
-// pending table row and its slot
+// pending table row and its slot; a board768 accumulator pair is four
+// columns a thread
 static_assert(SEGMENT_MAX_PLY <= 2 * WARP && SEGMENT_SCRATCH >= 5, "K11 layout");
+static_assert(2 * L1 == 4 * WARP, "K3's body: four columns a thread");
 
 // the body calls and live lane-steps a launch counts (kernels.py K11_COUNTERS)
 enum Body { B_FORWARD, B_ACC_UPDATE, B_HASH, B_PROBE, B_STORE, B_NODE_RULES, B_MOVEGEN,
-            B_MAKE_MOVE, B_LIVE, N_BODY };
+            B_MAKE_MOVE, B_EVALUATE, B_EVALUATE_SF, B_LIVE, N_BODY };
 
+// the nets K11 takes
+constexpr int BOARD768 = 0;  // incremental accumulators: K2's and K3's bodies
+constexpr int KING = 1;  // a king-bucketed NnueParams net: K12's body
+constexpr int STOCKFISH = 2;  // an imported Stockfish net: K13's body
 struct NetF32 {
     using Acc = float;
-    using FtW = float;
-    using HeadW = float;
-    using HeadB = float;
+    using Weights = nnue::Net<float, float, float>;
+    static constexpr int KIND = BOARD768;
 };
 struct NetI8 {
     using Acc = int32_t;
-    using FtW = int16_t;
-    using HeadW = int8_t;
-    using HeadB = int32_t;
+    using Weights = nnue::Net<int16_t, int8_t, int32_t>;
+    static constexpr int KIND = BOARD768;
+};
+struct NetKbF32 {
+    using Acc = float;
+    using Weights = nnue::Net<float, float, float>;
+    static constexpr int KIND = KING;
+};
+struct NetKbI8 {
+    using Acc = int32_t;
+    using Weights = nnue::Net<int16_t, int8_t, int32_t>;
+    static constexpr int KIND = KING;
+};
+struct NetSf {
+    using Acc = float;
+    using Weights = nnue::SfNet;
+    static constexpr int KIND = STOCKFISH;
 };
 
 // A segment's arguments: the state's nine tables ((B, ...) contiguous,
@@ -80,9 +104,8 @@ struct Segment {
     int32_t* moves;  // (B, P, MAX_MOVES)
     int32_t* hist;  // (B, HIST_SIZE)
     int32_t* pv;  // (B, P, P)
-    typename Net::Acc* acc;  // (B, P+1, 2, L1)
-    const typename Net::FtW* ft_w;  // (768, L1)
-    nnue::Head<typename Net::HeadW, typename Net::HeadB> head;
+    typename Net::Acc* acc;  // (B, P+1, 2, L1): read and written on board768 only
+    typename Net::Weights net;
     const uint32_t* z1;
     const uint32_t* z2;
     int4* table;  // (n, 4) or null
@@ -107,6 +130,7 @@ struct WarpRows {
     int gen[MAX_MOVES];  // the ordered move list ENTER generates
     int chg[12];  // the child's piece changes: codes, squares, signs
     rules::MoveList list;  // K9's scratch
+    nnue::Features feat;  // K12's and K13's feature lists
 };
 
 __device__ __forceinline__ bool is_quiet(int move, const int* board) {
@@ -215,7 +239,7 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows& s, int t,
     int32_t* bt = a.bt + (int64_t)lane * P1 * BT_W;
     int32_t* mv = a.moves + (int64_t)lane * P * MAX_MOVES;
     int32_t* pv = a.pv + (int64_t)lane * P * P;
-    Acc* acc = a.acc + (int64_t)lane * P1 * 2 * L1;
+    Acc* acc = a.acc + (int64_t)lane * P1 * 2 * L1;  // board768 only
     if (t < NT_W) {
         s.ntr[t] = nt[p0 * NT_W + t];
         s.ntp[t] = nt[pp * NT_W + t];
@@ -274,14 +298,26 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows& s, int t,
                                     : (parent_null ? 1 - s.ntp[NT_BETA] : -s.ntp[NT_ALPHA]);
         const bool in_qs = depth_left <= 0;
 
-        // leaf value: K2's body on the lane's accumulator pair, one thread
-        const int pieces = __popc(__ballot_sync(FULL_MASK, s.btr[t] > 0))
-                           + __popc(__ballot_sync(FULL_MASK, s.btr[t + WARP] > 0));
-        const int bucket = min(max((pieces - 1) / 4, 0), 7);
+        // leaf value: on board768 K2's body on the lane's accumulator pair
+        // (one thread); any other net K12's or K13's full eval (the warp)
         float ev = 0.0f;
-        if (t == 0) {
-            const Acc* pair = acc + p0 * 2 * L1;
-            ev = nnue::forward_lane(pair + stm * L1, pair + (1 - stm) * L1, bucket, a.head);
+        if constexpr (Net::KIND == BOARD768) {
+            const int pieces = __popc(__ballot_sync(FULL_MASK, s.btr[t] > 0))
+                               + __popc(__ballot_sync(FULL_MASK, s.btr[t + WARP] > 0));
+            const int bucket = min(max((pieces - 1) / 4, 0), 7);
+            if (t == 0) {
+                const Acc* pair = acc + p0 * 2 * L1;
+                ev = nnue::forward_lane(pair + stm * L1, pair + (1 - stm) * L1, bucket,
+                                        a.net.head);
+            }
+        } else {
+            nnue::features_warp(s.btr, t, s.feat);
+            const int bucket = nnue::output_bucket(s.feat);
+            if constexpr (Net::KIND == KING) {
+                ev = nnue::evaluate_warp(s.feat, stm, bucket, a.net, t);
+            } else {
+                ev = nnue::evaluate_sf_warp(s.feat, stm, bucket, a.net, t);
+            }
         }
         ev = __shfl_sync(FULL_MASK, ev, 0);
         const int static_val = min(max((int)ev, -MATE_BOUND), MATE_BOUND);
@@ -395,7 +431,8 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows& s, int t,
         if (t == 0) {
             calls[B_NODE_RULES] += 1;
             calls[B_HASH] += 1;
-            calls[B_FORWARD] += 1;
+            calls[Net::KIND == BOARD768 ? B_FORWARD
+                  : (Net::KIND == KING ? B_EVALUATE : B_EVALUATE_SF)] += 1;
             calls[B_MOVEGEN] += 1;
             calls[B_PROBE] += a.table != nullptr;
         }
@@ -530,23 +567,24 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows& s, int t,
                 __syncwarp();
             }
             for (int j = t; j < BT_W; j += WARP) bt[nply * BT_W + j] = s.child[j];
-            // the child's accumulators: K3's body, four columns a thread
-            const Acc* src = acc + ply1 * 2 * L1;
-            Acc out[4];
-            for (int i = 0; i < 4; ++i) {
-                const int col = t + WARP * i;
-                const int persp = col / L1, c = col % L1;
-                out[i] = src[col] + nnue::acc_delta<typename Net::FtW, Acc>(
-                                        s.chg, s.chg + 4, s.chg + 8, persp, c, a.ft_w, L1);
+            if constexpr (Net::KIND == BOARD768) {
+                // the child's accumulators: K3's body, four columns a thread
+                const Acc* src = acc + ply1 * 2 * L1;
+                Acc out[4];
+                for (int i = 0; i < 4; ++i) {
+                    const int col = t + WARP * i;
+                    const int persp = col / L1, c = col % L1;
+                    out[i] = src[col] + nnue::acc_delta<typename Net::Weights::Ft, Acc>(
+                                                 s.chg, s.chg + 4, s.chg + 8, persp, c,
+                                                 a.net.ft_w, L1);
+                }
+                __syncwarp();
+                Acc* dst = acc + nply * 2 * L1;
+                for (int i = 0; i < 4; ++i) dst[t + WARP * i] = out[i];
+                __syncwarp();
+                if (t == 0) calls[B_ACC_UPDATE] += 1;
             }
-            __syncwarp();
-            Acc* dst = acc + nply * 2 * L1;
-            for (int i = 0; i < 4; ++i) dst[t + WARP * i] = out[i];
-            __syncwarp();
-            if (t == 0) {
-                calls[B_MAKE_MOVE] += 1;
-                calls[B_ACC_UPDATE] += 1;
-            }
+            if (t == 0) calls[B_MAKE_MOVE] += 1;
         }
         research = false;
         if (finish) {

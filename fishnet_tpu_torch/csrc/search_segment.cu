@@ -21,6 +21,13 @@
 // sort, the eval's 2,592 multiply-adds on one thread) plus one grid
 // barrier a step without a table and four with one.
 //
+// On a king-bucketed or an imported Stockfish net (entry points
+// search_segment_kb_* and _sf) every entering lane pays a full eval
+// instead (K12's or K13's warp body), with the reference's full-eval
+// branch (:440-445, :801-812): no accumulator is read or written. At L1
+// 3072 that eval reads up to 0.79 MB of feature rows from HBM, which then
+// dominates a step's bytes.
+//
 // Design: a persistent cooperative grid (cudaLaunchCooperativeKernel,
 // cooperative_groups grid sync), sized by the occupancy API to the blocks
 // that fit on the card at once; one warp per lane (search.cuh step_lane),
@@ -145,16 +152,40 @@ int launch(Segment<Net> a, int* grid_out, cudaStream_t stream) {
     return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
+// The net's weights from kernels.py's nine pointers: a board768 or
+// king-bucketed net's ft_w, ft_b and six head arrays (the ninth null),
+// or an imported Stockfish net's nine arrays (nnue::SfNet's order).
+template <typename F, typename W, typename B>
+void set_weights(nnue::Net<F, W, B>& n, const void* const* w, int l1, int h1, int h2) {
+    n.ft_w = (const F*)w[0];
+    n.ft_b = (const B*)w[1];
+    n.head = nnue::Head<W, B>{(const W*)w[2], (const B*)w[3], (const W*)w[4], (const B*)w[5],
+                              (const W*)w[6], (const B*)w[7], l1, h1, h2};
+}
+void set_weights(nnue::SfNet& n, const void* const* w, int l1, int, int) {
+    n = nnue::SfNet{(const float*)w[0], (const float*)w[1], (const float*)w[2],
+                    (const float*)w[3], (const float*)w[4], (const float*)w[5],
+                    (const float*)w[6], (const float*)w[7], (const float*)w[8], l1};
+}
+
+// The widths each net kind takes (kernels.py checks them first).
+template <class Net>
+bool widths_ok(int l1, int h1, int h2) {
+    const bool head = h1 > 0 && h1 <= nnue::MAX_H && h2 > 0 && h2 <= nnue::MAX_H;
+    if (Net::KIND == BOARD768) return l1 == nnue::L1 && h1 == nnue::H1 && h2 == nnue::H2;
+    const bool full = l1 > 0 && l1 <= MAX_L1 && l1 % 2 == 0;
+    return Net::KIND == KING ? full && head : full;
+}
+
 template <class Net>
 int segment(void* bt, void* nt, void* lane, const void* hist_hash, const void* hist_halfmove,
-            void* moves, void* hist, void* pv, void* acc, const void* ft_w, const void* l1_w,
-            const void* l1_b, const void* l2_w, const void* l2_b, const void* out_w,
-            const void* out_b, const void* z1, const void* z2, void* table, int table_rows,
-            void* claims, const void* gen_lanes, int gen, void* scratch, void* body_calls,
-            void* summary, int batch, int max_ply, int max_hist, int steps, int pruning,
-            int deep_tt, int prefer_deep, void* grid_out, void* stream) {
-    using W = typename Net::HeadW;
-    using B = typename Net::HeadB;
+            void* moves, void* hist, void* pv, void* acc, const void* w0, const void* w1,
+            const void* w2, const void* w3, const void* w4, const void* w5, const void* w6,
+            const void* w7, const void* w8, const void* z1, const void* z2, void* table,
+            int table_rows, void* claims, const void* gen_lanes, int gen, void* scratch,
+            void* body_calls, void* summary, int batch, int max_ply, int max_hist, int steps,
+            int pruning, int deep_tt, int prefer_deep, int l1, int h1, int h2, void* grid_out,
+            void* stream) {
     Segment<Net> a;
     a.bt = (int32_t*)bt;
     a.nt = (int32_t*)nt;
@@ -165,9 +196,8 @@ int segment(void* bt, void* nt, void* lane, const void* hist_hash, const void* h
     a.hist = (int32_t*)hist;
     a.pv = (int32_t*)pv;
     a.acc = (typename Net::Acc*)acc;
-    a.ft_w = (const typename Net::FtW*)ft_w;
-    a.head = nnue::Head<W, B>{(const W*)l1_w, (const B*)l1_b, (const W*)l2_w,
-                              (const B*)l2_b, (const W*)out_w, (const B*)out_b};
+    const void* weights[9] = {w0, w1, w2, w3, w4, w5, w6, w7, w8};
+    set_weights(a.net, weights, l1, h1, h2);
     a.z1 = (const uint32_t*)z1;
     a.z2 = (const uint32_t*)z2;
     a.table = (int4*)table;
@@ -185,7 +215,9 @@ int segment(void* bt, void* nt, void* lane, const void* hist_hash, const void* h
     a.pruning = pruning != 0;
     a.deep_tt = deep_tt != 0;
     a.prefer_deep = prefer_deep != 0;
-    if (max_ply < 1 || max_ply > SEGMENT_MAX_PLY) return (int)cudaErrorInvalidValue;
+    if (max_ply < 1 || max_ply > SEGMENT_MAX_PLY || !widths_ok<Net>(l1, h1, h2)) {
+        return (int)cudaErrorInvalidValue;
+    }
     return launch<Net>(a, (int*)grid_out, (cudaStream_t)stream);
 }
 
@@ -194,28 +226,34 @@ int segment(void* bt, void* nt, void* lane, const void* hist_hash, const void* h
 // The state's nine tables (contiguous: bt (batch, P+1, 96), nt (batch,
 // P+1, 16), lane (batch, 16), hist_hash (batch, H, 2), hist_halfmove
 // (batch, H), moves (batch, P, MAX_MOVES), hist (batch, 4096), pv (batch,
-// P, P), acc (batch, P+1, 2, 64)), the net (ft_w (768, 64) and the head
-// weights of K2's shapes), the key tables, the table (n, 4) int32 with n
-// = table_rows a power of two, or null, with its claim words (n,) all -1;
-// gen_lanes (batch,) int32 or null; scratch (batch * 8 + 4) int32;
-// body_calls (9,) int64, added to (kernels.py K11_COUNTERS); summary (batch + 1, 4) int32 out;
-// grid_out: the blocks launched (host int).
+// P, P), acc (batch, P+1, 2, l1)), the net's nine weight pointers
+// (set_weights: a board768 net of l1 64, a king-bucketed net, or an
+// imported Stockfish net, with l1, h1, h2), the key tables, the table (n,
+// 4) int32 with n = table_rows a power of two, or null, with its claim
+// words (n,) all -1; gen_lanes (batch,) int32 or null; scratch (batch * 8
+// + 4) int32; body_calls (11,) int64, added to (kernels.py K11_COUNTERS);
+// summary (batch + 1, 4) int32 out; grid_out: the blocks launched (host
+// int).
 #define SEGMENT_ENTRY(NAME, NET)                                                           \
     FISHNET_EXPORT int NAME(                                                              \
             void* bt, void* nt, void* lane, const void* hist_hash,                        \
             const void* hist_halfmove, void* moves, void* hist, void* pv, void* acc,      \
-            const void* ft_w, const void* l1_w, const void* l1_b, const void* l2_w,       \
-            const void* l2_b, const void* out_w, const void* out_b, const void* z1,       \
-            const void* z2, void* table, int table_rows, void* claims,                    \
-            const void* gen_lanes, int gen, void* scratch, void* body_calls,              \
-            void* summary, int batch, int max_ply, int max_hist, int steps, int pruning,  \
-            int deep_tt, int prefer_deep, void* grid_out, void* stream) {                 \
+            const void* w0, const void* w1, const void* w2, const void* w3,               \
+            const void* w4, const void* w5, const void* w6, const void* w7,               \
+            const void* w8, const void* z1, const void* z2, void* table, int table_rows,  \
+            void* claims, const void* gen_lanes, int gen, void* scratch,                  \
+            void* body_calls, void* summary, int batch, int max_ply, int max_hist,        \
+            int steps, int pruning, int deep_tt, int prefer_deep, int l1, int h1, int h2, \
+            void* grid_out, void* stream) {                                               \
         return segment<NET>(bt, nt, lane, hist_hash, hist_halfmove, moves, hist, pv, acc, \
-                            ft_w, l1_w, l1_b, l2_w, l2_b, out_w, out_b, z1, z2, table,    \
+                            w0, w1, w2, w3, w4, w5, w6, w7, w8, z1, z2, table,            \
                             table_rows, claims, gen_lanes, gen, scratch, body_calls,      \
                             summary, batch, max_ply, max_hist, steps, pruning, deep_tt,   \
-                            prefer_deep, grid_out, stream);                               \
+                            prefer_deep, l1, h1, h2, grid_out, stream);                   \
     }
 
 SEGMENT_ENTRY(search_segment_f32, search::NetF32)
 SEGMENT_ENTRY(search_segment_i8, search::NetI8)
+SEGMENT_ENTRY(search_segment_kb_f32, search::NetKbF32)
+SEGMENT_ENTRY(search_segment_kb_i8, search::NetKbI8)
+SEGMENT_ENTRY(search_segment_sf, search::NetSf)

@@ -34,7 +34,7 @@ from .. import device as device_mod
 from .. import settings
 from ..chess.position import VARIANTS, Position, from_fen
 from ..ipc import AnalysisWork, Chunk, Matrix, PositionResponse, Score, WorkPosition
-from ..models import nnue
+from ..models import nnue, nnue_import
 from ..ops import tt as tt_mod
 from ..ops.board import from_position, stack_boards
 from ..ops import search as search_ops
@@ -77,9 +77,13 @@ def _pad_lanes(n: int) -> int:
 
 
 class GpuEngine(BatchEngine):
-    """Batched analysis engine. params: an nnue.NnueParams (default: the
-    shipped board768 net); device: where it runs (default the card — it
-    raises without one). tt_size_log2: the shared table's slots as a
+    """Batched analysis engine. params: an nnue.NnueParams (board768 or
+    king-bucketed) or an imported nnue_import.StockfishNet; without it,
+    weights_path (a `.nnue` file through nnue_import.load_nnue, any other
+    path through nnue.load_params), else the shipped board768 net.
+    FISHNET_TPU_DTYPE=int8 with FISHNET_TPU_EXPERIMENTAL_INT8 quantizes a
+    board768 net (quantize_int8); "bf16" raises (not ported). device:
+    where it runs (default the card — it raises without one). tt_size_log2: the shared table's slots as a
     power of two (0: no table, and then no helpers); helper_lanes: lanes
     per position (None reads FISHNET_TPU_HELPERS, clamped to 1..16);
     max_lanes: the per-dispatch lane ceiling (None reads
@@ -90,7 +94,7 @@ class GpuEngine(BatchEngine):
 
     def __init__(
         self,
-        params: Optional[nnue.NnueParams] = None,
+        params=None,
         weights_path: Optional[str] = None,
         max_depth: int = 12,
         tt_size_log2: int = 21,
@@ -118,9 +122,13 @@ class GpuEngine(BatchEngine):
         # depth-preferred replacement never protects an earlier chunk's rows
         self._tt_gen = 0
         if params is None:
-            params = (nnue.load_params(weights_path, self.device) if weights_path
-                      else nnue.load_params(device=self.device))
-        self.params = params.to(self.device)
+            if weights_path and str(weights_path).endswith(".nnue"):
+                params = nnue_import.load_nnue(weights_path, device=self.device)
+            elif weights_path:
+                params = nnue.load_params(weights_path, self.device)
+            else:
+                params = nnue.load_params(device=self.device)
+        self.params = self._quantized(params).to(self.device)
         self.max_depth = max_depth
         self.max_ply = settings.get_int("FISHNET_TPU_MAX_PLY")
         self.aspiration = (
@@ -152,6 +160,28 @@ class GpuEngine(BatchEngine):
 
     def _warn(self, msg: str) -> None:
         print(f"W: {msg}", file=sys.stderr, flush=True)
+
+    def _quantized(self, params):
+        """The net under FISHNET_TPU_DTYPE, as TpuEngine reads it: "int8"
+        quantizes an f32 board768 net when FISHNET_TPU_EXPERIMENTAL_INT8
+        is set (and is ignored with a warning when it is not); "bf16"
+        raises, since cast_params is not ported."""
+        dtype = (settings.raw("FISHNET_TPU_DTYPE") or "").lower()
+        if dtype in ("bf16", "bfloat16"):
+            raise NotImplementedError(
+                "FISHNET_TPU_DTYPE=bf16 needs cast_params, which is not ported yet "
+                "(ROADMAP.md, Queue 2)")
+        if dtype != "int8":
+            return params
+        if not settings.get_bool("FISHNET_TPU_EXPERIMENTAL_INT8"):
+            self._warn("FISHNET_TPU_DTYPE=int8 ignored, as the JAX engine ignores it (it "
+                       "measured a net loss vs f32 there); set "
+                       "FISHNET_TPU_EXPERIMENTAL_INT8=1 to run it anyway")
+            return params
+        self._warn("experimental int8 weights enabled")
+        if nnue.is_board768(params) and not nnue.is_int8(params):
+            params = nnue.quantize_int8(params)
+        return params
 
     # ------------------------------------------------------------- chunks
 

@@ -12,7 +12,8 @@ ops/tt.py, so no table or constant is typed twice. The wrappers below take
 CUDA tensors only: they check device, dtype, shape and contiguity,
 allocate the output with `torch.empty`, launch on the current stream,
 raise if the launch returned an error, and count the launch. The callers
-(models/nnue.py, ops/tt.py, ops/board.py, ops/movegen.py, ops/search.py)
+(models/nnue.py, models/nnue_import.py, ops/tt.py, ops/board.py,
+ops/movegen.py, ops/search.py)
 send CPU tensors to their plain PyTorch versions instead; nothing here
 falls back.
 """
@@ -42,15 +43,20 @@ KERNELS = (
     "nnue_refresh_768", "nnue_forward_from_acc", "nnue_acc_update_768",
     "zobrist_hash", "tt_probe", "tt_store", "lane_init",
     "node_rules", "generate_moves", "make_move", "search_segment",
+    "nnue_evaluate", "nnue_evaluate_sf",
 )
 # the kernels whose bodies K11 runs inside a segment, and its per-launch
 # counters: those bodies' calls, then the live lane-steps (csrc/search.cuh
 # Body)
 K11_BODIES = (
     "nnue_forward_from_acc", "nnue_acc_update_768", "zobrist_hash", "tt_probe", "tt_store",
-    "node_rules", "generate_moves", "make_move",
+    "node_rules", "generate_moves", "make_move", "nnue_evaluate", "nnue_evaluate_sf",
 )
 K11_COUNTERS = K11_BODIES + ("live_lane_steps",)
+
+# HalfKAv2_hm feature rows of the full-eval nets (models/nnue.py
+# NUM_FEATURES)
+NUM_FEATURES = 22528
 
 # length of each Zobrist table (ops/tt.py Z_SHAPE; the kernel reads the
 # piece-square, en-passant, castling and side-to-move keys at its head)
@@ -68,22 +74,29 @@ _claims: dict = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_SEGMENT_ARGS = [_P] * 20 + [_P, _I, _P, _P, _I, _P, _P, _P] + [_I] * 10 + [_P, _P]
+# each kernel's library: its entry points and their argument types
 _SIGNATURES = {
-    "nnue_refresh_768_f32": [_P, _P, _P, _P, _I, _I, _P],
-    "nnue_refresh_768_i16": [_P, _P, _P, _P, _I, _I, _P],
-    "nnue_acc_update_768_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "nnue_acc_update_768_i16": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "nnue_forward_from_acc_f32": [_P] * 10 + [_I, _P],
-    "nnue_forward_from_acc_i8": [_P] * 10 + [_I, _P],
-    "zobrist_hash": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _P, _I, _P],
-    "tt_probe": [_P, _I] + [_P, _L] * 5 + [_P, _I, _P, _P, _P, _I, _P],
-    "tt_store": [_P, _I] + [_P, _L] * 6 + [_P, _P, _I, _I, _I, _P],
-    "lane_init": [_P] * 20 + [_I] * 5 + [_P],
-    "node_rules": [_P, _L, _P, _L, _P, _P, _I, _P],
-    "generate_moves": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _P, _I, _P],
-    "make_move": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _P, _P, _I, _P],
-    "search_segment_f32": [_P] * 18 + [_P, _I, _P, _P, _I, _P, _P, _P] + [_I] * 7 + [_P, _P],
-    "search_segment_i8": [_P] * 18 + [_P, _I, _P, _P, _I, _P, _P, _P] + [_I] * 7 + [_P, _P],
+    "nnue_refresh_768": {"nnue_refresh_768_f32": [_P, _P, _P, _P, _I, _I, _P],
+                         "nnue_refresh_768_i16": [_P, _P, _P, _P, _I, _I, _P]},
+    "nnue_acc_update_768": {"nnue_acc_update_768_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+                            "nnue_acc_update_768_i16": [_P, _P, _P, _P, _P, _P, _I, _I, _P]},
+    "nnue_forward_from_acc": {"nnue_forward_from_acc_f32": [_P] * 10 + [_I, _P],
+                              "nnue_forward_from_acc_i8": [_P] * 10 + [_I, _P]},
+    "nnue_evaluate": {"nnue_evaluate_f32": [_P, _L, _P, _L] + [_P] * 9 + [_I] * 4 + [_P],
+                      "nnue_evaluate_i8": [_P, _L, _P, _L] + [_P] * 9 + [_I] * 4 + [_P]},
+    "nnue_evaluate_sf": {"nnue_evaluate_sf": [_P, _L, _P, _L] + [_P] * 10 + [_I] * 2 + [_P]},
+    "zobrist_hash": {"zobrist_hash": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _P, _I, _P]},
+    "tt_probe": {"tt_probe": [_P, _I] + [_P, _L] * 5 + [_P, _I, _P, _P, _P, _I, _P]},
+    "tt_store": {"tt_store": [_P, _I] + [_P, _L] * 6 + [_P, _P, _I, _I, _I, _P]},
+    "lane_init": {"lane_init": [_P] * 20 + [_I] * 5 + [_P]},
+    "node_rules": {"node_rules": [_P, _L, _P, _L, _P, _P, _I, _P]},
+    "generate_moves": {"generate_moves": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P,
+                                          _P, _P, _I, _P]},
+    "make_move": {"make_move": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _P, _P,
+                                _I, _P]},
+    "search_segment": {f"search_segment_{tag}": _SEGMENT_ARGS
+                       for tag in ("f32", "i8", "kb_f32", "kb_i8", "sf")},
 }
 
 # lanes one K6 launch takes (its shared-memory slot array)
@@ -93,11 +106,21 @@ TT_STORE_MAX_LANES = 8192
 # LN_W, MAX_HIST and the history table)
 BT_W, NT_W, LN_W, MAX_HIST, HIST_SIZE = 96, 16, 16, 16, 4096
 # K11: the deepest stack it takes (it stages a PV row in two words a
-# thread), the accumulator width of K2's layer stack, and its per-lane
-# scratch words (a pending table row and its slot)
+# thread), the board768 net's widths, which K2's and K3's bodies are
+# compiled for (the shipped net's; K3's body takes L1 four columns a
+# thread), and its per-lane scratch words (a pending table row and its
+# slot)
 SEGMENT_MAX_PLY = 64
 SEGMENT_L1 = 64
+SEGMENT_H1 = 16
+SEGMENT_H2 = 32
+SHIPPED_WIDTHS = (SEGMENT_L1, SEGMENT_H1, SEGMENT_H2)
 SEGMENT_SCRATCH = 8
+# the widths the full evals take at run time: K12/K13 an even L1 up to
+# Stockfish's big net's, K12 up to 32 units in each hidden layer
+# (csrc/nnue.cuh MAX_H)
+MAX_L1 = 3072
+MAX_HIDDEN = 32
 # the grid of K11's last launch (blocks), for the logs
 LAST_GRID = {"blocks": 0}
 
@@ -190,7 +213,7 @@ def search_header() -> str:
     constants (the state's field indices, modes, scores, pruning margins,
     the TT flags and key layout, the null child's row map), written from
     ops/search.py and ops/tt.py, the modules the plain versions read, and
-    the two limits of K11's layout that its wrapper checks."""
+    the limits of K11's layout that its wrapper checks."""
     from .ops import search, tt
 
     names = [k for k in vars(search) if k.startswith(("NT_", "LN_", "MODE_", "SUM_"))]
@@ -200,7 +223,9 @@ def search_header() -> str:
               "MAX_HIST", "HIST_SIZE", "HIST_BONUS_MAX", "HIST_MAX"]
     consts = {k: getattr(search, k) for k in names}
     consts.update({k: getattr(tt, k) for k in ("FLAG_EXACT", "FLAG_LOWER", "FLAG_UPPER")})
-    consts.update(SEGMENT_MAX_PLY=SEGMENT_MAX_PLY, SEGMENT_SCRATCH=SEGMENT_SCRATCH)
+    consts.update(SEGMENT_MAX_PLY=SEGMENT_MAX_PLY, SEGMENT_SCRATCH=SEGMENT_SCRATCH,
+                  SEGMENT_L1=SEGMENT_L1, SEGMENT_H1=SEGMENT_H1, SEGMENT_H2=SEGMENT_H2,
+                  MAX_L1=MAX_L1)
     consts.update({k.lstrip("_"): getattr(tt, k) for k in (
         "_SCORE_BIAS", "_DEPTH_MASK", "_MAX_STORE", "_EP_OFF", "_CASTLE_OFF", "_STM_OFF")})
     arrays = (
@@ -280,12 +305,11 @@ def build() -> float:
         fns = {}
         for name in KERNELS:
             lib = ctypes.CDLL(str(out / f"lib{name}.so"))
-            for sym, argtypes in _SIGNATURES.items():
-                if sym.startswith(name):
-                    fn = getattr(lib, sym)
-                    fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
-                    fns[sym] = fn
+            for sym, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                fns[sym] = fn
         _fns.update(fns)
         return time.monotonic() - t0
 
@@ -368,31 +392,40 @@ def nnue_acc_update_768(acc: torch.Tensor, codes: torch.Tensor,
 
 
 def _head_types(params):
-    """The layer stack's net tag and accumulator dtype (K2, K11), after
-    checking the head weights have the shipped net's widths (L1 64, 8
-    buckets of 128→16→32→1)."""
+    """The layer stack's net tag and accumulator dtype and its widths (K2,
+    K12, K11) → (tag, acc dtype, (L1, H1, H2)), after checking the head
+    weights: 8 buckets of 2*L1 → H1 → H2 → 1, H1 and H2 at most MAX_HIDDEN,
+    L1 at most MAX_L1 (K2 takes the shipped widths only)."""
     if params.ft_w.dtype == torch.float32:
         tag, adt, wdt, bdt = "f32", torch.float32, torch.float32, torch.float32
     elif params.ft_w.dtype == torch.int16:
         tag, adt, wdt, bdt = "i8", torch.int32, torch.int8, torch.int32
     else:
         raise TypeError(f"unsupported net dtype {params.ft_w.dtype}")
+    l1, h1, h2 = params.ft_w.shape[1], params.l1_w.shape[-1], params.l2_w.shape[-1]
+    if not 0 < l1 <= MAX_L1 or not 0 < h1 <= MAX_HIDDEN or not 0 < h2 <= MAX_HIDDEN:
+        raise ValueError(f"the layer stack takes L1 1..{MAX_L1} and hidden widths 1.."
+                         f"{MAX_HIDDEN}, got {l1}, {h1}, {h2}")
     for name, shape, dt in (
-        ("l1_w", (8, 128, 16), wdt), ("l1_b", (8, 16), bdt),
-        ("l2_w", (8, 16, 32), wdt), ("l2_b", (8, 32), bdt),
-        ("out_w", (8, 32), wdt), ("out_b", (8,), bdt),
+        ("ft_b", (l1,), adt),
+        ("l1_w", (8, 2 * l1, h1), wdt), ("l1_b", (8, h1), bdt),
+        ("l2_w", (8, h1, h2), wdt), ("l2_b", (8, h2), bdt),
+        ("out_w", (8, h2), wdt), ("out_b", (8,), bdt),
     ):
         _check(getattr(params, name), name, dt, shape)
-    return tag, adt
+    return tag, adt, (l1, h1, h2)
 
 
 def nnue_forward_from_acc(acc: torch.Tensor, stm: torch.Tensor,
                           bucket: torch.Tensor, params) -> torch.Tensor:
     """K2: acc (B, 2, 64), stm/bucket (B,) int32 → eval (B,) f32, for
-    the shipped net's widths (L1 64, 8 buckets of 128→16→32→1)."""
+    the shipped net's widths (L1 64, 8 buckets of 128→16→32→1), which its
+    kernel is compiled for."""
     B = acc.shape[0]
-    tag, adt = _head_types(params)
-    _check(acc, "acc", adt, (B, 2, 64))
+    tag, adt, widths = _head_types(params)
+    if widths != SHIPPED_WIDTHS:
+        raise ValueError(f"K2 takes the shipped net's widths {SHIPPED_WIDTHS}, got {widths}")
+    _check(acc, "acc", adt, (B, 2, SEGMENT_L1))
     _check(stm, "stm", torch.int32, (B,))
     _check(bucket, "bucket", torch.int32, (B,))
     out = torch.empty((B,), dtype=torch.float32, device=acc.device)
@@ -403,6 +436,67 @@ def nnue_forward_from_acc(acc: torch.Tensor, stm: torch.Tensor,
                 params.l2_w.data_ptr(), params.l2_b.data_ptr(),
                 params.out_w.data_ptr(), params.out_b.data_ptr(),
                 out.data_ptr(), B)
+    return out
+
+
+def _check_full_l1(l1: int) -> None:
+    if l1 % 2 or not 0 < l1 <= MAX_L1:
+        raise ValueError(f"the full-eval kernels take an even L1 up to {MAX_L1}, got {l1}")
+
+
+def _kb_weights(params):
+    """A king-bucketed net's checks (K12, K11) → (tag, widths, its eight
+    weight pointers: ft_w, ft_b, the head's six)."""
+    tag, _, widths = _head_types(params)
+    _check_full_l1(widths[0])
+    _check(params.ft_w, "ft_w", params.ft_w.dtype, (NUM_FEATURES, widths[0]))
+    return tag, widths, [t.data_ptr() for t in params]
+
+
+SF_FIELDS = ("ft_w", "ft_b", "psqt_w", "fc0_w", "fc0_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
+
+
+def _sf_weights(net):
+    """An imported Stockfish net's checks (K13, K11) → (L1, its nine
+    weight pointers in SF_FIELDS order)."""
+    l1 = net.ft_w.shape[1]
+    _check_full_l1(l1)
+    for name, shape in (
+        ("ft_w", (NUM_FEATURES, l1)), ("ft_b", (l1,)), ("psqt_w", (NUM_FEATURES, 8)),
+        ("fc0_w", (8, 16, l1)), ("fc0_b", (8, 16)), ("fc1_w", (8, 32, 30)),
+        ("fc1_b", (8, 32)), ("fc2_w", (8, 1, 32)), ("fc2_b", (8, 1)),
+    ):
+        _check(getattr(net, name), name, torch.float32, shape)
+    return l1, [getattr(net, f).data_ptr() for f in SF_FIELDS]
+
+
+def nnue_evaluate(boards: torch.Tensor, stm: torch.Tensor, params) -> torch.Tensor:
+    """K12: a king-bucketed net's (NnueParams with NUM_FEATURES rows,
+    f32 or int8) full eval of boards (B, 64), stm (B,) — int32, rows may
+    be strided views — → (B,) f32."""
+    B = boards.shape[0]
+    sb = _check_rows(boards, "boards", (B, 64))
+    ss = _check_rows(stm, "stm", (B,))
+    tag, widths, ptrs = _kb_weights(params)
+    out = torch.empty((B,), dtype=torch.float32, device=boards.device)
+    if B:
+        _launch("nnue_evaluate", f"nnue_evaluate_{tag}", boards.data_ptr(), sb,
+                stm.data_ptr(), ss, *ptrs, out.data_ptr(), B, *widths)
+    return out
+
+
+def nnue_evaluate_sf(boards: torch.Tensor, stm: torch.Tensor, net) -> torch.Tensor:
+    """K13: an imported Stockfish net's (models/nnue_import.py
+    StockfishNet, f32) full eval of boards (B, 64), stm (B,) — int32,
+    rows may be strided views — → (B,) f32."""
+    B = boards.shape[0]
+    sb = _check_rows(boards, "boards", (B, 64))
+    ss = _check_rows(stm, "stm", (B,))
+    l1, ptrs = _sf_weights(net)
+    out = torch.empty((B,), dtype=torch.float32, device=boards.device)
+    if B:
+        _launch("nnue_evaluate_sf", "nnue_evaluate_sf", boards.data_ptr(), sb,
+                stm.data_ptr(), ss, *ptrs, out.data_ptr(), B, l1)
     return out
 
 
@@ -641,6 +735,31 @@ def _claim_words(device: torch.device, n: int) -> torch.Tensor:
     return words
 
 
+def _segment_net(params):
+    """K11's net arguments → (entry tag, its nine weight pointers,
+    (L1, H1, H2), the tensors they point into). board768 nets (f32 or
+    int8) take the shipped net's widths SEGMENT_L1 (K3's column layout),
+    SEGMENT_H1 and SEGMENT_H2 (K2's body compiled for them), king-bucketed
+    nets (K12's body) and imported Stockfish nets (K13's) an even L1 up to
+    MAX_L1; the weight slots a net does not fill are null."""
+    from .models import nnue
+
+    kind = nnue.net_kind(params)
+    if kind == nnue.STOCKFISH:
+        l1, ptrs = _sf_weights(params)
+        return "sf", ptrs, (l1, 0, 0), [(f, getattr(params, f)) for f in SF_FIELDS]
+    tensors = list(zip(params._fields, params))
+    if kind == nnue.KING:
+        tag, widths, ptrs = _kb_weights(params)
+        return "kb_" + tag, ptrs + [None], widths, tensors
+    tag, _, widths = _head_types(params)
+    if widths != SHIPPED_WIDTHS:
+        raise ValueError(f"K11 takes a board768 net of the shipped widths {SHIPPED_WIDTHS}, "
+                         f"got {widths}")
+    _check(params.ft_w, "ft_w", params.ft_w.dtype, (768, SEGMENT_L1))
+    return tag, [t.data_ptr() for t in params] + [None], widths, tensors
+
+
 def search_segment(params, state, steps: int, pruning: bool, table=None,
                    deep_tt: bool = False, prefer_deep: bool = False, gen=0) -> torch.Tensor:
     """K11: up to `steps` lockstep search steps of every lane of `state`
@@ -648,14 +767,16 @@ def search_segment(params, state, steps: int, pruning: bool, table=None,
     once every lane is DONE, with the TT runner around each step when
     `table` ((n, 4) int32, updated in place) is given → the packed
     (B+1, 4) int32 summary (done, nodes, root score, root move; row B the
-    step count). params: the f32 or int8 net (K2's widths); gen: an int
-    or a (B,) int32 CUDA tensor of generations for the prefer_deep store.
-    One cooperative launch; raises if the card refuses it."""
+    step count). params: a board768 net (f32 or int8; K2's and K3's
+    bodies), a king-bucketed one (K12's body) or an imported Stockfish
+    net (K13's); the state's `acc` has the net's L1 and accumulator
+    dtype, and only a board768 net reads or writes it. gen: an int or a
+    (B,) int32 CUDA tensor of generations for the prefer_deep store. One
+    cooperative launch; raises if the card refuses it."""
     B, p1, max_moves, l1 = _check_state(state)
     p = p1 - 1
-    if l1 != SEGMENT_L1 or max_moves != MAX_MOVES:
-        raise ValueError(f"K11 takes L1 {SEGMENT_L1} and {MAX_MOVES}-move lists, got {l1}, "
-                         f"{max_moves}")
+    if max_moves != MAX_MOVES:
+        raise ValueError(f"K11 takes {MAX_MOVES}-move lists, got {max_moves}")
     if not 1 <= p <= SEGMENT_MAX_PLY:
         raise ValueError(f"K11 takes MAX_PLY 1..{SEGMENT_MAX_PLY}, got {p}")
     adt = {torch.float32: torch.float32, torch.int16: torch.int32}.get(params.ft_w.dtype)
@@ -663,11 +784,13 @@ def search_segment(params, state, steps: int, pruning: bool, table=None,
         raise TypeError(f"acc must be {adt} for a net of {params.ft_w.dtype}, got "
                         f"{state.acc.dtype}")
     _check_devices(state)
-    tag, _ = _head_types(params)
-    _check(params.ft_w, "ft_w", params.ft_w.dtype, (768, SEGMENT_L1))
+    tag, ptrs, widths, tensors = _segment_net(params)
+    if l1 != widths[0]:
+        raise ValueError(f"acc has L1 {l1}, the net {widths[0]}")
     dev = state.lane.device
-    if params.ft_w.device != dev:
-        raise ValueError(f"the net is on {params.ft_w.device}, the state on {dev}")
+    for name, t in tensors:
+        if t.device != dev:
+            raise ValueError(f"the net's {name} is on {t.device}, the state on {dev}")
     n_rows, claims = 0, None
     if table is not None:
         n_rows = _check_table(table)
@@ -694,13 +817,12 @@ def search_segment(params, state, steps: int, pruning: bool, table=None,
     summary = torch.empty((B + 1, 4), dtype=torch.int32, device=dev)
     grid = ctypes.c_int(0)
     _launch("search_segment", f"search_segment_{tag}",
-            *[t.data_ptr() for t in state],
-            *[t.data_ptr() for t in params[:1] + params[2:]],
+            *[t.data_ptr() for t in state], *ptrs,
             z1.data_ptr(), z2.data_ptr(),
             None if table is None else table.data_ptr(), n_rows,
             None if claims is None else claims.data_ptr(), gen_ptr, gen_int,
             scratch.data_ptr(), counts.data_ptr(), summary.data_ptr(),
             B, p, MAX_HIST, steps, int(bool(pruning)), int(bool(deep_tt)),
-            int(bool(prefer_deep)), ctypes.addressof(grid))
+            int(bool(prefer_deep)), *widths, ctypes.addressof(grid))
     LAST_GRID["blocks"] = grid.value
     return summary

@@ -1,25 +1,35 @@
-"""The board768 NNUE net in PyTorch: parameters, accumulators, forward.
+"""The NNUE nets in PyTorch: parameters, accumulators, forward.
 
-board768 is the JAX package's fast-path feature set (fishnet_tpu/models/
-nnue.py): 12 piece kinds x 64 squares per perspective, a feature
-transform of width L1 shared by both perspectives, and 8 output buckets
-(chosen by piece count) of a 2*L1 → H1 → H2 → 1 stack. Every update of
-its accumulators is incremental (<= 4 changed features a move), which is
-what lets the lockstep search carry them down its stack.
+Two feature sets, as in the JAX package (fishnet_tpu/models/nnue.py):
 
-The three device functions the search calls each step or each dispatch
-are hand-written CUDA kernels (csrc/, bound by kernels.py), each beside a
-plain PyTorch version of the same function: `accumulators_768` (K1),
-`forward_from_acc` (K2) and `apply_acc_updates_768` (K3). A wrapper runs
-the plain version for CPU tensors and the kernel for CUDA tensors.
+- board768, its fast-path set: 12 piece kinds x 64 squares per
+  perspective. Every update of its accumulators is incremental (<= 4
+  changed features a move), which is what lets the lockstep search carry
+  them down its stack.
+- HalfKAv2_hm ("king-bucketed"): 32 horizontally mirrored king buckets x
+  11 piece kinds x 64 squares = 22,528 features per perspective. A king
+  move changes every feature, so the search evaluates such a net with a
+  full refresh at every leaf (`evaluate`), and so does it an imported
+  Stockfish net (models/nnue_import.py).
+
+Both share the feature transform of width L1 (both perspectives), and 8
+output buckets (chosen by piece count) of a 2*L1 → H1 → H2 → 1 stack.
+
+The device functions the search calls are hand-written CUDA kernels
+(csrc/, bound by kernels.py), each beside a plain PyTorch version of the
+same function: `accumulators_768` (K1), `forward_from_acc` (K2),
+`apply_acc_updates_768` (K3), and the king-bucketed net's full eval
+(K12, `evaluate` → `evaluate_plain`). A wrapper runs the plain version for
+CPU tensors and the kernel for CUDA tensors.
 
 Float order: the plain versions add feature rows in the order the JAX
 reference's XLA:CPU reductions do (measured bit-exact on the CPU), and
-the kernels follow the same order, so K1/K3 agree bit for bit on f32 as
-well as on the int8 net. The f32 layer stack (K2) sums in another order
-than XLA's dot: evals agree within F32_EVAL_TOL centipawns. On the
-int8-quantized net (`quantize_int8`) every add and every layer is exact
-integer arithmetic, so evals are equal bit for bit.
+the kernels follow the same order, so K1/K3 and K12's accumulators agree
+bit for bit on f32 as well as on the int8 net. The f32 layer stack (K2,
+K12) sums in another order than XLA's dot: evals agree within
+F32_EVAL_TOL centipawns. On the int8-quantized net (`quantize_int8`)
+every add and every layer is exact integer arithmetic, so evals are
+equal bit for bit.
 """
 from __future__ import annotations
 
@@ -33,6 +43,10 @@ import torch
 from .. import device as device_mod
 from .. import kernels
 
+NUM_KING_BUCKETS = 32
+NUM_PIECE_KINDS = 11  # our P N B R Q, their P N B R Q, kings (shared plane)
+NUM_SQUARES = 64
+NUM_FEATURES = NUM_KING_BUCKETS * NUM_PIECE_KINDS * NUM_SQUARES  # 22528
 NUM_FEATURES_768 = 12 * 64
 NUM_OUTPUT_BUCKETS = 8
 OUTPUT_SCALE = 600.0  # network output [-1,1]-ish → centipawns
@@ -47,11 +61,17 @@ QW_SHIFT = 6
 # same net (centipawns): the layer stack's sums differ in their last bits
 F32_EVAL_TOL = 1e-2
 
+# king bucket of a (mirrored) king square: files a-d x 8 ranks, -1 on e-h
+KING_BUCKET = np.full(64, -1, dtype=np.int32)
+for _sq in range(64):
+    if _sq & 7 < 4:
+        KING_BUCKET[_sq] = (_sq >> 3) * 4 + (_sq & 7)
+
 ASSET = Path(__file__).resolve().parent.parent / "assets" / "nnue-board768-64.npz"
 
 
 class NnueParams(NamedTuple):
-    ft_w: torch.Tensor  # (768, L1) f32, or int16 for the int8 net
+    ft_w: torch.Tensor  # (768 or NUM_FEATURES, L1) f32, or int16 for the int8 net
     ft_b: torch.Tensor  # (L1,) f32 / int32
     l1_w: torch.Tensor  # (8, 2*L1, H1) f32 / int8
     l1_b: torch.Tensor  # (8, H1) f32 / int32
@@ -74,15 +94,17 @@ class NnueParams(NamedTuple):
 
 def params_from_numpy(mapping: Mapping[str, np.ndarray], device=None) -> NnueParams:
     """NnueParams from numpy arrays under the JAX package's NnueParams
-    field names (f32 and the int8 net's integer dtypes are kept)."""
+    field names (f32 and the int8 net's integer dtypes are kept): a
+    board768 net (768 features) or a king-bucketed one (NUM_FEATURES)."""
     dev = device_mod.resolve(device)
     params = NnueParams(**{
         f: torch.from_numpy(np.array(mapping[f])).to(dev)
         for f in NnueParams._fields
     })
-    if params.ft_w.shape[0] != NUM_FEATURES_768:
+    if params.ft_w.shape[0] not in (NUM_FEATURES_768, NUM_FEATURES):
         raise ValueError(
-            f"only board768 nets are supported, got {params.ft_w.shape[0]} features"
+            f"a net has {NUM_FEATURES_768} (board768) or {NUM_FEATURES} (HalfKAv2_hm) "
+            f"features, got {params.ft_w.shape[0]}"
         )
     return params
 
@@ -119,11 +141,37 @@ def quantize_int8(params: NnueParams) -> NnueParams:
     }, params.device)
 
 
-def is_int8(params: NnueParams) -> bool:
-    return not params.ft_w.dtype.is_floating_point
+def is_int8(params) -> bool:
+    """An int8-quantized NnueParams (an imported Stockfish net is f32)."""
+    return isinstance(params, NnueParams) and not params.ft_w.dtype.is_floating_point
 
 
-def acc_dtype(params: NnueParams) -> torch.dtype:
+# the net kinds (net_kind)
+BOARD768 = "board768"
+KING = "king"
+STOCKFISH = "stockfish"
+
+
+def net_kind(params) -> str:
+    """BOARD768 or KING (an NnueParams of 768 or NUM_FEATURES rows), or
+    STOCKFISH (an imported models/nnue_import.StockfishNet): what decides
+    how a leaf is evaluated and which K11 instantiation runs."""
+    if isinstance(params, NnueParams):
+        return BOARD768 if params.ft_w.shape[0] == NUM_FEATURES_768 else KING
+    from .nnue_import import StockfishNet
+
+    if isinstance(params, StockfishNet):
+        return STOCKFISH
+    raise TypeError(f"not a net: {type(params).__name__}")
+
+
+def is_board768(params) -> bool:
+    """A board768 NnueParams: the net whose accumulators the search
+    carries down its stack; every other net takes a full eval per leaf."""
+    return net_kind(params) == BOARD768
+
+
+def acc_dtype(params) -> torch.dtype:
     """Accumulator dtype: int32 for the int8 net (exact adds), else f32."""
     return torch.int32 if is_int8(params) else torch.float32
 
@@ -143,28 +191,57 @@ def output_bucket(board: torch.Tensor) -> torch.Tensor:
     return ((count - 1) // 4).clamp(0, NUM_OUTPUT_BUCKETS - 1)
 
 
+def king_square(board: torch.Tensor, perspective: int) -> torch.Tensor:
+    """(B,) square of `perspective`'s king (its first, as argmax), 0 where
+    it has none (the reference's max(king_square, 0))."""
+    mask = board == (6 + 6 * perspective)
+    return torch.where(mask.any(1), mask.to(torch.uint8).argmax(1).to(torch.int32), 0)
+
+
+def feature_indices(board: torch.Tensor, perspective: int,
+                    ksq: torch.Tensor) -> torch.Tensor:
+    """(B, 64) HalfKAv2_hm feature row per square for one perspective, -1
+    where empty; ksq (B,) that perspective's king square. Black's view
+    flips ranks, then files are mirrored so the king lands on files a-d."""
+    flip = 56 if perspective == 1 else 0
+    sq = torch.arange(64, dtype=torch.int32, device=board.device)
+    o_ksq = ksq.to(torch.int32) ^ flip
+    mirror = torch.where((o_ksq & 7) > 3, 7, 0).to(torch.int32)
+    o_sq = (sq[None] ^ flip) ^ mirror[:, None]
+    bucket = torch.as_tensor(KING_BUCKET, device=board.device)[(o_ksq ^ mirror).long()]
+    pt = (board - 1) % 6
+    own = (board <= 6) == (perspective == 0)
+    kind = torch.where(pt == 5, 10, torch.where(own, pt, 5 + pt))
+    idx = bucket[:, None] * (NUM_PIECE_KINDS * NUM_SQUARES) + kind * NUM_SQUARES + o_sq
+    return torch.where(board > 0, idx, -1)
+
+
+def sum_rows(table: torch.Tensor, idx: torch.Tensor, dtype) -> torch.Tensor:
+    """table (F, W), idx (B, 64) rows or -1 → (B, W) in `dtype`: the rows
+    summed in XLA:CPU's order for the reference's 64-row reductions
+    (squares 0-31 and 32-63 each summed in order, the halves added)."""
+    rows = table[idx.clamp(min=0).long()].to(dtype)  # (B, 64, W)
+    rows = torch.where((idx >= 0)[..., None], rows, torch.zeros((), dtype=dtype, device=rows.device))
+    half = []
+    for h in (0, 1):
+        s = torch.zeros_like(rows[:, 0])
+        for i in range(h * 32, h * 32 + 32):
+            s = s + rows[:, i]
+        half.append(s)
+    return half[0] + half[1]
+
+
 # ------------------------------------------------- K1: accumulator refresh
 
 
 def accumulators_768_plain(params: NnueParams, boards: torch.Tensor) -> torch.Tensor:
     """(B, 64) int32 boards → (B, 2, L1) accumulators: ft_b + the sum of
-    the pieces' rows, squares 0-31 and 32-63 each summed in order and the
-    two halves added (XLA:CPU's order for the reference's reduction)."""
+    the pieces' rows (sum_rows' order)."""
     adt = acc_dtype(params)
     sq = torch.arange(64, dtype=torch.int32, device=boards.device)
-    out = []
-    for persp in (0, 1):
-        idx = feature_index_768(boards, sq, persp)
-        rows = params.ft_w[idx.clamp(min=0).long()].to(adt)  # (B, 64, L1)
-        rows = torch.where((idx >= 0)[..., None], rows, torch.zeros((), dtype=adt, device=rows.device))
-        half = []
-        for h in (0, 1):
-            s = torch.zeros_like(rows[:, 0])
-            for i in range(h * 32, h * 32 + 32):
-                s = s + rows[:, i]
-            half.append(s)
-        out.append(params.ft_b + (half[0] + half[1]))
-    return torch.stack(out, 1)
+    return torch.stack([
+        params.ft_b + sum_rows(params.ft_w, feature_index_768(boards, sq, p), adt)
+        for p in (0, 1)], 1)
 
 
 def accumulators_768(params: NnueParams, boards: torch.Tensor) -> torch.Tensor:
@@ -260,7 +337,42 @@ def forward_from_acc(params: NnueParams, acc: torch.Tensor, stm: torch.Tensor,
     return kernels.nnue_forward_from_acc(acc, stm, bucket, params)
 
 
-def evaluate(params: NnueParams, boards: torch.Tensor, stm: torch.Tensor) -> torch.Tensor:
-    """Full evaluation (refresh + forward) of (B, 64) boards → (B,) f32."""
-    acc = accumulators_768(params, boards)
-    return forward_from_acc(params, acc, stm, output_bucket(boards))
+# ------------------------------------- K12: king-bucketed full evaluation
+
+
+def accumulators(params: NnueParams, boards: torch.Tensor) -> torch.Tensor:
+    """(B, 64) boards → (B, 2, L1) HalfKAv2_hm accumulators of a
+    king-bucketed net, each perspective refreshed from scratch: ft_b + the
+    sum of the pieces' rows (sum_rows' order)."""
+    adt = acc_dtype(params)
+    return torch.stack([
+        params.ft_b + sum_rows(
+            params.ft_w, feature_indices(boards, p, king_square(boards, p)), adt)
+        for p in (0, 1)], 1)
+
+
+def evaluate_plain(params: NnueParams, boards: torch.Tensor, stm: torch.Tensor) -> torch.Tensor:
+    """K12's plain version: a king-bucketed net's full eval of (B, 64)
+    boards, stm (B,) → (B,) f32 centipawns from the side to move's view
+    (both perspectives refreshed, then the layer stack)."""
+    return forward_from_acc_plain(params, accumulators(params, boards), stm,
+                                  output_bucket(boards))
+
+
+def evaluate(params, boards: torch.Tensor, stm: torch.Tensor) -> torch.Tensor:
+    """Full evaluation of (B, 64) boards → (B,) f32, dispatched on the net
+    as the reference does: an imported Stockfish net → nnue_import
+    .evaluate_sf (K13); board768 → the refresh (K1) and the layer stack
+    (K2); a king-bucketed net → K12 (the plain version on the CPU, the
+    kernel on the card)."""
+    kind = net_kind(params)
+    if kind == STOCKFISH:
+        from . import nnue_import
+
+        return nnue_import.evaluate_sf(params, boards, stm)
+    if kind == BOARD768:
+        acc = accumulators_768(params, boards)
+        return forward_from_acc(params, acc, stm, output_bucket(boards))
+    if boards.device.type == "cpu":
+        return evaluate_plain(params, boards, stm)
+    return kernels.nnue_evaluate(boards, stm, params)

@@ -29,18 +29,25 @@ around each step, the exit test and the packed summary, with the lane
 tables and the table in device memory. `init_state` runs the root
 refresh (K1) and writes every lane with K7 (lane_init).
 
+The net: on board768 the step carries each node's accumulators down the
+stack (K3) and evaluates a leaf from them (K2). Any other net (a
+king-bucketed NnueParams, an imported Stockfish net) pays a full eval at
+every leaf (K12, K13), updates no accumulator, and starts from zero root
+accumulators without K1, as the reference does; the state keeps the
+reference's (B, P+1, 2, L1) `acc` table all the same.
+
 `run_segment_plain` is K11's plain version: the batched PyTorch step
 `_step` (and `_tt_step`, the reference's TT runner: a store of the
 lanes parked in RETURN, a probe of the lanes about to ENTER, the step,
 and a store of the leaves it marked) in the reference's while loop. The
 CPU runs it; on the card only the comparison with K11 does, and there
 its calls of the board rules (K8), move generator (K9), make-move (K10),
-Zobrist hash (K4), leaf eval (K2), accumulator update (K3) and TT probe
-and store (K5, K6) launch those kernels.
+Zobrist hash (K4), leaf eval (K2, or K12/K13), accumulator update (K3)
+and TT probe and store (K5, K6) launch those kernels.
 
 Continuous lane refill: `refill_lanes` splices fresh roots into chosen
-lanes of a running state in place (K1 on the new roots, then K7 writes
-those lanes; every other lane keeps its state bit for bit), and
+lanes of a running state in place (K1 on the new roots of a board768
+net, then K7 writes those lanes; every other lane keeps its state bit for bit), and
 `search_stream` streams N positions through a fixed width, refilling
 DONE lanes at segment boundaries.
 """
@@ -204,7 +211,8 @@ def _lane_inputs(params, roots: Board, depth, node_budget, hist_hash=None,
                  hist_halfmove=None, root_alpha=None, root_beta=None,
                  order_jitter=None, group=None) -> tuple:
     """init_state's arguments for n lanes → K7's inputs on the roots'
-    device: (rows (n, BT_W), root accumulators (n, 2, L1) from K1,
+    device: (rows (n, BT_W), root accumulators (n, 2, L1) from K1 on a
+    board768 net and zeros on any other,
     depth, budget, alpha, beta, jitter, group (n,), hist_hash
     (n, MAX_HIST, 2), hist_halfmove (n, MAX_HIST)), every None expanded
     to init_state's default."""
@@ -220,9 +228,12 @@ def _lane_inputs(params, roots: Board, depth, node_budget, hist_hash=None,
         hist_hash = torch.zeros((n, MAX_HIST, 2), dtype=_I32, device=dev)
     if hist_halfmove is None:
         hist_halfmove = torch.full((n, MAX_HIST), HIST_HM_SENTINEL, dtype=_I32, device=dev)
+    if nnue.is_board768(params):
+        root_acc = nnue.accumulators_768(params, roots.board.to(_I32).contiguous())
+    else:  # a full-eval net: zero root accumulators, as the reference's
+        root_acc = torch.zeros((n, 2, params.l1), dtype=nnue.acc_dtype(params), device=dev)
     return (
-        rows_from_board(roots).contiguous(),
-        nnue.accumulators_768(params, roots.board.to(_I32).contiguous()),
+        rows_from_board(roots).contiguous(), root_acc,
         col(depth, 0), col(node_budget, 0), col(root_alpha, -INF), col(root_beta, INF),
         col(order_jitter, 0), col(group, 0),
         hist_hash.to(device=dev, dtype=_I32).contiguous(),
@@ -472,10 +483,14 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
     )
     in_qs = depth_left <= 0
 
-    # leaf value: the NNUE eval from the incremental accumulator
-    ev = nnue.forward_from_acc(
-        params, _row(s.acc, p0), us.contiguous(), nnue.output_bucket(b.board)
-    )
+    # leaf value: on board768 the layer stack from the incremental
+    # accumulator (K2); any other net pays a full eval (K12, K13)
+    if nnue.is_board768(params):
+        ev = nnue.forward_from_acc(
+            params, _row(s.acc, p0), us.contiguous(), nnue.output_bucket(b.board)
+        )
+    else:
+        ev = nnue.evaluate(params, b.board, us)
     static_val = ev.to(_I32).clamp(-MATE_BOUND, MATE_BOUND)
     draw = fifty | repet
     leaf_val = torch.where(draw, DRAW, static_val)
@@ -678,8 +693,9 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
     research = research > try_m
 
     _set_row(bt, pn, child, advance)
-    child_acc = nnue.apply_acc_updates_768(params, _row(s.acc, p1), codes, sqs, signs)
-    _set_row(s.acc, pn, child_acc, advance)
+    if nnue.is_board768(params):  # the other nets keep no accumulators
+        child_acc = nnue.apply_acc_updates_768(params, _row(s.acc, p1), codes, sqs, signs)
+        _set_row(s.acc, pn, child_acc, advance)
 
     fin = try_m & finish
     ret = torch.where(fin, fin_val, ret)

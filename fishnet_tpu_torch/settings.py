@@ -30,6 +30,10 @@ DEFAULTS = {
     "FISHNET_TPU_NARROW_FLOOR": "64",
     "FISHNET_TPU_NO_PRUNING": "0",
     "FISHNET_TPU_ASPIRATION": "",
+    # weight quantization: "int8" (with the flag below; board768 nets
+    # only) or "bf16" (not ported: the engine refuses it)
+    "FISHNET_TPU_DTYPE": "",
+    "FISHNET_TPU_EXPERIMENTAL_INT8": "0",
 }
 
 

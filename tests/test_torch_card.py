@@ -8,7 +8,10 @@ launch counts, a plain step on the card that runs none of the plain
 board code, a segment on the card that runs no PyTorch step, and the
 int8 searches (all through K11) on the card against the CPU, with the
 transposition table and helper lanes too, and a refill splice and a
-refill stream (tables compared byte for byte). Needs an NVIDIA card;
+refill stream (tables compared byte for byte); the full evals of the
+king-bucketed and Stockfish nets (K12, K13) against their plain versions,
+their wrappers' refusals, and K11 on those nets against
+run_segment_plain. Needs an NVIDIA card;
 skipped elsewhere. Imports no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_card.py -q -p no:cacheprovider
@@ -20,12 +23,13 @@ import pytest
 import torch
 
 from chip_smoke import (
-    TT_PROBE_ARGS, TT_STORE_ARGS, every_move, lane_init_case, rules_inputs, segment_case,
-    tt_inputs, tt_runner_layout,
+    TT_PROBE_ARGS, TT_STORE_ARGS, every_move, kb_case, lane_init_case, playout_boards,
+    rules_inputs, segment_case, sf_file, tt_inputs, tt_runner_layout,
 )
 from fishnet_tpu_torch import kernels
 from fishnet_tpu_torch.chess import Position
 from fishnet_tpu_torch.models import nnue
+from fishnet_tpu_torch.models import nnue_import as ni
 from fishnet_tpu_torch.ops import board as tb
 from fishnet_tpu_torch.ops import movegen as tm
 from fishnet_tpu_torch.ops import tt
@@ -406,3 +410,110 @@ def test_segment_wrapper_checks_inputs(card, nets):
     with pytest.raises(ValueError):
         kernels.search_segment(params.to("cpu"), state, 5, True)
     assert kernels.LAUNCHES["search_segment"] == 0
+
+
+@pytest.fixture(scope="module")
+def full_nets(card):
+    """The full-eval nets: a king-bucketed one at init_params' widths
+    (f32 and int8) and seeded Stockfish nets at L1 128 and 3072."""
+    kb = nnue.params_from_numpy(kb_case(256, 16, 32, seed=3), card)
+    return {"kb f32": kb, "kb int8": nnue.quantize_int8(kb),
+            "sf 128": ni.load_nnue(sf_file(128, 3), device=card),
+            "sf 3072": ni.load_nnue(sf_file(3072, 3), device=card)}
+
+
+@pytest.mark.parametrize("net", ["kb f32", "kb int8", "sf 128", "sf 3072"])
+@pytest.mark.parametrize("batch", [16, 64, 1024])
+def test_full_eval_kernels_match_plain_versions(full_nets, net, batch):
+    """K12 (the king-bucketed net) and K13 (the Stockfish nets) against
+    their plain versions: the int8 net exactly, f32 within F32_EVAL_TOL;
+    one launch each, on strided board rows as the plain step passes them."""
+    p = full_nets[net]
+    b = playout_boards(batch, seed=batch + 9)[0].to(p.device)
+    rows = torch.zeros((batch, 96), dtype=torch.int32, device=p.device)
+    rows[:, :64] = b.board
+    rows[:, 64] = b.stm
+    boards, stm = rows[:, :64], rows[:, 64]
+    kernels.reset_launches()
+    got = nnue.evaluate(p, boards, stm)
+    name = "nnue_evaluate_sf" if net.startswith("sf") else "nnue_evaluate"
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {name: 1}
+    plain = ni.evaluate_sf_plain if net.startswith("sf") else nnue.evaluate_plain
+    want = plain(p, b.board, b.stm)
+    tol = 0.0 if net == "kb int8" else nnue.F32_EVAL_TOL
+    assert got.dtype == want.dtype == torch.float32 and got.shape == (batch,)
+    assert float((got.double() - want.double()).abs().max()) <= tol
+
+
+def test_full_eval_wrappers_refuse_bad_inputs(card, full_nets):
+    b = playout_boards(16, seed=2)[0].to(card)
+    kb, sf = full_nets["kb f32"], full_nets["sf 128"]
+    kernels.reset_launches()
+    with pytest.raises(ValueError):  # odd L1
+        kernels.nnue_evaluate_sf(b.board, b.stm, ni.StockfishNet(
+            **{f: getattr(sf, f)[..., :127] if f in ("ft_w", "ft_b", "fc0_w") else getattr(sf, f)
+               for f in ni.ARRAY_FIELDS}))
+    wide = torch.zeros((1, 1), device=card).expand(nnue.NUM_FEATURES, 3074)
+    with pytest.raises(ValueError):  # L1 past 3072
+        kernels.nnue_evaluate_sf(b.board, b.stm, ni.StockfishNet(
+            **{f: wide if f == "ft_w" else getattr(sf, f) for f in ni.ARRAY_FIELDS}))
+    with pytest.raises(ValueError):
+        kernels.nnue_evaluate(b.board, b.stm, kb._replace(ft_w=wide))
+    with pytest.raises(ValueError):  # CPU tensors
+        kernels.nnue_evaluate(b.board.cpu(), b.stm.cpu(), kb)
+    with pytest.raises(ValueError):  # the net on the CPU
+        kernels.nnue_evaluate_sf(b.board, b.stm, sf.to("cpu"))
+    with pytest.raises(TypeError):  # wrong dtypes
+        kernels.nnue_evaluate(b.board.long(), b.stm, kb)
+    with pytest.raises(TypeError):
+        kernels.nnue_evaluate_sf(b.board, b.stm, ni.StockfishNet(
+            **{f: getattr(sf, f).double() for f in ni.ARRAY_FIELDS}))
+    with pytest.raises(TypeError):  # ft_b of the f32 net on the int8 net
+        kernels.nnue_evaluate(b.board, b.stm, full_nets["kb int8"]._replace(ft_b=kb.ft_b))
+    with pytest.raises(ValueError):  # K2 is built for the shipped board768 widths only
+        kernels.nnue_forward_from_acc(nnue.accumulators(kb, b.board), b.stm,
+                                      nnue.output_bucket(b.board), kb)
+    assert kernels.LAUNCHES["nnue_evaluate"] == kernels.LAUNCHES["nnue_evaluate_sf"] == 0
+    assert kernels.LAUNCHES["nnue_forward_from_acc"] == 0
+
+
+@pytest.mark.parametrize("net,cfg", [("kb int8", "no table"), ("kb int8", "table"),
+                                     ("kb f32", "helpers"), ("sf 3072", "helpers"),
+                                     ("sf 128", "table")])
+def test_segment_kernel_on_full_eval_nets(full_nets, net, cfg):
+    """K11 on the king-bucketed and Stockfish nets against
+    run_segment_plain (whose step launches K12's or K13's kernel): states,
+    tables and summaries byte for byte; K11 launches none of its bodies'
+    kernels on its own, runs the net's eval body and never K2 or K3."""
+    params = full_nets[net]
+    state, table, kw = segment_case(params, 64, cfg, 17, params.device)
+    plain = search.SearchState(*[t.clone() for t in state])
+    plain_table = None if table is None else table.clone()
+    body = "nnue_evaluate_sf" if net.startswith("sf") else "nnue_evaluate"
+    for steps in (1, 40, 100):
+        kernels.reset_launches()
+        n_k, sum_k = search.run_segment(params, state, steps, True, **kw)
+        assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {"search_segment": 1}
+        calls = kernels.body_calls()
+        assert calls[body] > 0
+        assert calls["nnue_forward_from_acc"] == calls["nnue_acc_update_768"] == 0
+        n_p, sum_p = search.run_segment_plain(params, plain, steps, True,
+                                              **dict(kw, table=plain_table))
+        assert n_k == n_p
+        assert torch.equal(sum_k, sum_p)
+        _same_state(state, plain, table, plain_table)
+    assert not state.acc.any()  # a full-eval net leaves the accumulators zero
+
+
+def test_int8_king_bucketed_search_card_equals_cpu(full_nets, lanes):
+    b, _ = lanes
+    roots = tb.Board(*[t[:16] for t in b])
+    net = full_nets["kb int8"]
+    kernels.reset_launches()
+    card = search_batch(net, roots, 2, 100_000, max_ply=6)
+    assert kernels.LAUNCHES["nnue_refresh_768"] == 0
+    assert all(kernels.LAUNCHES[k] == 0 for k in kernels.K11_BODIES), kernels.LAUNCHES
+    cpu = search_batch(net.to("cpu"), roots.to("cpu"), 2, 100_000, max_ply=6, device="cpu")
+    for k in ("score", "move", "nodes", "pv", "pv_len", "done"):
+        assert (card[k] == cpu[k]).all(), k
+    assert card["steps"] == cpu["steps"]

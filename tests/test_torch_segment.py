@@ -233,7 +233,9 @@ CONST_GROUPS = {
                       "EP_OFF": tt._EP_OFF, "CASTLE_OFF": tt._CASTLE_OFF, "STM_OFF": tt._STM_OFF},
     "null child row": lambda: {"NULL_MUL": ts._NULL_MUL, "NULL_ADD": ts._NULL_ADD},
     "K11 layout": lambda: {"SEGMENT_MAX_PLY": kernels.SEGMENT_MAX_PLY,
-                           "SEGMENT_SCRATCH": kernels.SEGMENT_SCRATCH},
+                           "SEGMENT_SCRATCH": kernels.SEGMENT_SCRATCH,
+                           "SEGMENT_L1": kernels.SEGMENT_L1, "SEGMENT_H1": kernels.SEGMENT_H1,
+                           "SEGMENT_H2": kernels.SEGMENT_H2, "MAX_L1": kernels.MAX_L1},
 }
 
 
