@@ -28,8 +28,12 @@ Phases (any failure exits non-zero before the final line):
      written and read as .nnue files) at 16, 64 and 1024 lanes; K11 on
      the int8 king-bucketed net (without and with a 2^21 table) and on
      the L1 3072 Stockfish net (jittered helpers, 2^12 slots) against
-     run_segment_plain, byte for byte; with times (CUDA events and
-     torch.profiler) and bounds from the bytes these inputs need;
+     run_segment_plain, byte for byte; the trainer's kernels (K14 the
+     layer stack's backward, K15 the feature transform's, K16 the Adam
+     update) at batch 16 and 512 on seeded diverse positions: K14 and K15
+     within a stated tolerance and the same bytes when repeated, K16 bit
+     for bit; with times (CUDA events and torch.profiler) and bounds from
+     the bytes these inputs need;
   4. where a segment's time goes (torch.profiler over one K11 segment of
      PROFILE_STEPS steps: B = 16 and 1024 without the table, B = 64 with
      it): host ms/step, device busy ms/step, the device's idle share;
@@ -51,7 +55,14 @@ Phases (any failure exits non-zero before the final line):
  11. search_stream on the int8 net (more positions than lanes, staggered
      depths, a table), card against CPU: every field, the occupancy rows
      and the tables byte for byte;
- 12. search_batch at B = 1024 lanes on the f32 net.
+ 12. search_batch at B = 1024 lanes on the f32 net;
+ 13. the trainer's main path: train_material_net on the card, 200 Adam
+     steps at batch 512 and lr 2e-3 over 4,096 diverse positions (the
+     shipped widths, a seeded init), its first 20 steps (losses, params)
+     held against the same steps on the CPU's plain path; it fails unless
+     K1, K2 and K14-K16 each launched once a step and no plain version
+     ran; then a profiled window of 50 steps (ms/step, device busy
+     ms/step, the host's share).
 Phases 4-12 reset the kernels' launch counters just before each search
 and fail unless every kernel of its path launched during it (K7 and K11,
 and K1 on a board768 net but never on the others), its net's eval body
@@ -59,13 +70,16 @@ ran inside K11, and none of the kernels whose bodies run inside K11
 launched on its own (but K4, which hashes the engine's game history once
 a chunk).
 Then a `kernels` JSON line (launches from phase 5, the board768 main
-path, for K13 from phase 6 and for K12 from its parity search in phase
-10; for the bodies inside K11 their calls per step of that path), the card's name and
+path, for K13 from phase 6, for K12 from its parity search in phase
+10 and for K14-K16 from phase 13; for the bodies inside K11 their calls
+per step of that path; K1 and K2 also with their launches in phase 13),
+the card's name and
 power limit, and the result line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import os
 import random
@@ -106,6 +120,29 @@ NET_REPS = 20  # launches per full-eval kernel timing
 # the timed call
 L2_SCRUB_BYTES = 1 << 30
 NET_SEGMENT_STEPS = (1, 7, 33, 120)  # K11's checked segments on these nets
+
+# the trainer: train_material_net at the shipped widths with
+# tools/train_default_net.py's batch and learning rate, over diverse
+# positions made from a seed
+TRAIN_SAMPLES = 4096
+TRAIN_STEPS = 200
+TRAIN_BATCH = 512
+TRAIN_LR = 2e-3
+TRAIN_CHECK_STEPS = 20  # the card's first steps, held against the plain CPU run
+TRAIN_PROFILE_STEPS = 50  # steps of the profiled training window
+TRAIN_REPS = 100  # launches per K14-K16 timing
+# stated tolerances: K14 and K15 within TRAIN_GRAD_RTOL of each output's
+# largest magnitude (their sums run in another order than the plain
+# versions'); the card's first steps against the CPU: each loss within
+# TRAIN_LOSS_RTOL, the params within TRAIN_PARAM_ATOL, 5% of one Adam step
+# at lr 2e-3 (the gradients' last bits, which Adam's normalisation can
+# carry into an update where a gradient is near 0)
+TRAIN_GRAD_RTOL = 1e-5
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_PARAM_ATOL = 1e-4
+# the kernels of a training step: the forward's K1 and K2, then K14-K16
+TRAIN_KERNELS = ("nnue_refresh_768", "nnue_forward_from_acc", "nnue_stack_backward",
+                 "nnue_ft_backward_768", "adam_update")
 
 START = "rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR w KQkq - 0 1"
 # a Sicilian and a Ruy Lopez with repetitions near the end (so the
@@ -1309,6 +1346,286 @@ def nets_segment_phase(nets: dict, reps: int) -> None:
             f"step {({k: round(v / n, 3) for k, v in calls.items()})}")
 
 
+def train_case(B: int, seed: int, dev) -> dict:
+    """The inputs of K14-K16 at batch B: the shipped f32 net (packed),
+    B diverse positions from the seed with their accumulators, buckets and
+    the loss's gradient by each score; and for K16, flat Adam buffers
+    (gradients ~N(0, 1e-2), mu ~N(0, 1e-3), nu ~U[0, 1e-5)) at step 7."""
+    import numpy as np
+    import torch
+
+    from fishnet_tpu_torch.models import nnue, train
+
+    boards, stms, targets = (torch.from_numpy(a).to(dev)
+                             for a in train.diverse_position_dataset(B, seed=seed))
+    params = train.pack_params(nnue.load_params(device=dev))
+    acc = nnue.accumulators_768_plain(params, boards)
+    bucket = nnue.output_bucket(boards)
+    pred = nnue.forward_from_acc_plain(params, acc, stms, bucket)
+    rng = np.random.default_rng(seed)
+    n = train.flat_view(params).numel()
+
+    def f32(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    return {"params": params, "boards": boards, "stms": stms, "acc": acc, "bucket": bucket,
+            "d_pred": (2 * (pred - targets) / 1e4 / B).contiguous(),
+            "grad": f32(rng.normal(size=n) * 1e-2), "mu": f32(rng.normal(size=n) * 1e-3),
+            "nu": f32(rng.random(n) * 1e-5), "count": 7}
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over the largest |want| (0 where both are 0)."""
+    scale = float(want.abs().max())
+    err = float((got.double() - want.double()).abs().max())
+    return err / scale if scale else err
+
+
+def train_kernel_phase(reps: int) -> dict:
+    """K14, K15 and K16 against their plain versions on the card at B = 16
+    and TRAIN_BATCH: K14 and K15 within TRAIN_GRAD_RTOL and the same bytes
+    on a repeated launch, K16 bit for bit; then times at TRAIN_BATCH
+    (kernel, plain, library) and bounds from these inputs' bytes."""
+    import torch
+
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.models import nnue, train
+
+    dev = torch.device("cuda")
+    stats = {k: {"max_abs_err": 0.0} for k in TRAIN_KERNELS[2:]}
+    n_ft = (nnue.NUM_FEATURES_768 + 1) * kernels.SEGMENT_L1
+    for B in (16, TRAIN_BATCH):
+        c = train_case(B, seed=B + 1, dev=dev)
+        p, acc, stms, bucket, d_pred, boards = (
+            c[k] for k in ("params", "acc", "stms", "bucket", "d_pred", "boards"))
+        g_k, g_k2 = (torch.empty(kernels.STACK_GRADS, device=dev) for _ in range(2))
+        d_acc = train.stack_backward(p, acc, stms, bucket, d_pred, g_k)
+        d_acc2 = train.stack_backward(p, acc, stms, bucket, d_pred, g_k2)
+        d_acc_p, grads_p = train.stack_backward_plain(p, acc, stms, bucket, d_pred)
+        g_p = torch.cat([g.reshape(-1) for g in grads_p])
+        ft_k, ft_k2 = (torch.empty(n_ft, device=dev) for _ in range(2))
+        train.ft_backward_768(boards, d_acc_p, ft_k)
+        train.ft_backward_768(boards, d_acc_p, ft_k2)
+        ft_p = torch.cat([t.reshape(-1) for t in train.ft_backward_768_plain(boards, d_acc_p)])
+        opt = train.Adam(TRAIN_LR)
+        bc = opt.bias_corrections(c["count"] + 1)
+        bufs_k = [train.flat_view(p).clone(), c["grad"], c["mu"].clone(), c["nu"].clone()]
+        bufs_p = [train.flat_view(p).clone(), c["grad"], c["mu"].clone(), c["nu"].clone()]
+        kernels.adam_update(*bufs_k, opt.lr, opt.b1, opt.b2, opt.eps, *bc)
+        train.adam_update_plain(*bufs_p, opt.lr, opt.b1, opt.b2, opt.eps, *bc)
+        torch.cuda.synchronize()
+        checks = {
+            "nnue_stack_backward": (
+                [(d_acc, d_acc_p), *zip(g_k.split([g.numel() for g in grads_p]),
+                                        [g.reshape(-1) for g in grads_p])],
+                [(d_acc, d_acc2), (g_k, g_k2)]),
+            "nnue_ft_backward_768": ([(ft_k, ft_p)], [(ft_k, ft_k2)]),
+        }
+        for name, (pairs, repeats) in checks.items():
+            rel = max(_rel_err(a, b) for a, b in pairs)
+            err = max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
+            same = all(torch.equal(a, b) for a, b in repeats)
+            log(f"check {name} B={B}: max_abs_err={err} relative {rel} (tolerance "
+                f"{TRAIN_GRAD_RTOL}); a repeated launch the same bytes: {same}")
+            if not rel <= TRAIN_GRAD_RTOL or not same:
+                raise AssertionError(f"{name} B={B}: relative error {rel}, repeat equal {same}")
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+        equal = all(torch.equal(a, b) for a, b in zip(bufs_k, bufs_p))
+        log(f"check adam_update B={B}: params, mu, nu equal to the plain version's: {equal}")
+        if not equal:
+            raise AssertionError("adam_update differs from its plain version")
+        if B != TRAIN_BATCH:
+            continue
+
+        # times at the training batch
+        l1 = p.l1
+        pieces = int((boards > 0).sum())
+        used = int(bucket.unique().numel())
+        head = used * sum(t[0].numel() * 4 for t in p[2:])
+        acc_bytes = B * 2 * l1 * 4
+        sq = torch.arange(64, dtype=torch.int32, device=dev)
+        idx = torch.stack([nnue.feature_index_768(boards, sq, q) for q in (0, 1)], 1)  # (B, 2, 64)
+        live = idx >= 0
+        rows = idx[live].long()
+        src = d_acc_p[:, :, None, :].expand(B, 2, 64, l1)[live].contiguous()
+        lib_ft = torch.zeros((nnue.NUM_FEATURES_768, l1), device=dev)
+        n = bufs_k[0].numel()
+        lib_p = torch.nn.Parameter(bufs_k[0].clone())
+        lib_p.grad = c["grad"].clone()
+        lib_opt = torch.optim.Adam([lib_p], lr=TRAIN_LR, fused=True)
+        table = {
+            "nnue_stack_backward": (
+                lambda: train.stack_backward(p, acc, stms, bucket, d_pred, g_k),
+                lambda: train.stack_backward_plain(p, acc, stms, bucket, d_pred),
+                None,
+                # acc, stm, bucket, d_pred and the used buckets' head in;
+                # d_acc and the head gradients out
+                acc_bytes + B * 12 + head + acc_bytes + kernels.STACK_GRADS * 4,
+                # the forward's and the backward's multiply-adds, and the
+                # weight gradients' over the batch
+                B * 2 * 3 * (128 * 16 + 16 * 32 + 32),
+            ),
+            "nnue_ft_backward_768": (
+                lambda: train.ft_backward_768(boards, d_acc_p, ft_k),
+                lambda: train.ft_backward_768_plain(boards, d_acc_p),
+                lambda: lib_ft.index_add_(0, rows, src),
+                acc_bytes + B * 256 + n_ft * 4,
+                2 * pieces * l1 + 2 * B * l1,
+            ),
+            "adam_update": (
+                lambda: kernels.adam_update(*bufs_k, opt.lr, opt.b1, opt.b2, opt.eps, *bc),
+                lambda: train.adam_update_plain(*bufs_p, opt.lr, opt.b1, opt.b2, opt.eps, *bc),
+                lib_opt.step,
+                7 * 4 * n,
+                12 * n,
+            ),
+        }
+        for name, (kern, plain, lib, nbytes, nops) in table.items():
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = nops / F32_OPS_PER_S * 1e3
+            (ms, call_ms), (plain_ms, plain_call) = time_ms(kern, reps), time_ms(plain, reps)
+            lib_ms, lib_call = (None, None) if lib is None else time_ms(lib, reps)
+            stats[name].update(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+            )
+            log(f"time {name} B={B} (device ms / call ms): kernel {ms:.5f} / {call_ms:.5f}, "
+                f"plain {plain_ms:.5f} / {plain_call:.5f}, library {lib_ms} / {lib_call}, "
+                f"bound {stats[name]['bound_ms']:.6f} ({stats[name]['bound_by']}); "
+                f"{pieces} pieces, {used} buckets")
+    return stats
+
+
+@contextlib.contextmanager
+def count_plain_calls():
+    """Counts the calls of the training path's plain versions while it is
+    entered (each wrapped in its module, then restored) → {name: calls}."""
+    from fishnet_tpu_torch.models import nnue, train
+
+    twins = ((nnue, "accumulators_768_plain"), (nnue, "forward_from_acc_plain"),
+             (train, "stack_backward_plain"), (train, "ft_backward_768_plain"),
+             (train, "adam_update_plain"))
+    counts = {name: 0 for _, name in twins}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in twins]
+    for mod, name, fn in saved:
+        def counted(*args, _fn=fn, _name=name, **kw):
+            counts[_name] += 1
+            return _fn(*args, **kw)
+
+        setattr(mod, name, counted)
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def train_phase() -> dict:
+    """The trainer's main path: TRAIN_SAMPLES diverse positions generated
+    on the host, then train_material_net on the card (TRAIN_STEPS steps of
+    TRAIN_BATCH at lr TRAIN_LR from the seeded init, the shipped widths).
+    Fails unless K1, K2 and K14-K16 each launched once a step and no plain
+    version ran; holds the first TRAIN_CHECK_STEPS steps (losses and
+    params) against the same run on the CPU's plain path; then profiles
+    TRAIN_PROFILE_STEPS more steps: ms/step, device busy ms/step and the
+    device's idle share (the host's share of a step). Returns the launch
+    counts."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.models import train
+
+    t0 = time.monotonic()
+    dataset = train.diverse_position_dataset(TRAIN_SAMPLES, seed=0)
+    log(f"train: {TRAIN_SAMPLES} diverse positions generated on the host in "
+        f"{time.monotonic() - t0:.2f} s")
+    kw = dict(l1=64, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seed=0, dataset=dataset,
+              lr=TRAIN_LR)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        record = []
+
+        def on_step(i, params, state, loss, record=record):
+            if i < TRAIN_CHECK_STEPS:
+                record.append((loss.clone(), train.flat_view(params).clone()))
+
+        steps = TRAIN_STEPS if dev == "cuda" else TRAIN_CHECK_STEPS
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.monotonic()
+        with count_plain_calls() as plain:
+            params, loss = train.train_material_net(**dict(kw, steps=steps), device=dev,
+                                                    on_step=on_step)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        runs[dev] = record
+        if dev == "cuda":
+            launches = dict(kernels.LAUNCHES)
+            card_params, card_loss, card_wall = params, loss, wall
+            missing = [k for k in TRAIN_KERNELS if launches[k] != TRAIN_STEPS]
+            ran = {k: v for k, v in plain.items() if v}
+            if missing or ran:
+                raise AssertionError(f"train: kernels {missing} did not launch once a step, "
+                                     f"plain versions ran {ran} ({launches})")
+            log(f"launches train: {launches}; plain versions: {plain}")
+        log(f"train on {dev}: {steps} steps in {wall:.3f} s ({wall / steps * 1e3:.3f} ms/step, "
+            f"the first step included), final loss {loss:.4f}")
+    worst_loss = worst_param = 0.0
+    for i, ((l_k, p_k), (l_c, p_c)) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        l_k, l_c = float(l_k), float(l_c)
+        worst_loss = max(worst_loss, abs(l_k - l_c) / abs(l_c))
+        worst_param = max(worst_param, float((p_k.cpu() - p_c).abs().max()))
+        if i in (0, TRAIN_CHECK_STEPS - 1):
+            log(f"train step {i}: loss card {l_k} cpu {l_c}")
+    log(f"train: the first {TRAIN_CHECK_STEPS} steps, card against CPU: losses within "
+        f"{worst_loss:.3g} relative (tolerance {TRAIN_LOSS_RTOL}), params within "
+        f"{worst_param:.3g} (tolerance {TRAIN_PARAM_ATOL})")
+    if not (worst_loss <= TRAIN_LOSS_RTOL and worst_param <= TRAIN_PARAM_ATOL):
+        raise AssertionError("train: the card's steps differ from the CPU's")
+    if not np.isfinite(card_loss) or card_loss >= float(runs["cuda"][0][0]):
+        raise AssertionError(f"train: loss {card_loss} did not fall from {runs['cuda'][0][0]}")
+
+    # where a step's time goes: TRAIN_PROFILE_STEPS more steps from the
+    # trained net, the batches drawn as train_material_net draws them
+    opt = train.adam(TRAIN_LR)
+    state = opt.init(card_params)
+    step = train.make_train_step(opt)
+    rng = np.random.default_rng(1)
+    dev = torch.device("cuda")
+    batches = [[torch.from_numpy(a[idx]) for a in dataset]
+               for idx in rng.integers(0, TRAIN_SAMPLES, size=(TRAIN_PROFILE_STEPS, TRAIN_BATCH))]
+    for b in batches[:3]:  # warm-up
+        step(card_params, state, *[t.to(dev) for t in b])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        start.record()
+        for b in batches:
+            card_params, state, loss = step(card_params, state, *[t.to(dev) for t in b])
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_us = sum(_device_us(e) for e in events)
+    source = "torch.profiler"
+    if dev_us <= 0:  # no device time recorded: the window's CUDA-event time
+        dev_us, source = start.elapsed_time(end) * 1e3, "CUDA events"
+    n = TRAIN_PROFILE_STEPS
+    log(f"train profile: wall {wall / n * 1e3:.4f} ms/step (profiled; unprofiled, the "
+        f"{TRAIN_STEPS}-step run above: {card_wall / TRAIN_STEPS * 1e3:.4f}), device busy "
+        f"{dev_us / n / 1e3:.4f} ms/step ({source}), device idle share (the host's share of a step) "
+        f"{max(0.0, 1 - dev_us / 1e3 / (wall * 1e3)):.3f}, device entries "
+        f"{sum(e.count for e in events) / n:.2f}/step, batch {TRAIN_BATCH}")
+    for e in sorted(events, key=lambda e: -_device_us(e))[:8]:
+        log(f"train profile: {_device_us(e) / n:9.2f} us/step x{e.count / n:<5.2f} {e.key[:90]}")
+    return launches
+
+
 def make_chunk(n_positions: int, depth: int):
     from fishnet_tpu_torch.ipc import AnalysisWork, Chunk, EngineFlavor, NodeLimit, WorkPosition
 
@@ -1687,6 +2004,7 @@ def main() -> int:
     stats.update(segment_phase(params, SEGMENT_REPS))
     stats.update(nets_kernel_phase(nets, NET_REPS))
     nets_segment_phase(nets, SEGMENT_REPS)
+    stats.update(train_kernel_phase(TRAIN_REPS))
     log(f"kernel phase: {time.monotonic() - t0:.1f} s")
     phases = [
         ("profile", lambda: [profile_phase(params, lanes, PROFILE_STEPS, tt_on)
@@ -1703,6 +2021,7 @@ def main() -> int:
             nets["kb int8"], PARITY_DEPTH)),
         ("stream parity", lambda: stream_parity_phase(params, STREAM_POSITIONS, STREAM_WIDTH)),
         ("scale", lambda: scale_phase(params, SCALE_LANES, SCALE_DEPTH)),
+        ("train (main path)", train_phase),
     ]
     results = {}
     for name, run in phases:
@@ -1712,6 +2031,7 @@ def main() -> int:
     launches, _, main_steps, body_calls = results["engine (main path)"]
     sf_launches, _, sf_steps, sf_calls = results["engine, Stockfish net (main path)"]
     kb_launches, kb_steps, kb_calls = results["TT parity, king-bucketed net"]
+    train_launches = results["train (main path)"]
 
     sources = {
         "nnue_refresh_768": "fishnet_tpu/models/nnue.py:160",
@@ -1727,6 +2047,9 @@ def main() -> int:
         "search_segment": "fishnet_tpu/ops/search.py:875",
         "nnue_evaluate": "fishnet_tpu/models/nnue.py:324",
         "nnue_evaluate_sf": "fishnet_tpu/models/nnue_import.py:298",
+        "nnue_stack_backward": "fishnet_tpu/models/train.py:47",
+        "nnue_ft_backward_768": "fishnet_tpu/models/train.py:47",
+        "adam_update": "fishnet_tpu/models/train.py:47",
     }
     rows = []
     for name in kernels.KERNELS:
@@ -1737,6 +2060,8 @@ def main() -> int:
             "nnue_evaluate_sf": ("engine, Stockfish L1 3072 net", sf_launches, sf_calls, sf_steps),
             "nnue_evaluate": ("TT parity, king-bucketed int8 net", kb_launches, kb_calls,
                               kb_steps),
+            **{k: (f"train_material_net, {TRAIN_STEPS} steps at batch {TRAIN_BATCH}",
+                   train_launches, None, TRAIN_STEPS) for k in TRAIN_KERNELS[2:]},
         }.get(name, ("engine, board768 net", launches, body_calls, main_steps))
         row = {"name": name, "route": "cuda", "source": f"fishnet_tpu_torch/csrc/{name}.cu",
                "replaces": sources[name], "launches": counts[name], "path": path,
@@ -1746,6 +2071,8 @@ def main() -> int:
             row["ms_l2_warm"] = stats[name]["ms_l2_warm"]
         if name in kernels.K11_BODIES:  # its body's calls inside K11, per step of its path
             row["in_k11_calls_per_step"] = calls[name] / max(steps, 1)
+        if name in TRAIN_KERNELS[:2]:  # K1 and K2 run on the training path too
+            row["train_launches"] = train_launches[name]
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -13,7 +13,7 @@ CUDA tensors only: they check device, dtype, shape and contiguity,
 allocate the output with `torch.empty`, launch on the current stream,
 raise if the launch returned an error, and count the launch. The callers
 (models/nnue.py, models/nnue_import.py, ops/tt.py, ops/board.py,
-ops/movegen.py, ops/search.py)
+ops/movegen.py, ops/search.py, models/train.py)
 send CPU tensors to their plain PyTorch versions instead; nothing here
 falls back.
 """
@@ -44,6 +44,7 @@ KERNELS = (
     "zobrist_hash", "tt_probe", "tt_store", "lane_init",
     "node_rules", "generate_moves", "make_move", "search_segment",
     "nnue_evaluate", "nnue_evaluate_sf",
+    "nnue_stack_backward", "nnue_ft_backward_768", "adam_update",
 )
 # the kernels whose bodies K11 runs inside a segment, and its per-launch
 # counters: those bodies' calls, then the live lane-steps (csrc/search.cuh
@@ -74,6 +75,7 @@ _claims: dict = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_F = ctypes.c_float
 _SEGMENT_ARGS = [_P] * 20 + [_P, _I, _P, _P, _I, _P, _P, _P] + [_I] * 10 + [_P, _P]
 # each kernel's library: its entry points and their argument types
 _SIGNATURES = {
@@ -97,6 +99,9 @@ _SIGNATURES = {
                                 _I, _P]},
     "search_segment": {f"search_segment_{tag}": _SEGMENT_ARGS
                        for tag in ("f32", "i8", "kb_f32", "kb_i8", "sf")},
+    "nnue_stack_backward": {"nnue_stack_backward": [_P] * 13 + [_I, _P]},
+    "nnue_ft_backward_768": {"nnue_ft_backward_768": [_P, _P, _P, _I, _I, _P]},
+    "adam_update": {"adam_update": [_P] * 4 + [_L] + [_F] * 8 + [_P]},
 }
 
 # lanes one K6 launch takes (its shared-memory slot array)
@@ -116,6 +121,12 @@ SEGMENT_H1 = 16
 SEGMENT_H2 = 32
 SHIPPED_WIDTHS = (SEGMENT_L1, SEGMENT_H1, SEGMENT_H2)
 SEGMENT_SCRATCH = 8
+# K14's per-sample scratch row (csrc/nnue_stack_backward.cu: h1, dz1, h2,
+# dz2, d_out) and the number of head gradients it writes, at the shipped
+# widths it is compiled for
+STACK_SCRATCH_W = 2 * (SEGMENT_H1 + SEGMENT_H2) + 1
+STACK_GRADS = 8 * (2 * SEGMENT_L1 * SEGMENT_H1 + SEGMENT_H1 + SEGMENT_H1 * SEGMENT_H2
+                   + 2 * SEGMENT_H2 + 1)
 # the widths the full evals take at run time: K12/K13 an even L1 up to
 # Stockfish's big net's, K12 up to 32 units in each hidden layer
 # (csrc/nnue.cuh MAX_H)
@@ -826,3 +837,58 @@ def search_segment(params, state, steps: int, pruning: bool, table=None,
             int(bool(prefer_deep)), *widths, ctypes.addressof(grid))
     LAST_GRID["blocks"] = grid.value
     return summary
+
+
+def nnue_stack_backward(acc: torch.Tensor, stm: torch.Tensor, bucket: torch.Tensor,
+                        d_pred: torch.Tensor, params, grad: torch.Tensor) -> torch.Tensor:
+    """K14: acc (B, 2, 64) f32, stm/bucket (B,) int32, d_pred (B,) f32 the
+    loss's gradient by each score, params an f32 board768 net of the
+    shipped widths → d_acc (B, 2, 64) f32; writes the gradients of l1_w,
+    l1_b, l2_w, l2_b, out_w and out_b, field after field, into grad
+    (STACK_GRADS,) f32 (a contiguous view, overwritten)."""
+    B = acc.shape[0]
+    tag, _, widths = _head_types(params)
+    if tag != "f32" or widths != SHIPPED_WIDTHS:
+        raise ValueError(f"K14 takes an f32 net of the shipped widths {SHIPPED_WIDTHS}, "
+                         f"got {tag} {widths}")
+    _check(acc, "acc", torch.float32, (B, 2, SEGMENT_L1))
+    _check(stm, "stm", torch.int32, (B,))
+    _check(bucket, "bucket", torch.int32, (B,))
+    _check(d_pred, "d_pred", torch.float32, (B,))
+    _check(grad, "grad", torch.float32, (STACK_GRADS,))
+    d_acc = torch.empty_like(acc)
+    scratch = torch.empty((B, STACK_SCRATCH_W), dtype=torch.float32, device=acc.device)
+    _launch("nnue_stack_backward", "nnue_stack_backward",
+            acc.data_ptr(), stm.data_ptr(), bucket.data_ptr(), d_pred.data_ptr(),
+            *[t.data_ptr() for t in params[2:]], d_acc.data_ptr(), grad.data_ptr(),
+            scratch.data_ptr(), B)
+    return d_acc
+
+
+def nnue_ft_backward_768(d_acc: torch.Tensor, boards: torch.Tensor, grad: torch.Tensor) -> None:
+    """K15: d_acc (B, 2, L1) f32, boards (B, 64) int32 → writes ft_w's
+    gradient (768, L1) and then ft_b's (L1,) into grad ((768 + 1) * L1,)
+    f32 (a contiguous view, overwritten)."""
+    B, l1 = d_acc.shape[0], d_acc.shape[2]
+    _check(d_acc, "d_acc", torch.float32, (B, 2, l1))
+    _check(boards, "boards", torch.int32, (B, 64))
+    _check(grad, "grad", torch.float32, ((768 + 1) * l1,))
+    if not 0 < l1 <= 1024:
+        raise ValueError(f"L1 {l1} is outside the kernel's 1..1024 columns")
+    _launch("nnue_ft_backward_768", "nnue_ft_backward_768",
+            d_acc.data_ptr(), boards.data_ptr(), grad.data_ptr(), B, l1)
+
+
+def adam_update(params: torch.Tensor, grad: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+                lr: float, b1: float, b2: float, eps: float, bc1: float, bc2: float) -> None:
+    """K16: one Adam step over the flat (n,) f32 buffers, IN PLACE on
+    params, mu and nu; bc1 and bc2 are the f32 bias corrections
+    1 - b1**count and 1 - b2**count. Each constant is rounded to f32 once
+    (1 - b1 and 1 - b2 from their float64 values, as optax's weak-typed
+    scalars are)."""
+    n = params.shape[0]
+    for name, t in (("params", params), ("grad", grad), ("mu", mu), ("nu", nu)):
+        _check(t, name, torch.float32, (n,))
+    if n:
+        _launch("adam_update", "adam_update", params.data_ptr(), grad.data_ptr(),
+                mu.data_ptr(), nu.data_ptr(), n, -lr, b1, 1 - b1, b2, 1 - b2, eps, bc1, bc2)

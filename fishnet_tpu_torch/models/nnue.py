@@ -109,6 +109,58 @@ def params_from_numpy(mapping: Mapping[str, np.ndarray], device=None) -> NnuePar
     return params
 
 
+def params_to_numpy(params: NnueParams) -> dict:
+    """{field: numpy array}: the reverse of params_from_numpy, so weights go
+    across to the JAX package (its NnueParams(**mapping))."""
+    return {f: getattr(params, f).detach().cpu().numpy() for f in NnueParams._fields}
+
+
+def init_params(generator: torch.Generator, l1: int = 256, h1: int = 16, h2: int = 32,
+                dtype=torch.float32, feature_set: str = "halfkav2_hm",
+                device=None) -> NnueParams:
+    """A fresh net of the JAX package's init_params: the same shapes,
+    distributions and defaults (ft_w ~N(0, 0.02), ft_b 0.5, each layer's
+    weights ~N(0, 1/sqrt(fan-in)), zero biases). The numbers come from
+    `generator`, drawn on its device, then moved to `device` — they differ
+    from jax.random's, so a test that needs the same net in both packages
+    builds it in one and carries it across (params_from_numpy)."""
+    num_features = {"halfkav2_hm": NUM_FEATURES, "board768": NUM_FEATURES_768}[feature_set]
+    dev = device_mod.resolve(device)
+
+    def normal(*shape, scale):
+        return torch.randn(shape, generator=generator, device=generator.device) * scale
+
+    params = NnueParams(
+        ft_w=normal(num_features, l1, scale=0.02),
+        ft_b=torch.full((l1,), 0.5),
+        l1_w=normal(NUM_OUTPUT_BUCKETS, 2 * l1, h1, scale=1.0 / np.sqrt(2 * l1)),
+        l1_b=torch.zeros((NUM_OUTPUT_BUCKETS, h1)),
+        l2_w=normal(NUM_OUTPUT_BUCKETS, h1, h2, scale=1.0 / np.sqrt(h1)),
+        l2_b=torch.zeros((NUM_OUTPUT_BUCKETS, h2)),
+        out_w=normal(NUM_OUTPUT_BUCKETS, h2, scale=1.0 / np.sqrt(h2)),
+        out_b=torch.zeros((NUM_OUTPUT_BUCKETS,)),
+    )
+    return NnueParams(*[t.to(device=dev, dtype=dtype) for t in params])
+
+
+def save_params(params: NnueParams, path) -> None:
+    """Write a net in the JAX package's .npz layout (format
+    fishnet-tpu-nnue-v1, its __meta__ included), which both packages'
+    load_params read."""
+    meta = {
+        "format": "fishnet-tpu-nnue-v1",
+        "feature_set": (
+            "board768" if params.ft_w.shape[0] == NUM_FEATURES_768 else "HalfKAv2_hm"
+        ),
+        "l1": int(params.ft_w.shape[1]),
+        "h1": int(params.l1_w.shape[2]),
+        "h2": int(params.l2_w.shape[2]),
+        "output_buckets": NUM_OUTPUT_BUCKETS,
+        "output_scale": OUTPUT_SCALE,
+    }
+    np.savez_compressed(Path(path), __meta__=json.dumps(meta), **params_to_numpy(params))
+
+
 def load_params(path=ASSET, device=None) -> NnueParams:
     """Read a net saved in the JAX package's .npz layout (format
     fishnet-tpu-nnue-v1); the default is the shipped board768 net."""

@@ -11,7 +11,9 @@ transposition table and helper lanes too, and a refill splice and a
 refill stream (tables compared byte for byte); the full evals of the
 king-bucketed and Stockfish nets (K12, K13) against their plain versions,
 their wrappers' refusals, and K11 on those nets against
-run_segment_plain. Needs an NVIDIA card;
+run_segment_plain; the trainer's kernels (K14-K16) against their plain
+versions, their wrappers' refusals, and training steps on the card that
+run no plain version, against the CPU's. Needs an NVIDIA card;
 skipped elsewhere. Imports no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_card.py -q -p no:cacheprovider
@@ -23,13 +25,15 @@ import pytest
 import torch
 
 from chip_smoke import (
-    TT_PROBE_ARGS, TT_STORE_ARGS, every_move, kb_case, lane_init_case, playout_boards,
-    rules_inputs, segment_case, sf_file, tt_inputs, tt_runner_layout,
+    TRAIN_GRAD_RTOL, TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL, TT_PROBE_ARGS, TT_STORE_ARGS, _rel_err,
+    every_move, kb_case, lane_init_case, playout_boards, rules_inputs, segment_case, sf_file,
+    train_case, tt_inputs, tt_runner_layout,
 )
 from fishnet_tpu_torch import kernels
 from fishnet_tpu_torch.chess import Position
 from fishnet_tpu_torch.models import nnue
 from fishnet_tpu_torch.models import nnue_import as ni
+from fishnet_tpu_torch.models import train
 from fishnet_tpu_torch.ops import board as tb
 from fishnet_tpu_torch.ops import movegen as tm
 from fishnet_tpu_torch.ops import tt
@@ -517,3 +521,101 @@ def test_int8_king_bucketed_search_card_equals_cpu(full_nets, lanes):
     for k in ("score", "move", "nodes", "pv", "pv_len", "done"):
         assert (card[k] == cpu[k]).all(), k
     assert card["steps"] == cpu["steps"]
+
+
+@pytest.mark.parametrize("batch", [16, 512])
+def test_training_kernels_match_plain_versions(card, batch):
+    """K14 and K15 within TRAIN_GRAD_RTOL of their plain versions and the
+    same bytes on a repeated launch; K16 equal to its plain version."""
+    c = train_case(batch, seed=batch + 3, dev=card)
+    p, acc, stms, bucket, d_pred, boards = (
+        c[k] for k in ("params", "acc", "stms", "bucket", "d_pred", "boards"))
+    kernels.reset_launches()
+    g1, g2 = (torch.empty(kernels.STACK_GRADS, device=card) for _ in range(2))
+    d1 = train.stack_backward(p, acc, stms, bucket, d_pred, g1)
+    d2 = train.stack_backward(p, acc, stms, bucket, d_pred, g2)
+    assert torch.equal(d1, d2) and torch.equal(g1, g2)
+    d_p, grads_p = train.stack_backward_plain(p, acc, stms, bucket, d_pred)
+    assert _rel_err(d1, d_p) <= TRAIN_GRAD_RTOL
+    for got, want in zip(g1.split([g.numel() for g in grads_p]), grads_p):
+        assert _rel_err(got, want.reshape(-1)) <= TRAIN_GRAD_RTOL
+    n_ft = (nnue.NUM_FEATURES_768 + 1) * p.l1
+    f1, f2 = (torch.empty(n_ft, device=card) for _ in range(2))
+    train.ft_backward_768(boards, d_p, f1)
+    train.ft_backward_768(boards, d_p, f2)
+    assert torch.equal(f1, f2)
+    want = torch.cat([t.reshape(-1) for t in train.ft_backward_768_plain(boards, d_p)])
+    assert _rel_err(f1, want) <= TRAIN_GRAD_RTOL
+    opt = train.Adam(2e-3)
+    bc = opt.bias_corrections(c["count"] + 1)
+    k = [train.flat_view(p).clone(), c["grad"], c["mu"].clone(), c["nu"].clone()]
+    q = [train.flat_view(p).clone(), c["grad"], c["mu"].clone(), c["nu"].clone()]
+    kernels.adam_update(*k, opt.lr, opt.b1, opt.b2, opt.eps, *bc)
+    train.adam_update_plain(*q, opt.lr, opt.b1, opt.b2, opt.eps, *bc)
+    assert all(torch.equal(a, b) for a, b in zip(k, q))
+    assert {n: v for n, v in kernels.LAUNCHES.items() if v} == {
+        "nnue_stack_backward": 2, "nnue_ft_backward_768": 2, "adam_update": 1}
+
+
+def test_training_wrappers_refuse_bad_inputs(card):
+    c = train_case(16, seed=5, dev=card)
+    p, acc, stms, bucket, d_pred, boards = (
+        c[k] for k in ("params", "acc", "stms", "bucket", "d_pred", "boards"))
+    g = torch.empty(kernels.STACK_GRADS, device=card)
+    kernels.reset_launches()
+    with pytest.raises(ValueError):  # a grad buffer of the wrong length
+        kernels.nnue_stack_backward(acc, stms, bucket, d_pred, p, g[:-1])
+    with pytest.raises(ValueError):  # the int8 net
+        kernels.nnue_stack_backward(acc, stms, bucket, d_pred, nnue.quantize_int8(p), g)
+    with pytest.raises(TypeError):
+        kernels.nnue_stack_backward(acc, stms.long(), bucket, d_pred, p, g)
+    with pytest.raises(ValueError):  # CPU tensors
+        kernels.nnue_ft_backward_768(acc.cpu(), boards.cpu(), g.cpu())
+    with pytest.raises(ValueError):  # a non-contiguous d_acc
+        kernels.nnue_ft_backward_768(acc.transpose(0, 1).contiguous().transpose(0, 1), boards,
+                                     torch.empty((768 + 1) * 64, device=card))
+    flat = train.flat_view(p)
+    with pytest.raises(ValueError):  # buffers of different lengths
+        kernels.adam_update(flat, c["grad"][:-1], c["mu"], c["nu"], 1e-3, 0.9, 0.999, 1e-8,
+                            0.1, 0.001)
+    with pytest.raises(TypeError):
+        kernels.adam_update(flat, c["grad"].double(), c["mu"], c["nu"], 1e-3, 0.9, 0.999,
+                            1e-8, 0.1, 0.001)
+    assert not any(kernels.LAUNCHES.values())
+
+
+def test_training_steps_on_the_card_run_no_plain_code(card, monkeypatch):
+    """Three train steps at batch 64 on the card launch K1, K2 and K14-K16
+    once a step and none of their plain versions, and agree with the same
+    steps on the CPU (losses within TRAIN_LOSS_RTOL, params within
+    TRAIN_PARAM_ATOL)."""
+    dataset = train.diverse_position_dataset(256, seed=2)
+    rng = np.random.default_rng(2)
+    batches = [rng.integers(0, 256, size=64) for _ in range(3)]
+    results = {}
+    for dev in ("cpu", "cuda"):
+        if dev == "cuda":
+            for mod, name in ((nnue, "accumulators_768_plain"), (nnue, "forward_from_acc_plain"),
+                              (train, "stack_backward_plain"), (train, "ft_backward_768_plain"),
+                              (train, "adam_update_plain")):
+                monkeypatch.setattr(mod, name, lambda *a, _n=name, **k: pytest.fail(_n))
+        params = train.pack_params(nnue.init_params(torch.Generator().manual_seed(2), l1=64,
+                                                    feature_set="board768", device=dev))
+        opt = train.adam(2e-3)
+        state = opt.init(params)
+        step = train.make_train_step(opt)
+        kernels.reset_launches()
+        losses = []
+        for idx in batches:
+            params, state, loss = step(params, state,
+                                       *[torch.from_numpy(a[idx]).to(dev) for a in dataset])
+            losses.append(float(loss))
+        results[dev] = (losses, train.flat_view(params).cpu())
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    assert launches == {k: 3 for k in ("nnue_refresh_768", "nnue_forward_from_acc",
+                                       "nnue_stack_backward", "nnue_ft_backward_768",
+                                       "adam_update")}
+    (cpu_losses, cpu_params), (card_losses, card_params) = results["cpu"], results["cuda"]
+    for a, b in zip(card_losses, cpu_losses):
+        assert abs(a - b) <= TRAIN_LOSS_RTOL * abs(b)
+    assert float((card_params - cpu_params).abs().max()) <= TRAIN_PARAM_ATOL

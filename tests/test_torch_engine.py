@@ -154,9 +154,10 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "assert 'fishnet_tpu_torch.syncstats' in sys.modules\n"
         "assert 'fishnet_tpu_torch.models.nnue_import' in sys.modules\n"
+        "assert 'fishnet_tpu_torch.models.train' in sys.modules\n"
         "print(len([m for m in sys.modules if m.startswith('fishnet_tpu_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", prog], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 17
+    assert int(out.stdout.split()[-1]) >= 18
