@@ -69,11 +69,27 @@ and K1 on a board768 net but never on the others), its net's eval body
 ran inside K11, and none of the kernels whose bodies run inside K11
 launched on its own (but K4, which hashes the engine's game history once
 a chunk).
+ 14. the variants' main paths: one chunk each of threeCheck,
+     kingOfTheHill, racingKings, horde and antichess (10 positions of
+     two seeded games) through GpuEngine() with its defaults (depth 3):
+     wall, steps, segments, refills, nodes/s; it fails unless the search's
+     kernels launched and no plain version of the search ran;
+ 15. each variant's int8 chunk (1 position, depth 3, a 2^16 table, 2
+     helper lanes, MAX_PLY 8) through GpuEngine on the card and on the
+     CPU: the responses equal.
+The kernel phase (3) also holds the variant instantiations of K4 and
+K8-K10 against their plain versions at 16, 64 and 1024 lanes of seeded
+variant positions (game ends, promotions, horde's first-rank pawns,
+threeCheck counters and playouts), timed at 1024 lanes, and K11 against
+run_segment_plain in each variant (16 lanes, both nets, a table and
+jittered helpers, segments of 1, 7, 33 and 100 steps), with K11's time per
+step at 64 lanes.
 Then a `kernels` JSON line (launches from phase 5, the board768 main
 path, for K13 from phase 6, for K12 from its parity search in phase
 10 and for K14-K16 from phase 13; for the bodies inside K11 their calls
-per step of that path; K1 and K2 also with their launches in phase 13),
-the card's name and
+per step of that path; K1 and K2 also with their launches in phase 13;
+K4 and K8-K11 also per variant: max_abs_err, ms, plain_ms (K11: us per
+step), launches and calls per step in phase 14), the card's name and
 power limit, and the result line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
@@ -294,7 +310,7 @@ def playout_boards(n: int, seed: int):
 
 
 def encode(m) -> int:
-    promo = {None: 0, 1: 1, 2: 2, 3: 3, 4: 4}[m.promotion]
+    promo = {None: 0, 1: 1, 2: 2, 3: 3, 4: 4, 5: 5}[m.promotion]  # 5: a king (antichess)
     return m.from_sq | (m.to_sq << 6) | (promo << 12)
 
 
@@ -812,14 +828,9 @@ RULES_FENS = [
 def rules_case(B: int, seed: int) -> dict:
     """B seeded positions for K8-K10: RULES_FENS, random playouts from
     them (a quarter of the lanes; chess960 rules where the start is one),
-    then playout_positions, with seeded killers (two pseudo-legal moves or
-    -1) and history counters. → dict of int32 numpy arrays: board (B, 64),
-    stm, ep, halfmove (B,), castling (B, 4), killers (B, 2), hist
-    (B, 4096)."""
-    import numpy as np
-
+    then playout_positions, with seeded killers and history counters
+    (positions_case)."""
     from fishnet_tpu_torch.chess import Chess960Position, Position
-    from fishnet_tpu_torch.ops.board import from_position
 
     rng = random.Random(seed)
     starts = [(Chess960Position if c960 else Position).from_fen(f) for c960, f in RULES_FENS]
@@ -833,6 +844,19 @@ def rules_case(B: int, seed: int) -> dict:
         pos = pos.push(rng.choice(legal))
         positions.append(pos)
     positions += playout_positions(B - len(positions), seed)[0]
+    return positions_case(positions, seed)
+
+
+def positions_case(positions, seed: int) -> dict:
+    """Host positions for K8-K10 with seeded killers (two pseudo-legal
+    moves or -1) and history counters → dict of int32 numpy arrays: the
+    Board fields (board (B, 64), stm, ep, halfmove (B,), castling (B, 4),
+    extra (B, 12)), killers (B, 2), hist (B, 4096)."""
+    import numpy as np
+
+    from fishnet_tpu_torch.ops.board import Board, from_position
+
+    B = len(positions)
     nrng = np.random.default_rng(seed)
     killers = np.full((B, 2), -1, np.int32)
     for lane, p in enumerate(positions):
@@ -842,19 +866,25 @@ def rules_case(B: int, seed: int) -> dict:
                 killers[lane, k] = moves[nrng.integers(len(moves))]
     boards = [from_position(p) for p in positions]
     case = {f: np.concatenate([getattr(b, f).numpy() for b in boards]).astype(np.int32)
-            for f in ("board", "stm", "ep", "castling", "halfmove")}
+            for f in Board._fields}
     case["killers"] = killers
     case["hist"] = nrng.integers(-64, 1 << 13, (B, 4096)).astype(np.int32)
     return case
 
 
-def rules_inputs(B: int, seed: int, dev):
-    """rules_case on dev → (Board, killers, hist)."""
+def rules_inputs(B: int, seed: int, dev, variant: str = "standard"):
+    """B seeded positions for K4 and K8-K10 on dev → (Board, killers,
+    hist): rules_case's in standard chess, else variant_positions' with
+    positions_case's killers and history counters."""
     import torch
 
     from fishnet_tpu_torch.ops.board import Board
 
-    c = {k: torch.from_numpy(v).to(dev) for k, v in rules_case(B, seed).items()}
+    if variant == "standard":
+        case = rules_case(B, seed)
+    else:
+        case = positions_case([p for p, _, _ in variant_positions(variant, B, seed)], seed)
+    c = {k: torch.from_numpy(v).to(dev) for k, v in case.items()}
     return Board(*[c[f] for f in Board._fields]), c["killers"], c["hist"]
 
 
@@ -868,21 +898,26 @@ def every_move(b, moves, count):
     return type(b)(*[t[idx] for t in b]), moves[live].contiguous()
 
 
-def rules_kernel_phase(reps: int) -> dict:
-    """K8-K10 against their plain versions on the card at B = 16, 64 (the
-    engine's width) and 1024 on rules_case's positions: K8 on the boards
-    and on every child K10 makes, K9 with and without the killers and
-    history, K10 over every generated move, also from packed rows (as the
-    step calls it). Max error 0 everywhere. Times at B = 64 and 1024, one
-    call each as the step makes it (K9 with killers and history, K10 one
-    move a lane); the bounds count the bytes each lane must move."""
+def rules_kernel_phase(reps: int, variant: str = "standard") -> dict:
+    """K4 and K8-K10 in one device variant against their plain versions on
+    the card at B = 16, 64 (the engine's width) and 1024 on rules_inputs'
+    positions: K9 with and without the killers and history, K10 over every
+    generated move from packed rows (as the step calls it), K8 and K4 on
+    the boards and on every child K10 makes. Max error 0 everywhere.
+    Times at B = 64 and 1024, one call each as the step makes it (K9 with
+    killers and history, K10 one move a lane); the bounds count the bytes
+    each lane must move."""
     import torch
 
     from fishnet_tpu_torch.ops import board as tb
     from fishnet_tpu_torch.ops import movegen as tm
+    from fishnet_tpu_torch.ops import tt
 
     dev = torch.device("cuda")
-    stats = {k: {"max_abs_err": 0.0} for k in ("node_rules", "generate_moves", "make_move")}
+    v = variant
+    z1, z2 = tt.tables(dev)
+    stats = {k: {"max_abs_err": 0.0}
+             for k in ("zobrist_hash", "node_rules", "generate_moves", "make_move")}
 
     def check(name, label, got, want):
         err = max(float((g.long() - w.long()).abs().max()) if g.numel() else 0.0
@@ -890,30 +925,40 @@ def rules_kernel_phase(reps: int) -> dict:
         same = all(g.shape == w.shape and g.dtype == w.dtype for g, w in zip(got, want))
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
         if err != 0 or not same:
-            raise AssertionError(f"{name} {label}: max_abs_err {err}, shapes/dtypes equal {same}")
-        log(f"check {name} {label}: max_abs_err={err} (tolerance 0)")
+            raise AssertionError(f"{name} {v} {label}: max_abs_err {err}, shapes/dtypes "
+                                 f"equal {same}")
+        log(f"check {name} {v} {label}: max_abs_err={err} (tolerance 0)")
+
+    def hash_plain(boards):
+        return tt.hash_board_plain(boards.board, boards.stm, boards.ep, boards.castling, z1, z2,
+                                   boards.extra, v)
 
     for B in (16, 64, 1024):
-        b, killers, hist = rules_inputs(B, seed=B, dev=dev)
+        b, killers, hist = rules_inputs(B, seed=B, dev=dev, variant=v)
         for label, kw in (("plain ordering", {}), ("killers+history",
                                                    {"killers": killers, "hist": hist})):
-            got = tm.generate_moves(b, **kw)
-            want = tm.generate_moves_plain(b, **kw)
+            got = tm.generate_moves(b, variant=v, **kw)
+            want = tm.generate_moves_plain(b, variant=v, **kw)
             torch.cuda.synchronize()
             check("generate_moves", f"B={B} {label} (moves {int(want[1].sum())})", got, want)
         moves, count, _ = want
         pb, pm = every_move(b, moves, count)
         rows = tb.rows_from_board(pb)
-        got = tb.make_move_rows(rows, pm)
-        want = tb.make_move_rows_plain(rows, pm)
+        got = tb.make_move_rows(rows, pm, v)
+        want = tb.make_move_rows_plain(rows, pm, v)
         child = tb.board_from_rows(want[0])
         torch.cuda.synchronize()
         check("make_move", f"B={B} every move ({pm.shape[0]} lanes) from rows", got, want)
         for label, boards in (("boards", b), ("children", child)):
-            got, want = tb.node_rules(boards), tb.node_rules_plain(boards)
+            got, want = tb.node_rules(boards, variant=v), tb.node_rules_plain(boards, variant=v)
             torch.cuda.synchronize()
+            ends = [int((want[2] == k).sum()) for k in (tb.TERM_LOSS, tb.TERM_WIN, tb.TERM_DRAW)]
             check("node_rules", f"B={B} {label} ({int(want[0].sum())} illegal, "
-                  f"{int(want[1].sum())} in check of {boards.board.shape[0]})", got, want)
+                  f"{int(want[1].sum())} in check, ends loss/win/draw {ends} of "
+                  f"{boards.board.shape[0]})", got, want)
+            got, want = tt.hash_boards(boards, v), hash_plain(boards)
+            torch.cuda.synchronize()
+            check("zobrist_hash", f"B={B} {label}", (got,), (want,))
         if B == 16:
             continue
 
@@ -924,36 +969,43 @@ def rules_kernel_phase(reps: int) -> dict:
         pick = torch.div(count, 2, rounding_mode="floor").long()[:, None]
         move = moves.gather(1, pick)[:, 0].clamp(min=0).contiguous()
         # history words the quiet moves read, each (lane, from|to) once
-        flat_moves, flat_valid, flat_keys = tm._candidate_space(b)
+        flat_moves, flat_valid, flat_keys = tm._candidate_space(b, variant=v)
         lane = torch.arange(B, device=dev)[:, None] * 4096
         quiet = flat_valid & (flat_keys == tm.QUIET_KEY)
         n_hist = int((lane + (flat_moves & 4095))[quiet].unique().numel())
+        checks = 8 if v == "threeCheck" else 0  # the two counters K4 and K8 read
         timed = {  # kernel, plain version, bytes: board, scalars, extras in; out
+            "zobrist_hash": (
+                # of each table, the piece-square, ep, castling and stm keys
+                lambda: tt.hash_boards(rb, v), lambda: hash_plain(rb),
+                B * (256 + 4 + 4 + 16 + checks) + 2 * (tt._STM_OFF + 2) * 4 + B * 8),
             "node_rules": (
-                lambda: tb.node_rules(rb), lambda: tb.node_rules_plain(rb),
-                B * (64 + 1) * 4 + B * 2),
+                lambda: tb.node_rules(rb, variant=v), lambda: tb.node_rules_plain(rb, variant=v),
+                B * ((64 + 1) * 4 + checks) + B * (2 + 4)),
             "generate_moves": (
-                lambda: tm.generate_moves(rb, killers, hist),
-                lambda: tm.generate_moves_plain(rb, killers, hist),
+                lambda: tm.generate_moves(rb, killers, hist, variant=v),
+                lambda: tm.generate_moves_plain(rb, killers, hist, variant=v),
                 B * (64 + 6 + 2) * 4 + n_hist * 4 + B * (tm.MAX_MOVES + 2) * 4),
             "make_move": (
-                # out: the child's 71 words and the 12 change words; the
-                # row's zero tail is not the function's output
-                lambda: tb.make_move_rows(rows, move), lambda: tb.make_move_rows_plain(rows, move),
-                B * (64 + 7 + 1) * 4 + B * (64 + 7 + 12) * 4),
+                # in: the parent's 83 words and the move; out: the child's
+                # 83 words and the 12 change words (the row's zero tail is
+                # not the function's output)
+                lambda: tb.make_move_rows(rows, move, v),
+                lambda: tb.make_move_rows_plain(rows, move, v),
+                B * (64 + 7 + 12 + 1) * 4 + B * (64 + 7 + 12 + 12) * 4),
         }
         for name, (kern, plain, nbytes) in timed.items():
             (ms, call_ms), (plain_ms, plain_call) = time_ms(kern, reps), time_ms(plain, reps)
             bound = nbytes / HBM_BYTES_PER_S * 1e3
             stats[name].update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
                                bound_by="bytes")
-            log(f"time {name} B={B} (device ms / call ms): kernel {ms:.5f} / {call_ms:.5f}, "
-                f"plain {plain_ms:.5f} / {plain_call:.5f}, library none, bound {bound:.6f} "
-                f"(bytes, {nbytes} bytes)")
+            log(f"time {name} {v} B={B} (device ms / call ms): kernel {ms:.5f} / "
+                f"{call_ms:.5f}, plain {plain_ms:.5f} / {plain_call:.5f}, library none, bound "
+                f"{bound:.6f} (bytes, {nbytes} bytes)")
     return stats
 
 
-def segment_case(params, B: int, cfg: str, seed: int, dev):
+def segment_case(params, B: int, cfg: str, seed: int, dev, variant: str = "standard"):
     """A seeded B-lane search state on dev for K11 and its table setup:
     playout roots at depths 1-3 with node budgets of 100-1500 (so lanes
     finish at different steps), MAX_PLY 32. cfg: "no table"; "table" (a
@@ -962,14 +1014,19 @@ def segment_case(params, B: int, cfg: str, seed: int, dev):
     generations into 2^12 slots, so lanes collide); "deep_tt" (2^21
     slots, deep_bounds probes, the prefer_deep store of one generation);
     "engine" (the main path's: 2^21 slots, prefer_deep, per-lane
-    generations). → (state, table or None, run_segment's keywords)."""
+    generations). variant: a device variant other than "standard" takes
+    rules_inputs' positions as roots and is passed on to the segment.
+    → (state, table or None, run_segment's keywords)."""
     import numpy as np
     import torch
 
     from fishnet_tpu_torch.ops import search, tt
 
     rng = np.random.default_rng(seed)
-    roots = playout_boards(B, seed=seed)[0].to(dev)
+    if variant == "standard":
+        roots = playout_boards(B, seed=seed)[0].to(dev)
+    else:
+        roots = rules_inputs(B, seed, dev, variant)[0]
 
     def col(values):
         return torch.from_numpy(np.asarray(values, np.int32)).to(dev)
@@ -980,12 +1037,13 @@ def segment_case(params, B: int, cfg: str, seed: int, dev):
         jitter[::4] = 0
         kw = dict(order_jitter=col(jitter), group=col(np.arange(B) // 4))
     state = search.init_state(params, roots, col(1 + np.arange(B) % 3),
-                              col(rng.integers(100, 1500, B)), 32, **kw)
+                              col(rng.integers(100, 1500, B)), 32, variant=variant, **kw)
     size = {"no table": None, "table": 21, "helpers": 12, "deep_tt": 21, "engine": 21}[cfg]
     table = None if size is None else tt.make_table(size, device=dev)
     gen = col(rng.integers(1, 4, B)) if cfg in ("helpers", "engine") else 5
     run_kw = dict(table=table, deep_tt=cfg == "deep_tt",
-                  prefer_deep=cfg in ("helpers", "deep_tt", "engine"), tt_gen=gen)
+                  prefer_deep=cfg in ("helpers", "deep_tt", "engine"), tt_gen=gen,
+                  variant=variant)
     return state, table, run_kw
 
 
@@ -1497,15 +1555,27 @@ def train_kernel_phase(reps: int) -> dict:
     return stats
 
 
+def search_plain_twins() -> tuple:
+    """The search path's plain versions (module, name): the plain segment
+    and step, the board rules, move generator, make-move and hash."""
+    from fishnet_tpu_torch.ops import board, movegen, search, tt
+
+    return ((search, "run_segment_plain"), (search, "_step"), (board, "node_rules_plain"),
+            (board, "make_move_rows_plain"), (movegen, "generate_moves_plain"),
+            (tt, "hash_board_plain"))
+
+
 @contextlib.contextmanager
-def count_plain_calls():
-    """Counts the calls of the training path's plain versions while it is
-    entered (each wrapped in its module, then restored) → {name: calls}."""
+def count_plain_calls(twins=None):
+    """Counts the calls of plain versions while it is entered (each
+    wrapped in its module, then restored) → {name: calls}. twins: (module,
+    name) pairs; by default the training path's."""
     from fishnet_tpu_torch.models import nnue, train
 
-    twins = ((nnue, "accumulators_768_plain"), (nnue, "forward_from_acc_plain"),
-             (train, "stack_backward_plain"), (train, "ft_backward_768_plain"),
-             (train, "adam_update_plain"))
+    if twins is None:
+        twins = ((nnue, "accumulators_768_plain"), (nnue, "forward_from_acc_plain"),
+                 (train, "stack_backward_plain"), (train, "ft_backward_768_plain"),
+                 (train, "adam_update_plain"))
     counts = {name: 0 for _, name in twins}
     saved = [(mod, name, getattr(mod, name)) for mod, name in twins]
     for mod, name, fn in saved:
@@ -1624,6 +1694,267 @@ def train_phase() -> dict:
     for e in sorted(events, key=lambda e: -_device_us(e))[:8]:
         log(f"train profile: {_device_us(e) / n:9.2f} us/step x{e.count / n:<5.2f} {e.key[:90]}")
     return launches
+
+
+# ------------------------------------------------------------- variants
+
+# the device variants besides standard chess (ops/tables.py
+# PORTED_VARIANTS), and per variant the FENs its seeded positions start
+# from beside its starting position: a game end one move away (a third
+# check, the hill, the goal rank with and without a rejoinder, the horde's
+# last pawn, antichess's forced capture and its last piece), threeCheck
+# counters, promotions (antichess's to a king) and horde's first-rank pawns
+VARIANTS = ("threeCheck", "kingOfTheHill", "racingKings", "horde", "antichess")
+VARIANT_FENS = {
+    "threeCheck": ["4k3/8/8/8/8/8/3Q4/4K3 w - - +2+0 0 1",
+                   "rnbqkbnr/pppp1ppp/8/4p3/4P3/8/PPPP1PPP/RNBQKBNR w KQkq - +2+1 0 3",
+                   "r3k2r/p1ppqpb1/bn2pnp1/3PN3/1p2P3/2N2Q1p/PPPBBPPP/R3K2R w KQkq - 1+2 0 1"],
+    "kingOfTheHill": ["7k/8/8/8/8/3K4/8/8 w - - 0 1", "8/8/3k4/8/8/3K4/8/8 b - - 0 1"],
+    "racingKings": ["8/6K1/8/8/8/8/8/k7 w - - 0 1", "6K1/k7/8/8/8/8/8/8 b - - 0 1"],
+    "horde": ["4k3/8/8/8/8/8/q6P/8 b - - 0 1", "4k3/8/8/8/8/8/8/PP2PP1P w - - 0 1"],
+    "antichess": ["rnbqkbnr/ppp1pppp/8/3p4/4P3/8/PPPP1PPP/RNBQKBNR w - - 0 2",
+                  "8/8/8/8/2q5/3q4/2P5/8 w - - 0 1", "8/1P6/8/8/8/8/6p1/2k5 w - - 0 1"],
+}
+VARIANT_SEGMENT_STEPS = (1, 7, 33, 100)  # K11's checked segments per variant
+VARIANT_SEGMENT_CONFIGS = ("table", "helpers")
+VARIANT_REPS = 50  # launches per variant kernel timing
+VARIANT_PARITY_POSITIONS = 1  # positions of each variant's card-against-CPU chunk
+VARIANT_PARITY_MAX_PLY = 8
+
+
+def variant_positions(variant: str, n: int, seed: int, fens=None, ends: bool = True,
+                      restart: float = 0.03) -> list:
+    """n positions of a device variant → [(position, the FEN its playout
+    started from, the UCI moves from there)]: the FENs (VARIANT_FENS
+    unless given), then seeded random playouts from them and from the
+    starting position. A playout restarts by chance (`restart` a ply), at
+    90 halfmoves and at a game's end, which it keeps; with ends=False it
+    never steps into one (the moves left are played, else it restarts)."""
+    from fishnet_tpu_torch.chess import position_class
+
+    cls = position_class(variant)
+    rng = random.Random(seed)
+    starts = [cls.from_fen(f) for f in (VARIANT_FENS[variant] if fens is None else fens)]
+    starts = [p for p in starts + [cls.initial()] if ends or p.outcome() is None]
+    out = [(p, p.to_fen(), []) for p in starts[:n]]
+    pos = None
+    while len(out) < n:
+        if pos is None or pos.halfmove >= 90 or rng.random() < restart or pos.outcome() is not None:
+            pos = rng.choice(starts)
+            fen, moves = pos.to_fen(), []
+            continue
+        legal = pos.legal_moves()
+        if not ends:
+            legal = [m for m in legal if pos.push(m).outcome() is None]
+            if not legal:
+                pos = None
+                continue
+        move = rng.choice(legal)
+        pos, moves = pos.push(move), moves + [move.uci()]
+        out.append((pos, fen, moves))
+    return out
+
+
+def variant_segment_phase(params_f32, reps: int) -> dict:
+    """K11 against run_segment_plain in each device variant on the card,
+    states, tables and summaries byte for byte and the step counts equal:
+    at 16 and 64 lanes (the main path's width) of rules_inputs' roots,
+    both nets, VARIANT_SEGMENT_CONFIGS' table setups, segments of
+    VARIANT_SEGMENT_STEPS in turn; then at 64 lanes on the main path's
+    table setup ("engine"), one segment of 200 steps, which is also timed
+    (CUDA events, from the same state each launch) beside the plain
+    version's wall and the bound from the bytes the timed segment moves.
+    → {variant: {max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    library_ms, us_per_step, steps}}."""
+    import torch
+
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.models import nnue
+    from fishnet_tpu_torch.ops import search
+
+    dev = torch.device("cuda")
+    nets = {"f32": params_f32, "int8": nnue.quantize_int8(params_f32)}
+    out = {}
+
+    def check(row, label, params, state, table, kw, steps):
+        """One segment through K11 and through run_segment_plain on a
+        clone of the state, compared → (steps, the plain version's ms)."""
+        plain, plain_table = _clone(state, table)
+        n_k, sum_k = search.run_segment(params, state, steps, True, **kw)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        n_p, sum_p = search.run_segment_plain(params, plain, steps, True,
+                                              **dict(kw, table=plain_table))
+        torch.cuda.synchronize()
+        plain_ms = (time.monotonic() - t0) * 1e3
+        err = _state_diff(state, plain, table, plain_table)
+        err = max(err, float((sum_k.long() - sum_p.long()).abs().max()))
+        B = state.lane.shape[0]
+        done = int(sum_k[:B, search.SUM_DONE].sum())
+        log(f"check search_segment {label} segment {steps}: steps {n_k} (plain {n_p}), done "
+            f"{done}/{B}, max_abs_err={err} (tolerance 0, grid {kernels.LAST_GRID['blocks']} "
+            f"blocks)")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if err != 0 or n_k != n_p:
+            raise AssertionError(f"search_segment {label} segment {steps}: K11 differs from "
+                                 f"run_segment_plain (steps {n_k} / {n_p})")
+        return n_k, plain_ms
+
+    for v in VARIANTS:
+        row = out[v] = {"max_abs_err": 0.0}
+        for B in (16, 64):
+            for net, params in nets.items():
+                for cfg in VARIANT_SEGMENT_CONFIGS:
+                    state, table, kw = segment_case(params, B, cfg, seed=B + len(cfg), dev=dev,
+                                                    variant=v)
+                    for steps in VARIANT_SEGMENT_STEPS:
+                        check(row, f"{v} B={B} {net} {cfg}", params, state, table, kw, steps)
+
+        # the main path's setup at its width: checked, then timed
+        state0, table0, kw = segment_case(params_f32, 64, "engine", seed=64, dev=dev, variant=v)
+        state, table = _clone(state0, table0)
+        kw = dict(kw, table=table)
+        steps = SEGMENT_STEPS[-1]
+        _, plain_ms = check(row, f"{v} B=64 f32 engine", params_f32, state, table, kw, steps)
+        times = []
+        for _ in range(reps):
+            for t, t0 in zip(list(state) + [table], list(state0) + [table0]):
+                t.copy_(t0)
+            kernels.reset_launches()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            n, _ = search.run_segment(params_f32, state, steps, True, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = sum(times) / len(times)
+        calls = kernels.body_calls()
+        nbytes = segment_bytes(calls, 2 * 64 * 4)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", library_ms=None,
+                   us_per_step=ms / max(n, 1) * 1e3, steps=n)
+        log(f"time search_segment {v} B=64 engine table (CUDA events, {reps} launches): "
+            f"{ms:.4f} ms per segment of {n} steps, {ms / max(n, 1) * 1e3:.2f} us/step; plain "
+            f"{plain_ms:.1f} ms ({plain_ms / max(n, 1):.3f} ms/step); bound {bound:.6f} ms "
+            f"(bytes, {nbytes} bytes; counters {calls}); grid {kernels.LAST_GRID['blocks']} "
+            f"blocks")
+    return out
+
+
+def variant_chunk(variant: str, n_positions: int, depth: int):
+    """make_chunk for a device variant: n_positions of one seeded game
+    (variant_positions from the starting position, never into a game end)
+    after 4, 6, ... plies, each as the start and the moves played."""
+    from fishnet_tpu_torch.ipc import AnalysisWork, Chunk, EngineFlavor, NodeLimit, WorkPosition
+
+    work = AnalysisWork(id=f"chipsmoke-{variant}",
+                        nodes=NodeLimit(sf16=50_000_000, classical=50_000_000),
+                        timeout_s=600.0, depth=depth)
+    game = variant_positions(variant, 2 * n_positions + 4, seed=len(variant), fens=(),
+                             ends=False, restart=0.0)
+    plies = [(fen, moves) for _, fen, moves in game if len(moves) >= 4 and len(moves) % 2 == 0]
+    positions = [
+        WorkPosition(work=work, position_index=i, url=None, skip=False, root_fen=fen,
+                     moves=moves)
+        for i, (fen, moves) in enumerate(plies[:n_positions])
+    ]
+    return Chunk(work=work, deadline=time.monotonic() + 900, variant=variant,
+                 flavor=EngineFlavor.TPU, positions=positions)
+
+
+def variant_engine_phase(params_f32, depth: int, n_positions: int) -> dict:
+    """One chunk of each device variant through GpuEngine() with its
+    defaults (refill, 2^21 table, K helpers, MAX_PLY 32): every position
+    reaches `depth` with a legal best move under the variant's rules, the
+    search's kernels launched (check_launches) and no plain version of the
+    search path ran. → {variant: the chunk's counts and wall}."""
+    import torch
+
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.chess import from_fen
+    from fishnet_tpu_torch.engine.gpu import GpuEngine
+
+    out = {}
+    for v in VARIANTS:
+        engine = GpuEngine(params=params_f32, max_depth=depth)
+        assert engine.refill and engine.tt.shape[0] == 1 << 21 and engine.max_ply == 32
+        chunk = variant_chunk(v, n_positions, depth)
+        path = f"engine chunk, {v} (variant main path)"
+        kernels.reset_launches()
+        t0 = time.monotonic()
+        with count_plain_calls(search_plain_twins()) as plain:
+            responses = asyncio.run(engine.go_multiple(chunk))
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = check_launches(path, engine=True)
+        if any(plain.values()):
+            raise AssertionError(f"{path}: plain versions ran on the card: {plain}")
+        calls = kernels.body_calls()
+        for wp, res in zip(chunk.positions, responses):
+            pos = from_fen(wp.root_fen, v)
+            for uci in wp.moves:
+                pos = pos.push(pos.parse_uci(uci))
+            if res.depth != depth:
+                raise AssertionError(f"{path}: position {wp.position_index} reached depth "
+                                     f"{res.depth}")
+            pos.parse_uci(res.best_move)  # raises if not legal under the variant
+            score = res.scores.best()
+            log(f"{path}: position {wp.position_index} ({len(wp.moves)} plies): best "
+                f"{res.best_move} score {score.kind} {score.value} nodes {res.nodes}")
+        tot = engine.occupancy_totals
+        nodes = sum(r.nodes for r in responses)
+        row = out[v] = {"positions": len(responses), "wall_s": wall, "steps": tot["steps"],
+                        "segments": tot["segments"], "refills": tot["refills"], "nodes": nodes,
+                        "nodes_per_s": nodes / wall, "launches": launches, "body_calls": calls}
+        log(f"{path}: {len(responses)} positions depth {depth}, nodes {nodes} steps "
+            f"{tot['steps']} segments {tot['segments']} refills {tot['refills']} wall "
+            f"{wall:.3f} s ms/step {wall / max(tot['steps'], 1) * 1e3:.3f} nodes/s "
+            f"{nodes / wall:.0f} host_ms {tot['host_ms']:.3f} device_ms {tot['device_ms']:.3f}")
+    return out
+
+
+def variant_parity_phase(params_f32, depth: int) -> None:
+    """An int8 chunk of each device variant (VARIANT_PARITY_POSITIONS
+    positions, `depth`) through GpuEngine on the card and on the CPU,
+    with refill, a 2^TT_PARITY_LOG2 table and 2 helper lanes at MAX_PLY
+    VARIANT_PARITY_MAX_PLY: the responses equal (but for time and nps)."""
+    from fishnet_tpu_torch import ipc
+    from fishnet_tpu_torch.engine.gpu import GpuEngine
+    from fishnet_tpu_torch.models import nnue
+
+    params_i8 = nnue.quantize_int8(params_f32)
+    saved = os.environ.get("FISHNET_TPU_MAX_PLY")
+    os.environ["FISHNET_TPU_MAX_PLY"] = str(VARIANT_PARITY_MAX_PLY)
+    try:
+        for v in VARIANTS:
+            chunk = variant_chunk(v, VARIANT_PARITY_POSITIONS, depth)
+            wire, walls = {}, {}
+            for dev in ("cuda", "cpu"):
+                engine = GpuEngine(params=params_i8.to(dev), max_depth=depth,
+                                   tt_size_log2=TT_PARITY_LOG2, helper_lanes=2, refill=True,
+                                   device=dev)
+                t0 = time.monotonic()
+                responses = asyncio.run(engine.go_multiple(chunk))
+                walls[dev] = time.monotonic() - t0
+                wire[dev] = []
+                for r in responses:
+                    w = ipc.response_to_wire(r)
+                    w.pop("time_s")
+                    w.pop("nps")
+                    wire[dev].append(w)
+            if wire["cuda"] != wire["cpu"]:
+                raise AssertionError(f"variant parity {v}: card {wire['cuda']} != cpu "
+                                     f"{wire['cpu']}")
+            log(f"variant parity {v}: int8 chunk of {len(chunk.positions)} depth {depth}: card "
+                f"== cpu responses (score, pv, depth, nodes, best move); card "
+                f"{walls['cuda']:.3f} s, cpu {walls['cpu']:.3f} s")
+    finally:
+        if saved is None:
+            os.environ.pop("FISHNET_TPU_MAX_PLY", None)
+        else:
+            os.environ["FISHNET_TPU_MAX_PLY"] = saved
 
 
 def make_chunk(n_positions: int, depth: int):
@@ -2000,11 +2331,20 @@ def main() -> int:
     stats = kernel_phase(params, REPS)
     stats.update(tt_kernel_phase(REPS))
     stats.update(lane_init_phase(REPS))
-    stats.update(rules_kernel_phase(REPS))
+    rules = {v: rules_kernel_phase(REPS if v == "standard" else VARIANT_REPS, v)
+             for v in ("standard",) + VARIANTS}
+    # standard chess's K4 is timed in kernel_phase (with its library-free
+    # ops bound); here it adds its checks on the rules positions
+    k4 = rules["standard"].pop("zobrist_hash")
+    stats["zobrist_hash"]["max_abs_err"] = max(stats["zobrist_hash"]["max_abs_err"],
+                                               k4["max_abs_err"])
+    stats.update(rules.pop("standard"))
+    variant_rules = {name: {v: rules[v][name] for v in VARIANTS} for name in rules[VARIANTS[0]]}
     stats.update(segment_phase(params, SEGMENT_REPS))
     stats.update(nets_kernel_phase(nets, NET_REPS))
     nets_segment_phase(nets, SEGMENT_REPS)
     stats.update(train_kernel_phase(TRAIN_REPS))
+    variant_rules["search_segment"] = variant_segment_phase(params, SEGMENT_REPS)
     log(f"kernel phase: {time.monotonic() - t0:.1f} s")
     phases = [
         ("profile", lambda: [profile_phase(params, lanes, PROFILE_STEPS, tt_on)
@@ -2022,6 +2362,9 @@ def main() -> int:
         ("stream parity", lambda: stream_parity_phase(params, STREAM_POSITIONS, STREAM_WIDTH)),
         ("scale", lambda: scale_phase(params, SCALE_LANES, SCALE_DEPTH)),
         ("train (main path)", train_phase),
+        ("engine, variants (variant main paths)", lambda: variant_engine_phase(
+            params, DEPTH, POSITIONS)),
+        ("variant parity", lambda: variant_parity_phase(params, PARITY_DEPTH)),
     ]
     results = {}
     for name, run in phases:
@@ -2032,6 +2375,7 @@ def main() -> int:
     sf_launches, _, sf_steps, sf_calls = results["engine, Stockfish net (main path)"]
     kb_launches, kb_steps, kb_calls = results["TT parity, king-bucketed net"]
     train_launches = results["train (main path)"]
+    variant_paths = results["engine, variants (variant main paths)"]
 
     sources = {
         "nnue_refresh_768": "fishnet_tpu/models/nnue.py:160",
@@ -2073,6 +2417,14 @@ def main() -> int:
             row["in_k11_calls_per_step"] = calls[name] / max(steps, 1)
         if name in TRAIN_KERNELS[:2]:  # K1 and K2 run on the training path too
             row["train_launches"] = train_launches[name]
+        if name in variant_rules:  # K4, K8-K11 in each variant: check, time, its main path
+            row["variants"] = {}
+            for v, vstats in variant_rules[name].items():
+                vp = variant_paths[v]
+                row["variants"][v] = {**vstats, "launches": vp["launches"][name]}
+                if name in kernels.K11_BODIES:
+                    row["variants"][v]["in_k11_calls_per_step"] = (
+                        vp["body_calls"][name] / max(vp["steps"], 1))
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(card)

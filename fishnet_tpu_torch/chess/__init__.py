@@ -1,5 +1,6 @@
-"""Host-side chess rules (standard chess and chess960): FEN parsing, UCI
-move replay, legality and game outcome."""
+"""Host-side chess rules (standard chess, chess960 and the lichess
+variants in .variants): FEN parsing, UCI move replay, legality and game
+outcome."""
 from .types import BLACK, WHITE, Move
 from .position import (
     Chess960Position,
@@ -7,10 +8,11 @@ from .position import (
     InvalidFenError,
     Position,
     STARTING_FEN,
-    from_fen,
 )
+from .variants import VARIANTS, from_fen, position_class
 
 __all__ = [
     "BLACK", "WHITE", "Move", "Chess960Position", "IllegalMoveError",
-    "InvalidFenError", "Position", "STARTING_FEN", "from_fen",
+    "InvalidFenError", "Position", "STARTING_FEN", "VARIANTS", "from_fen",
+    "position_class",
 ]

@@ -2,8 +2,9 @@
 
 Fills shakmaty's role from the reference client (FEN parsing, UCI move
 replay, legality — reference: src/queue.rs:554-581, Cargo.toml:42).
-Host-side only, for standard chess and chess960: the lichess variants'
-rule subclasses are not part of this package yet.
+The lichess variants' rules (reference: src/logger.rs:201-213 lists
+them) live in fishnet_tpu_torch.chess.variants as subclasses, through the
+hooks below.
 """
 from __future__ import annotations
 
@@ -67,6 +68,7 @@ class Position:
     """Mutable-via-copy chess position. Use `push(move)` to get a successor."""
 
     variant = "standard"
+    has_castling = True
 
     __slots__ = (
         "bbs",
@@ -77,6 +79,7 @@ class Position:
         "ep_square",
         "halfmove",
         "fullmove",
+        "checks_given",
     )
 
     def __init__(self) -> None:
@@ -88,6 +91,7 @@ class Position:
         self.ep_square: Optional[int] = None
         self.halfmove = 0
         self.fullmove = 1
+        self.checks_given = None  # threeCheck: [white_given, black_given]
 
     # ------------------------------------------------------------------ setup
 
@@ -109,6 +113,7 @@ class Position:
         p.ep_square = self.ep_square
         p.halfmove = self.halfmove
         p.fullmove = self.fullmove
+        p.checks_given = None if self.checks_given is None else list(self.checks_given)
         return p
 
     # ------------------------------------------------------------------- FEN
@@ -152,7 +157,11 @@ class Position:
         if len(parts) > 3 and parts[3] != "-":
             pos.ep_square = parse_square(parts[3])
 
+        # optional threeCheck field before the counters, e.g. "3+3" or "+0+0"
         idx = 4
+        if len(parts) > idx and ("+" in parts[idx]):
+            pos._parse_checks_field(parts[idx])
+            idx += 1
         if len(parts) > idx:
             try:
                 pos.halfmove = int(parts[idx])
@@ -164,9 +173,15 @@ class Position:
                 pos.fullmove = max(1, int(parts[idx]))
             except ValueError as e:
                 raise InvalidFenError(f"bad fullmove number: {fen!r}") from e
+        idx += 1
+        if len(parts) > idx and "+" in parts[idx]:
+            pos._parse_checks_field(parts[idx])
 
         pos._validate()
         return pos
+
+    def _parse_checks_field(self, field: str) -> None:
+        raise InvalidFenError(f"unexpected check-count field {field!r} for {self.variant}")
 
     def _parse_castling(self, field: str) -> int:
         rights = 0
@@ -243,9 +258,15 @@ class Position:
             self.castling_fen(),
             square_name(self.ep_square) if self.ep_square is not None else "-",
         ]
+        extra = self._fen_extra()
+        if extra:
+            parts.append(extra)
         parts.append(str(self.halfmove))
         parts.append(str(self.fullmove))
         return " ".join(parts)
+
+    def _fen_extra(self) -> Optional[str]:
+        return None
 
     def _validate(self) -> None:
         for color in (WHITE, BLACK):
@@ -316,12 +337,12 @@ class Position:
         empty = ~self.occ_all & FULL_BB
         promo_rank = PROMO_RANKS[us]
         fwd = 8 if us == WHITE else -8
-        double_src = RANK_2 if us == WHITE else RANK_7
+        double_src = self._double_push_sources(us)
         for frm in scan(pawns):
             to = frm + fwd
             if 0 <= to < 64 and empty & bb(to):
                 if bb(to) & promo_rank:
-                    for promo in PROMOTION_PIECES:
+                    for promo in self._promotion_pieces():
                         yield Move(frm, to, promotion=promo)
                 else:
                     yield Move(frm, to)
@@ -335,10 +356,19 @@ class Position:
                 targets |= bb(self.ep_square)
             for to in scan(targets):
                 if bb(to) & promo_rank:
-                    for promo in PROMOTION_PIECES:
+                    for promo in self._promotion_pieces():
                         yield Move(frm, to, promotion=promo)
                 else:
                     yield Move(frm, to)
+
+    def _double_push_sources(self, us: int) -> int:
+        return RANK_2 if us == WHITE else RANK_7
+
+    def _double_sets_ep(self, frm: int, us: int) -> bool:
+        return True  # horde: back-rank doubles can't be captured en passant
+
+    def _promotion_pieces(self) -> Tuple[int, ...]:
+        return PROMOTION_PIECES
 
     def _piece_moves(self, us: int) -> Iterator[Move]:
         own = self.occ[us]
@@ -360,6 +390,8 @@ class Position:
                 yield Move(frm, to)
 
     def _castling_moves(self, us: int) -> Iterator[Move]:
+        if not self.has_castling:
+            return
         ksq = self.king_sq(us)
         if ksq is None:
             return
@@ -451,7 +483,7 @@ class Position:
     def normalize_move(self, move: Move) -> Move:
         """Convert standard-notation castling (e1g1) to king-takes-rook."""
         pc = self.piece_at(move.from_sq)
-        if pc is None or pc[1] != KING:
+        if pc is None or pc[1] != KING or not self.has_castling:
             return move
         us = pc[0]
         if self.occ[us] & self.bbs[us][ROOK] & bb(move.to_sq):
@@ -484,6 +516,7 @@ class Position:
         them = us ^ 1
         self.halfmove += 1
         new_ep: Optional[int] = None
+        captured: Optional[Tuple[int, int, int]] = None  # (color, ptype, sq)
 
         if self.is_castling_move(move):
             ksq, rsq = move.from_sq, move.to_sq
@@ -508,13 +541,17 @@ class Position:
                 self.occ_all & bb(move.to_sq)
             ):
                 cap_sq = move.to_sq + (-8 if us == WHITE else 8)
-            if self._remove_piece(cap_sq) is not None:
+            cap_pc = self._remove_piece(cap_sq)
+            if cap_pc is not None:
+                captured = (cap_pc[0], cap_pc[1], cap_sq)
                 self.halfmove = 0
                 self.castling &= ~bb(cap_sq)  # capturing a rook kills its right
 
             if ptype == PAWN:
                 self.halfmove = 0
-                if abs(move.to_sq - move.from_sq) == 16:
+                if abs(move.to_sq - move.from_sq) == 16 and self._double_sets_ep(
+                    move.from_sq, us
+                ):
                     new_ep = (move.from_sq + move.to_sq) // 2
             self._set_piece(
                 move.to_sq, us,
@@ -525,11 +562,20 @@ class Position:
                 self.castling &= ~BACK_RANKS[us]
             self.castling &= ~bb(move.from_sq)  # moving a rook kills its right
 
+            self._post_move_hook(move, us, ptype, captured)
+
         self._refresh_occ()
         self.ep_square = new_ep
         self.turn = them
         if us == BLACK:
             self.fullmove += 1
+        self._post_turn_hook(us)
+
+    def _post_move_hook(self, move: Move, us: int, ptype: int, captured) -> None:
+        pass
+
+    def _post_turn_hook(self, prev_turn: int) -> None:
+        pass
 
     # --------------------------------------------------------------- outcomes
 
@@ -549,6 +595,9 @@ class Position:
 
         Pass precomputed `legal_moves` to avoid regenerating them (search
         engines call this once per node)."""
+        special = self._variant_outcome()
+        if special is not None:
+            return special
         if legal_moves is None:
             legal_moves = self.legal_moves()
         if not legal_moves:
@@ -561,6 +610,9 @@ class Position:
             return (None, "75-move rule" if self.halfmove >= 150 else "50-move rule")
         return None
 
+    def _variant_outcome(self) -> Optional[Tuple[Optional[int], str]]:
+        return None
+
     def __repr__(self) -> str:
         return f"<{self.__class__.__name__} {self.to_fen()!r}>"
 
@@ -570,18 +622,3 @@ class Chess960Position(Position):
 
     variant = "chess960"
 
-
-# chunk variants this package's rules cover (the engine rejects the rest)
-VARIANTS = {
-    "standard": Position,
-    "chess960": Chess960Position,
-    "fromPosition": Position,
-}
-
-
-def from_fen(fen: str, variant: str = "standard") -> Position:
-    try:
-        cls = VARIANTS[variant]
-    except KeyError:
-        raise ValueError(f"unsupported variant: {variant!r}") from None
-    return cls.from_fen(fen)

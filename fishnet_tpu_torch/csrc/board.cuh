@@ -5,6 +5,12 @@
 // and __ballot_sync over the full warp). K9 (movegen.cuh) and the segment
 // kernel build on the same functions.
 //
+// The variant is a template parameter V (a VARIANT_* id), as the
+// reference compiles one program per static variant flag: the standard
+// instantiation runs standard chess's rules (and chess960's), the others
+// add their branches (threeCheck, kingOfTheHill, racingKings, horde,
+// antichess; ops/board.py node_rules_plain and _apply).
+//
 // The static tables and constants come from rules_tables.cuh, which
 // kernels.build() generates from the plain versions' own tables
 // (ops/tables.py, ops/board.py, ops/movegen.py).
@@ -21,6 +27,7 @@ constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int WARP = 32;
 // make_move_warp writes the board words and then one word per thread
 static_assert(BT_BOARD == 0 && BT_STM == 64 && BT_W == BT_STM + WARP, "board row layout");
+static_assert(BT_EXTRA + EXTRA_W <= BT_W, "board row layout");
 
 __device__ __forceinline__ int ray_sq(int sq, int dir, int step) {
     return __ldg(&RAYS[(sq * 8 + dir) * 7 + step]);
@@ -73,15 +80,34 @@ __device__ bool attacked(const int* sb, int sq, int by, int lift_a, int lift_b) 
     return false;
 }
 
-// K8's body: node_rules for standard chess and chess960 (board.py
-// node_rules_plain). parent_illegal: the side that just moved left its
-// king attacked, or has none; checked: the side to move is in check.
+// The first square holding `code` on the lane's board, or -1 (board.py
+// king_square).
+__device__ __forceinline__ int first_square(const int* sb, int code, int t) {
+    const unsigned lo = __ballot_sync(FULL_MASK, sb[t] == code);
+    const unsigned hi = __ballot_sync(FULL_MASK, sb[t + WARP] == code);
+    return lo ? __ffs(lo) - 1 : (hi ? WARP + __ffs(hi) - 1 : -1);
+}
+
+// K8's body (board.py node_rules_plain). parent_illegal: the side that
+// just moved broke its duty — left its king attacked or has none (in
+// racingKings also: gave check; in horde only black has the duty, in
+// antichess nobody); checked: the side to move is in check (never in
+// racingKings or antichess, and only black in horde); term: the
+// variant's game end at this node, TERM_*, from the side to move's view.
 // Every square holding a king is tested, as the plain version's maps do.
-__device__ void node_rules_warp(const int* sb, int stm, int t, bool* parent_illegal,
-                                bool* checked) {
+// extra: the lane's variant words (read in threeCheck only).
+template <int V>
+__device__ void node_rules_warp(const int* sb, int stm, const int32_t* extra, int t,
+                                bool* parent_illegal, bool* checked, int* term) {
+    *term = TERM_NONE;
+    if constexpr (V == VARIANT_ANTICHESS) {  // kings are ordinary pieces
+        *parent_illegal = false;
+        *checked = false;
+        return;
+    }
     const int us = stm == 0 ? 0 : 1;
     const int our_king = W_KING + 6 * stm, their_king = B_KING - 6 * stm;
-    bool seen = false, their_hit = false, our_hit = false;
+    bool seen = false, their_hit = false, our_hit = false, white_piece = false;
     for (int sq = t; sq < 64; sq += WARP) {
         int code = sb[sq];
         if (code == their_king) {
@@ -89,9 +115,35 @@ __device__ void node_rules_warp(const int* sb, int stm, int t, bool* parent_ille
             their_hit |= attacked(sb, sq, us, -1, -1);
         }
         if (code == our_king) our_hit |= attacked(sb, sq, 1 - us, -1, -1);
+        if constexpr (V == VARIANT_HORDE) white_piece |= pcolor(code) == 0;
     }
-    *parent_illegal = !__any_sync(FULL_MASK, seen) || __any_sync(FULL_MASK, their_hit);
-    *checked = __any_sync(FULL_MASK, our_hit);
+    const bool self_check = !__any_sync(FULL_MASK, seen) || __any_sync(FULL_MASK, their_hit);
+    const bool check = __any_sync(FULL_MASK, our_hit);
+    *parent_illegal = self_check;
+    *checked = check;
+    if constexpr (V == VARIANT_HORDE) {  // white is the kingless horde
+        const bool white_dead = !__any_sync(FULL_MASK, white_piece);
+        *parent_illegal = self_check && us == 0;
+        *checked = check && us == 1;
+        if (us == 0 && white_dead) *term = TERM_LOSS;
+    } else if constexpr (V == VARIANT_KINGOFTHEHILL) {  // the mover's king on the hill
+        const int their_k = first_square(sb, their_king, t);
+        for (int i = 0; i < 4; ++i) {
+            if (their_k == __ldg(&HILL[i])) *term = TERM_LOSS;
+        }
+    } else if constexpr (V == VARIANT_RACINGKINGS) {
+        // giving check is illegal; black gets one rejoinder to white's
+        // arrival on the goal rank
+        const bool our8 = first_square(sb, our_king, t) >= GOAL_RANK_FROM;
+        const bool their8 = first_square(sb, their_king, t) >= GOAL_RANK_FROM;
+        *parent_illegal = self_check || check;
+        *checked = false;
+        *term = (our8 && their8) ? TERM_DRAW
+                : (their8 && us == 0) ? TERM_LOSS : ((our8 && us == 0) ? TERM_WIN : TERM_NONE);
+    } else if constexpr (V == VARIANT_THREECHECK) {  // the mover's third check
+        const int them_checks = extra[EXTRA_CHECKS + (us == 0 ? 1 : 0)];
+        if (them_checks >= THREE_CHECKS) *term = TERM_LOSS;
+    }
 }
 
 // A move decoded against its board (board.py _move_parts).
@@ -136,22 +188,36 @@ __device__ __forceinline__ int child_code(const int* sb, const MoveParts& m, int
 }
 
 // K10's body: the child of `move` as a packed board row (BT_W words: the
-// board, side to move, ep square, castling rooks, halfmove clock, then
-// zeros, as board.py rows_from_board writes them) and the four piece-
-// change slots [mover out, capture out, mover in, rook in] (codes, sqs,
-// signs; board.py _changes). Each thread writes its own words.
+// board, side to move, ep square, castling rooks, halfmove clock, the
+// parent's variant words — threeCheck's mover's counter raised when the
+// move gives check — then zeros, as board.py rows_from_board writes
+// them) and the four piece-change slots [mover out, capture out, mover
+// in, rook in] (codes, sqs, signs; board.py _changes). Each thread writes
+// its own words; the child's board is read back (threeCheck) after a
+// warp barrier, so `child` may be shared or global memory.
+template <int V>
 __device__ void make_move_warp(const int* sb, int stm, int ep, const int32_t* castling,
-                               int halfmove, int move, int t, int32_t* child,
-                               int32_t* codes, int32_t* sqs, int32_t* signs) {
+                               int halfmove, const int32_t* extra, int move, int t,
+                               int32_t* child, int32_t* codes, int32_t* sqs, int32_t* signs) {
     const MoveParts m = decode_move(sb, stm, ep, move);
     child[BT_BOARD + t] = child_code(sb, m, t);
     child[BT_BOARD + t + WARP] = child_code(sb, m, t + WARP);
+    bool gave_check = false;
+    if constexpr (V == VARIANT_THREECHECK) {  // the mover attacks the enemy king
+        __syncwarp();
+        const int ek = first_square(child, W_KING + 6 * (1 - stm), t);
+        const bool hit = t == 0 && ek >= 0 && attacked(child, ek, stm, -1, -1);
+        gave_check = __shfl_sync(FULL_MASK, hit, 0);
+    }
     const int w = BT_STM + t;  // one word of the rest of the row a thread
     int v = 0;
     if (w == BT_STM) {
         v = 1 - stm;
     } else if (w == BT_EP) {
-        const bool dbl = m.is_pawn && abs(m.to - m.frm) == 16;
+        bool dbl = m.is_pawn && abs(m.to - m.frm) == 16;
+        if constexpr (V == VARIANT_HORDE) {  // the horde's back-rank doubles set no ep square
+            dbl = dbl && !(stm == 0 && (m.frm >> 3) == 0);
+        }
         v = dbl ? (m.frm + m.to) >> 1 : -1;
     } else if (w >= BT_CAST && w < BT_CAST + 4) {
         const int i = w - BT_CAST;
@@ -161,6 +227,8 @@ __device__ void make_move_warp(const int* sb, int stm, int ep, const int32_t* ca
         v = gone ? -1 : rook_sq;
     } else if (w == BT_HM) {
         v = (m.is_pawn || m.capture || m.is_ep) ? 0 : halfmove + 1;
+    } else if (w >= BT_EXTRA && w < BT_EXTRA + EXTRA_W) {
+        v = extra[w - BT_EXTRA] + (gave_check && w == BT_EXTRA + EXTRA_CHECKS + stm);
     }
     child[w] = v;
     if (t < 4) {

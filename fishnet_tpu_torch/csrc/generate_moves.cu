@@ -3,7 +3,9 @@
 // ordered as the search expands them — MVV-LVA captures and queen
 // promotions first, then castling and killers, then quiet moves by their
 // history counters — as MAX_MOVES moves padded with -1, with the count
-// and the length of the noisy prefix.
+// and the length of the noisy prefix. One instantiation per variant:
+// horde's first-rank double pushes, antichess's king promotions and
+// capture compulsion (movegen.cuh).
 //
 // Replaces: fishnet_tpu/ops/movegen.py:124 generate_moves with :187
 // _candidate_space and the history and killer ordering (called every
@@ -31,6 +33,7 @@ namespace {
 
 constexpr int LANES = 4;  // warps, one lane each, per block
 
+template <int V>
 __global__ void generate_moves_kernel(
         const int32_t* __restrict__ board, int64_t board_stride,
         const int32_t* __restrict__ stm, int64_t stm_stride,
@@ -51,9 +54,9 @@ __global__ void generate_moves_kernel(
     o.killer0 = killers != nullptr ? killers[lane * killer_stride] : -1;
     o.killer1 = killers != nullptr ? killers[lane * killer_stride + 1] : -1;
     int n, nn;
-    rules::generate_moves_warp(boards[w], stm[lane * stm_stride], ep[lane * ep_stride],
-                               castling + lane * cast_stride, o, t, lists[w],
-                               moves + (int64_t)lane * rules::MAX_MOVES, &n, &nn);
+    rules::generate_moves_warp<V>(boards[w], stm[lane * stm_stride], ep[lane * ep_stride],
+                                  castling + lane * cast_stride, o, t, lists[w],
+                                  moves + (int64_t)lane * rules::MAX_MOVES, &n, &nn);
     if (t == 0) {
         count[lane] = n;
         noisy[lane] = nn;
@@ -64,18 +67,27 @@ __global__ void generate_moves_kernel(
 
 // strides in elements along the batch dimension (killers, hist: row
 // strides, rows contiguous; null for none); moves (batch, MAX_MOVES);
-// count, noisy (batch,)
-FISHNET_EXPORT int generate_moves(const void* board, int64_t board_stride, const void* stm,
-                                  int64_t stm_stride, const void* ep, int64_t ep_stride,
-                                  const void* castling, int64_t cast_stride,
-                                  const void* killers, int64_t killer_stride, const void* hist,
-                                  int64_t hist_stride, void* moves, void* count, void* noisy,
-                                  int batch, void* stream) {
-    int grid = (batch + LANES - 1) / LANES;
-    generate_moves_kernel<<<grid, LANES * rules::WARP, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)board, board_stride, (const int32_t*)stm, stm_stride,
-        (const int32_t*)ep, ep_stride, (const int32_t*)castling, cast_stride,
-        (const int32_t*)killers, killer_stride, (const int32_t*)hist, hist_stride,
-        (int32_t*)moves, (int32_t*)count, (int32_t*)noisy, batch);
-    return (int)cudaGetLastError();
-}
+// count, noisy (batch,). One entry point per variant (kernels.py
+// _variant_symbol).
+#define GENERATE_MOVES_ENTRY(NAME, V)                                                        \
+    FISHNET_EXPORT int NAME(const void* board, int64_t board_stride, const void* stm,       \
+                            int64_t stm_stride, const void* ep, int64_t ep_stride,          \
+                            const void* castling, int64_t cast_stride, const void* killers, \
+                            int64_t killer_stride, const void* hist, int64_t hist_stride,   \
+                            void* moves, void* count, void* noisy, int batch,               \
+                            void* stream) {                                                 \
+        int grid = (batch + LANES - 1) / LANES;                                             \
+        generate_moves_kernel<V><<<grid, LANES * rules::WARP, 0, (cudaStream_t)stream>>>(   \
+            (const int32_t*)board, board_stride, (const int32_t*)stm, stm_stride,           \
+            (const int32_t*)ep, ep_stride, (const int32_t*)castling, cast_stride,           \
+            (const int32_t*)killers, killer_stride, (const int32_t*)hist, hist_stride,      \
+            (int32_t*)moves, (int32_t*)count, (int32_t*)noisy, batch);                      \
+        return (int)cudaGetLastError();                                                     \
+    }
+
+GENERATE_MOVES_ENTRY(generate_moves, rules::VARIANT_STANDARD)
+GENERATE_MOVES_ENTRY(generate_moves_threeCheck, rules::VARIANT_THREECHECK)
+GENERATE_MOVES_ENTRY(generate_moves_antichess, rules::VARIANT_ANTICHESS)
+GENERATE_MOVES_ENTRY(generate_moves_horde, rules::VARIANT_HORDE)
+GENERATE_MOVES_ENTRY(generate_moves_kingOfTheHill, rules::VARIANT_KINGOFTHEHILL)
+GENERATE_MOVES_ENTRY(generate_moves_racingKings, rules::VARIANT_RACINGKINGS)

@@ -13,6 +13,13 @@
 // its rook could make, are ranked by list position: a stable sort.) The
 // rank sort costs n^2 / 32 shared-memory reads per thread for n moves
 // (~40 in a middlegame), and no thread waits on another's order.
+//
+// The variant is a template parameter V, as in board.cuh: horde's pawns
+// on white's first rank also push two squares, antichess adds a fifth
+// promotion (to a king) and makes a capture compulsory — its captures
+// (en passant included) are exactly its moves with keys below
+// NOISY_BELOW, which rank first, so when any exists the list keeps only
+// the first `noisy` ranks.
 #pragma once
 #include "board.cuh"
 
@@ -20,9 +27,10 @@ namespace rules {
 
 // Room for every move of any board: at most 64 * 64 / 4 = 1,024 moves
 // from an own piece to a square that is empty or the opponent's, the 72
-// promotion variants beyond the first of 24 pawn moves, 2 castling moves
-// and 2 en-passant captures onto an own piece that the plain version's
-// en-passant test also admits.
+// promotion variants beyond the first of 24 pawn moves (96 in antichess,
+// which promotes to five pieces), 2 castling moves and 2 en-passant
+// captures onto an own piece that the plain version's en-passant test
+// also admits: 1,024 + 96 + 2 + 2 = 1,124 at most.
 constexpr int MOVE_LIST_CAP = 1152;
 
 struct MoveList {
@@ -62,6 +70,7 @@ __device__ __forceinline__ bool pair_take(int mover, int target) {
 }
 
 // The moves of the piece on sq, if it is the side to move's.
+template <int V>
 __device__ void piece_moves(const int* sb, int us, int ep, int sq, MoveList& list,
                             const Ordering& o) {
     const int code = sb[sq];
@@ -72,7 +81,9 @@ __device__ void piece_moves(const int* sb, int us, int ep, int sq, MoveList& lis
         const int to2 = __ldg(&PAWN_PUSH[(us * 2 + 1) * 64 + sq]);
         const bool to1_ok = sb[to1] == 0;
         const bool pre_promo = __ldg(&PAWN_PRE_PROMO[us * 64 + sq]);
-        if (to1_ok && __ldg(&PAWN_START[us * 64 + sq]) && sb[to2] == 0) {
+        bool start = __ldg(&PAWN_START[us * 64 + sq]);
+        if constexpr (V == VARIANT_HORDE) start = start || (us == 0 && sq < 8);
+        if (to1_ok && start && sb[to2] == 0) {
             emit(list, o, QUIET_KEY, sq | (to2 << 6));
         }
         for (int i = -1; i < 2; ++i) {  // the push, then the two captures
@@ -90,8 +101,9 @@ __device__ void piece_moves(const int* sb, int us, int ep, int sq, MoveList& lis
                 emit(list, o, key, base);
                 continue;
             }
-            for (int p = 0; p < 4; ++p) {
-                const int promo = __ldg(&PROMOS[p]);
+            constexpr int n_promos = V == VARIANT_ANTICHESS ? 5 : 4;
+            for (int p = 0; p < n_promos; ++p) {
+                const int promo = p < 4 ? __ldg(&PROMOS[p]) : PROMO_K;
                 emit(list, o, key - (promo == PROMO_Q ? QUEEN_PROMO_BONUS : 0), base | (promo << 12));
             }
         }
@@ -163,6 +175,7 @@ __device__ void castling_moves(const int* sb, int us, const int32_t* castling, i
 // The lane's ordered move list: moves (MAX_MOVES words, -1 padded), and
 // the count and the noisy prefix's length, each clamped to MAX_MOVES.
 // list is the warp's shared scratch; sb the lane's board in shared memory.
+template <int V>
 __device__ void generate_moves_warp(const int* sb, int stm, int ep, const int32_t* castling,
                                     const Ordering& o, int t, MoveList& list, int32_t* moves,
                                     int* count, int* noisy) {
@@ -171,11 +184,14 @@ __device__ void generate_moves_warp(const int* sb, int stm, int ep, const int32_
         list.noisy = 0;
     }
     __syncwarp();
-    piece_moves(sb, stm, ep, t, list, o);
-    piece_moves(sb, stm, ep, t + WARP, list, o);
+    piece_moves<V>(sb, stm, ep, t, list, o);
+    piece_moves<V>(sb, stm, ep, t + WARP, list, o);
     castling_moves(sb, stm, castling, t, list, o);
     __syncwarp();
     const int n = min(list.n, MOVE_LIST_CAP);
+    // the moves kept: all, or in antichess the captures when there are any
+    int keep = list.n;
+    if constexpr (V == VARIANT_ANTICHESS) keep = list.noisy > 0 ? list.noisy : list.n;
     for (int j = t; j < n; j += WARP) {
         const int v = list.packed[j];
         int rank = 0;
@@ -183,10 +199,10 @@ __device__ void generate_moves_warp(const int* sb, int stm, int ep, const int32_
             const int w = list.packed[k];
             rank += w < v || (w == v && k < j);  // equal values (none in play) stay apart
         }
-        if (rank < MAX_MOVES) moves[rank] = v & 0xFFFF;
+        if (rank < MAX_MOVES && rank < keep) moves[rank] = v & 0xFFFF;
     }
-    for (int j = min(n, MAX_MOVES) + t; j < MAX_MOVES; j += WARP) moves[j] = -1;
-    *count = min(list.n, MAX_MOVES);
+    for (int j = min(keep, MAX_MOVES) + t; j < MAX_MOVES; j += WARP) moves[j] = -1;
+    *count = min(keep, MAX_MOVES);
     *noisy = min(list.noisy, MAX_MOVES);
     __syncwarp();  // the list may be reused by the warp's next lane
 }

@@ -19,6 +19,12 @@
 // leaf from them (K2); a king-bucketed or an imported Stockfish net
 // evaluates every leaf from its board (K12's or K13's warp body) and
 // leaves the state's accumulator table as it is, as the reference does.
+// The variant is a second template parameter V (a VARIANT_* id): the
+// board rules, keys, move generator and make-move take their variant
+// instantiations, a node at the variant's game end (node_rules' term) is
+// a leaf worth a mate score or a draw and is never stored in the table,
+// and antichess turns the null move off and scores a node without a move
+// as a win (the reference's _step_lane under its static variant flag).
 // The rows the step reads are staged in shared memory before any write,
 // and the writes land in the reference's order, each under its
 // mask: the entered row (ply0), the folded parent (parent0), the PV row,
@@ -45,6 +51,7 @@ using rules::WARP;
 
 using rules::BT_CAST;
 using rules::BT_EP;
+using rules::BT_EXTRA;
 using rules::BT_HM;
 using rules::BT_PH1;
 using rules::BT_PH2;
@@ -181,7 +188,7 @@ __device__ void store_commit(const Segment<Net>& a, int lane, int t) {
 // The runner's first store: a lane parked in RETURN whose interior node
 // finished (not illegal, not a TT-sourced value of depth -1, within its
 // budget) stores the node's value with its bound flag and best move.
-template <class Net>
+template <class Net, int V>
 __device__ void interior_store_claim(const Segment<Net>& a, int lane, WarpRows& s, int t,
                                      unsigned* calls) {
     const int32_t* L = a.lane + (int64_t)lane * LN_W;
@@ -196,8 +203,8 @@ __device__ void interior_store_claim(const Segment<Net>& a, int lane, WarpRows& 
         const int32_t* ntrow = a.nt + row * NT_W;
         for (int j = t; j < BT_W; j += WARP) s.btr[j] = a.bt[row * BT_W + j];
         __syncwarp();
-        tt::zobrist_keys_warp(s.btr, s.btr[BT_STM], s.btr[BT_EP], &s.btr[BT_CAST], a.z1, a.z2,
-                              t, h1, h2);
+        tt::zobrist_keys_warp<V>(s.btr, s.btr[BT_STM], s.btr[BT_EP], &s.btr[BT_CAST],
+                                 &s.btr[BT_EXTRA], a.z1, a.z2, t, h1, h2);
         flag = ret >= ntrow[NT_BETA] ? FLAG_LOWER
                                      : (ret <= ntrow[NT_ALPHA0] ? FLAG_UPPER : FLAG_EXACT);
         move = ntrow[NT_BMOVE];
@@ -212,7 +219,7 @@ __device__ void interior_store_claim(const Segment<Net>& a, int lane, WarpRows& 
 // the state in place; with a table, then the claim half of the leaf store
 // (depth-0 EXACT under the pre-step keys). Returns whether the lane is
 // still live. Every thread of the warp calls it; branches are warp-uniform.
-template <class Net>
+template <class Net, int V>
 __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows& s, int t,
                           unsigned* calls) {
     using Acc = typename Net::Acc;
@@ -268,7 +275,9 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows& s, int t,
     if (enter) {
         const int stm = s.btr[BT_STM];
         bool illegal_raw, checked;
-        rules::node_rules_warp(s.btr, stm, t, &illegal_raw, &checked);  // K8
+        int term;
+        rules::node_rules_warp<V>(s.btr, stm, &s.btr[BT_EXTRA], t, &illegal_raw, &checked,
+                                  &term);  // K8
         const bool parent_illegal = illegal_raw && !root;
         const int depth_left = s.ntr[NT_DL];
         const bool parent_null = s.ntp[NT_NULL] == 2 && !root;
@@ -278,8 +287,8 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows& s, int t,
 
         // twofold repetition along the search path and against the
         // pre-root game history, through unbroken reversible-move chains
-        tt::zobrist_keys_warp(s.btr, stm, s.btr[BT_EP], &s.btr[BT_CAST], a.z1, a.z2, t, h1,
-                              h2);  // K4
+        tt::zobrist_keys_warp<V>(s.btr, stm, s.btr[BT_EP], &s.btr[BT_CAST], &s.btr[BT_EXTRA],
+                                 a.z1, a.z2, t, h1, h2);  // K4
         bool rep = false;
         for (int k = t; k < ply0; k += WARP) {
             const int32_t* r = bt + k * BT_W;
@@ -321,15 +330,20 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows& s, int t,
         }
         ev = __shfl_sync(FULL_MASK, ev, 0);
         const int static_val = min(max((int)ev, -MATE_BOUND), MATE_BOUND);
-        const int leaf_val = draw ? DRAW : static_val;
+        // a variant's game end ends the node at once, over the draws
+        const bool vterm = term != rules::TERM_NONE;
+        const bool ends = draw || vterm;
+        const int leaf_val = vterm ? (term == rules::TERM_LOSS ? ply0 - MATE
+                                      : (term == rules::TERM_WIN ? MATE - ply0 : DRAW))
+                                   : (draw ? DRAW : static_val);
 
         rules::Ordering o;
         o.hist = a.hist + (int64_t)lane * HIST_SIZE;
         o.killer0 = s.ntr[NT_K0];
         o.killer1 = s.ntr[NT_K1];
         int count, noisy;
-        rules::generate_moves_warp(s.btr, stm, s.btr[BT_EP], &s.btr[BT_CAST], o, t, s.list,
-                                   s.gen, &count, &noisy);  // K9
+        rules::generate_moves_warp<V>(s.btr, stm, s.btr[BT_EP], &s.btr[BT_CAST], o, t, s.list,
+                                      s.gen, &count, &noisy);  // K9
         const bool quiet_node = noisy == 0;
         const bool window_ok_a = entry_alpha > -MATE_BOUND && entry_alpha < MATE_BOUND;
         bool qs_like = in_qs;
@@ -339,10 +353,10 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows& s, int t,
                       || (depth_left <= FUTILITY_DEPTH && !(in_qs || checked || root)
                           && static_val + f_margin <= entry_alpha && window_ok_a);
         }
-        const bool is_leaf = draw || over_budget || ply0 >= P || (qs_like && quiet_node)
+        const bool is_leaf = ends || over_budget || ply0 >= P || (qs_like && quiet_node)
                              || (in_qs && leaf_val >= entry_beta);  // stand-pat cut
         // TT cutoff: a leaf return with the stored score; never at the
-        // root, never on a fifty-move or repetition draw
+        // root, never on a fifty-move or repetition draw or a variant's end
         bool use_tt = false, to_return, no_store;
         int tt_score = 0, tt_move = -1;
         if (a.table) {
@@ -350,12 +364,12 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows& s, int t,
             tt::probe_row(__ldcg(a.table + (h1 & a.nmask)), (int32_t)h2, depth_left,
                           entry_alpha, entry_beta, true, a.deep_tt, usable, tt_score,
                           tt_move);  // K5
-            use_tt = usable && !(root || draw);
+            use_tt = usable && !(root || ends);
             to_return = parent_illegal || is_leaf || use_tt;
-            no_store = parent_illegal || draw || use_tt;
+            no_store = parent_illegal || ends || use_tt;
         } else {
             to_return = parent_illegal || is_leaf;
-            no_store = parent_illegal || draw;
+            no_store = parent_illegal || ends;
         }
         expand = !to_return;
         // quiet static leaves, for the runner's depth-0 EXACT store
@@ -380,7 +394,8 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows& s, int t,
         }
 
         int null_v = 0;
-        if (a.pruning) {  // null-move eligibility
+        // null-move eligibility (never in antichess, whose captures are forced)
+        if (a.pruning && V != VARIANT_ANTICHESS) {
             const int lo = stm * 6 + 2, hi = stm * 6 + 5;
             const int c0 = s.btr[t], c1 = s.btr[t + WARP];
             const bool nonpawn = __any_sync(FULL_MASK, (c0 >= lo && c0 <= hi)
@@ -520,7 +535,9 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows& s, int t,
 
         // finished node value: best, or mate/stalemate when no legal child
         const bool no_legal = (nt1[NT_SEARCHED] == 0 && dl_node > 0) && nt1[NT_BEST] == -INF;
-        const int mate_val = nt1[NT_INCHECK] != 0 ? ply1 - MATE : DRAW;
+        // (in antichess the side left without a move wins)
+        const int mate_val = V == VARIANT_ANTICHESS ? MATE - ply1
+                             : (nt1[NT_INCHECK] != 0 ? ply1 - MATE : DRAW);
         const int fin_val = (no_legal && exhausted) ? mate_val : nt1[NT_BEST];
 
         const int m_ix = min(max(re_push ? midx - 1 : midx, 0), MAX_MOVES - 1);
@@ -553,8 +570,9 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows& s, int t,
         __syncwarp();
         if (advance) {
             if (t == 0) nt[nply * NT_W + NT_DL] = child_dl;
-            rules::make_move_warp(bt1, bt1[BT_STM], bt1[BT_EP], &bt1[BT_CAST], bt1[BT_HM], move,
-                                  t, s.child, s.chg, s.chg + 4, s.chg + 8);  // K10
+            rules::make_move_warp<V>(bt1, bt1[BT_STM], bt1[BT_EP], &bt1[BT_CAST], bt1[BT_HM],
+                                     &bt1[BT_EXTRA], move, t, s.child, s.chg, s.chg + 4,
+                                     s.chg + 8);  // K10
             __syncwarp();
             if (a.pruning && do_null) {  // a null move changes no pieces
                 for (int j = t; j < BT_W; j += WARP) {

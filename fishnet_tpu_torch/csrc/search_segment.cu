@@ -28,6 +28,14 @@
 // 3072 that eval reads up to 0.79 MB of feature rows from HBM, which then
 // dominates a step's bytes.
 //
+// Variants: the step takes the variant as a template parameter (the
+// reference compiles one program per static variant flag), so each
+// variant's instantiation carries only its own rules. Each variant is a
+// library of its own, built from this source with the generated
+// `segment_entries.cuh` of its build directory, which instantiates the
+// five net kinds for it (kernels.py segment_entries); kernels.build()
+// runs the six nvcc processes in parallel.
+//
 // Design: a persistent cooperative grid (cudaLaunchCooperativeKernel,
 // cooperative_groups grid sync), sized by the occupancy API to the blocks
 // that fit on the card at once; one warp per lane (search.cuh step_lane),
@@ -60,7 +68,7 @@ using namespace search;
 constexpr int WARPS = 4;  // lanes in flight per block
 constexpr int THREADS = WARPS * WARP;
 
-template <class Net>
+template <class Net, int V>
 __global__ void __launch_bounds__(THREADS) segment_kernel(const Segment<Net> a) {
     cg::grid_group grid = cg::this_grid();
     __shared__ WarpRows rows[WARPS];
@@ -87,7 +95,7 @@ __global__ void __launch_bounds__(THREADS) segment_kernel(const Segment<Net> a) 
         if (leader) atomicExch(flags + (n + 2) % 3, 0);
         if (a.table) {
             for (int lane = first_warp; lane < a.B; lane += n_warps) {
-                interior_store_claim(a, lane, s, t, calls);
+                interior_store_claim<Net, V>(a, lane, s, t, calls);
             }
             grid.sync();
             for (int lane = first_warp; lane < a.B; lane += n_warps) store_commit(a, lane, t);
@@ -95,7 +103,7 @@ __global__ void __launch_bounds__(THREADS) segment_kernel(const Segment<Net> a) 
         }
         bool live = false;
         for (int lane = first_warp; lane < a.B; lane += n_warps) {
-            live |= step_lane(a, lane, s, t, calls);
+            live |= step_lane<Net, V>(a, lane, s, t, calls);
         }
         if (t == 0 && live) atomicExch(flags + (n + 1) % 3, 1);
         grid.sync();
@@ -126,7 +134,7 @@ __global__ void __launch_bounds__(THREADS) segment_kernel(const Segment<Net> a) 
     }
 }
 
-template <class Net>
+template <class Net, int V>
 int launch(Segment<Net> a, int* grid_out, cudaStream_t stream) {
     static int blocks_per_sm = -1, sms = 0;
     if (blocks_per_sm < 0) {
@@ -134,8 +142,8 @@ int launch(Segment<Net> a, int* grid_out, cudaStream_t stream) {
         cudaError_t e = cudaGetDevice(&dev);
         if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
         if (e == cudaSuccess) {
-            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_per_sm, segment_kernel<Net>,
-                                                              THREADS, 0);
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_per_sm,
+                                                              segment_kernel<Net, V>, THREADS, 0);
         }
         if (e != cudaSuccess) {
             blocks_per_sm = -1;
@@ -147,8 +155,8 @@ int launch(Segment<Net> a, int* grid_out, cudaStream_t stream) {
     const int grid = want < fit ? want : fit;
     *grid_out = grid;
     void* args[] = {&a};
-    cudaError_t e = cudaLaunchCooperativeKernel((const void*)segment_kernel<Net>, grid, THREADS,
-                                                args, 0, stream);
+    cudaError_t e = cudaLaunchCooperativeKernel((const void*)segment_kernel<Net, V>, grid,
+                                                THREADS, args, 0, stream);
     return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
@@ -177,7 +185,7 @@ bool widths_ok(int l1, int h1, int h2) {
     return Net::KIND == KING ? full && head : full;
 }
 
-template <class Net>
+template <class Net, int V>
 int segment(void* bt, void* nt, void* lane, const void* hist_hash, const void* hist_halfmove,
             void* moves, void* hist, void* pv, void* acc, const void* w0, const void* w1,
             const void* w2, const void* w3, const void* w4, const void* w5, const void* w6,
@@ -218,7 +226,7 @@ int segment(void* bt, void* nt, void* lane, const void* hist_hash, const void* h
     if (max_ply < 1 || max_ply > SEGMENT_MAX_PLY || !widths_ok<Net>(l1, h1, h2)) {
         return (int)cudaErrorInvalidValue;
     }
-    return launch<Net>(a, (int*)grid_out, (cudaStream_t)stream);
+    return launch<Net, V>(a, (int*)grid_out, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -233,8 +241,10 @@ int segment(void* bt, void* nt, void* lane, const void* hist_hash, const void* h
 // words (n,) all -1; gen_lanes (batch,) int32 or null; scratch (batch * 8
 // + 4) int32; body_calls (11,) int64, added to (kernels.py K11_COUNTERS);
 // summary (batch + 1, 4) int32 out; grid_out: the blocks launched (host
-// int).
-#define SEGMENT_ENTRY(NAME, NET)                                                           \
+// int). The entry points of one variant's library, one per net kind, are
+// the generated segment_entries.cuh's SEGMENT_ENTRY(name, net, variant)
+// lines.
+#define SEGMENT_ENTRY(NAME, NET, V)                                                        \
     FISHNET_EXPORT int NAME(                                                              \
             void* bt, void* nt, void* lane, const void* hist_hash,                        \
             const void* hist_halfmove, void* moves, void* hist, void* pv, void* acc,      \
@@ -245,15 +255,11 @@ int segment(void* bt, void* nt, void* lane, const void* hist_hash, const void* h
             void* body_calls, void* summary, int batch, int max_ply, int max_hist,        \
             int steps, int pruning, int deep_tt, int prefer_deep, int l1, int h1, int h2, \
             void* grid_out, void* stream) {                                               \
-        return segment<NET>(bt, nt, lane, hist_hash, hist_halfmove, moves, hist, pv, acc, \
-                            w0, w1, w2, w3, w4, w5, w6, w7, w8, z1, z2, table,            \
-                            table_rows, claims, gen_lanes, gen, scratch, body_calls,      \
-                            summary, batch, max_ply, max_hist, steps, pruning, deep_tt,   \
-                            prefer_deep, l1, h1, h2, grid_out, stream);                   \
+        return segment<NET, V>(bt, nt, lane, hist_hash, hist_halfmove, moves, hist, pv,  \
+                               acc, w0, w1, w2, w3, w4, w5, w6, w7, w8, z1, z2, table,    \
+                               table_rows, claims, gen_lanes, gen, scratch, body_calls,   \
+                               summary, batch, max_ply, max_hist, steps, pruning,         \
+                               deep_tt, prefer_deep, l1, h1, h2, grid_out, stream);       \
     }
 
-SEGMENT_ENTRY(search_segment_f32, search::NetF32)
-SEGMENT_ENTRY(search_segment_i8, search::NetI8)
-SEGMENT_ENTRY(search_segment_kb_f32, search::NetKbF32)
-SEGMENT_ENTRY(search_segment_kb_i8, search::NetKbI8)
-SEGMENT_ENTRY(search_segment_sf, search::NetSf)
+#include "segment_entries.cuh"

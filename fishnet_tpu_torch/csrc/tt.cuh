@@ -7,8 +7,11 @@
 // meta != 0 (ops/tt.py).
 //
 // The constants (the key tables' layout: piece-square | ep | castling |
-// stm; the meta packing, the flags, the largest storable score) come from
-// search_consts.cuh, which kernels.build() writes from ops/tt.py.
+// stm | the variants' keys; the meta packing, the flags, the largest
+// storable score) come from search_consts.cuh, which kernels.build()
+// writes from ops/tt.py and ops/board.py. The keys take the variant as a
+// template parameter V: every variant but standard chess XORs in its salt,
+// threeCheck also its check counters (ops/tt.py hash_board_plain).
 #pragma once
 #include "common.cuh"
 #include "search_consts.cuh"
@@ -16,6 +19,7 @@
 namespace tt {
 
 using consts::CASTLE_OFF;
+using consts::CHECKS_OFF;
 using consts::DEPTH_MASK;
 using consts::EP_OFF;
 using consts::FLAG_EXACT;
@@ -23,6 +27,7 @@ using consts::FLAG_LOWER;
 using consts::MAX_STORE;
 using consts::SCORE_BIAS;
 using consts::STM_OFF;
+using consts::VARIANT_OFF;
 
 // The keys of the squares, ep square, castling rooks and side to move
 // outside the pieces: XORed into every position's pair.
@@ -46,6 +51,25 @@ __device__ __forceinline__ void side_keys(int stm, int ep, const int32_t* castli
     h2 ^= z2[STM_OFF + s];
 }
 
+// The variant's keys: its salt, and threeCheck's counters (extra's
+// EXTRA_CHECKS words, each clipped to 0..THREE_CHECKS).
+template <int V>
+__device__ __forceinline__ void variant_keys(const int32_t* extra, const uint32_t* z1,
+                                             const uint32_t* z2, uint32_t& h1, uint32_t& h2) {
+    if constexpr (V != consts::VARIANT_STANDARD) {
+        h1 ^= z1[VARIANT_OFF + V];
+        h2 ^= z2[VARIANT_OFF + V];
+    }
+    if constexpr (V == consts::VARIANT_THREECHECK) {
+        for (int c = 0; c < 2; ++c) {
+            const int k = CHECKS_OFF + c * (consts::THREE_CHECKS + 1)
+                          + min(max(extra[consts::EXTRA_CHECKS + c], 0), consts::THREE_CHECKS);
+            h1 ^= z1[k];
+            h2 ^= z2[k];
+        }
+    }
+}
+
 __device__ __forceinline__ void piece_key(int code, int sq, const uint32_t* z1,
                                           const uint32_t* z2, uint32_t& h1, uint32_t& h2) {
     if (code > 0 && code <= 12) {
@@ -54,23 +78,28 @@ __device__ __forceinline__ void piece_key(int code, int sq, const uint32_t* z1,
     }
 }
 
-// K4's body: one thread hashes one position (board: 64 codes).
+// K4's body: one thread hashes one position (board: 64 codes; extra its
+// variant words, read in threeCheck only).
+template <int V>
 __device__ __forceinline__ void zobrist_keys(const int32_t* board, int stm, int ep,
-                                             const int32_t* castling, const uint32_t* z1,
-                                             const uint32_t* z2, uint32_t& h1, uint32_t& h2) {
+                                             const int32_t* castling, const int32_t* extra,
+                                             const uint32_t* z1, const uint32_t* z2,
+                                             uint32_t& h1, uint32_t& h2) {
     h1 = 0;
     h2 = 0;
     for (int sq = 0; sq < 64; ++sq) piece_key(board[sq], sq, z1, z2, h1, h2);
     side_keys(stm, ep, castling, z1, z2, h1, h2);
+    variant_keys<V>(extra, z1, z2, h1, h2);
 }
 
 // The same keys from a warp: each thread XORs two squares, the warp folds
 // them (XOR is order free, so the keys equal zobrist_keys' bit for bit);
 // every thread returns the pair.
+template <int V>
 __device__ __forceinline__ void zobrist_keys_warp(const int* board, int stm, int ep,
-                                                  const int* castling, const uint32_t* z1,
-                                                  const uint32_t* z2, int t, uint32_t& h1,
-                                                  uint32_t& h2) {
+                                                  const int* castling, const int* extra,
+                                                  const uint32_t* z1, const uint32_t* z2, int t,
+                                                  uint32_t& h1, uint32_t& h2) {
     h1 = 0;
     h2 = 0;
     piece_key(board[t], t, z1, z2, h1, h2);
@@ -80,6 +109,7 @@ __device__ __forceinline__ void zobrist_keys_warp(const int* board, int stm, int
         h2 ^= __shfl_xor_sync(0xffffffffu, h2, off);
     }
     side_keys(stm, ep, (const int32_t*)castling, z1, z2, h1, h2);
+    variant_keys<V>((const int32_t*)extra, z1, z2, h1, h2);
 }
 
 // K5's body on the row in the lane's slot: usable (a valid row of the

@@ -17,8 +17,13 @@ depth or re-search, queued positions and helpers are spliced at segment
 boundaries (ops/search.py refill_lanes). With refill off, chunks run
 chunk-serially (`_analyse_single`).
 
+Variants: chunks of standard chess, chess960, threeCheck (and its alias
+3check), kingOfTheHill, racingKings, horde and antichess run on the card
+(`DEVICE_VARIANTS`), each under its device variant's kernels; the
+scheduler runs one device variant per drive session.
+
 Not ported yet, and refused rather than run another way: move jobs,
-multipv, variants other than standard chess and chess960, the mesh.
+multipv, crazyhouse and atomic, the mesh.
 """
 from __future__ import annotations
 
@@ -32,7 +37,8 @@ import torch
 
 from .. import device as device_mod
 from .. import settings
-from ..chess.position import VARIANTS, Position, from_fen
+from ..chess.position import Position
+from ..chess.variants import from_fen
 from ..ipc import AnalysisWork, Chunk, Matrix, PositionResponse, Score, WorkPosition
 from ..models import nnue, nnue_import
 from ..ops import tt as tt_mod
@@ -48,6 +54,30 @@ LANE_BUCKETS = (16, 64, 128, 256)
 # aspiration window half-widths tried in order before the full window
 # (the JAX package's measured default; FISHNET_TPU_ASPIRATION overrides)
 ASPIRATION_DELTAS = (15, 120)
+
+# chunk.variant → device variant (ops/search.py's static flag). The JAX
+# package's map also sends crazyhouse and atomic to the device; they are
+# not ported here, so such a chunk is refused (NotImplementedError).
+DEVICE_VARIANTS = {
+    "standard": "standard",
+    "chess960": "standard",
+    "fromPosition": "standard",
+    "threeCheck": "threeCheck",
+    "3check": "threeCheck",
+    "antichess": "antichess",
+    "horde": "horde",
+    "kingOfTheHill": "kingOfTheHill",
+    "racingKings": "racingKings",
+}
+
+
+def device_variant(chunk_variant: str) -> str:
+    """The device variant of a chunk's variant; NotImplementedError for a
+    variant that is not ported."""
+    try:
+        return DEVICE_VARIANTS[chunk_variant]
+    except KeyError:
+        raise NotImplementedError(f"variant {chunk_variant!r} is not ported yet") from None
 
 
 def _decode_uci(m: int) -> str:
@@ -201,8 +231,7 @@ class GpuEngine(BatchEngine):
             raise NotImplementedError("move jobs are not ported yet")
         if work.effective_multipv() != 1:
             raise NotImplementedError("multipv analysis is not ported yet")
-        if chunk.variant not in VARIANTS:
-            raise NotImplementedError(f"variant {chunk.variant!r} is not ported yet")
+        variant = device_variant(chunk.variant)
         positions, games = [], []
         for wp in chunk.positions:
             pos = from_fen(wp.root_fen, chunk.variant)
@@ -214,26 +243,29 @@ class GpuEngine(BatchEngine):
             games.append(prefix)
         target_depth = min(work.depth or self.max_depth, self.max_depth, self.max_ply - 1)
         budget = work.nodes.get(chunk.flavor.eval_flavor())
-        return self._analyse_single(chunk, positions, games, target_depth, budget, started)
+        return self._analyse_single(chunk, positions, games, target_depth, budget, started,
+                                    variant)
 
     def _search(self, roots, depth_arr, budget_arr, deadline=None, hist=None,
                 window=None, order_jitter=None, group=None, required=None,
-                helper_store=False) -> dict:
-        """One search over the engine's table. helper_store: the
-        depth-preferred, generation-aware store of helper dispatches."""
+                helper_store=False, variant="standard") -> dict:
+        """One search over the engine's table, under a device variant.
+        helper_store: the depth-preferred, generation-aware store of
+        helper dispatches."""
         out = search_batch_resumable(
             self.params, roots, depth_arr, budget_arr, max_ply=self.max_ply,
             deadline=deadline, tt=self.tt, hist=hist, window=window,
             order_jitter=order_jitter, group=group, required=required,
             prefer_deep_store=helper_store, tt_gen=self._tt_gen if helper_store else 0,
-            device=self.device,
+            device=self.device, variant=variant,
         )
         self.tt = out.pop("tt")
         return out
 
     def _search_windowed(self, roots, depth_arr, budget_arr, deadline, hist,
                          prev_score, use_win, required=None, win_scale=None,
-                         order_jitter=None, group=None, helper_store=False) -> dict:
+                         order_jitter=None, group=None, helper_store=False,
+                         variant="standard") -> dict:
         """Aspiration-windowed dispatch: a narrow window around the
         previous depth's score; lanes that fail low or high re-search
         wider (the others ride along at depth 0 / budget 1). Returns the
@@ -263,7 +295,7 @@ class GpuEngine(BatchEngine):
                 roots, np.where(live, depth_arr, 0).astype(np.int32),
                 np.where(live, budget_arr, 1).astype(np.int32), deadline,
                 hist=hist, window=(alpha_w, beta_w), order_jitter=order_jitter,
-                group=group, required=required, helper_store=helper_store,
+                group=group, required=required, helper_store=helper_store, variant=variant,
             )
             if merged is None:
                 merged = {k: np.array(v) for k, v in out.items()}
@@ -328,8 +360,9 @@ class GpuEngine(BatchEngine):
                 B = max(B, grown)
         return B
 
-    def _history_arrays(self, hist_lists, B):
-        """Per-lane reversible game tails → the search's history seeds.
+    def _history_arrays(self, hist_lists, B, variant="standard"):
+        """Per-lane reversible game tails → the search's history seeds,
+        hashed under the device variant's keys.
 
         hist_lists: per lane, the game's positions before the root,
         oldest first. Only positions occurring at least twice in a lane's
@@ -346,7 +379,7 @@ class GpuEngine(BatchEngine):
                 flat.append(from_position(p))
         if flat:
             stacked = stack_boards(flat).to(self.device)
-            keys = tt_mod.hash_boards(stacked).cpu().numpy()
+            keys = tt_mod.hash_boards(stacked, variant).cpu().numpy()
             hms = stacked.halfmove.cpu().numpy()
             for n, (lane, k) in enumerate(slots):
                 hh[lane, k] = keys[n]
@@ -373,7 +406,7 @@ class GpuEngine(BatchEngine):
         )
 
     def _analyse_single(self, chunk, positions, games, target_depth, budget,
-                        started) -> List[PositionResponse]:
+                        started, variant="standard") -> List[PositionResponse]:
         terminal = {i for i, p in enumerate(positions) if p.outcome() is not None}
         lanes = [i for i in range(len(positions)) if i not in terminal]
         scores = [Matrix() for _ in positions]
@@ -387,7 +420,7 @@ class GpuEngine(BatchEngine):
             K = self.helper_lanes
             B = self._helper_width(n)
             boards = [from_position(positions[i]) for i in lanes]
-            hist_hh, hist_hm = self._history_arrays([games[i] for i in lanes], B)
+            hist_hh, hist_hm = self._history_arrays([games[i] for i in lanes], B, variant)
             per_pos_budget = budget if budget is not None else 10_000_000
             remaining = np.full(n, per_pos_budget, dtype=np.int64)
             prev_score = np.zeros(n, np.int64)
@@ -438,7 +471,7 @@ class GpuEngine(BatchEngine):
                     hist = (hist_hh, hist_hm)
                 out = self._search_windowed(
                     roots, depth_arr, budget_arr, deadline, hist, prev_full, use_win,
-                    **extra,
+                    variant=variant, **extra,
                 )
                 exhausted_all = True
                 for j, i in enumerate(lanes):
@@ -511,16 +544,17 @@ class _RefillJob:
     window schedule, fail checks and budget charging)."""
 
     __slots__ = (
-        "entry", "wp", "board", "target_depth", "remaining", "deadline", "hh",
+        "entry", "wp", "board", "variant", "target_depth", "remaining", "deadline", "hh",
         "hm", "depth", "delta_idx", "prev_score", "have_prev", "hardness", "scores",
         "pvs", "depth_reached", "best_move", "nodes_total", "nodes_depth", "lane",
         "helpers",
     )
 
-    def __init__(self, entry, wp, board, target_depth, budget, deadline, hh, hm):
+    def __init__(self, entry, wp, board, variant, target_depth, budget, deadline, hh, hm):
         self.entry = entry
         self.wp = wp
         self.board = board
+        self.variant = variant  # device variant: a drive session runs one
         self.target_depth = target_depth
         self.remaining = budget  # node budget left (host int)
         self.deadline = deadline
@@ -608,8 +642,7 @@ class LaneScheduler:
 
     def _submit(self, chunk: Chunk) -> _ChunkEntry:
         eng = self.engine
-        if chunk.variant not in VARIANTS:
-            raise NotImplementedError(f"variant {chunk.variant!r} is not ported yet")
+        variant = device_variant(chunk.variant)
         entry = _ChunkEntry(chunk, time.monotonic())
         work = chunk.work
         target_depth = min(work.depth or eng.max_depth, eng.max_depth, eng.max_ply - 1)
@@ -626,8 +659,8 @@ class LaneScheduler:
             if pos.outcome() is not None:
                 self._deliver(entry, wp, eng._terminal_response(chunk, wp, pos, 0.001))
                 continue
-            hh, hm = eng._history_arrays([game], 1)
-            jobs.append(_RefillJob(entry, wp, from_position(pos), target_depth,
+            hh, hm = eng._history_arrays([game], 1, variant)
+            jobs.append(_RefillJob(entry, wp, from_position(pos), variant, target_depth,
                                    per_pos_budget, deadline, hh[0], hm[0]))
         entry.n_open = len(jobs)
         if not jobs:
@@ -685,15 +718,17 @@ class LaneScheduler:
 
     def _drive_session(self, entry: _ChunkEntry) -> None:
         """One fixed-width drive session: admit, run segments, process
-        boundaries, until no lane is running. (The reference also groups
-        jobs by device variant; every variant ported here runs one
-        program, so every queued job is admissible.)"""
+        boundaries, until no lane is running. The session runs the device
+        variant of the earliest-deadline job (each variant is its own
+        kernel instantiation); jobs of other variants stay queued for a
+        later session."""
         eng = self.engine
         with self._q_lock:
             if not self._pending:
                 return
             self._pending.sort(key=lambda j: j.deadline)
-            n_hint = len(self._pending)
+            variant = self._pending[0].variant
+            n_hint = sum(1 for j in self._pending if j.variant == variant)
             filler = self._pending[0].board
         K = eng.helper_lanes
         B = eng._helper_width(min(max(n_hint, 1), eng.max_lanes))
@@ -720,7 +755,7 @@ class LaneScheduler:
         # idle base state: budget-0 lanes park in DONE within two steps
         zeros = torch.zeros(B, dtype=torch.int32, device=dev)
         state = search_ops.init_state(eng.params, stack_boards([filler] * B).to(dev), zeros,
-                                      zeros, eng.max_ply)
+                                      zeros, eng.max_ply, variant=variant)
         tt = eng.tt
 
         # admissions accumulated between boundaries, flushed as ONE
@@ -920,8 +955,9 @@ class LaneScheduler:
             if not entry.event.is_set():
                 with self._q_lock:
                     self._pending.sort(key=lambda j: j.deadline)
-                    take = self._pending[:len(free)]
-                    del self._pending[:len(take)]
+                    take = [j for j in self._pending if j.variant == variant][:len(free)]
+                    for j in take:
+                        self._pending.remove(j)
                 for job in take:
                     if now >= job.deadline:
                         self._finalize(job, now, error="chunk deadline expired before "
@@ -954,7 +990,7 @@ class LaneScheduler:
                 root_alpha=np.asarray(adm["alpha"], np.int32),
                 root_beta=np.asarray(adm["beta"], np.int32),
                 order_jitter=np.asarray(adm["jitter"], np.int32),
-                group=np.asarray(adm["group"], np.int32),
+                group=np.asarray(adm["group"], np.int32), variant=variant,
             )
             for k in adm:
                 adm[k].clear()
@@ -965,7 +1001,7 @@ class LaneScheduler:
             lane's generation → (steps, packed summary)."""
             return stats.device_call(search_ops.run_segment, eng.params, state, n_steps,
                                      None, tt, False, prefer_deep,
-                                     torch.from_numpy(gen.copy()).to(dev))
+                                     torch.from_numpy(gen.copy()).to(dev), variant)
 
         def charge_helpers(lane_done, nodes_row, staged=()):
             # helper lanes that parked on their own: charge and free

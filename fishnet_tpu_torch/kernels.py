@@ -8,7 +8,12 @@ sources build at once, one nvcc each). The board kernels (K8-K10) include
 from the plain versions' own tables (ops/tables.py, ops/board.py,
 ops/movegen.py), and the table and search kernels (K4-K6, K11)
 `search_consts.cuh`, which `search_header` writes from ops/search.py and
-ops/tt.py, so no table or constant is typed twice. The wrappers below take
+ops/tt.py, so no table or constant is typed twice. The board and table
+kernels (K4, K8-K10) have one entry point per device variant
+(`_variant_symbol`); the segment kernel (K11) one library per variant,
+each built from search_segment.cu with its generated `segment_entries.cuh`
+(one entry point per net kind), all six nvcc processes started with the
+others. The wrappers below take
 CUDA tensors only: they check device, dtype, shape and contiguity,
 allocate the output with `torch.empty`, launch on the current stream,
 raise if the launch returned an error, and count the launch. The callers
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 
 from .ops.tables import MAX_MOVES  # K9's move-list width
+from .ops.tables import PORTED_VARIANTS, VARIANT_ID
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build"
@@ -60,7 +66,8 @@ K11_COUNTERS = K11_BODIES + ("live_lane_steps",)
 NUM_FEATURES = 22528
 
 # length of each Zobrist table (ops/tt.py Z_SHAPE; the kernel reads the
-# piece-square, en-passant, castling and side-to-move keys at its head)
+# piece-square, en-passant, castling and side-to-move keys at its head,
+# and a variant's salt and threeCheck's counter keys from its tail)
 Z_KEYS = 1409
 
 # launches per kernel since the last reset; a wrapper adds one where it
@@ -77,7 +84,26 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
 _SEGMENT_ARGS = [_P] * 20 + [_P, _I, _P, _P, _I, _P, _P, _P] + [_I] * 10 + [_P, _P]
-# each kernel's library: its entry points and their argument types
+# K11's entry point tags, one per net kind, and csrc/search.cuh's net traits
+SEGMENT_NETS = (("f32", "NetF32"), ("i8", "NetI8"), ("kb_f32", "NetKbF32"),
+                ("kb_i8", "NetKbI8"), ("sf", "NetSf"))
+
+
+def _variant_symbol(base: str, variant: str) -> str:
+    """An entry point's name in a device variant: the standard one keeps
+    its base name, the others take the variant's as a suffix."""
+    if variant not in PORTED_VARIANTS:
+        raise NotImplementedError(f"variant {variant!r} is not ported yet")
+    return base if variant == "standard" else f"{base}_{variant}"
+
+
+def _per_variant(base: str, argtypes) -> dict:
+    return {_variant_symbol(base, v): argtypes for v in PORTED_VARIANTS}
+
+
+# each library: its entry points and their argument types (a library is
+# built from csrc/<its name>.cu, but K11's libraries search_segment_<variant>,
+# which are built from search_segment.cu, _LIBRARY_SOURCE)
 _SIGNATURES = {
     "nnue_refresh_768": {"nnue_refresh_768_f32": [_P, _P, _P, _P, _I, _I, _P],
                          "nnue_refresh_768_i16": [_P, _P, _P, _P, _I, _I, _P]},
@@ -88,21 +114,22 @@ _SIGNATURES = {
     "nnue_evaluate": {"nnue_evaluate_f32": [_P, _L, _P, _L] + [_P] * 9 + [_I] * 4 + [_P],
                       "nnue_evaluate_i8": [_P, _L, _P, _L] + [_P] * 9 + [_I] * 4 + [_P]},
     "nnue_evaluate_sf": {"nnue_evaluate_sf": [_P, _L, _P, _L] + [_P] * 10 + [_I] * 2 + [_P]},
-    "zobrist_hash": {"zobrist_hash": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _P, _I, _P]},
+    "zobrist_hash": _per_variant("zobrist_hash", [_P, _L] * 5 + [_P, _P, _P, _I, _P]),
     "tt_probe": {"tt_probe": [_P, _I] + [_P, _L] * 5 + [_P, _I, _P, _P, _P, _I, _P]},
     "tt_store": {"tt_store": [_P, _I] + [_P, _L] * 6 + [_P, _P, _I, _I, _I, _P]},
     "lane_init": {"lane_init": [_P] * 20 + [_I] * 5 + [_P]},
-    "node_rules": {"node_rules": [_P, _L, _P, _L, _P, _P, _I, _P]},
-    "generate_moves": {"generate_moves": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P,
-                                          _P, _P, _I, _P]},
-    "make_move": {"make_move": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _P, _P,
-                                _I, _P]},
-    "search_segment": {f"search_segment_{tag}": _SEGMENT_ARGS
-                       for tag in ("f32", "i8", "kb_f32", "kb_i8", "sf")},
+    "node_rules": _per_variant("node_rules", [_P, _L] * 3 + [_P, _P, _P, _I, _P]),
+    "generate_moves": _per_variant("generate_moves", [_P, _L] * 6 + [_P, _P, _P, _I, _P]),
+    "make_move": _per_variant("make_move", [_P, _L] * 7 + [_P] * 4 + [_I, _P]),
+    **{f"search_segment_{v}": {_variant_symbol(f"search_segment_{tag}", v): _SEGMENT_ARGS
+                               for tag, _ in SEGMENT_NETS} for v in PORTED_VARIANTS},
     "nnue_stack_backward": {"nnue_stack_backward": [_P] * 13 + [_I, _P]},
     "nnue_ft_backward_768": {"nnue_ft_backward_768": [_P, _P, _P, _I, _I, _P]},
     "adam_update": {"adam_update": [_P] * 4 + [_L] + [_F] * 8 + [_P]},
 }
+# the kernel (csrc source and LAUNCHES key) of each library
+_LIBRARY_SOURCE = {lib: ("search_segment" if lib.startswith("search_segment_") else lib)
+                   for lib in _SIGNATURES}
 
 # lanes one K6 launch takes (its shared-memory slot array)
 TT_STORE_MAX_LANES = 8192
@@ -182,7 +209,11 @@ def rules_header() -> str:
             "QUIET_KEY", "CASTLE_KEY", "KILLER_KEY", "NOISY_BELOW", "HIST_BASE",
             "HIST_SHIFT", "HIST_MAX_BONUS", "QUEEN_PROMO_BONUS")},
         **{k: getattr(board, k) for k in (
-            "BT_BOARD", "BT_STM", "BT_EP", "BT_CAST", "BT_HM", "BT_PH1", "BT_PH2", "BT_W")},
+            "BT_BOARD", "BT_STM", "BT_EP", "BT_CAST", "BT_HM", "BT_EXTRA", "BT_PH1", "BT_PH2",
+            "BT_W", "EXTRA_W", "EXTRA_CHECKS", "THREE_CHECKS", "TERM_NONE", "TERM_LOSS",
+            "TERM_WIN", "TERM_DRAW", "GOAL_RANK_FROM")},
+        "PROMO_K": T.PROMO_K,
+        **_variant_consts(),
     }
     arrays = (
         ("RAYS", "int8_t", T.RAYS),  # [sq][dir][step], -1 past the edge
@@ -205,6 +236,7 @@ def rules_header() -> str:
         ("PAIR_KEY", "int16_t", movegen._PAIR_KEY),  # [mover * 13 + target]
         ("PAIR_TAKE", "uint8_t", movegen._PAIR_TAKE),
         ("PAWN_CAP_KEY", "int16_t", movegen._PAWN_CAP_KEY),  # [target code]
+        ("HILL", "int8_t", board.HILL),  # kingOfTheHill's centre squares
     )
     lines = [
         "// Generated by fishnet_tpu_torch/kernels.py rules_header() from",
@@ -219,13 +251,30 @@ def rules_header() -> str:
     return "\n".join(lines) + "\n"
 
 
+def _variant_consts() -> dict:
+    """VARIANT_<NAME> = id for every device variant (ops/tables.py)."""
+    return {f"VARIANT_{name.upper()}": vid for name, vid in VARIANT_ID.items()}
+
+
+def segment_entries(variant: str) -> str:
+    """The text of one variant's `segment_entries.cuh`: K11's entry points
+    for that variant, one per net kind (csrc/search_segment.cu
+    SEGMENT_ENTRY)."""
+    lines = [
+        "// Generated by fishnet_tpu_torch/kernels.py segment_entries(); not a source file.",
+        *[f"SEGMENT_ENTRY({_variant_symbol(f'search_segment_{tag}', variant)}, search::{net}, "
+          f"consts::VARIANT_{variant.upper()})" for tag, net in SEGMENT_NETS],
+    ]
+    return "\n".join(lines) + "\n"
+
+
 def search_header() -> str:
     """The text of `search_consts.cuh`: the search's and the table's
     constants (the state's field indices, modes, scores, pruning margins,
     the TT flags and key layout, the null child's row map), written from
     ops/search.py and ops/tt.py, the modules the plain versions read, and
     the limits of K11's layout that its wrapper checks."""
-    from .ops import search, tt
+    from .ops import board, search, tt
 
     names = [k for k in vars(search) if k.startswith(("NT_", "LN_", "MODE_", "SUM_"))]
     names += ["MATE", "INF", "ILLEGAL", "DRAW", "MATE_BOUND", "NULL_R", "NULL_MIN_DEPTH",
@@ -238,7 +287,10 @@ def search_header() -> str:
                   SEGMENT_L1=SEGMENT_L1, SEGMENT_H1=SEGMENT_H1, SEGMENT_H2=SEGMENT_H2,
                   MAX_L1=MAX_L1)
     consts.update({k.lstrip("_"): getattr(tt, k) for k in (
-        "_SCORE_BIAS", "_DEPTH_MASK", "_MAX_STORE", "_EP_OFF", "_CASTLE_OFF", "_STM_OFF")})
+        "_SCORE_BIAS", "_DEPTH_MASK", "_MAX_STORE", "_EP_OFF", "_CASTLE_OFF", "_STM_OFF",
+        "_CHECKS_OFF", "_VARIANT_OFF")})
+    consts.update({k: getattr(board, k) for k in ("EXTRA_CHECKS", "THREE_CHECKS")})
+    consts.update(_variant_consts())
     arrays = (
         ("NULL_MUL", "int32_t", search._NULL_MUL),  # the null child's row: parent * MUL + ADD
         ("NULL_ADD", "int32_t", search._NULL_ADD),
@@ -257,8 +309,14 @@ def search_header() -> str:
 
 
 def _headers() -> dict:
-    """The generated headers the kernels include, by file name."""
-    return {"rules_tables.cuh": rules_header(), "search_consts.cuh": search_header()}
+    """The generated headers the kernels include, by their path in the
+    build directory (K11's per-variant entries in a directory per
+    library)."""
+    return {
+        "rules_tables.cuh": rules_header(), "search_consts.cuh": search_header(),
+        **{f"search_segment_{v}/segment_entries.cuh": segment_entries(v)
+           for v in PORTED_VARIANTS},
+    }
 
 
 def _build_dir(header: str) -> Path:
@@ -284,18 +342,21 @@ def build() -> float:
         for fname, text in headers.items():  # the build directory is keyed by their text
             dest = out / fname
             if not dest.exists():  # another process may be compiling against it
+                dest.parent.mkdir(exist_ok=True)
                 tmp = out / f"{fname}.tmp{os.getpid()}"
                 tmp.write_text(text)
                 os.replace(tmp, dest)
         procs = {}
-        for name in KERNELS:
+        for name, source in _LIBRARY_SOURCE.items():
             lib = out / f"lib{name}.so"
             if lib.exists():
                 continue
             tmp = out / f"lib{name}.so.tmp{os.getpid()}"
+            own = out / name  # a library's own generated headers (K11's entries)
+            includes = ["-I", str(own)] if own.is_dir() else []
             procs[name] = (subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-I", str(out), "-o", str(tmp),
-                 str(CSRC / f"{name}.cu")],
+                [_nvcc(), *NVCC_FLAGS, *includes, "-I", str(out), "-o", str(tmp),
+                 str(CSRC / f"{source}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             ), tmp, lib)
         errors = []
@@ -314,7 +375,7 @@ def build() -> float:
         if errors:
             raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
         fns = {}
-        for name in KERNELS:
+        for name in _LIBRARY_SOURCE:
             lib = ctypes.CDLL(str(out / f"lib{name}.so"))
             for sym, argtypes in _SIGNATURES[name].items():
                 fn = getattr(lib, sym)
@@ -525,23 +586,36 @@ def _check_rows(t: torch.Tensor, name: str, shape) -> int:
     return t.stride(0) if t.shape[0] > 1 else 1
 
 
+def _extra_rows(extra, B: int, variant: str) -> tuple:
+    """The variant words (B, 12) a kernel reads → (pointer, batch
+    stride); threeCheck must pass them, the others may pass None."""
+    if extra is None:
+        if variant == "threeCheck":
+            raise ValueError("threeCheck needs the boards' extra words")
+        return None, 0
+    return extra.data_ptr(), _check_rows(extra, "extra", (B, 12))
+
+
 def zobrist_hash(board: torch.Tensor, stm: torch.Tensor, ep: torch.Tensor,
-                 castling: torch.Tensor, z1: torch.Tensor,
-                 z2: torch.Tensor) -> torch.Tensor:
-    """K4: board (B, 64), stm/ep (B,), castling (B, 4) — int32, rows may
-    be strided views — → (B, 2) int32 key bit patterns."""
+                 castling: torch.Tensor, z1: torch.Tensor, z2: torch.Tensor,
+                 extra=None, variant: str = "standard") -> torch.Tensor:
+    """K4: board (B, 64), stm/ep (B,), castling (B, 4), extra (B, 12) or
+    None (read in threeCheck only) — int32, rows may be strided views —
+    → (B, 2) int32 key bit patterns, under the device variant's keys."""
     B = board.shape[0]
+    sym = _variant_symbol("zobrist_hash", variant)
     sb = _check_rows(board, "board", (B, 64))
     ss = _check_rows(stm, "stm", (B,))
     se = _check_rows(ep, "ep", (B,))
     sc = _check_rows(castling, "castling", (B, 4))
+    ext = _extra_rows(extra, B, variant)
     _check(z1, "z1", torch.int32, (Z_KEYS,))
     _check(z2, "z2", torch.int32, (Z_KEYS,))
     out = torch.empty((B, 2), dtype=torch.int32, device=board.device)
     if B:
-        _launch("zobrist_hash", "zobrist_hash",
+        _launch("zobrist_hash", sym,
                 board.data_ptr(), sb, stm.data_ptr(), ss, ep.data_ptr(), se,
-                castling.data_ptr(), sc, z1.data_ptr(), z2.data_ptr(),
+                castling.data_ptr(), sc, *ext, z1.data_ptr(), z2.data_ptr(),
                 out.data_ptr(), B)
     return out
 
@@ -679,26 +753,34 @@ def lane_init(state, lane_idx: torch.Tensor, rows: torch.Tensor, root_acc: torch
                 hist_halfmove.data_ptr(), B, n, p1, max_moves, l1)
 
 
-def node_rules(board: torch.Tensor, stm: torch.Tensor):
-    """K8: board (B, 64), stm (B,) — int32, rows may be strided views —
-    → (parent_illegal, checked), (B,) bool."""
+def node_rules(board: torch.Tensor, stm: torch.Tensor, extra=None,
+               variant: str = "standard"):
+    """K8: board (B, 64), stm (B,), extra (B, 12) or None (read in
+    threeCheck only) — int32, rows may be strided views — → (parent_illegal,
+    checked (B,) bool, term_kind (B,) int32) under the device variant's
+    rules."""
     B = board.shape[0]
+    sym = _variant_symbol("node_rules", variant)
     sb = _check_rows(board, "board", (B, 64))
     ss = _check_rows(stm, "stm", (B,))
+    ext = _extra_rows(extra, B, variant)
     out = torch.empty((2, B), dtype=torch.bool, device=board.device)
+    term = torch.empty((B,), dtype=torch.int32, device=board.device)
     if B:
-        _launch("node_rules", "node_rules", board.data_ptr(), sb, stm.data_ptr(), ss,
-                out[0].data_ptr(), out[1].data_ptr(), B)
-    return out[0], out[1]
+        _launch("node_rules", sym, board.data_ptr(), sb, stm.data_ptr(), ss, *ext,
+                out[0].data_ptr(), out[1].data_ptr(), term.data_ptr(), B)
+    return out[0], out[1], term
 
 
 def generate_moves(board: torch.Tensor, stm: torch.Tensor, ep: torch.Tensor,
-                   castling: torch.Tensor, killers=None, hist=None):
+                   castling: torch.Tensor, killers=None, hist=None, variant: str = "standard"):
     """K9: board (B, 64), stm/ep (B,), castling (B, 4), killers (B, 2) or
     None, hist (B, 4096) or None — int32, rows may be strided views with
     contiguous rows — → (moves (B, MAX_MOVES), count (B,), noisy (B,))
-    int32, moves ordered and -1 padded."""
+    int32, moves ordered and -1 padded, under the device variant's
+    rules."""
     B = board.shape[0]
+    sym = _variant_symbol("generate_moves", variant)
     strides = [_check_rows(t, name, shape) for name, t, shape in (
         ("board", board, (B, 64)), ("stm", stm, (B,)), ("ep", ep, (B,)),
         ("castling", castling, (B, 4)))]
@@ -712,26 +794,29 @@ def generate_moves(board: torch.Tensor, stm: torch.Tensor, ep: torch.Tensor,
     counts = torch.empty((2, B), dtype=torch.int32, device=board.device)
     if B:
         args = [a for t, s in zip((board, stm, ep, castling), strides) for a in (t.data_ptr(), s)]
-        _launch("generate_moves", "generate_moves", *args, *opt, moves.data_ptr(),
+        _launch("generate_moves", sym, *args, *opt, moves.data_ptr(),
                 counts[0].data_ptr(), counts[1].data_ptr(), B)
     return moves, counts[0], counts[1]
 
 
 def make_move(board: torch.Tensor, stm: torch.Tensor, ep: torch.Tensor,
-              castling: torch.Tensor, halfmove: torch.Tensor, move: torch.Tensor):
+              castling: torch.Tensor, halfmove: torch.Tensor, extra: torch.Tensor,
+              move: torch.Tensor, variant: str = "standard"):
     """K10: the parent board (B, 64), stm/ep/halfmove (B,), castling
-    (B, 4) and move (B,) (from | to<<6 | promo<<12, >= 0) — int32, rows
-    may be strided views — → (child rows (B, BT_W), codes, sqs, signs
-    (B, 4)) int32."""
+    (B, 4), variant words extra (B, 12) (the fields of ops/board.py's
+    Board, in order) and move (B,) (from | to<<6 | promo<<12, >= 0) —
+    int32, rows may be strided views — → (child rows (B, BT_W), codes,
+    sqs, signs (B, 4)) int32, under the device variant's rules."""
     B = board.shape[0]
+    sym = _variant_symbol("make_move", variant)
     fields = (("board", board, (B, 64)), ("stm", stm, (B,)), ("ep", ep, (B,)),
               ("castling", castling, (B, 4)), ("halfmove", halfmove, (B,)),
-              ("move", move, (B,)))
+              ("extra", extra, (B, 12)), ("move", move, (B,)))
     args = [a for name, t, shape in fields for a in (t.data_ptr(), _check_rows(t, name, shape))]
     child = torch.empty((B, BT_W), dtype=torch.int32, device=board.device)
     changes = torch.empty((3, B, 4), dtype=torch.int32, device=board.device)
     if B:
-        _launch("make_move", "make_move", *args, child.data_ptr(),
+        _launch("make_move", sym, *args, child.data_ptr(),
                 *[c.data_ptr() for c in changes], B)
     return child, changes[0], changes[1], changes[2]
 
@@ -772,7 +857,8 @@ def _segment_net(params):
 
 
 def search_segment(params, state, steps: int, pruning: bool, table=None,
-                   deep_tt: bool = False, prefer_deep: bool = False, gen=0) -> torch.Tensor:
+                   deep_tt: bool = False, prefer_deep: bool = False, gen=0,
+                   variant: str = "standard") -> torch.Tensor:
     """K11: up to `steps` lockstep search steps of every lane of `state`
     (ops/search.py SearchState on the card, updated in place), stopping
     once every lane is DONE, with the TT runner around each step when
@@ -782,7 +868,8 @@ def search_segment(params, state, steps: int, pruning: bool, table=None,
     bodies), a king-bucketed one (K12's body) or an imported Stockfish
     net (K13's); the state's `acc` has the net's L1 and accumulator
     dtype, and only a board768 net reads or writes it. gen: an int or a
-    (B,) int32 CUDA tensor of generations for the prefer_deep store. One
+    (B,) int32 CUDA tensor of generations for the prefer_deep store.
+    variant: the device variant (each has its own instantiations). One
     cooperative launch; raises if the card refuses it."""
     B, p1, max_moves, l1 = _check_state(state)
     p = p1 - 1
@@ -796,6 +883,7 @@ def search_segment(params, state, steps: int, pruning: bool, table=None,
                         f"{state.acc.dtype}")
     _check_devices(state)
     tag, ptrs, widths, tensors = _segment_net(params)
+    sym = _variant_symbol(f"search_segment_{tag}", variant)
     if l1 != widths[0]:
         raise ValueError(f"acc has L1 {l1}, the net {widths[0]}")
     dev = state.lane.device
@@ -827,7 +915,7 @@ def search_segment(params, state, steps: int, pruning: bool, table=None,
     scratch = torch.empty(B * SEGMENT_SCRATCH + 4, dtype=torch.int32, device=dev)
     summary = torch.empty((B + 1, 4), dtype=torch.int32, device=dev)
     grid = ctypes.c_int(0)
-    _launch("search_segment", f"search_segment_{tag}",
+    _launch("search_segment", sym,
             *[t.data_ptr() for t in state], *ptrs,
             z1.data_ptr(), z2.data_ptr(),
             None if table is None else table.data_ptr(), n_rows,

@@ -1,8 +1,11 @@
 """Device board representation, rules and move making, batched over lanes.
 
-A copy of the JAX package's ops/board.py for standard chess and chess960,
-written with the lane dimension spelled out: every function takes (B, …)
-tensors where the reference took one lane under `vmap`.
+A copy of the JAX package's ops/board.py for standard chess, chess960
+and the variants threeCheck, kingOfTheHill, racingKings, horde and
+antichess, written with the lane dimension spelled out: every function
+takes (B, …) tensors where the reference took one lane under `vmap`.
+The variant is a static argument (a name of VARIANT_ID), as the
+reference's; crazyhouse and atomic are refused (`variant_id`).
 
 Board tensors (one row per lane):
   board:    (B, 64) int32 piece codes (tables.py: 0 empty, 1-6 white, 7-12 black)
@@ -12,6 +15,8 @@ Board tensors (one row per lane):
             order [white-kingside, white-queenside, black-kingside,
             black-queenside] (chess960-ready: actual rook squares)
   halfmove: (B,) int32
+  extra:    (B, 12) int32 variant side-state (EXTRA_* below), zeros but
+            for threeCheck's check counters
 
 The search keeps boards as packed int32 rows (`BT_*` below); a Board of
 views into such rows is what the step passes around.
@@ -37,21 +42,42 @@ from .. import kernels
 from ..chess.position import Position
 from ..chess.types import scan
 from . import tables as T
+from .tables import PORTED_VARIANTS, VARIANT_ID
 
 OFF = 64  # the padded board's empty off-board square
 
 # the search's packed board row (int32): the 64 codes, side to move, ep
-# square, castling rooks, halfmove clock, then words the port leaves zero
-# (variant side-state) and the path-hash words the step writes
+# square, castling rooks, halfmove clock, the variant side-state (Board's
+# extra) and the path-hash words the step writes
 BT_BOARD = 0
 BT_STM = 64
 BT_EP = 65
 BT_CAST = 66
 BT_HM = 70
-BT_EXTRA = 71  # variant side-state: zeros for standard chess
+BT_EXTRA = 71  # variant side-state, EXTRA_W words
 BT_PH1 = 83  # path-hash words (uint32 bits as int32)
 BT_PH2 = 84
 BT_W = 96
+
+# the variant side-state's layout (the reference's): threeCheck's checks
+# delivered by white and by black at EXTRA_CHECKS + color; the rest of
+# the words belong to crazyhouse, which is not ported
+EXTRA_W = 12
+EXTRA_CHECKS = 0
+THREE_CHECKS = 3  # checks that end a threeCheck game
+
+# variant-terminal kinds of node_rules, from the side to move's view
+TERM_NONE, TERM_LOSS, TERM_WIN, TERM_DRAW = 0, 1, 2, 3
+HILL = (27, 28, 35, 36)  # kingOfTheHill's centre: d4 e4 d5 e5
+GOAL_RANK_FROM = 56  # racingKings: a king on a square >= this is on the goal rank
+
+
+def variant_id(variant: str) -> int:
+    """The device id of a ported variant; raises NotImplementedError for
+    crazyhouse, atomic and any other name."""
+    if variant not in PORTED_VARIANTS:
+        raise NotImplementedError(f"variant {variant!r} is not ported yet")
+    return VARIANT_ID[variant]
 
 # castling destinations by [color * 2 + side] (side 0 kingside, 1
 # queenside): the king lands on the g/c file, the rook on the f/d file
@@ -67,6 +93,7 @@ class Board(NamedTuple):
     ep: torch.Tensor  # (B,) int32
     castling: torch.Tensor  # (B, 4) int32
     halfmove: torch.Tensor  # (B,) int32
+    extra: torch.Tensor  # (B, EXTRA_W) int32
 
     def to(self, device) -> "Board":
         return Board(*[t.to(device) for t in self])
@@ -83,9 +110,11 @@ def board_array(pos: Position) -> np.ndarray:
 
 
 def from_position(pos: Position) -> Board:
-    """Host Position → one-lane Board of CPU tensors (batch dim 1)."""
+    """Host Position → one-lane Board of CPU tensors (batch dim 1). A
+    variant without castling (antichess, racingKings) carries no rights,
+    whatever its FEN says; threeCheck's counters go into extra."""
     castling = np.full(4, -1, dtype=np.int32)
-    for color in (0, 1):
+    for color in (0, 1) if pos.has_castling else ():
         ksq = pos.king_sq(color)
         back = 0xFF if color == 0 else 0xFF << 56
         for rsq in scan(pos.castling & back):
@@ -93,6 +122,9 @@ def from_position(pos: Position) -> Board:
                 continue
             side = 0 if rsq > ksq else 1
             castling[color * 2 + side] = rsq
+    extra = np.zeros(EXTRA_W, dtype=np.int32)
+    if pos.variant == "threeCheck":
+        extra[EXTRA_CHECKS:EXTRA_CHECKS + 2] = pos.checks_given
     i32 = torch.int32
     return Board(
         board=torch.from_numpy(board_array(pos))[None],
@@ -100,26 +132,27 @@ def from_position(pos: Position) -> Board:
         ep=torch.tensor([pos.ep_square if pos.ep_square is not None else -1], dtype=i32),
         castling=torch.from_numpy(castling)[None],
         halfmove=torch.tensor([pos.halfmove], dtype=i32),
+        extra=torch.from_numpy(extra)[None],
     )
 
 
 def board_from_rows(rows: torch.Tensor) -> Board:
-    """(B, >= BT_HM + 1) packed rows → a Board of views into them."""
+    """(B, BT_W) packed rows → a Board of views into them."""
     return Board(
         board=rows[:, BT_BOARD:BT_BOARD + 64], stm=rows[:, BT_STM],
         ep=rows[:, BT_EP], castling=rows[:, BT_CAST:BT_CAST + 4],
-        halfmove=rows[:, BT_HM],
+        halfmove=rows[:, BT_HM], extra=rows[:, BT_EXTRA:BT_EXTRA + EXTRA_W],
     )
 
 
 def rows_from_board(b: Board) -> torch.Tensor:
-    """(B, BT_W) rows; extra and path-hash words zero."""
+    """(B, BT_W) rows; path-hash words zero."""
     B = b.board.shape[0]
-    z = torch.zeros((B, BT_W - BT_EXTRA), dtype=torch.int32, device=b.board.device)
+    z = torch.zeros((B, BT_W - BT_EXTRA - EXTRA_W), dtype=torch.int32, device=b.board.device)
     return torch.cat([
         b.board.to(torch.int32), b.stm.to(torch.int32)[:, None],
         b.ep.to(torch.int32)[:, None], b.castling.to(torch.int32),
-        b.halfmove.to(torch.int32)[:, None], z,
+        b.halfmove.to(torch.int32)[:, None], b.extra.to(torch.int32), z,
     ], 1)
 
 
@@ -251,36 +284,74 @@ def king_square(board: torch.Tensor, color: torch.Tensor) -> torch.Tensor:
 
 
 def in_check(b: Board) -> torch.Tensor:
-    """(B,) bool: the side to move is in check (node_rules' `checked`)."""
+    """(B,) bool: the side to move is in check (standard node_rules'
+    `checked`)."""
     return node_rules(b)[1]
 
 
-def node_rules_plain(b: Board, r: Rays | None = None, attacks=None):
-    """K8's plain version: per-node legality for standard chess and
-    chess960 → (B,) bools (parent_illegal: the move that led here left
-    the mover's king en prise or took it; checked: the side to move is
-    in check). attacks: attack_parts(r) when the caller already has it."""
+def node_rules_plain(b: Board, r: Rays | None = None, attacks=None,
+                     variant: str = "standard"):
+    """K8's plain version: per-node legality and the variant's game end
+    → (parent_illegal (B,) bool: the move that led here broke the mover's
+    duty — left its king en prise or lost it, or gave check in
+    racingKings; checked (B,) bool: the side to move is in check;
+    term_kind (B,) int32: TERM_* by the variant's rule at this node, from
+    the side to move's view). attacks: attack_parts(r) when the caller
+    already has it."""
+    variant_id(variant)
     if attacks is None:
         attacks = attack_parts(rays_of(b.board) if r is None else r)
     slider_w, slider_b, other_w, other_b = attacks
-    white = (b.stm == 0)[:, None]
+    us = b.stm
+    white = (us == 0)[:, None]
     att_us = torch.where(white, slider_w | other_w, slider_b | other_b)
     att_them = torch.where(white, slider_b | other_b, slider_w | other_w)
-    our_king = b.board == (T.W_KING + 6 * b.stm)[:, None]
-    their_king = b.board == (T.B_KING - 6 * b.stm)[:, None]
+    our_king = b.board == (T.W_KING + 6 * us)[:, None]
+    their_king = b.board == (T.B_KING - 6 * us)[:, None]
     self_check = ~their_king.any(1) | (att_us & their_king).any(1)
     checked = (att_them & our_king).any(1)
-    return self_check, checked
+    term = torch.zeros_like(us, dtype=torch.int32)
+    if variant == "antichess":
+        # no check concept, kings are ordinary pieces; running out of
+        # moves or pieces wins, at the move's exhaustion (search.py)
+        return torch.zeros_like(checked), torch.zeros_like(checked), term
+    if variant == "horde":
+        # white is the kingless horde: no duty or check for white; the
+        # horde loses once it has no piece left
+        white_dead = ~(tables(b.board.device).pcolor[b.board.long()] == 0).any(1)
+        term = torch.where((us == 0) & white_dead, TERM_LOSS, term)
+        return self_check & (us == 0), checked & (us == 1), term
+    if variant == "kingOfTheHill":
+        their_k = king_square(b.board, 1 - us)
+        hill = torch.zeros_like(checked)
+        for sq in HILL:
+            hill = hill | (their_k == sq)
+        return self_check, checked, torch.where(hill, TERM_LOSS, term)  # the mover's king arrived
+    if variant == "racingKings":
+        our8 = king_square(b.board, us) >= GOAL_RANK_FROM
+        their8 = king_square(b.board, 1 - us) >= GOAL_RANK_FROM
+        # giving check is illegal; white moves first, so black gets one
+        # rejoinder: white on the goal wins once white is to move again,
+        # black on the goal wins at once, both kings there draw
+        term = torch.where(
+            our8 & their8, TERM_DRAW,
+            torch.where(their8 & (us == 0), TERM_LOSS,
+                        torch.where(our8 & (us == 0), TERM_WIN, term)))
+        return self_check | checked, torch.zeros_like(checked), term
+    if variant == "threeCheck":
+        them_checks = torch.where(us == 0, b.extra[:, EXTRA_CHECKS + 1], b.extra[:, EXTRA_CHECKS])
+        term = torch.where(them_checks >= THREE_CHECKS, TERM_LOSS, term)
+    return self_check, checked, term
 
 
-def node_rules(b: Board, r: Rays | None = None, attacks=None):
-    """→ (parent_illegal, checked), (B,) bools: K8 for CUDA tensors (the
-    board and side to move may be views of packed rows), the plain
-    version for CPU tensors, which may share the caller's ray view r and
-    attack_parts(r)."""
+def node_rules(b: Board, r: Rays | None = None, attacks=None, variant: str = "standard"):
+    """→ (parent_illegal, checked, term_kind), (B,) bools and int32: K8
+    for CUDA tensors (the board fields may be views of packed rows), the
+    plain version for CPU tensors, which may share the caller's ray view
+    r and attack_parts(r)."""
     if b.board.device.type == "cpu":
-        return node_rules_plain(b, r, attacks)
-    return kernels.node_rules(b.board, b.stm)
+        return node_rules_plain(b, r, attacks, variant)
+    return kernels.node_rules(b.board, b.stm, b.extra, variant)
 
 
 class _MoveParts(NamedTuple):
@@ -326,7 +397,7 @@ def _move_parts(b: Board, move: torch.Tensor) -> _MoveParts:
                       is_castle, is_ep, capture, ep_victim, king_to, r_dest)
 
 
-def _apply(b: Board, m: _MoveParts) -> Board:
+def _apply(b: Board, m: _MoveParts, variant: str = "standard") -> Board:
     # clear the origin and the capture-or-castling-rook square, then place
     # (normal: the placed piece on `to`; castle: king and rook, written
     # after the clears, as the reference's sequential writes)
@@ -342,11 +413,22 @@ def _apply(b: Board, m: _MoveParts) -> Board:
     gone = ((m.is_king[:, None] & own_slots) | (cast == m.frm[:, None])
             | (cast == m.to[:, None]))
     dbl = m.is_pawn & ((m.to - m.frm).abs() == 16)
+    if variant == "horde":  # the horde's back-rank doubles set no ep square
+        dbl = dbl & ~((b.stm == 0) & ((m.frm >> 3) == 0))
+    extra = b.extra
+    if variant == "threeCheck":
+        # the mover's check, if the move gave one: +1 on its counter
+        them = 1 - b.stm
+        ek = king_square(board, them)
+        gave = (ek >= 0) & is_attacked(board, ek.clamp(min=0), b.stm)
+        extra = extra.scatter_add(1, (EXTRA_CHECKS + b.stm).long()[:, None],
+                                  gave.to(torch.int32)[:, None])
     return Board(
         board=board, stm=1 - b.stm,
         ep=torch.where(dbl, (m.frm + m.to) >> 1, -1),
         castling=torch.where(gone, -1, cast),
         halfmove=torch.where(m.is_pawn | m.capture | m.is_ep, 0, b.halfmove + 1),
+        extra=extra,
     )
 
 
@@ -359,14 +441,15 @@ def _changes(b: Board, m: _MoveParts):
     return codes, sqs, signs
 
 
-def make_move_with_changes_plain(b: Board, move: torch.Tensor):
+def make_move_with_changes_plain(b: Board, move: torch.Tensor, variant: str = "standard"):
     """K10's plain version: make_move and move_piece_changes of the same
     moves, sharing the decode → (child Board, codes, sqs, signs)."""
+    variant_id(variant)
     m = _move_parts(b, move)
-    return (_apply(b, m), *_changes(b, m))
+    return (_apply(b, m, variant), *_changes(b, m))
 
 
-def make_move_with_changes(b: Board, move: torch.Tensor):
+def make_move_with_changes(b: Board, move: torch.Tensor, variant: str = "standard"):
     """Apply encoded moves (from | to<<6 | promo<<12, move >= 0), one per
     lane → (child Board, codes, sqs, signs).
 
@@ -374,36 +457,39 @@ def make_move_with_changes(b: Board, move: torch.Tensor):
     read off the board. codes, sqs, signs (B, 4) int32 are the <= 4 piece
     placements/removals each move causes, as fixed slots (code 0 marks an
     unused slot): [mover out, capture out, mover in, rook in (castle)];
-    they feed the incremental accumulator update. K10 through
-    make_move_rows for CUDA tensors (the child is then a Board of views
-    into packed rows), the plain version for CPU tensors."""
+    they feed the incremental accumulator update (the five ported
+    variants change the pieces as standard chess does). The child's
+    extra words are the parent's, with threeCheck's counter of the mover
+    raised when the move gives check. K10 through make_move_rows for
+    CUDA tensors (the child is then a Board of views into packed rows),
+    the plain version for CPU tensors."""
     if b.board.device.type == "cpu":
-        return make_move_with_changes_plain(b, move)
-    rows, codes, sqs, signs = make_move_rows(rows_from_board(b), move)
+        return make_move_with_changes_plain(b, move, variant)
+    rows, codes, sqs, signs = make_move_rows(rows_from_board(b), move, variant)
     return board_from_rows(rows), codes, sqs, signs
 
 
-def make_move_rows_plain(rows: torch.Tensor, move: torch.Tensor):
+def make_move_rows_plain(rows: torch.Tensor, move: torch.Tensor, variant: str = "standard"):
     """K10's plain version in the packed row layout: the plain child,
     packed."""
-    child, *changes = make_move_with_changes_plain(board_from_rows(rows), move)
+    child, *changes = make_move_with_changes_plain(board_from_rows(rows), move, variant)
     return (rows_from_board(child), *changes)
 
 
-def make_move_rows(rows: torch.Tensor, move: torch.Tensor):
-    """make_move_with_changes on packed board rows (B, >= BT_HM + 1) →
-    (child rows (B, BT_W) with zero extra and path-hash words, codes,
-    sqs, signs). K10 writes the child rows directly on the card."""
+def make_move_rows(rows: torch.Tensor, move: torch.Tensor, variant: str = "standard"):
+    """make_move_with_changes on packed board rows (B, BT_W) → (child
+    rows (B, BT_W) with zero path-hash words, codes, sqs, signs). K10
+    writes the child rows directly on the card."""
     if rows.device.type == "cpu":
-        return make_move_rows_plain(rows, move)
-    return kernels.make_move(*board_from_rows(rows), move)
+        return make_move_rows_plain(rows, move, variant)
+    return kernels.make_move(*board_from_rows(rows), move, variant)
 
 
-def make_move(b: Board, move: torch.Tensor) -> Board:
+def make_move(b: Board, move: torch.Tensor, variant: str = "standard") -> Board:
     """The child boards of make_move_with_changes."""
-    return make_move_with_changes(b, move)[0]
+    return make_move_with_changes(b, move, variant)[0]
 
 
-def move_piece_changes(b: Board, move: torch.Tensor):
+def move_piece_changes(b: Board, move: torch.Tensor, variant: str = "standard"):
     """The (codes, sqs, signs) slots of make_move_with_changes."""
-    return make_move_with_changes(b, move)[1:]
+    return make_move_with_changes(b, move, variant)[1:]

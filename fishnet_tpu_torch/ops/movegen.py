@@ -1,10 +1,14 @@
 """Batched pseudo-legal move generation over a fixed candidate space.
 
-A copy of the JAX package's ops/movegen.py for standard chess and
-chess960, with the lane dimension spelled out. The candidate space is
+A copy of the JAX package's ops/movegen.py for standard chess, chess960
+and the variants threeCheck, kingOfTheHill, racingKings (which generate
+as standard chess), horde (white's pawns on the first rank also push
+two squares) and antichess (a fifth promotion, to a king, and capture
+compulsion), with the lane dimension spelled out. The candidate space is
 fixed — (64 sq x 8 dirs x 7 steps) slider slots, (64 x 8) knight and
 (64 x 8) king slots, (64 x 4) pawn slots, (8 x 3 x 4) promotion slots
-(promotions start from the 8 pre-promotion squares), 2 castling slots —
+(x 5 in antichess; promotions start from the 8 pre-promotion squares),
+2 castling slots —
 and one sort of packed (ordering_key << 16 | move) values both compacts
 the valid candidates and orders them. Packed values are unique, so the
 order of the moves is the reference's whatever the order of the slots:
@@ -32,7 +36,7 @@ from .. import kernels
 from . import tables as T
 from .board import (
     OFF, PIECE_COLOR, PIECE_TYPE, Board, Rays, attack_parts, clear_before, king_square,
-    pad_squares, rays_of,
+    pad_squares, rays_of, variant_id,
 )
 from .board import tables as board_tables
 
@@ -64,6 +68,8 @@ _PRE_PROMO = np.stack([_SQ >> 3 == 6, _SQ >> 3 == 1])
 # promotion origins per color: white promotes from 48..55, black from 8..15
 _PROMO_FROM = np.stack([np.flatnonzero(_PRE_PROMO[c]) for c in (0, 1)])  # (2, 8)
 _PROMOS = np.array([T.PROMO_N, T.PROMO_B, T.PROMO_R, T.PROMO_Q])
+# antichess also promotes to a king
+_PROMOS_ANTICHESS = np.append(_PROMOS, T.PROMO_K)
 # knight and king targets side by side, and the piece type each column wants
 _KK = np.concatenate([T.KNIGHT_TARGETS, T.KING_TARGETS], 1)  # (64, 16)
 _KK_TYPE = np.array([1] * 8 + [5] * 8)
@@ -93,12 +99,25 @@ _PAWN_CAP_KEY = _mvv_lva(np.maximum(PIECE_TYPE, 0), 0)
 
 
 def max_moves_for(variant: str) -> int:
-    if variant not in ("standard", "chess960", "fromPosition"):
-        raise NotImplementedError(f"variant {variant!r} is not ported yet")
+    """The move list's width for a device variant (the five ported
+    variants keep standard chess's); raises NotImplementedError for a
+    variant that is not ported."""
+    variant_id(variant)
     return MAX_MOVES
 
 
-def _static_moves(c: int) -> np.ndarray:
+def _promos(variant: str) -> np.ndarray:
+    return _PROMOS_ANTICHESS if variant == "antichess" else _PROMOS
+
+
+def _start_rank(variant: str) -> np.ndarray:
+    """(2, 64) bool: where each color's pawns may push two squares."""
+    if variant == "horde":  # the horde's pawns on the first rank too
+        return np.stack([_START_RANK[0] | (_SQ >> 3 == 0), _START_RANK[1]])
+    return _START_RANK
+
+
+def _static_moves(c: int, promos=_PROMOS) -> np.ndarray:
     """Move encodings of every non-castling slot for side to move c, in
     this module's slot order (sliders, knight|king, pawns, promos);
     squares past the edge are clipped as in the reference."""
@@ -112,7 +131,7 @@ def _static_moves(c: int) -> np.ndarray:
         (_SQ[:, None, None] | (rsq << 6)).reshape(-1),
         (_SQ[:, None] | (np.clip(_KK, 0, None) << 6)).reshape(-1),
         (_SQ[:, None] | (pawn_tos << 6)).reshape(-1),
-        (pf[:, None, None] | (promo_tos[:, :, None] << 6) | (_PROMOS << 12)).reshape(-1),
+        (pf[:, None, None] | (promo_tos[:, :, None] << 6) | (promos << 12)).reshape(-1),
     ]).astype(np.int32)
 
 
@@ -121,10 +140,12 @@ def _hist_idx_tables(variant: str = "standard"):
     """Per-color (n_candidates,) tables of `cand & 4095` (the from|to
     history index) for every candidate slot, in this module's slot
     order; the two castling slots hold 0 (castling keys are 900, which
-    the history bonus never touches)."""
+    the history bonus never touches). Antichess has five promotion slots
+    per (square, target)."""
     max_moves_for(variant)
     return tuple(
-        np.concatenate([_static_moves(c) & 4095, np.zeros(2, np.int32)]) for c in (0, 1)
+        np.concatenate([_static_moves(c, _promos(variant)) & 4095, np.zeros(2, np.int32)])
+        for c in (0, 1)
     )
 
 
@@ -139,7 +160,7 @@ class _Tables(NamedTuple):
     start_rank: torch.Tensor  # (2, 64) bool
     not_pre_promo: torch.Tensor  # (2, 64) bool: not a pawn's last step before promotion
     promo_from: torch.Tensor  # (2, 8) long
-    q_promo: torch.Tensor  # (4,) int32: 90 where the piece is a queen
+    q_promo: torch.Tensor  # (promotions,) int32: 90 where the piece is a queen
     rays: torch.Tensor  # (64, 8, 7) long, OFF padded
     castle_key: torch.Tensor  # (1, 2) int32
     castle_side: torch.Tensor  # (1, 2) int32: 0 kingside, 1 queenside
@@ -149,21 +170,23 @@ class _Tables(NamedTuple):
 
 
 @lru_cache(maxsize=None)
-def _tables(device: torch.device) -> _Tables:
+def _tables(device: torch.device, variant: str = "standard") -> _Tables:
+    """The candidate space's tables for one device variant on one device."""
     def t(a, dtype=torch.int64):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
     caps = np.where(_CAPS >= 0, _CAPS, OFF)
+    promos = _promos(variant)
     return _Tables(
-        moves=t(np.stack([_static_moves(0), _static_moves(1)]), torch.int32),
-        hist_idx=t(np.stack(_hist_idx_tables("standard"))),
+        moves=t(np.stack([_static_moves(0, promos), _static_moves(1, promos)]), torch.int32),
+        hist_idx=t(np.stack(_hist_idx_tables(variant))),
         rvalid=t(T.RAYS >= 0, torch.bool), kk=t(pad_squares(_KK)), kk_valid=t(_KK >= 0, torch.bool),
         kk_type=t(_KK_TYPE, torch.int32),
         pawn_tgt=t(np.stack([np.stack([_TO1[c], _TO2[c], caps[c][:, 0], caps[c][:, 1]], 1)
                              for c in (0, 1)])),
-        start_rank=t(_START_RANK, torch.bool), not_pre_promo=t(~_PRE_PROMO, torch.bool),
-        promo_from=t(_PROMO_FROM),
-        q_promo=t(QUEEN_PROMO_BONUS * (_PROMOS == T.PROMO_Q), torch.int32),
+        start_rank=t(_start_rank(variant), torch.bool),
+        not_pre_promo=t(~_PRE_PROMO, torch.bool), promo_from=t(_PROMO_FROM),
+        q_promo=t(QUEEN_PROMO_BONUS * (promos == T.PROMO_Q), torch.int32),
         rays=t(pad_squares(T.RAYS)), castle_key=t([[CASTLE_KEY, CASTLE_KEY]], torch.int32),
         castle_side=t([[0, 1]], torch.int32),
         pair_key=t(_PAIR_KEY, torch.int32), pair_take=t(_PAIR_TAKE, torch.bool),
@@ -171,15 +194,18 @@ def _tables(device: torch.device) -> _Tables:
     )
 
 
-def _candidate_space(b: Board, r: Rays | None = None, attacks=None):
+def _candidate_space(b: Board, r: Rays | None = None, attacks=None,
+                     variant: str = "standard"):
     """→ (flat_moves, flat_valid, flat_keys), each (B, n_candidates).
     r / attacks: rays_of(b.board) / board.attack_parts(r) when the caller
-    already has them."""
+    already has them. In antichess a capture is compulsory: where a lane
+    has one, its other candidates are invalid (a capture, en passant
+    included, is exactly a candidate whose key is below NOISY_BELOW)."""
     if r is None:
         r = rays_of(b.board)
     if attacks is None:
         attacks = attack_parts(r)
-    c = _tables(b.board.device)
+    c = _tables(b.board.device, variant)
     bt = board_tables(b.board.device)
     B = b.board.shape[0]
     us = b.stm
@@ -224,7 +250,7 @@ def _candidate_space(b: Board, r: Rays | None = None, attacks=None):
                           cap_ok.gather(1, pf[..., None].expand(B, 8, 2))], 2)
     promo_key = keys_pw[..., 1:].gather(1, pf[..., None].expand(B, 8, 3))
     keys_pr = promo_key[..., None] - c.q_promo
-    valid_pr = promo_ok[..., None].expand(B, 8, 3, 4)
+    valid_pr = promo_ok[..., None].expand(B, 8, 3, c.q_promo.shape[0])
 
     # castling (king takes rook): path empty, king path not attacked with
     # the king and that rook lifted off the board
@@ -235,6 +261,9 @@ def _candidate_space(b: Board, r: Rays | None = None, attacks=None):
                             valid_pr.flatten(1), ok], 1)
     flat_keys = torch.cat([keys_sl.flatten(1), keys_kk.flatten(1), keys_pw.flatten(1),
                            keys_pr.flatten(1), c.castle_key.expand(B, 2)], 1)
+    if variant == "antichess":
+        capture = flat_keys < NOISY_BELOW
+        flat_valid = flat_valid & (capture | ~(flat_valid & capture).any(1, keepdim=True))
     return flat_moves, flat_valid, flat_keys.to(torch.int32)
 
 
@@ -275,12 +304,12 @@ def _castling(b: Board, r: Rays, by_them: torch.Tensor, attacks):
 
 
 def generate_moves_plain(b: Board, killers=None, hist=None, rays: Rays | None = None,
-                         attacks=None):
+                         attacks=None, variant: str = "standard"):
     """K9's plain version: the candidate space, the ordering refinements
     and one sort of the packed values (see generate_moves)."""
-    flat_moves, flat_valid, flat_keys = _candidate_space(b, rays, attacks)
+    flat_moves, flat_valid, flat_keys = _candidate_space(b, rays, attacks, variant)
     if hist is not None:
-        idx = _tables(b.board.device).hist_idx[b.stm.long()]
+        idx = _tables(b.board.device, variant).hist_idx[b.stm.long()]
         hbonus = (hist.gather(1, idx) >> HIST_SHIFT).clamp(0, HIST_MAX_BONUS)
         flat_keys = torch.where(flat_keys == QUIET_KEY, HIST_BASE - hbonus, flat_keys)
     if killers is not None:
@@ -296,7 +325,7 @@ def generate_moves_plain(b: Board, killers=None, hist=None, rays: Rays | None = 
 
 
 def generate_moves(b: Board, killers=None, hist=None, rays: Rays | None = None,
-                   attacks=None):
+                   attacks=None, variant: str = "standard"):
     """→ (moves (B, MAX_MOVES) sorted by ordering key, -1 padded;
     count (B,); noisy (B,)).
 
@@ -305,7 +334,8 @@ def generate_moves(b: Board, killers=None, hist=None, rays: Rays | None = None,
     state; they reorder only the quiet tail (keys >= NOISY_BELOW). K9 for
     CUDA tensors (the board fields, killers and history may be views with
     contiguous rows); the plain version for CPU tensors, which may share
-    the caller's rays_of(b.board) and attack_parts(rays)."""
+    the caller's rays_of(b.board) and attack_parts(rays). variant: a
+    device variant (ops/board.py PORTED_VARIANTS)."""
     if b.board.device.type == "cpu":
-        return generate_moves_plain(b, killers, hist, rays, attacks)
-    return kernels.generate_moves(b.board, b.stm, b.ep, b.castling, killers, hist)
+        return generate_moves_plain(b, killers, hist, rays, attacks, variant)
+    return kernels.generate_moves(b.board, b.stm, b.ep, b.castling, killers, hist, variant)

@@ -1,8 +1,12 @@
 """Lockstep batched alpha-beta search, batched over lanes in PyTorch.
 
-A port of the JAX package's ops/search.py (standard chess and chess960,
+A port of the JAX package's ops/search.py (standard chess, chess960 and
+the variants threeCheck, kingOfTheHill, racingKings, horde and antichess,
 with or without the shared transposition table, with Lazy-SMP lane-group
-metadata). B independent lanes each keep an explicit DFS
+metadata). The variant is a static argument, as in the reference: a node
+at a variant's game end (node_rules' term_kind) is a leaf worth a mate
+score or a draw, and antichess changes the mate rule and turns the null
+move off. B independent lanes each keep an explicit DFS
 stack and advance together, one ENTER/RETURN/TRYMOVE state-machine step
 per call of `_step`:
 
@@ -66,10 +70,11 @@ from ..models import nnue
 from ..syncstats import SegmentController, SyncStats
 from . import tt as tt_mod
 from .board import (
-    BT_BOARD, BT_CAST, BT_EP, BT_HM, BT_PH1, BT_PH2, BT_STM, BT_W, Board,
-    attack_parts, board_from_rows, make_move_rows, node_rules, rays_of, rows_from_board,
+    BT_BOARD, BT_CAST, BT_EP, BT_EXTRA, BT_HM, BT_PH1, BT_PH2, BT_STM, BT_W, EXTRA_W,
+    TERM_LOSS, TERM_NONE, TERM_WIN, Board, attack_parts, board_from_rows, make_move_rows,
+    node_rules, rays_of, rows_from_board,
 )
-from .movegen import MAX_MOVES, generate_moves
+from .movegen import MAX_MOVES, generate_moves, max_moves_for
 
 INF = 32500
 MATE = 32000
@@ -124,12 +129,14 @@ LMR_DEEP_MOVE = 8
 HIST_SIZE = 4096  # from|to history counters per lane
 HIST_BONUS_MAX = 1024  # a fail-high's history bonus: min(depth^2 + 1, 1024)
 HIST_MAX = 1 << 20
-# the null child's board row from its parent's: the same board and
-# castling rooks, the other side to move, no ep square, halfmove 0, the
-# extra and path-hash words 0 (as rows_from_board writes them)
+# the null child's board row from its parent's: the same board, castling
+# rooks and variant words (threeCheck's counters), the other side to
+# move, no ep square, halfmove 0, the path-hash words 0 (as
+# rows_from_board writes them)
 _NULL_MUL = np.zeros(BT_W, np.int32)
 _NULL_MUL[BT_BOARD:BT_BOARD + 64] = 1
 _NULL_MUL[BT_CAST:BT_CAST + 4] = 1
+_NULL_MUL[BT_EXTRA:BT_EXTRA + EXTRA_W] = 1
 _NULL_MUL[BT_STM] = -1
 _NULL_ADD = np.zeros(BT_W, np.int32)
 _NULL_ADD[BT_STM] = 1
@@ -179,7 +186,7 @@ def _is_quiet(move: torch.Tensor, board: torch.Tensor) -> torch.Tensor:
 def init_state(params: nnue.NnueParams, roots: Board, depth: torch.Tensor,
                node_budget: torch.Tensor, max_ply: int, hist_hash=None,
                hist_halfmove=None, root_alpha=None, root_beta=None,
-               order_jitter=None, group=None) -> SearchState:
+               order_jitter=None, group=None, variant: str = "standard") -> SearchState:
     """roots: batched Board on the search's device; depth/node_budget
     (B,). hist_hash (B, MAX_HIST, 2) int32 / hist_halfmove (B, MAX_HIST):
     optional reversible game tail per lane (None: no pre-root
@@ -191,12 +198,15 @@ def init_state(params: nnue.NnueParams, roots: Board, depth: torch.Tensor,
     counters 0..255 hash-mixed from j, so it orders its quiet moves
     differently from the other lanes of its group; jitter 0 seeds zeros
     (the lane searches as without the argument). group (B,): an opaque
-    lane-group tag, stored and not read by the search.
+    lane-group tag, stored and not read by the search. variant: the
+    device variant the state will be searched under (its move lists'
+    width; NotImplementedError for one that is not ported).
 
     On the card the state is allocated uninitialised and K7 (lane_init)
     writes every lane after K1's root refresh; on the CPU the plain
     version builds it."""
     B = roots.board.shape[0]
+    max_moves_for(variant)
     args = _lane_inputs(params, roots, depth, node_budget, hist_hash, hist_halfmove,
                         root_alpha, root_beta, order_jitter, group)
     dev = roots.board.device
@@ -356,9 +366,9 @@ def _refill_inputs(params, state: SearchState, new_roots: Board, lane_idx, depth
 def refill_lanes(params: nnue.NnueParams, state: SearchState, new_roots: Board, lane_idx,
                  depth, node_budget, *, hist_hash=None, hist_halfmove=None,
                  root_alpha=None, root_beta=None, order_jitter=None,
-                 group=None) -> SearchState:
+                 group=None, variant: str = "standard") -> SearchState:
     """Splice fresh root positions into selected lanes of a running state,
-    in place; returns `state`.
+    in place; returns `state`. variant: the state's device variant.
 
     new_roots: batched Board with n rows; lane_idx: host sequence of n
     distinct lane indices; depth/node_budget (n,) and the optional (n,)
@@ -367,6 +377,7 @@ def refill_lanes(params: nnue.NnueParams, state: SearchState, new_roots: Board, 
     K7 writes those lanes); every other lane keeps its exact state, so
     live searches are unaffected. The caller refills only DONE lanes and
     gives them fresh TT generations before the next segment."""
+    max_moves_for(variant)
     idx, args = _refill_inputs(params, state, new_roots, lane_idx, depth, node_budget,
                                hist_hash, hist_halfmove, root_alpha, root_beta,
                                order_jitter, group)
@@ -418,7 +429,7 @@ def _consts(device: torch.device, P1: int, H: int) -> _Consts:
 
 @torch.inference_mode()
 def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
-          tt_hit=None, tt_score=None, tt_move=None) -> None:
+          tt_hit=None, tt_score=None, tt_move=None, variant: str = "standard") -> None:
     """One state-machine step for every lane, written into `s` in place
     (K11's step, csrc/search.cuh step_lane, in batched PyTorch).
 
@@ -427,6 +438,7 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
     here. tt_hit (B,) bool / tt_score / tt_move (B,) int32: the TT probe
     of each lane's ENTER node (a usable cutoff, its score, the stored
     move for ordering, -1 for none); None runs without the table.
+    variant: the device variant (ops/board.py PORTED_VARIANTS).
 
     All reads of the state happen before the writes they could see, and
     the writes land in the reference's order (nt: entered row, parent
@@ -458,7 +470,7 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
     if b.board.device.type == "cpu":  # the plain versions share one ray view
         rays = rays_of(b.board)
         attacks = attack_parts(rays)
-    illegal_raw, we_are_checked = node_rules(b, rays, attacks)  # K8 on the card
+    illegal_raw, we_are_checked, term = node_rules(b, rays, attacks, variant)  # K8 on the card
     # on bools `a > b` is `a & ~b` in one launch
     parent_illegal = illegal_raw > root
     depth_left = ntr0[:, NT_DL]
@@ -468,7 +480,7 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
 
     # twofold repetition along the search path and against the pre-root
     # game history, through unbroken reversible-move chains
-    h = tt_mod.hash_board(b.board, us, b.ep, b.castling) if keys is None else keys
+    h = tt_mod.hash_board(b.board, us, b.ep, b.castling, b.extra, variant) if keys is None else keys
     hm = b.halfmove[:, None]
     same = (bt[:, :, BT_PH1:BT_PH2 + 1] == h[:, None]).all(2)
     repet_path = (same & ((hm - bt[:, :, BT_HM]) == (ply0[:, None] - c.ks))
@@ -493,10 +505,18 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
         ev = nnue.evaluate(params, b.board, us)
     static_val = ev.to(_I32).clamp(-MATE_BOUND, MATE_BOUND)
     draw = fifty | repet
-    leaf_val = torch.where(draw, DRAW, static_val)
+    # a variant's game end (never one in standard chess) ends the node at
+    # once, over the draws: a loss or win in ply plies, or a draw; never
+    # stored in the table
+    vterm = term != TERM_NONE
+    ends = draw | vterm
+    leaf_val = torch.where(vterm, torch.where(
+        term == TERM_LOSS, ply0 - MATE, torch.where(term == TERM_WIN, MATE - ply0, DRAW)),
+        torch.where(draw, DRAW, static_val))
 
     gen_moves, gen_count, gen_noisy = generate_moves(  # K9 on the card
-        b, killers=ntr0[:, NT_K0:NT_K1 + 1], hist=s.hist, rays=rays, attacks=attacks
+        b, killers=ntr0[:, NT_K0:NT_K1 + 1], hist=s.hist, rays=rays, attacks=attacks,
+        variant=variant,
     )
     quiet_node = gen_noisy == 0
     window_ok_a = (entry_alpha > -MATE_BOUND) & (entry_alpha < MATE_BOUND)
@@ -510,19 +530,20 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
     else:
         qs_like = in_qs
     is_leaf = (
-        draw | over_budget | (ply0 >= P) | (qs_like & quiet_node)
+        ends | over_budget | (ply0 >= P) | (qs_like & quiet_node)
         | (in_qs & (leaf_val >= entry_beta))  # stand-pat cut
     )
     # TT cutoff: a leaf return with the stored score; never at the root
     # (it must produce a move), never on a fifty-move or repetition draw
-    # (the key excludes the halfmove clock and the path)
+    # (the key excludes the halfmove clock and the path) or at a variant's
+    # game end
     if tt_hit is not None:
-        use_tt = tt_hit > (root | draw)
+        use_tt = tt_hit > (root | ends)
         to_return = parent_illegal | is_leaf | use_tt
-        no_store = parent_illegal | draw | use_tt
+        no_store = parent_illegal | ends | use_tt
     else:
         to_return = parent_illegal | is_leaf
-        no_store = parent_illegal | draw
+        no_store = parent_illegal | ends
     expand = enter > to_return
     # quiet static leaves, for the runner's depth-0 EXACT store
     leaf_store = ((enter & is_leaf) > no_store) & quiet_node
@@ -539,7 +560,7 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
             1, tm_at, torch.where(present[:, None], m0, gen_moves.gather(1, tm_at)))
         gen_moves[:, :1] = torch.where(present[:, None], tt_move[:, None], gen_moves[:, :1])
 
-    if pruning:  # null-move eligibility
+    if pruning and variant != "antichess":  # null-move eligibility (captures are forced there)
         us_base = (us * 6)[:, None]
         nonpawn = ((b.board >= us_base + 2) & (b.board <= us_base + 5)).any(1)
         null_v = (
@@ -653,12 +674,15 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
     # finished node value: best, or mate/stalemate when no legal child
     node_in_qs = dl_node <= 0
     no_legal = ((nt1[:, NT_SEARCHED] == 0) > node_in_qs) & (nt1[:, NT_BEST] == -INF)
-    mate_val = torch.where(nt1[:, NT_INCHECK] != 0, ply1 - MATE, DRAW)
+    if variant == "antichess":  # the side left without a move wins
+        mate_val = MATE - ply1
+    else:
+        mate_val = torch.where(nt1[:, NT_INCHECK] != 0, ply1 - MATE, DRAW)
     fin_val = torch.where(no_legal & exhausted, mate_val, nt1[:, NT_BEST])
 
     m_ix = torch.where(re_push, midx - 1, midx).clamp(0, moves_row1.shape[1] - 1)
     move = moves_row1.gather(1, m_ix.long()[:, None])[:, 0].clamp(min=0)
-    child, codes, sqs, signs = make_move_rows(bt1, move)  # K10 on the card
+    child, codes, sqs, signs = make_move_rows(bt1, move, variant)  # K10 on the card
     if pruning:
         # late-move reduction; the null child is the same position with
         # the opponent to move, no ep square and a reset halfmove clock
@@ -713,7 +737,8 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
 
 @torch.inference_mode()
 def _tt_step(params: nnue.NnueParams, s: SearchState, pruning: bool,
-             table: torch.Tensor, deep_tt: bool, prefer_deep: bool, gen) -> None:
+             table: torch.Tensor, deep_tt: bool, prefer_deep: bool, gen,
+             variant: str = "standard") -> None:
     """One step under the reference's TT runner (its _run_segment body;
     K11's four phases a step, csrc/search_segment.cu, in batched PyTorch):
     hash each lane's ply row once; store the lanes parked in RETURN with
@@ -723,7 +748,7 @@ def _tt_step(params: nnue.NnueParams, s: SearchState, pruning: bool,
     visible to every lane's probe in the same step."""
     lane = s.lane
     ply = lane[:, LN_PLY].long()
-    keys = tt_mod.hash_boards(board_from_rows(_row(s.bt, ply)))
+    keys = tt_mod.hash_boards(board_from_rows(_row(s.bt, ply)), variant)
     h1, h2 = keys[:, 0], keys[:, 1]
     mode, ret, ret_depth = lane[:, LN_MODE], lane[:, LN_RET], lane[:, LN_RETD]
 
@@ -749,7 +774,7 @@ def _tt_step(params: nnue.NnueParams, s: SearchState, pruning: bool,
                        torch.where(pnull, 1 - ntprow[:, NT_BETA], -ntprow[:, NT_ALPHA]))
     usable, score, order_mv = tt_mod.probe(table, h1, h2, ntrow[:, NT_DL], alpha, beta,
                                            enter, deep_bounds=deep_tt)
-    _step(params, s, pruning, keys, usable, score, order_mv)
+    _step(params, s, pruning, keys, usable, score, order_mv, variant)
 
     # the leaves the step evaluated: their position is the pre-step one
     c = _consts(lane.device, s.bt.shape[1], s.hist_halfmove.shape[1])
@@ -761,7 +786,8 @@ def _tt_step(params: nnue.NnueParams, s: SearchState, pruning: bool,
 
 def run_segment(params: nnue.NnueParams, state: SearchState,
                 segment_steps: int, pruning: bool | None = None, table=None,
-                deep_tt: bool = False, prefer_deep: bool = False, tt_gen=0):
+                deep_tt: bool = False, prefer_deep: bool = False, tt_gen=0,
+                variant: str = "standard"):
     """Advance all lanes <= segment_steps steps, stopping once every lane
     is DONE. → (steps, summary): steps counts the steps in which any lane
     was live (the reference's while-loop count); summary is the packed
@@ -772,7 +798,8 @@ def run_segment(params: nnue.NnueParams, state: SearchState,
     probe also cuts on deeper bounds (ops/tt.py probe deep_bounds).
     prefer_deep + tt_gen (an int or a (B,) int32 tensor): the
     depth-preferred, generation-aware store of helper-lane dispatches
-    (ops/tt.py store).
+    (ops/tt.py store). variant: the device variant (K11 has one
+    instantiation per variant and net kind).
 
     On the card the segment is one launch of K11 (kernels.search_segment)
     and one host read of the step count; a CPU state runs the plain
@@ -782,15 +809,15 @@ def run_segment(params: nnue.NnueParams, state: SearchState,
         pruning = not settings.get_bool("FISHNET_TPU_NO_PRUNING")
     if state.lane.device.type == "cpu":
         return run_segment_plain(params, state, segment_steps, pruning, table, deep_tt,
-                                 prefer_deep, tt_gen)
+                                 prefer_deep, tt_gen, variant)
     summary = kernels.search_segment(params, state, segment_steps, pruning, table, deep_tt,
-                                     prefer_deep, tt_gen)
+                                     prefer_deep, tt_gen, variant)
     return int(summary[-1, SUM_DONE]), summary
 
 
 def run_segment_plain(params: nnue.NnueParams, state: SearchState, segment_steps: int,
                       pruning: bool, table=None, deep_tt: bool = False,
-                      prefer_deep: bool = False, tt_gen=0):
+                      prefer_deep: bool = False, tt_gen=0, variant: str = "standard"):
     """K11's plain version: the reference's while loop (a step while any
     lane is live, at most segment_steps) over `_step`, or `_tt_step` with
     a table, then the packed summary; the same arguments and results as
@@ -799,9 +826,9 @@ def run_segment_plain(params: nnue.NnueParams, state: SearchState, segment_steps
     n = 0
     while n < segment_steps and bool((lane[:, LN_MODE] != MODE_DONE).any()):
         if table is None:
-            _step(params, state, pruning)
+            _step(params, state, pruning, variant=variant)
         else:
-            _tt_step(params, state, pruning, table, deep_tt, prefer_deep, tt_gen)
+            _tt_step(params, state, pruning, table, deep_tt, prefer_deep, tt_gen, variant)
         n += 1
     summary = torch.cat([
         torch.stack([
@@ -851,8 +878,10 @@ def search_batch_resumable(
     prefer_deep_store: bool = False,
     tt_gen: int = 0,
     device=None,
+    variant: str = "standard",
 ) -> dict:
-    """Search B roots in lockstep, dispatched in bounded segments.
+    """Search B roots in lockstep, dispatched in bounded segments, under
+    the device variant `variant`.
 
     Runs on `device` (default: the card; the params and roots are moved
     there). depth/node_budget: scalars or (B,). hist: optional
@@ -902,7 +931,7 @@ def search_batch_resumable(
         max_ply, hist_hash=hist_hash, hist_halfmove=hist_halfmove,
         root_alpha=root_alpha, root_beta=root_beta,
         order_jitter=None if order_jitter is None else _lanes(order_jitter, B, dev),
-        group=None if group is None else _lanes(group, B, dev),
+        group=None if group is None else _lanes(group, B, dev), variant=variant,
     )
     if tt is not None and tt.device != roots.board.device:
         raise ValueError(f"the table is on {tt.device}, the search on {roots.board.device}")
@@ -927,7 +956,7 @@ def search_batch_resumable(
         if deadline is not None and _time.monotonic() >= deadline:
             break
         n, summary = run_segment(params, state, segment_steps, pruning, tt, deep_tt,
-                                 prefer_deep_store, tt_gen)
+                                 prefer_deep_store, tt_gen, variant)
         total += n
         if n < segment_steps:
             break  # every lane parked in DONE
@@ -985,8 +1014,10 @@ def search_stream(
     pipeline: bool | None = None,
     sync_stats=None,
     device=None,
+    variant: str = "standard",
 ) -> dict:
-    """Stream N root positions through a fixed `width`-lane search.
+    """Stream N root positions through a fixed `width`-lane search, under
+    the device variant `variant`.
 
     The occupancy-driven counterpart of `search_batch_resumable`: instead
     of narrowing as lanes finish, the host refills DONE lanes with queued
@@ -1065,7 +1096,7 @@ def search_stream(
         _to_dev(np.where(assigned0, depth[take0], 0), dev),
         _to_dev(np.where(assigned0, node_budget[take0], 0), dev), max_ply,
         hist_hash=None if hh0 is None else _to_dev(hh0, dev),
-        hist_halfmove=None if hm0 is None else _to_dev(hm0, dev),
+        hist_halfmove=None if hm0 is None else _to_dev(hm0, dev), variant=variant,
     )
     gen = np.zeros(width, np.int32)
     next_gen = int(tt_gen_start)
@@ -1089,7 +1120,8 @@ def search_stream(
         """One segment over the state and the table, in place, with each
         lane's current generation → (steps, packed summary)."""
         return stats.device_call(run_segment, params, state, seg_n, pruning, tt, False,
-                                 prefer_deep_store, torch.from_numpy(gen.copy()).to(dev))
+                                 prefer_deep_store, torch.from_numpy(gen.copy()).to(dev),
+                                 variant)
 
     def do_refill(free, n_ref):
         nonlocal next_gen, refills_total
@@ -1102,7 +1134,7 @@ def search_stream(
         hh, hm = hist_rows(take_pos)
         refills_total += n_ref
         refill_lanes(params, state, gather_roots(take_pos), sel, depth[take_pos],
-                     node_budget[take_pos], hist_hash=hh, hist_halfmove=hm)
+                     node_budget[take_pos], hist_hash=hh, hist_halfmove=hm, variant=variant)
 
     def pull_pv(lanes, pos):
         """PV rows of finished lanes only: two small gathers."""
@@ -1234,7 +1266,7 @@ def _to_dev(x, dev) -> torch.Tensor:
 
 def search_batch(params: nnue.NnueParams, roots: Board, depth, node_budget,
                  max_ply: int, max_steps: int = 2_000_000, hist=None,
-                 device=None) -> dict:
+                 device=None, variant: str = "standard") -> dict:
     """Fixed-depth alpha-beta + capture quiescence on B roots in lockstep
     (max_ply > depth: the stack past the nominal depth is quiescence
     headroom). Scores are centipawns from each root's side to move;
@@ -1246,5 +1278,5 @@ def search_batch(params: nnue.NnueParams, roots: Board, depth, node_budget,
     return search_batch_resumable(
         params, roots, depth, node_budget, max_ply=max_ply,
         segment_steps=min(max_steps, seg), max_steps=max_steps, hist=hist,
-        device=device,
+        device=device, variant=variant,
     )

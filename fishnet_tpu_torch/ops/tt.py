@@ -33,10 +33,11 @@ import torch
 
 from .. import device as device_mod
 from .. import kernels
-from .board import Board
+from .board import EXTRA_CHECKS, THREE_CHECKS, Board, variant_id
 
 # layout of each table: piece-square | ep | castling | stm | variant
-# extras (unused by standard chess, kept so the draw matches)
+# extras (crazyhouse's pockets and promoted bits, not ported; threeCheck's
+# check counters; one salt per variant)
 _rng = np.random.default_rng(0xF15F_4E7)
 _EP_OFF = 13 * 64
 _CASTLE_OFF = _EP_OFF + 65
@@ -66,10 +67,16 @@ def _xor_fold(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0]
 
 
-def hash_board_plain(board, stm, ep, castling, z1, z2) -> torch.Tensor:
+def hash_board_plain(board, stm, ep, castling, z1, z2, extra=None,
+                     variant: str = "standard") -> torch.Tensor:
     """(B, 64) board, (B,) stm/ep, (B, 4) castling → (B, 2) int32 keys.
     Empty squares read key slot 0..63 of the table, which no piece uses,
-    and are masked; ep/castling values are -1..63."""
+    and are masked; ep/castling values are -1..63. Every variant but
+    standard chess XORs in its salt (one table serves every chunk, and
+    identical boards under different rules must not share an entry), and
+    threeCheck its check counters from extra (B, 12), each clipped to
+    0..3; standard hashes are the reference's standard ones."""
+    vid = variant_id(variant)
     z = torch.stack([z1, z2])  # (2, Z_SHAPE)
     sq = torch.arange(64, device=board.device)
     pieces = torch.where(board > 0, z[:, board.long() * 64 + sq], 0)  # (2, B, 64)
@@ -78,24 +85,32 @@ def hash_board_plain(board, stm, ep, castling, z1, z2) -> torch.Tensor:
         _CASTLE_OFF + 1 + castling + torch.arange(0, 4 * 65, 65, device=board.device),
         (_STM_OFF + (stm != 0).to(stm.dtype))[:, None],
     ], 1).long()  # (B, 6)
-    keys = z[:, slots]  # (2, B, 6)
+    if variant == "threeCheck":
+        checks = extra[:, EXTRA_CHECKS:EXTRA_CHECKS + 2].clamp(0, THREE_CHECKS)
+        slots = torch.cat([slots, (_CHECKS_OFF + checks + torch.tensor(
+            [0, THREE_CHECKS + 1], device=board.device)).long()], 1)
+    keys = z[:, slots]  # (2, B, slots)
     h = _xor_fold(pieces)
     for i in range(slots.shape[1]):
         h = h ^ keys[..., i]
+    if vid:
+        h = h ^ z[:, _VARIANT_OFF + vid, None]
     return h.T.contiguous()
 
 
-def hash_board(board, stm, ep, castling) -> torch.Tensor:
-    """K4 wrapper: plain version on the CPU, kernel on the card."""
+def hash_board(board, stm, ep, castling, extra=None, variant: str = "standard") -> torch.Tensor:
+    """K4 wrapper: plain version on the CPU, kernel on the card. extra
+    (B, 12) is read in threeCheck only."""
     z1, z2 = tables(board.device)
     if board.device.type == "cpu":
-        return hash_board_plain(board, stm, ep, castling, z1, z2)
-    return kernels.zobrist_hash(board, stm, ep, castling, z1, z2)
+        return hash_board_plain(board, stm, ep, castling, z1, z2, extra, variant)
+    return kernels.zobrist_hash(board, stm, ep, castling, z1, z2, extra, variant)
 
 
-def hash_boards(boards: Board) -> torch.Tensor:
+def hash_boards(boards: Board, variant: str = "standard") -> torch.Tensor:
     """hash_board over a batched Board → (B, 2) int32."""
-    return hash_board(boards.board, boards.stm, boards.ep, boards.castling)
+    return hash_board(boards.board, boards.stm, boards.ep, boards.castling, boards.extra,
+                      variant)
 
 
 # ------------------------------------------------------------------ table

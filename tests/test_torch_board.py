@@ -94,10 +94,11 @@ def test_from_position_matches(fens):
 
 def test_node_rules_and_in_check(fens):
     jboards, tboards = _boards(fens)
-    illegal_j, checked_j, _ = jax.jit(jax.vmap(jb.node_rules))(jboards)
-    illegal_t, checked_t = tb.node_rules(tboards)
+    illegal_j, checked_j, term_j = jax.jit(jax.vmap(jb.node_rules))(jboards)
+    illegal_t, checked_t, term_t = tb.node_rules(tboards)
     assert _eq(illegal_j, illegal_t)
     assert _eq(checked_j, checked_t)
+    assert _eq(term_j, term_t)
     assert _eq(checked_j, tb.in_check(tboards))
     sq = np.random.default_rng(2).integers(0, 64, N).astype(np.int32)
     for color in (0, 1):

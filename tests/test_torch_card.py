@@ -13,7 +13,9 @@ king-bucketed and Stockfish nets (K12, K13) against their plain versions,
 their wrappers' refusals, and K11 on those nets against
 run_segment_plain; the trainer's kernels (K14-K16) against their plain
 versions, their wrappers' refusals, and training steps on the card that
-run no plain version, against the CPU's. Needs an NVIDIA card;
+run no plain version, against the CPU's; the variant instantiations of
+K4 and K8-K10 against their plain versions and K11 against
+run_segment_plain in each ported variant. Needs an NVIDIA card;
 skipped elsewhere. Imports no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_card.py -q -p no:cacheprovider
@@ -25,9 +27,9 @@ import pytest
 import torch
 
 from chip_smoke import (
-    TRAIN_GRAD_RTOL, TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL, TT_PROBE_ARGS, TT_STORE_ARGS, _rel_err,
-    every_move, kb_case, lane_init_case, playout_boards, rules_inputs, segment_case, sf_file,
-    train_case, tt_inputs, tt_runner_layout,
+    TRAIN_GRAD_RTOL, TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL, TT_PROBE_ARGS, TT_STORE_ARGS, VARIANTS,
+    _rel_err, every_move, kb_case, lane_init_case, playout_boards, rules_inputs, segment_case,
+    sf_file, train_case, tt_inputs, tt_runner_layout,
 )
 from fishnet_tpu_torch import kernels
 from fishnet_tpu_torch.chess import Position
@@ -267,24 +269,35 @@ def test_int8_refill_and_stream_card_equal_cpu(nets, lanes):
     assert torch.equal(card["tt"].cpu(), cpu["tt"])
 
 
+@pytest.mark.parametrize("variant", ("standard",) + VARIANTS)
 @pytest.mark.parametrize("lanes", [16, 64, 1024])
-def test_board_kernels_match_plain_versions(card, lanes):
-    """K9 with and without killers and history, K10 over every generated
-    move, K8 on the boards and on every child: equal to the plain
-    versions, exactly."""
-    b, killers, hist = rules_inputs(lanes, lanes, card)
+def test_board_kernels_match_plain_versions(card, lanes, variant):
+    """In each device variant: K9 with and without killers and history,
+    K10 over every generated move from packed rows, K8 and K4 on the
+    boards and on every child: equal to the plain versions, exactly, one
+    launch each."""
+    b, killers, hist = rules_inputs(lanes, lanes, card, variant)
     for kw in ({}, {"killers": killers, "hist": hist}):
-        got, want = tm.generate_moves(b, **kw), tm.generate_moves_plain(b, **kw)
+        got = tm.generate_moves(b, variant=variant, **kw)
+        want = tm.generate_moves_plain(b, variant=variant, **kw)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     pb, pm = every_move(b, *want[:2])
     rows = tb.rows_from_board(pb)
-    want = tb.make_move_rows_plain(rows, pm)
-    for g, w in zip(tb.make_move_rows(rows, pm), want):
+    want = tb.make_move_rows_plain(rows, pm, variant)
+    for g, w in zip(tb.make_move_rows(rows, pm, variant), want):
         assert torch.equal(g, w)
+    z1, z2 = tt.tables(card)
     for boards in (b, tb.board_from_rows(want[0])):
-        for g, w in zip(tb.node_rules(boards), tb.node_rules_plain(boards)):
+        kernels.reset_launches()
+        got = tb.node_rules(boards, variant=variant)
+        keys = tt.hash_boards(boards, variant)
+        assert kernels.LAUNCHES["node_rules"] == kernels.LAUNCHES["zobrist_hash"] == 1
+        for g, w in zip(got, tb.node_rules_plain(boards, variant=variant)):
             assert torch.equal(g, w)
+        assert torch.equal(keys, tt.hash_board_plain(boards.board, boards.stm, boards.ep,
+                                                     boards.castling, z1, z2, boards.extra,
+                                                     variant))
 
 
 def test_board_wrappers_check_inputs_and_count_launches(card):
@@ -619,3 +632,42 @@ def test_training_steps_on_the_card_run_no_plain_code(card, monkeypatch):
     for a, b in zip(card_losses, cpu_losses):
         assert abs(a - b) <= TRAIN_LOSS_RTOL * abs(b)
     assert float((card_params - cpu_params).abs().max()) <= TRAIN_PARAM_ATOL
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("net", ["f32", "int8"])
+@pytest.mark.parametrize("cfg", ["helpers", "engine"])
+@pytest.mark.parametrize("batch", [16, 64])
+def test_variant_segment_kernel_matches_plain_version(nets, batch, cfg, variant, net):
+    """K11 in each variant against run_segment_plain on 16 and 64 lanes
+    (the main path's width) of the variant's seeded roots, with jittered
+    helpers and the prefer_deep store into a small table, or on the main
+    path's table setup, over segments of 1, 33 and 100 steps: every state
+    table, the table and the summary equal, one launch a segment."""
+    params = nets[net]
+    state, table, kw = segment_case(params, batch, cfg, batch + 1, params.device,
+                                    variant=variant)
+    plain = search.SearchState(*[t.clone() for t in state])
+    plain_table = table.clone()
+    for steps in (1, 33, 100):
+        kernels.reset_launches()
+        n_k, sum_k = search.run_segment(params, state, steps, True, **kw)
+        assert kernels.LAUNCHES["search_segment"] == 1
+        n_p, sum_p = search.run_segment_plain(params, plain, steps, True,
+                                              **dict(kw, table=plain_table))
+        assert n_k == n_p
+        assert torch.equal(sum_k, sum_p)
+        _same_state(state, plain, table, plain_table)
+
+
+def test_variant_wrappers_refuse(card):
+    b, killers, hist = rules_inputs(16, 3, card, "threeCheck")
+    kernels.reset_launches()
+    with pytest.raises(ValueError):  # threeCheck reads the counters
+        kernels.node_rules(b.board, b.stm, None, "threeCheck")
+    with pytest.raises(NotImplementedError):
+        kernels.node_rules(b.board, b.stm, b.extra, "atomic")
+    with pytest.raises(NotImplementedError):
+        kernels.generate_moves(b.board, b.stm, b.ep, b.castling, killers, hist, "crazyhouse")
+    assert not any(kernels.LAUNCHES.values())
+

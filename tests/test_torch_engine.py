@@ -46,10 +46,10 @@ START = "rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR w KQkq - 0 1"
 GAME = ["e2e4", "c7c5", "g1f3", "b8c6", "f3g1", "c6b8", "g1f3", "b8c6", "f3g1"]
 
 
-def _chunk(work, plies=(0, 4, 9), variant="standard"):
+def _chunk(work, plies=(0, 4, 9), variant="standard", root_fen=START):
     positions = [
         WorkPosition(work=work, position_index=i, url=None, skip=False,
-                     root_fen=START, moves=GAME[:k])
+                     root_fen=root_fen, moves=GAME[:k])
         for i, k in enumerate(plies)
     ]
     return Chunk(work=work, deadline=time.monotonic() + 600, variant=variant,
@@ -103,8 +103,11 @@ def test_terminal_position_response():
 
 def test_unported_paths_are_refused(monkeypatch):
     """refill=None follows FISHNET_TPU_REFILL (conftest pins 0) and an
-    explicit argument wins; multipv (always the serial path) and a
-    variant that is not ported are refused with refill off and on."""
+    explicit argument wins; multipv (always the serial path) and the
+    variants that are not ported (crazyhouse, atomic) are refused with
+    refill off and on, and the five ported variants are not."""
+    from fishnet_tpu_torch.chess import position_class
+
     tp = tn.load_params(device="cpu")
     assert GpuEngine(params=tp, tt_size_log2=4, device="cpu").refill is False
     monkeypatch.setenv("FISHNET_TPU_REFILL", "1")
@@ -115,10 +118,16 @@ def test_unported_paths_are_refused(monkeypatch):
         with pytest.raises(NotImplementedError):
             asyncio.run(engine.go_multiple(ipc.chunk_from_wire(
                 chunk_to_wire(_chunk(_analysis(depth=1, multipv=3))))))
-        with pytest.raises(NotImplementedError):
-            asyncio.run(engine.go_multiple(ipc.chunk_from_wire(
-                chunk_to_wire(_chunk(_analysis(depth=1), variant="atomic")))))
+        for variant in ("crazyhouse", "atomic"):
+            with pytest.raises(NotImplementedError):
+                asyncio.run(engine.go_multiple(ipc.chunk_from_wire(
+                    chunk_to_wire(_chunk(_analysis(depth=1), variant=variant)))))
         assert engine.occupancy_totals["positions_done"] == 0
+        for variant in ("threeCheck", "kingOfTheHill", "racingKings", "horde", "antichess"):
+            chunk = _chunk(_analysis(depth=1), plies=(0,), variant=variant,
+                           root_fen=position_class(variant).starting_fen())
+            (res,) = asyncio.run(engine.go_multiple(ipc.chunk_from_wire(chunk_to_wire(chunk))))
+            assert res.depth == 1 and res.best_move is not None
     move_chunk = chunk_to_wire(_chunk(MoveWork(id="mv1", level=SkillLevel(3))))
     with pytest.raises(NotImplementedError):
         ipc.chunk_from_wire(move_chunk)
@@ -155,9 +164,10 @@ def test_port_imports_no_jax():
         "assert 'fishnet_tpu_torch.syncstats' in sys.modules\n"
         "assert 'fishnet_tpu_torch.models.nnue_import' in sys.modules\n"
         "assert 'fishnet_tpu_torch.models.train' in sys.modules\n"
+        "assert 'fishnet_tpu_torch.chess.variants' in sys.modules\n"
         "print(len([m for m in sys.modules if m.startswith('fishnet_tpu_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", prog], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 18
+    assert int(out.stdout.split()[-1]) >= 19

@@ -53,7 +53,7 @@ N = 64  # lanes per batched call, as in tests/test_torch_board.py
 @pytest.fixture(scope="module")
 def boards():
     """(JAX Board, the port's Board, packed rows (N, BT_W) with seeded
-    garbage in the words past the halfmove clock, killers, history) on
+    garbage in the words past the variant words, killers, history) on
     test_torch_board.py's positions."""
     std = [f for _, f in _playout_fens(
         [JaxPosition.initial().to_fen()] * 3 + TACTICAL, 24, seed=42)]
@@ -72,6 +72,7 @@ def boards():
     nrng = np.random.default_rng(1)
     rows[:, tb.BT_HM + 1:] = torch.from_numpy(
         nrng.integers(-2**31, 2**31, (N, tb.BT_W - tb.BT_HM - 1)).astype(np.int32))
+    rows[:, tb.BT_EXTRA:tb.BT_EXTRA + tb.EXTRA_W] = tboards.extra  # the boards' variant words
     # killers drawn from real move encodings so they hit quiet moves
     plain = tm.generate_moves(tboards)[0].numpy()
     killers = np.stack([plain[:, 5], plain[:, 9]], 1).astype(np.int32)
@@ -124,11 +125,12 @@ def test_wrappers_run_the_plain_versions_on_the_cpu(boards, kernel):
 
 def test_node_rules_on_rows_matches_reference(boards):
     jboards, tboards, rows, _, _ = boards
-    illegal_j, checked_j, _ = jax.jit(jax.vmap(jb.node_rules))(jboards)
+    illegal_j, checked_j, term_j = jax.jit(jax.vmap(jb.node_rules))(jboards)
     for b in (tb.board_from_rows(rows), tboards):
-        illegal, checked = tb.node_rules(b)
+        illegal, checked, term = tb.node_rules(b)
         assert _eq(illegal_j, illegal)
         assert _eq(checked_j, checked)
+        assert _eq(term_j, term)
 
 
 @pytest.mark.parametrize("ordering", ["plain", "killers_history"])
@@ -152,8 +154,9 @@ def test_generate_moves_on_rows_matches_reference(boards, ordering):
 
 def test_make_move_rows_matches_reference(boards):
     """Every generated move of every lane, from packed rows: the child row
-    packs the JAX child (zero words past the halfmove clock), and the
-    changes are JAX's move_piece_changes; the Board-based function agrees."""
+    packs the JAX child (its variant words and zero words past them), and
+    the changes are JAX's move_piece_changes; the Board-based function
+    agrees."""
     jboards, tboards, rows, _, _ = boards
     lane, mv = _moves_of(tboards)
     jsel = jb.Board(*[np.asarray(a)[lane] for a in jboards])
@@ -164,7 +167,7 @@ def test_make_move_rows_matches_reference(boards):
     got = tb.board_from_rows(child_rows)
     for f in tb.Board._fields:
         assert _eq(getattr(jchild, f), getattr(got, f)), f
-    assert not child_rows[:, tb.BT_HM + 1:].any()
+    assert not child_rows[:, tb.BT_EXTRA + tb.EXTRA_W:].any()
     jchanges = jax.jit(jax.vmap(jb.move_piece_changes))(jsel, mv)
     for name, a, b in zip(("codes", "sqs", "signs"), jchanges, (codes, sqs, signs)):
         assert _eq(a, b), name
