@@ -70,19 +70,25 @@ ran inside K11, and none of the kernels whose bodies run inside K11
 launched on its own (but K4, which hashes the engine's game history once
 a chunk).
  14. the variants' main paths: one chunk each of threeCheck,
-     kingOfTheHill, racingKings, horde and antichess (10 positions of
-     two seeded games) through GpuEngine() with its defaults (depth 3):
-     wall, steps, segments, refills, nodes/s; it fails unless the search's
-     kernels launched and no plain version of the search ran;
+     kingOfTheHill, racingKings, horde, antichess and crazyhouse (10
+     positions of one seeded game) through GpuEngine() with its defaults
+     (depth 3): wall, steps, segments, refills, nodes/s (crazyhouse: the
+     drops among the best moves); it fails unless the search's kernels
+     launched (K4 on the game history, K11 through the variant's own
+     entry point) and no plain version of the search ran;
  15. each variant's int8 chunk (1 position, depth 3, a 2^16 table, 2
      helper lanes, MAX_PLY 8) through GpuEngine on the card and on the
-     CPU: the responses equal.
+     CPU (the CPU sides at once, in worker processes): the responses
+     equal.
 The kernel phase (3) also holds the variant instantiations of K4 and
 K8-K10 against their plain versions at 16, 64 and 1024 lanes of seeded
 variant positions (game ends, promotions, horde's first-rank pawns,
-threeCheck counters and playouts), timed at 1024 lanes, and K11 against
-run_segment_plain in each variant (16 lanes, both nets, a table and
-jittered helpers, segments of 1, 7, 33 and 100 steps), with K11's time per
+threeCheck counters, crazyhouse's pockets, promoted pieces and drops, and
+playouts), timed at 64 and 1024 lanes (crazyhouse's K9 also with every
+lane at a mid, heavy or full pocket), and K11 against run_segment_plain
+in each variant (16 and 64 lanes, both nets, a table and jittered
+helpers, segments of 1, 7, 33 and 100 steps; then the main path's
+64-lane setup, and crazyhouse's on each pocket case), with K11's time per
 step at 64 lanes.
 Then a `kernels` JSON line (launches from phase 5, the board768 main
 path, for K13 from phase 6, for K12 from its parity search in phase
@@ -690,12 +696,12 @@ def tt_kernel_phase(reps: int) -> dict:
     return stats
 
 
-def lane_init_case(params, B: int, n: int, seed: int, dev):
-    """A (B)-lane state of seeded garbage on dev (so untouched lanes show)
-    and K7's inputs for n scattered lanes of it (all B when n == B):
-    playout roots, K1's accumulators, seeded depths, budgets, windows,
-    jitters (zero, large and negative), groups and history seeds.
-    → (state, lane_idx, args)."""
+def lane_init_case(params, B: int, n: int, seed: int, dev, max_moves: int):
+    """A (B)-lane state of seeded garbage on dev (so untouched lanes show),
+    its move lists max_moves wide, and K7's inputs for n scattered lanes
+    of it (all B when n == B): playout roots, K1's accumulators, seeded
+    depths, budgets, windows, jitters (zero, large and negative), groups
+    and history seeds. → (state, lane_idx, args)."""
     import numpy as np
     import torch
 
@@ -706,7 +712,7 @@ def lane_init_case(params, B: int, n: int, seed: int, dev):
     P = 32
     adt = nnue.acc_dtype(params)
     shapes = [(B, P + 1, search.BT_W), (B, P + 1, search.NT_W), (B, search.LN_W),
-              (B, search.MAX_HIST, 2), (B, search.MAX_HIST), (B, P, search.MAX_MOVES),
+              (B, search.MAX_HIST, 2), (B, search.MAX_HIST), (B, P, max_moves),
               (B, 4096), (B, P, P)]
     state = [torch.from_numpy(rng.integers(-2**31, 2**31, s, dtype=np.int64).astype(np.int32))
              for s in shapes]
@@ -745,41 +751,68 @@ def lane_init_phase(reps: int) -> dict:
     over a scattered quarter (a refill splice), on both nets: every table
     equal bit for bit, the lanes not listed untouched. Times at B = 1024,
     every lane, f32 net; the library call is the nine index_copy_ of a
-    prebuilt fresh state's rows."""
+    prebuilt fresh state's rows. Then crazyhouse's width (MAX_MOVES_ZH
+    move lists) at B = 64, checked the same way and timed, under
+    "variants"."""
     import torch
 
     from fishnet_tpu_torch import kernels
     from fishnet_tpu_torch.models import nnue
+    from fishnet_tpu_torch.ops import movegen as tm
     from fishnet_tpu_torch.ops import search
 
     dev = torch.device("cuda")
     params_f32 = nnue.load_params(device=dev)
     stats = {"max_abs_err": 0.0}
+    zh = {"max_abs_err": 0.0}
+
+    def check(row, params, net, B, n, width):
+        state, idx, args = lane_init_case(params, B, n, seed=B + n, dev=dev, max_moves=width)
+        want = search.SearchState(*[t.clone() for t in state])
+        kernels.lane_init(state, idx, *args)
+        search.lane_init_plain(want, idx, *args)
+        torch.cuda.synchronize()
+        err = 0.0
+        for name, g, w in zip(search.SearchState._fields, state, want):
+            if g.dtype == torch.float32:  # compared as bits
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            err = max(err, float((g.long() - w.long()).abs().max()))
+            if not torch.equal(g, w):
+                raise AssertionError(f"lane_init B={B} n={n} {net} width {width}: {name} "
+                                     f"differs")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        log(f"check lane_init B={B} lanes={n} net={net} move lists {width}: max_abs_err={err} "
+            f"(tolerance 0, {lane_init_bytes(state, idx, args)} bytes)")
+
     for net, params in (("f32", params_f32), ("int8", nnue.quantize_int8(params_f32))):
         for B in (16, 64, 1024):
             for n in (B, B // 4):
-                state, idx, args = lane_init_case(params, B, n, seed=B + n, dev=dev)
-                want = search.SearchState(*[t.clone() for t in state])
-                kernels.lane_init(state, idx, *args)
-                search.lane_init_plain(want, idx, *args)
-                torch.cuda.synchronize()
-                err = 0.0
-                for name, g, w in zip(search.SearchState._fields, state, want):
-                    if g.dtype == torch.float32:  # compared as bits
-                        g, w = g.view(torch.int32), w.view(torch.int32)
-                    err = max(err, float((g.long() - w.long()).abs().max()))
-                    if not torch.equal(g, w):
-                        raise AssertionError(f"lane_init B={B} n={n} {net}: {name} differs")
-                stats["max_abs_err"] = max(stats["max_abs_err"], err)
-                log(f"check lane_init B={B} lanes={n} net={net}: max_abs_err={err} "
-                    f"(tolerance 0, {lane_init_bytes(state, idx, args)} bytes)")
+                check(stats, params, net, B, n, tm.MAX_MOVES)
+        for n in (64, 16):
+            check(zh, params, net, 64, n, tm.MAX_MOVES_ZH)
+
+    # crazyhouse's width at the engine's 64 lanes, every lane, f32 net
+    B = 64
+    state, idx, args = lane_init_case(params_f32, B, B, seed=1, dev=dev,
+                                      max_moves=tm.MAX_MOVES_ZH)
+    plain_state = search.SearchState(*[t.clone() for t in state])
+    nbytes = lane_init_bytes(state, idx, args)
+    (ms, call_ms), (plain_ms, _) = [time_ms(f, reps) for f in (
+        lambda: kernels.lane_init(state, idx, *args),
+        lambda: search.lane_init_plain(plain_state, idx, *args))]
+    zh.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+              bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    log(f"time lane_init B={B} lanes={B} f32 move lists {tm.MAX_MOVES_ZH} (device ms / call "
+        f"ms): kernel {ms:.5f} / {call_ms:.5f}, plain {plain_ms:.5f}, bound "
+        f"{zh['bound_ms']:.6f} (bytes, {nbytes} bytes)")
+    stats["variants"] = {"crazyhouse": zh}
 
     # times at the widest batch, every lane, f32 net
     B = 1024
-    state, idx, args = lane_init_case(params_f32, B, B, seed=1, dev=dev)
+    state, idx, args = lane_init_case(params_f32, B, B, seed=1, dev=dev, max_moves=tm.MAX_MOVES)
     plain_state = search.SearchState(*[t.clone() for t in state])
     lib_state = search.SearchState(*[t.clone() for t in state])
-    fresh = search._fresh_state(*args, 32)
+    fresh = search._fresh_state(*args, 32, tm.MAX_MOVES)
     nbytes = lane_init_bytes(state, idx, args)
     timed = (
         lambda: kernels.lane_init(state, idx, *args),
@@ -794,7 +827,7 @@ def lane_init_phase(reps: int) -> dict:
         f"{call_ms:.5f}, plain {plain_ms:.5f} / {plain_call:.5f}, library {lib_ms:.5f} / "
         f"{lib_call:.5f}, bound {t_bytes:.6f} (bytes, {nbytes} bytes)")
     # the engine's width, for PERF.md
-    state, idx, args = lane_init_case(params_f32, 64, 64, seed=2, dev=dev)
+    state, idx, args = lane_init_case(params_f32, 64, 64, seed=2, dev=dev, max_moves=tm.MAX_MOVES)
     ms64, call64 = time_ms(lambda: kernels.lane_init(state, idx, *args), reps)
     nb64 = lane_init_bytes(state, idx, args)
     log(f"time lane_init B=64 lanes=64 f32 (device ms / call ms): kernel {ms64:.5f} / "
@@ -872,10 +905,11 @@ def positions_case(positions, seed: int) -> dict:
     return case
 
 
-def rules_inputs(B: int, seed: int, dev, variant: str = "standard"):
+def rules_inputs(B: int, seed: int, dev, variant: str = "standard", fens=None):
     """B seeded positions for K4 and K8-K10 on dev → (Board, killers,
-    hist): rules_case's in standard chess, else variant_positions' with
-    positions_case's killers and history counters."""
+    hist): rules_case's in standard chess, else variant_positions' (its
+    FENs `fens` where given) with positions_case's killers and history
+    counters."""
     import torch
 
     from fishnet_tpu_torch.ops.board import Board
@@ -883,7 +917,7 @@ def rules_inputs(B: int, seed: int, dev, variant: str = "standard"):
     if variant == "standard":
         case = rules_case(B, seed)
     else:
-        case = positions_case([p for p, _, _ in variant_positions(variant, B, seed)], seed)
+        case = positions_case([p for p, _, _ in variant_positions(variant, B, seed, fens)], seed)
     c = {k: torch.from_numpy(v).to(dev) for k, v in case.items()}
     return Board(*[c[f] for f in Board._fields]), c["killers"], c["hist"]
 
@@ -968,24 +1002,22 @@ def rules_kernel_phase(reps: int, variant: str = "standard") -> dict:
         rb = tb.board_from_rows(rows)
         pick = torch.div(count, 2, rounding_mode="floor").long()[:, None]
         move = moves.gather(1, pick)[:, 0].clamp(min=0).contiguous()
-        # history words the quiet moves read, each (lane, from|to) once
-        flat_moves, flat_valid, flat_keys = tm._candidate_space(b, variant=v)
-        lane = torch.arange(B, device=dev)[:, None] * 4096
-        quiet = flat_valid & (flat_keys == tm.QUIET_KEY)
-        n_hist = int((lane + (flat_moves & 4095))[quiet].unique().numel())
         checks = 8 if v == "threeCheck" else 0  # the two counters K4 and K8 read
         timed = {  # kernel, plain version, bytes: board, scalars, extras in; out
             "zobrist_hash": (
                 # of each table, the piece-square, ep, castling and stm keys
+                # (crazyhouse: its 12 words and the pocket and promoted keys
+                # they pick)
                 lambda: tt.hash_boards(rb, v), lambda: hash_plain(rb),
-                B * (256 + 4 + 4 + 16 + checks) + 2 * (tt._STM_OFF + 2) * 4 + B * 8),
+                B * (256 + 4 + 4 + 16 + checks) + 2 * (tt._STM_OFF + 2) * 4 + B * 8
+                + zh_key_bytes(rb, v)),
             "node_rules": (
                 lambda: tb.node_rules(rb, variant=v), lambda: tb.node_rules_plain(rb, variant=v),
                 B * ((64 + 1) * 4 + checks) + B * (2 + 4)),
             "generate_moves": (
                 lambda: tm.generate_moves(rb, killers, hist, variant=v),
                 lambda: tm.generate_moves_plain(rb, killers, hist, variant=v),
-                B * (64 + 6 + 2) * 4 + n_hist * 4 + B * (tm.MAX_MOVES + 2) * 4),
+                movegen_bytes(b, v)),
             "make_move": (
                 # in: the parent's 83 words and the move; out: the child's
                 # 83 words and the 12 change words (the row's zero tail is
@@ -1002,10 +1034,74 @@ def rules_kernel_phase(reps: int, variant: str = "standard") -> dict:
             log(f"time {name} {v} B={B} (device ms / call ms): kernel {ms:.5f} / "
                 f"{call_ms:.5f}, plain {plain_ms:.5f} / {plain_call:.5f}, library none, bound "
                 f"{bound:.6f} (bytes, {nbytes} bytes)")
+
+    # K9 with every lane at one root case's FEN (crazyhouse: its rank sort
+    # grows with the pockets' drops), checked, then timed at 1024
+    for label, fen in ROOT_CASES.get(v, {}).items():
+        B = 1024
+        b, killers, hist = rules_inputs(B, seed=7, dev=dev, variant=v, fens=[fen] * B)
+        got = tm.generate_moves(b, killers, hist, variant=v)
+        want = tm.generate_moves_plain(b, killers, hist, variant=v)
+        torch.cuda.synchronize()
+        count = want[1].float()
+        check("generate_moves", f"B={B} {label} (moves a lane: mean {float(count.mean()):.1f}, "
+              f"max {int(count.max())})", got, want)
+        (ms, call_ms), (plain_ms, _) = (
+            time_ms(lambda: tm.generate_moves(b, killers, hist, variant=v), reps),
+            time_ms(lambda: tm.generate_moves_plain(b, killers, hist, variant=v), reps))
+        nbytes = movegen_bytes(b, v)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        stats["generate_moves"].setdefault("roots", {})[label] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+            moves_per_lane=float(count.mean()))
+        log(f"time generate_moves {v} B={B} {label} (device ms / call ms): kernel {ms:.5f} / "
+            f"{call_ms:.5f}, plain {plain_ms:.5f}, bound {bound:.6f} (bytes, {nbytes} bytes)")
     return stats
 
 
-def segment_case(params, B: int, cfg: str, seed: int, dev, variant: str = "standard"):
+def movegen_bytes(b, variant: str) -> int:
+    """K9's bytes on boards b, killers and history as the step passes
+    them: per lane the board, side to move, ep square, castling rooks and
+    two killers in (crazyhouse: its pocket words too), each history word
+    a quiet move or a drop reads (each (lane, from|to) once), and the list
+    of the variant's width and two counts out."""
+    import torch
+
+    from fishnet_tpu_torch.ops import movegen as tm
+
+    B = b.board.shape[0]
+    flat_moves, flat_valid, flat_keys = tm._candidate_space(b, variant=variant)
+    lane = torch.arange(B, device=b.board.device)[:, None] * 4096
+    quiet = flat_valid & ((flat_keys == tm.QUIET_KEY) | (flat_keys == tm.DROP_KEY))
+    n_hist = int((lane + (flat_moves & 4095))[quiet].unique().numel())
+    pockets = 10 if variant == "crazyhouse" else 0
+    return (B * (64 + 6 + 2 + pockets) * 4 + n_hist * 4
+            + B * (tm.max_moves_for(variant) + 2) * 4)
+
+
+def zh_key_bytes(b, variant: str) -> int:
+    """Crazyhouse's part of K4's bytes beside the other variants': the
+    12 variant words a lane reads (the pockets and promoted bits) and,
+    once each, the pocket and promoted keys of both tables they pick."""
+    import torch
+
+    from fishnet_tpu_torch.ops import board as tb
+    from fishnet_tpu_torch.ops import tt
+
+    if variant != "crazyhouse":
+        return 0
+    dev = b.board.device
+    counts = b.extra[:, :2 * tb.POCKET_TYPES].clamp(0, tt.POCKET_MAX)
+    pocket = (counts + torch.arange(2 * tb.POCKET_TYPES, device=dev) * (tt.POCKET_MAX + 1))
+    sq = torch.arange(64, device=dev)
+    words = b.extra[:, tb.EXTRA_PROMOTED + (sq >> 5)]
+    promoted = (((words >> (sq & 31)) & 1) == 1).any(0)
+    keys = int(pocket.unique().numel()) + int(promoted.sum())
+    return b.board.shape[0] * tb.EXTRA_W * 4 + 2 * keys * 4
+
+
+def segment_case(params, B: int, cfg: str, seed: int, dev, variant: str = "standard",
+                 fens=None):
     """A seeded B-lane search state on dev for K11 and its table setup:
     playout roots at depths 1-3 with node budgets of 100-1500 (so lanes
     finish at different steps), MAX_PLY 32. cfg: "no table"; "table" (a
@@ -1015,8 +1111,9 @@ def segment_case(params, B: int, cfg: str, seed: int, dev, variant: str = "stand
     slots, deep_bounds probes, the prefer_deep store of one generation);
     "engine" (the main path's: 2^21 slots, prefer_deep, per-lane
     generations). variant: a device variant other than "standard" takes
-    rules_inputs' positions as roots and is passed on to the segment.
-    → (state, table or None, run_segment's keywords)."""
+    rules_inputs' positions (from `fens` where given) as roots and is
+    passed on to the segment. → (state, table or None, run_segment's
+    keywords)."""
     import numpy as np
     import torch
 
@@ -1026,7 +1123,7 @@ def segment_case(params, B: int, cfg: str, seed: int, dev, variant: str = "stand
     if variant == "standard":
         roots = playout_boards(B, seed=seed)[0].to(dev)
     else:
-        roots = rules_inputs(B, seed, dev, variant)[0]
+        roots = rules_inputs(B, seed, dev, variant, fens)[0]
 
     def col(values):
         return torch.from_numpy(np.asarray(values, np.int32)).to(dev)
@@ -1068,18 +1165,22 @@ def _state_diff(a, b, ta, tb) -> float:
     return err
 
 
-def segment_bytes(calls: dict, acc_bytes: int) -> int:
+def segment_bytes(calls: dict, acc_bytes: int, variant: str = "standard") -> int:
     """The bytes a segment must move, from K11's counters of its body
     calls and live lane-steps: each live lane-step reads and writes the
     lane's 64-byte row; each entering lane (one eval) reads its board row
-    (71 words), its and its parent's node rows and its accumulator pair,
-    and writes its node row and two path-hash words; each lane that
-    advances (one make-move) reads the parent's accumulator pair and
-    writes the child's, its board row (96 words) and node row; each probe
-    reads and each masked store writes one 16-byte table row."""
+    (71 words, and of the 12 variant words those the variant's rules
+    read: threeCheck's two check counters, all 12 in crazyhouse, its
+    pockets and promoted bits), its and its parent's node rows and its
+    accumulator pair, and writes its node row and two path-hash words;
+    each lane that advances (one make-move) reads the parent's
+    accumulator pair and writes the child's, its board row (96 words) and
+    node row; each probe reads and each masked store writes one 16-byte
+    table row."""
     enters, advances = calls["nnue_forward_from_acc"], calls["make_move"]
+    row_words = 71 + {"threeCheck": 2, "crazyhouse": 12}.get(variant, 0)
     return (calls["live_lane_steps"] * 128
-            + enters * (71 * 4 + 2 * 64 + acc_bytes + 64 + 8)
+            + enters * (row_words * 4 + 2 * 64 + acc_bytes + 64 + 8)
             + advances * (2 * acc_bytes + 96 * 4 + 64)
             + (calls["tt_probe"] + calls["tt_store"]) * 16)
 
@@ -1702,9 +1803,21 @@ def train_phase() -> dict:
 # PORTED_VARIANTS), and per variant the FENs its seeded positions start
 # from beside its starting position: a game end one move away (a third
 # check, the hill, the goal rank with and without a rejoinder, the horde's
-# last pawn, antichess's forced capture and its last piece), threeCheck
-# counters, promotions (antichess's to a king) and horde's first-rank pawns
-VARIANTS = ("threeCheck", "kingOfTheHill", "racingKings", "horde", "antichess")
+# last pawn, antichess's forced capture and its last piece, crazyhouse's
+# mating drop), threeCheck counters, promotions (antichess's to a king),
+# horde's first-rank pawns, and crazyhouse's pockets (mid, heavy, and full:
+# ZH_POCKETS), promoted pieces (a promotion, the capture of a promoted
+# queen, promoted bits in both words: h4 is bit 31) and a pocket pawn
+# whose only empty squares are on the first and last ranks
+VARIANTS = ("threeCheck", "kingOfTheHill", "racingKings", "horde", "antichess", "crazyhouse")
+# crazyhouse's pockets by size: a few pieces, both sides' every type (243
+# moves, past standard chess's MAX_MOVES), and every type in an empty board's
+# pockets (299 moves: 4 x 62 drops, 48 pawn drops, 3 king moves)
+ZH_POCKETS = {
+    "mid pockets": "r2qkb1r/ppp2ppp/2n1bn2/3pp3/4P3/2NP1N2/PPP2PPP/R1BQKB1R[BPp] w KQkq - 0 6",
+    "heavy pockets": "r3k2r/ppp2ppp/8/8/8/8/PPP2PPP/R3K2R[QRBNPPqrbnpp] w KQkq - 0 12",
+    "full pockets": "7k/8/8/8/8/8/8/K7[QRBNPqrbnp] w - - 0 30",
+}
 VARIANT_FENS = {
     "threeCheck": ["4k3/8/8/8/8/8/3Q4/4K3 w - - +2+0 0 1",
                    "rnbqkbnr/pppp1ppp/8/4p3/4P3/8/PPPP1PPP/RNBQKBNR w KQkq - +2+1 0 3",
@@ -1714,7 +1827,15 @@ VARIANT_FENS = {
     "horde": ["4k3/8/8/8/8/8/q6P/8 b - - 0 1", "4k3/8/8/8/8/8/8/PP2PP1P w - - 0 1"],
     "antichess": ["rnbqkbnr/ppp1pppp/8/3p4/4P3/8/PPPP1PPP/RNBQKBNR w - - 0 2",
                   "8/8/8/8/2q5/3q4/2P5/8 w - - 0 1", "8/1P6/8/8/8/8/6p1/2k5 w - - 0 1"],
+    "crazyhouse": [*ZH_POCKETS.values(),
+                   "6k1/5ppp/8/8/8/8/5PPP/6K1[R] w - - 0 1",
+                   "k6K/8/8/8/8/8/p7/1R6[] b - - 0 1", "k6K/8/8/8/8/8/8/q~R6[] w - - 0 2",
+                   "3k3Q~/8/8/8/r6N~/8/8/4K3[Pb] b - - 0 20",
+                   "4k3/pppppppp/pppppppp/pppppppp/PPPPPPPP/PPPPPPPP/PPPPPPPP/4K3[Pp] w - - 0 1"],
 }
+# per variant, root sets its K9 and K11 checks also take, each every lane
+# at one FEN (crazyhouse: ZH_POCKETS)
+ROOT_CASES = {"crazyhouse": ZH_POCKETS}
 VARIANT_SEGMENT_STEPS = (1, 7, 33, 100)  # K11's checked segments per variant
 VARIANT_SEGMENT_CONFIGS = ("table", "helpers")
 VARIANT_REPS = 50  # launches per variant kernel timing
@@ -1763,9 +1884,12 @@ def variant_segment_phase(params_f32, reps: int) -> dict:
     VARIANT_SEGMENT_STEPS in turn; then at 64 lanes on the main path's
     table setup ("engine"), one segment of 200 steps, which is also timed
     (CUDA events, from the same state each launch) beside the plain
-    version's wall and the bound from the bytes the timed segment moves.
-    → {variant: {max_abs_err, ms, plain_ms, bound_ms, bound_by,
-    library_ms, us_per_step, steps}}."""
+    version's wall and the bound from the bytes the timed segment moves;
+    the same for each of the variant's ROOT_CASES (every root at one
+    FEN). → {variant: {max_abs_err, ms, plain_ms,
+    bound_ms, bound_by, library_ms, us_per_step, steps, and per root case
+    under "roots" its ms, plain_ms, bound_ms, bound_by, us_per_step,
+    steps}}."""
     import torch
 
     from fishnet_tpu_torch import kernels
@@ -1800,22 +1924,17 @@ def variant_segment_phase(params_f32, reps: int) -> dict:
                                  f"run_segment_plain (steps {n_k} / {n_p})")
         return n_k, plain_ms
 
-    for v in VARIANTS:
-        row = out[v] = {"max_abs_err": 0.0}
-        for B in (16, 64):
-            for net, params in nets.items():
-                for cfg in VARIANT_SEGMENT_CONFIGS:
-                    state, table, kw = segment_case(params, B, cfg, seed=B + len(cfg), dev=dev,
-                                                    variant=v)
-                    for steps in VARIANT_SEGMENT_STEPS:
-                        check(row, f"{v} B={B} {net} {cfg}", params, state, table, kw, steps)
-
-        # the main path's setup at its width: checked, then timed
-        state0, table0, kw = segment_case(params_f32, 64, "engine", seed=64, dev=dev, variant=v)
+    def engine_segment(row, v, label, fens) -> dict:
+        """The main path's 64-lane setup on rules_inputs' roots (every lane
+        at the FEN of `fens`, a one-FEN list, where given): one segment of
+        SEGMENT_STEPS[-1] steps checked, then timed from the same state each
+        launch."""
+        state0, table0, kw = segment_case(params_f32, 64, "engine", seed=64, dev=dev, variant=v,
+                                          fens=None if fens is None else fens * 64)
         state, table = _clone(state0, table0)
         kw = dict(kw, table=table)
         steps = SEGMENT_STEPS[-1]
-        _, plain_ms = check(row, f"{v} B=64 f32 engine", params_f32, state, table, kw, steps)
+        _, plain_ms = check(row, f"{v} B=64 f32 {label}", params_f32, state, table, kw, steps)
         times = []
         for _ in range(reps):
             for t, t0 in zip(list(state) + [table], list(state0) + [table0]):
@@ -1831,15 +1950,33 @@ def variant_segment_phase(params_f32, reps: int) -> dict:
             times.append(start.elapsed_time(end))
         ms = sum(times) / len(times)
         calls = kernels.body_calls()
-        nbytes = segment_bytes(calls, 2 * 64 * 4)
+        nbytes = segment_bytes(calls, 2 * 64 * 4, v)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", library_ms=None,
-                   us_per_step=ms / max(n, 1) * 1e3, steps=n)
-        log(f"time search_segment {v} B=64 engine table (CUDA events, {reps} launches): "
+        log(f"time search_segment {v} B=64 {label} table (CUDA events, {reps} launches): "
             f"{ms:.4f} ms per segment of {n} steps, {ms / max(n, 1) * 1e3:.2f} us/step; plain "
             f"{plain_ms:.1f} ms ({plain_ms / max(n, 1):.3f} ms/step); bound {bound:.6f} ms "
             f"(bytes, {nbytes} bytes; counters {calls}); grid {kernels.LAST_GRID['blocks']} "
             f"blocks")
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", library_ms=None,
+                    us_per_step=ms / max(n, 1) * 1e3, steps=n)
+
+    for v in VARIANTS:
+        t0 = time.monotonic()
+        row = out[v] = {"max_abs_err": 0.0}
+        for B in (16, 64):
+            for net, params in nets.items():
+                for cfg in VARIANT_SEGMENT_CONFIGS:
+                    state, table, kw = segment_case(params, B, cfg, seed=B + len(cfg), dev=dev,
+                                                    variant=v)
+                    for steps in VARIANT_SEGMENT_STEPS:
+                        check(row, f"{v} B={B} {net} {cfg}", params, state, table, kw, steps)
+
+        # the main path's setup at its width, then each root case's:
+        # checked, then timed
+        row.update(engine_segment(row, v, "engine", None))
+        for label, fen in ROOT_CASES.get(v, {}).items():
+            row.setdefault("roots", {})[label] = engine_segment(row, v, label, [fen])
+        log(f"search_segment {v}: checked and timed in {time.monotonic() - t0:.1f} s")
     return out
 
 
@@ -1868,8 +2005,10 @@ def variant_engine_phase(params_f32, depth: int, n_positions: int) -> dict:
     """One chunk of each device variant through GpuEngine() with its
     defaults (refill, 2^21 table, K helpers, MAX_PLY 32): every position
     reaches `depth` with a legal best move under the variant's rules, the
-    search's kernels launched (check_launches) and no plain version of the
-    search path ran. → {variant: the chunk's counts and wall}."""
+    search's kernels launched (check_launches; also K4 on the game
+    history, and K11 through the variant's own entry point) and no plain
+    version of the search path ran. → {variant: the chunk's counts and
+    wall}."""
     import torch
 
     from fishnet_tpu_torch import kernels
@@ -1891,7 +2030,12 @@ def variant_engine_phase(params_f32, depth: int, n_positions: int) -> dict:
         launches = check_launches(path, engine=True)
         if any(plain.values()):
             raise AssertionError(f"{path}: plain versions ran on the card: {plain}")
+        entry = kernels._variant_symbol("search_segment_f32", v)
+        entries = dict(kernels.LAUNCHES_BY_ENTRY)
+        if not (launches["zobrist_hash"] and entries.get(entry)):
+            raise AssertionError(f"{path}: K4 or {entry} not launched ({entries})")
         calls = kernels.body_calls()
+        drops = sum("@" in r.best_move for r in responses)
         for wp, res in zip(chunk.positions, responses):
             pos = from_fen(wp.root_fen, v)
             for uci in wp.moves:
@@ -1907,49 +2051,87 @@ def variant_engine_phase(params_f32, depth: int, n_positions: int) -> dict:
         nodes = sum(r.nodes for r in responses)
         row = out[v] = {"positions": len(responses), "wall_s": wall, "steps": tot["steps"],
                         "segments": tot["segments"], "refills": tot["refills"], "nodes": nodes,
-                        "nodes_per_s": nodes / wall, "launches": launches, "body_calls": calls}
+                        "nodes_per_s": nodes / wall, "launches": launches, "body_calls": calls,
+                        "drops_in_best_moves": drops}
         log(f"{path}: {len(responses)} positions depth {depth}, nodes {nodes} steps "
             f"{tot['steps']} segments {tot['segments']} refills {tot['refills']} wall "
             f"{wall:.3f} s ms/step {wall / max(tot['steps'], 1) * 1e3:.3f} nodes/s "
-            f"{nodes / wall:.0f} host_ms {tot['host_ms']:.3f} device_ms {tot['device_ms']:.3f}")
+            f"{nodes / wall:.0f} host_ms {tot['host_ms']:.3f} device_ms {tot['device_ms']:.3f} "
+            f"launches by entry {entries} drops among best moves {drops}")
     return out
+
+
+def _parity_wire(engine, chunk) -> tuple[list, float]:
+    """A chunk through engine → (its responses on the wire without time
+    and nps, the wall in seconds)."""
+    from fishnet_tpu_torch import ipc
+
+    t0 = time.monotonic()
+    responses = asyncio.run(engine.go_multiple(chunk))
+    wall = time.monotonic() - t0
+    wire = []
+    for r in responses:
+        w = ipc.response_to_wire(r)
+        w.pop("time_s")
+        w.pop("nps")
+        wire.append(w)
+    return wire, wall
+
+
+def _variant_parity_engine(params, depth: int, dev: str):
+    from fishnet_tpu_torch.engine.gpu import GpuEngine
+
+    return GpuEngine(params=params, max_depth=depth, tt_size_log2=TT_PARITY_LOG2,
+                     helper_lanes=2, refill=True, device=dev)
+
+
+def _variant_parity_cpu(variant: str, depth: int, params_blob: bytes) -> tuple[list, float]:
+    """variant_parity_phase's CPU side in a worker process, one thread:
+    the pickled int8 net's chunk of `variant` through GpuEngine on the
+    CPU → _parity_wire."""
+    import pickle
+
+    import torch
+
+    os.environ["FISHNET_TPU_MAX_PLY"] = str(VARIANT_PARITY_MAX_PLY)
+    torch.set_num_threads(1)
+    engine = _variant_parity_engine(pickle.loads(params_blob), depth, "cpu")
+    return _parity_wire(engine, variant_chunk(variant, VARIANT_PARITY_POSITIONS, depth))
 
 
 def variant_parity_phase(params_f32, depth: int) -> None:
     """An int8 chunk of each device variant (VARIANT_PARITY_POSITIONS
     positions, `depth`) through GpuEngine on the card and on the CPU,
     with refill, a 2^TT_PARITY_LOG2 table and 2 helper lanes at MAX_PLY
-    VARIANT_PARITY_MAX_PLY: the responses equal (but for time and nps)."""
-    from fishnet_tpu_torch import ipc
-    from fishnet_tpu_torch.engine.gpu import GpuEngine
+    VARIANT_PARITY_MAX_PLY: the responses equal (but for time and nps).
+    The CPU sides, nearly all of the phase's time, run at once in a pool
+    of spawned worker processes (one a variant, at most one a core)
+    while the card's run here."""
+    import multiprocessing
+    import pickle
+    from concurrent.futures import ProcessPoolExecutor
+
     from fishnet_tpu_torch.models import nnue
 
     params_i8 = nnue.quantize_int8(params_f32)
+    blob = pickle.dumps(params_i8.to("cpu"))
     saved = os.environ.get("FISHNET_TPU_MAX_PLY")
     os.environ["FISHNET_TPU_MAX_PLY"] = str(VARIANT_PARITY_MAX_PLY)
+    workers = max(1, min(len(VARIANTS), os.cpu_count() or 1))
     try:
-        for v in VARIANTS:
-            chunk = variant_chunk(v, VARIANT_PARITY_POSITIONS, depth)
-            wire, walls = {}, {}
-            for dev in ("cuda", "cpu"):
-                engine = GpuEngine(params=params_i8.to(dev), max_depth=depth,
-                                   tt_size_log2=TT_PARITY_LOG2, helper_lanes=2, refill=True,
-                                   device=dev)
-                t0 = time.monotonic()
-                responses = asyncio.run(engine.go_multiple(chunk))
-                walls[dev] = time.monotonic() - t0
-                wire[dev] = []
-                for r in responses:
-                    w = ipc.response_to_wire(r)
-                    w.pop("time_s")
-                    w.pop("nps")
-                    wire[dev].append(w)
-            if wire["cuda"] != wire["cpu"]:
-                raise AssertionError(f"variant parity {v}: card {wire['cuda']} != cpu "
-                                     f"{wire['cpu']}")
-            log(f"variant parity {v}: int8 chunk of {len(chunk.positions)} depth {depth}: card "
-                f"== cpu responses (score, pv, depth, nodes, best move); card "
-                f"{walls['cuda']:.3f} s, cpu {walls['cpu']:.3f} s")
+        with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+            cpu = {v: pool.submit(_variant_parity_cpu, v, depth, blob) for v in VARIANTS}
+            for v in VARIANTS:
+                chunk = variant_chunk(v, VARIANT_PARITY_POSITIONS, depth)
+                card, card_wall = _parity_wire(
+                    _variant_parity_engine(params_i8.to("cuda"), depth, "cuda"), chunk)
+                want, cpu_wall = cpu[v].result()
+                if card != want:
+                    raise AssertionError(f"variant parity {v}: card {card} != cpu {want}")
+                log(f"variant parity {v}: int8 chunk of {len(chunk.positions)} depth {depth}: "
+                    f"card == cpu responses (score, pv, depth, nodes, best move); card "
+                    f"{card_wall:.3f} s, cpu {cpu_wall:.3f} s (one of {workers} worker "
+                    f"processes, one thread each)")
     finally:
         if saved is None:
             os.environ.pop("FISHNET_TPU_MAX_PLY", None)
@@ -2328,11 +2510,19 @@ def main() -> int:
     log(f"full-eval nets (seeded, L1 {SF_SMALL_L1} and {SF_L1} through .nnue files): "
         f"{time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
-    stats = kernel_phase(params, REPS)
-    stats.update(tt_kernel_phase(REPS))
-    stats.update(lane_init_phase(REPS))
-    rules = {v: rules_kernel_phase(REPS if v == "standard" else VARIANT_REPS, v)
-             for v in ("standard",) + VARIANTS}
+
+    def part(name, run):
+        """One part of the kernel phase, its seconds logged."""
+        t = time.monotonic()
+        out = run()
+        log(f"kernel phase, {name}: {time.monotonic() - t:.1f} s")
+        return out
+
+    stats = part("K1-K4", lambda: kernel_phase(params, REPS))
+    stats.update(part("K5, K6", lambda: tt_kernel_phase(REPS)))
+    stats.update(part("K7", lambda: lane_init_phase(REPS)))
+    rules = {v: part(f"K4, K8-K10 {v}", lambda v=v: rules_kernel_phase(
+        REPS if v == "standard" else VARIANT_REPS, v)) for v in ("standard",) + VARIANTS}
     # standard chess's K4 is timed in kernel_phase (with its library-free
     # ops bound); here it adds its checks on the rules positions
     k4 = rules["standard"].pop("zobrist_hash")
@@ -2340,11 +2530,13 @@ def main() -> int:
                                                k4["max_abs_err"])
     stats.update(rules.pop("standard"))
     variant_rules = {name: {v: rules[v][name] for v in VARIANTS} for name in rules[VARIANTS[0]]}
-    stats.update(segment_phase(params, SEGMENT_REPS))
-    stats.update(nets_kernel_phase(nets, NET_REPS))
-    nets_segment_phase(nets, SEGMENT_REPS)
-    stats.update(train_kernel_phase(TRAIN_REPS))
-    variant_rules["search_segment"] = variant_segment_phase(params, SEGMENT_REPS)
+    variant_rules["lane_init"] = stats["lane_init"].pop("variants")
+    stats.update(part("K11", lambda: segment_phase(params, SEGMENT_REPS)))
+    stats.update(part("K12, K13", lambda: nets_kernel_phase(nets, NET_REPS)))
+    part("K11 on the full-eval nets", lambda: nets_segment_phase(nets, SEGMENT_REPS))
+    stats.update(part("K14-K16", lambda: train_kernel_phase(TRAIN_REPS)))
+    variant_rules["search_segment"] = part("K11 in the variants", lambda: variant_segment_phase(
+        params, SEGMENT_REPS))
     log(f"kernel phase: {time.monotonic() - t0:.1f} s")
     phases = [
         ("profile", lambda: [profile_phase(params, lanes, PROFILE_STEPS, tt_on)

@@ -79,6 +79,8 @@ class Position:
         "ep_square",
         "halfmove",
         "fullmove",
+        "pockets",
+        "promoted",
         "checks_given",
     )
 
@@ -91,6 +93,8 @@ class Position:
         self.ep_square: Optional[int] = None
         self.halfmove = 0
         self.fullmove = 1
+        self.pockets = None  # crazyhouse: [[int]*5, [int]*5] counts P N B R Q
+        self.promoted = 0  # crazyhouse: bitboard of promoted pieces
         self.checks_given = None  # threeCheck: [white_given, black_given]
 
     # ------------------------------------------------------------------ setup
@@ -113,6 +117,8 @@ class Position:
         p.ep_square = self.ep_square
         p.halfmove = self.halfmove
         p.fullmove = self.fullmove
+        p.pockets = None if self.pockets is None else [list(self.pockets[0]), list(self.pockets[1])]
+        p.promoted = self.promoted
         p.checks_given = None if self.checks_given is None else list(self.checks_given)
         return p
 
@@ -124,24 +130,56 @@ class Position:
         parts = fen.strip().split()
         if len(parts) < 1:
             raise InvalidFenError(f"empty FEN: {fen!r}")
-        ranks = parts[0].split("/")
+        board = parts[0]
+
+        # crazyhouse pocket may appear as "...[PNBq]" after the board field
+        pocket_str = None
+        if "[" in board:
+            board, rest = board.split("[", 1)
+            if not rest.endswith("]"):
+                raise InvalidFenError(f"unterminated pocket: {fen!r}")
+            pocket_str = rest[:-1]
+        elif board.count("/") == 8:
+            # shredder-style pocket as a 9th rank segment
+            board, pocket_str = board.rsplit("/", 1)
+
+        ranks = board.split("/")
         if len(ranks) != 8:
             raise InvalidFenError(f"expected 8 ranks: {fen!r}")
+        prev_promoted = 0
         for r_idx, rank_str in enumerate(ranks):
             rank = 7 - r_idx
             file = 0
+            last_sq = None
             for c in rank_str:
                 if c.isdigit():
                     file += int(c)
+                    last_sq = None
+                elif c == "~":
+                    if last_sq is None:
+                        raise InvalidFenError(f"dangling ~ in FEN: {fen!r}")
+                    prev_promoted |= bb(last_sq)
                 else:
                     if file > 7:
                         raise InvalidFenError(f"rank overflow: {fen!r}")
                     color, ptype = parse_piece_char(c)
-                    pos.bbs[color][ptype] |= bb(square(file, rank))
+                    sq = square(file, rank)
+                    pos.bbs[color][ptype] |= bb(sq)
+                    last_sq = sq
                     file += 1
             if file != 8:
                 raise InvalidFenError(f"bad rank length {rank_str!r}: {fen!r}")
+        pos.promoted = prev_promoted
         pos._refresh_occ()
+
+        if pos.pockets is not None or pocket_str is not None:
+            pos.pockets = [[0] * 5, [0] * 5]
+            if pocket_str and pocket_str != "-":
+                for c in pocket_str:
+                    color, ptype = parse_piece_char(c)
+                    if ptype == KING:
+                        raise InvalidFenError(f"king in pocket: {fen!r}")
+                    pos.pockets[color][ptype] += 1
 
         pos.turn = WHITE
         if len(parts) > 1:
@@ -249,11 +287,20 @@ class Position:
                         row += str(empty)
                         empty = 0
                     row += piece_char(*pc)
+                    if self.promoted & bb(sq):
+                        row += "~"
             if empty:
                 row += str(empty)
             rows.append(row)
+        board = "/".join(rows)
+        if self.pockets is not None:
+            pocket = ""
+            for color in (WHITE, BLACK):
+                for ptype in (QUEEN, ROOK, BISHOP, KNIGHT, PAWN):
+                    pocket += piece_char(color, ptype) * self.pockets[color][ptype]
+            board += f"[{pocket}]"
         parts = [
-            "/".join(rows),
+            board,
             "w" if self.turn == WHITE else "b",
             self.castling_fen(),
             square_name(self.ep_square) if self.ep_square is not None else "-",
@@ -422,13 +469,19 @@ class Position:
                 continue
             yield Move(ksq, rsq)
 
+    def _drop_moves(self, us: int) -> Iterator[Move]:
+        return iter(())
+
     def generate_pseudo_legal(self) -> Iterator[Move]:
         us = self.turn
         yield from self._pawn_moves(us)
         yield from self._piece_moves(us)
         yield from self._castling_moves(us)
+        yield from self._drop_moves(us)
 
     def is_castling_move(self, move: Move) -> bool:
+        if move.drop is not None:
+            return False
         pc = self.piece_at(move.from_sq)
         return (
             pc is not None
@@ -472,9 +525,8 @@ class Position:
     def parse_uci(self, uci: str) -> Move:
         """Parse a UCI move, accepting both standard (e1g1) and Chess960
         (king-takes-rook, e1h1) castling notation; validates legality."""
-        if "@" in uci:
-            raise IllegalMoveError(f"drop {uci!r} in {self.variant}")
-        move = self.normalize_move(Move.parse_uci(uci))
+        move = Move.parse_uci(uci)
+        move = self.normalize_move(move)
         legal = self.legal_moves()
         if move not in legal:
             raise IllegalMoveError(f"illegal move {uci!r} in {self.to_fen()!r}")
@@ -482,6 +534,8 @@ class Position:
 
     def normalize_move(self, move: Move) -> Move:
         """Convert standard-notation castling (e1g1) to king-takes-rook."""
+        if move.drop is not None:
+            return move
         pc = self.piece_at(move.from_sq)
         if pc is None or pc[1] != KING or not self.has_castling:
             return move
@@ -505,11 +559,14 @@ class Position:
         if pc is None:
             return None
         self.bbs[pc[0]][pc[1]] &= ~bb(sq)
+        self.promoted &= ~bb(sq)
         return pc
 
-    def _set_piece(self, sq: int, color: int, ptype: int) -> None:
+    def _set_piece(self, sq: int, color: int, ptype: int, promoted: bool = False) -> None:
         self._remove_piece(sq)
         self.bbs[color][ptype] |= bb(sq)
+        if promoted:
+            self.promoted |= bb(sq)
 
     def _apply(self, move: Move) -> None:
         us = self.turn
@@ -518,7 +575,12 @@ class Position:
         new_ep: Optional[int] = None
         captured: Optional[Tuple[int, int, int]] = None  # (color, ptype, sq)
 
-        if self.is_castling_move(move):
+        if move.drop is not None:
+            assert self.pockets is not None, "drop in non-crazyhouse game"
+            self.pockets[us][move.drop] -= 1
+            self._set_piece(move.to_sq, us, move.drop)
+            self.halfmove = 0 if move.drop == PAWN else self.halfmove
+        elif self.is_castling_move(move):
             ksq, rsq = move.from_sq, move.to_sq
             kingside = rsq > ksq
             rank = square_rank(ksq)
@@ -532,7 +594,8 @@ class Position:
             pc = self.piece_at(move.from_sq)
             if pc is None:
                 raise IllegalMoveError(f"no piece on {square_name(move.from_sq)}")
-            ptype = pc[1]
+            color, ptype = pc
+            was_promoted = bool(self.promoted & bb(move.from_sq))
             self._remove_piece(move.from_sq)
 
             # captures (including en passant)
@@ -541,11 +604,14 @@ class Position:
                 self.occ_all & bb(move.to_sq)
             ):
                 cap_sq = move.to_sq + (-8 if us == WHITE else 8)
-            cap_pc = self._remove_piece(cap_sq)
+            cap_pc = self.piece_at(cap_sq)
             if cap_pc is not None:
+                cap_was_promoted = bool(self.promoted & bb(cap_sq))
+                self._remove_piece(cap_sq)
                 captured = (cap_pc[0], cap_pc[1], cap_sq)
                 self.halfmove = 0
                 self.castling &= ~bb(cap_sq)  # capturing a rook kills its right
+                self._on_capture(us, cap_pc, cap_sq, cap_was_promoted)
 
             if ptype == PAWN:
                 self.halfmove = 0
@@ -553,10 +619,10 @@ class Position:
                     move.from_sq, us
                 ):
                     new_ep = (move.from_sq + move.to_sq) // 2
-            self._set_piece(
-                move.to_sq, us,
-                move.promotion if move.promotion is not None else ptype,
-            )
+            if move.promotion is not None:
+                self._set_piece(move.to_sq, us, move.promotion, promoted=self.pockets is not None)
+            else:
+                self._set_piece(move.to_sq, us, ptype, promoted=was_promoted)
 
             if ptype == KING:
                 self.castling &= ~BACK_RANKS[us]
@@ -570,6 +636,9 @@ class Position:
         if us == BLACK:
             self.fullmove += 1
         self._post_turn_hook(us)
+
+    def _on_capture(self, us: int, cap_pc: Tuple[int, int], cap_sq: int, cap_was_promoted: bool) -> None:
+        pass
 
     def _post_move_hook(self, move: Move, us: int, ptype: int, captured) -> None:
         pass
@@ -621,4 +690,3 @@ class Chess960Position(Position):
     """Chess960: identical rules; castling is already rook-square based."""
 
     variant = "chess960"
-

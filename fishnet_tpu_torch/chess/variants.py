@@ -2,17 +2,17 @@
 and game outcome for the variants this package analyses.
 
 A copy of the JAX package's chess/variants.py for threeCheck,
-kingOfTheHill, racingKings, horde and antichess (the reference client
+kingOfTheHill, racingKings, horde, antichess and crazyhouse (the reference client
 analyses them with Fairy-Stockfish: src/logger.rs:201-213 short names,
 src/queue.rs:562-568). The device search implements the same rules
 (ops/board.py node_rules and make_move, ops/movegen.py); these classes
 validate the chunk's input, replay its moves and decide terminal roots.
-Crazyhouse and atomic are not ported yet: `VARIANTS` names exactly the
-variants this package runs.
+Atomic is not ported yet: `VARIANTS` names exactly the variants this
+package runs.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 from .position import (
     RANK_1,
@@ -25,6 +25,7 @@ from .position import (
 )
 from .types import (
     BLACK,
+    FULL_BB,
     KING,
     KNIGHT,
     BISHOP,
@@ -35,6 +36,7 @@ from .types import (
     Move,
     bb,
     popcount,
+    scan,
     square_rank,
 )
 
@@ -225,6 +227,49 @@ class AntichessPosition(Position):
         return None
 
 
+class CrazyhousePosition(Position):
+    """Captured pieces go to the capturer's pocket (a promoted piece as a
+    pawn) and are dropped back as moves of their own (Position's pockets,
+    promoted bits and drop hooks)."""
+
+    variant = "crazyhouse"
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.pockets = [[0] * 5, [0] * 5]
+
+    @classmethod
+    def starting_fen(cls) -> str:
+        return "rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR[] w KQkq - 0 1"
+
+    @classmethod
+    def from_fen(cls, fen: str) -> "CrazyhousePosition":
+        pos = super().from_fen(fen)
+        if pos.pockets is None:
+            pos.pockets = [[0] * 5, [0] * 5]
+        return pos
+
+    def _on_capture(self, us: int, cap_pc, cap_sq: int, cap_was_promoted: bool) -> None:
+        ptype = PAWN if cap_was_promoted else cap_pc[1]
+        self.pockets[us][ptype] += 1
+
+    def _drop_moves(self, us: int) -> Iterator[Move]:
+        if self.pockets is None:
+            return
+        empty = ~self.occ_all & FULL_BB
+        for ptype in range(5):
+            if self.pockets[us][ptype] <= 0:
+                continue
+            targets = empty
+            if ptype == PAWN:
+                targets &= ~(RANK_1 | RANK_8)
+            for to in scan(targets):
+                yield Move(0, to, drop=ptype)
+
+    def is_insufficient_material(self) -> bool:
+        return False  # material comes back from the pocket
+
+
 # chunk variants this package runs (the engine refuses the rest)
 VARIANTS = {
     "standard": Position,
@@ -236,6 +281,7 @@ VARIANTS = {
     "racingKings": RacingKingsPosition,
     "horde": HordePosition,
     "antichess": AntichessPosition,
+    "crazyhouse": CrazyhousePosition,
 }
 
 

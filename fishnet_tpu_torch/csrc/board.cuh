@@ -9,7 +9,9 @@
 // reference compiles one program per static variant flag: the standard
 // instantiation runs standard chess's rules (and chess960's), the others
 // add their branches (threeCheck, kingOfTheHill, racingKings, horde,
-// antichess; ops/board.py node_rules_plain and _apply).
+// antichess; ops/board.py node_rules_plain and _apply). Crazyhouse has
+// standard chess's node rules (its K8 instantiation is standard's) and
+// adds drops, pockets and promoted bits to make-move.
 //
 // The static tables and constants come from rules_tables.cuh, which
 // kernels.build() generates from the plain versions' own tables
@@ -146,30 +148,37 @@ __device__ void node_rules_warp(const int* sb, int stm, const int32_t* extra, in
     }
 }
 
-// A move decoded against its board (board.py _move_parts).
+// A move decoded against its board (board.py _move_parts). In crazyhouse
+// a drop (DROP_FLAG | type << 12 | to << 6 | to) moves no piece of the
+// board: no pawn or king move, no castling, no capture; it places its
+// type (promo: 0-4, P..Q) of the mover's color on `to`.
 struct MoveParts {
-    int frm, to, piece, target, placed, rook;
-    bool is_pawn, is_king, is_castle, is_ep, capture;
+    int frm, to, piece, target, placed, rook, promo;
+    bool is_pawn, is_king, is_castle, is_ep, capture, drop;
     int ep_victim, king_to, r_dest, cleared;
 };
 
+template <int V>
 __device__ __forceinline__ MoveParts decode_move(const int* sb, int stm, int ep, int move) {
     MoveParts m;
     m.frm = move & 63;
     m.to = (move >> 6) & 63;
-    const int promo = move >> 12;
+    constexpr bool zh = V == VARIANT_CRAZYHOUSE;
+    m.drop = zh && (move & DROP_FLAG) != 0;
+    m.promo = zh ? (move >> 12) & 7 : move >> 12;  // the other variants carry no drop bit
     m.piece = sb[m.frm];
     m.target = sb[m.to];
     const int us6 = 6 * stm;
     const int pt = ptype(m.piece);
-    m.is_pawn = pt == 0;
-    m.is_king = pt == 5;
+    m.is_pawn = pt == 0 && !m.drop;
+    m.is_king = pt == 5 && !m.drop;
     m.rook = W_ROOK + us6;
     m.is_castle = m.is_king && m.target == m.rook;  // king takes own rook
     m.capture = pcolor(m.target) == 1 - stm;
     m.is_ep = m.is_pawn && m.to == ep && m.target == 0 && (m.to & 7) != (m.frm & 7);
     m.ep_victim = min(max(m.to - 8 + 16 * stm, 0), 63);
-    m.placed = promo > 0 ? __ldg(&PROMO_TO_PIECE[min(promo, 5)]) + us6 : m.piece;
+    m.placed = m.promo > 0 ? __ldg(&PROMO_TO_PIECE[min(m.promo, 5)]) + us6 : m.piece;
+    if (m.drop) m.placed = W_PAWN + min(m.promo, POCKET_TYPES - 1) + us6;
     const int slot = 2 * stm + (m.to > m.frm ? 0 : 1);  // kingside, queenside
     m.r_dest = __ldg(&CASTLE_ROOK_TO[slot]);
     m.king_to = m.is_castle ? __ldg(&CASTLE_KING_TO[slot]) : m.to;
@@ -187,19 +196,47 @@ __device__ __forceinline__ int child_code(const int* sb, const MoveParts& m, int
     return code;
 }
 
+// Crazyhouse's child word i of the variant words (board.py
+// _crazyhouse_extra): the mover's pocket gains the piece it captured (a
+// promoted one as a pawn) and pays for a drop; the promoted bits (a 64-bit
+// board in words EXTRA_PROMOTED, EXTRA_PROMOTED + 1) leave the origin and
+// the captured piece's square, and the destination takes one for a fresh
+// promotion or a promoted piece moving on.
+__device__ __forceinline__ int crazyhouse_word(const int* sb, const MoveParts& m, int stm,
+                                               const int32_t* extra, int i) {
+    uint64_t promoted = (uint32_t)extra[EXTRA_PROMOTED]
+                        | ((uint64_t)(uint32_t)extra[EXTRA_PROMOTED + 1] << 32);
+    const int cap_sq = m.is_ep ? m.ep_victim : m.to;
+    const bool real_capture = (m.capture || m.is_ep) && !(m.is_castle || m.drop);
+    if (i >= EXTRA_POCKET && i < EXTRA_POCKET + 2 * POCKET_TYPES) {
+        const int slot = EXTRA_POCKET + stm * POCKET_TYPES;
+        const int cap_type = ((promoted >> cap_sq) & 1) ? 0 : max(ptype(sb[cap_sq]), 0);
+        return extra[i] + (real_capture && i == slot + min(cap_type, POCKET_TYPES - 1))
+               - (m.drop && i == slot + min(m.promo, POCKET_TYPES - 1));
+    }
+    if (i < EXTRA_PROMOTED || i >= EXTRA_PROMOTED + 2) return extra[i];
+    const bool dest = !m.drop && (m.promo > 0 || ((promoted >> m.frm) & 1));
+    promoted &= ~(1ull << m.frm);
+    if (real_capture) promoted &= ~(1ull << cap_sq);
+    promoted = (promoted & ~(1ull << m.to)) | ((uint64_t)dest << m.to);
+    return (int)(uint32_t)(promoted >> (32 * (i - EXTRA_PROMOTED)));
+}
+
 // K10's body: the child of `move` as a packed board row (BT_W words: the
 // board, side to move, ep square, castling rooks, halfmove clock, the
 // parent's variant words — threeCheck's mover's counter raised when the
-// move gives check — then zeros, as board.py rows_from_board writes
-// them) and the four piece-change slots [mover out, capture out, mover
-// in, rook in] (codes, sqs, signs; board.py _changes). Each thread writes
-// its own words; the child's board is read back (threeCheck) after a
-// warp barrier, so `child` may be shared or global memory.
+// move gives check, crazyhouse's pockets and promoted bits moved with the
+// pieces — then zeros, as board.py rows_from_board writes them) and the
+// four piece-change slots [mover out, capture out, mover in, rook in]
+// (codes, sqs, signs; board.py _changes; a drop fills only the third).
+// Each thread writes its own words; the child's board is read back
+// (threeCheck) after a warp barrier, so `child` may be shared or global
+// memory.
 template <int V>
 __device__ void make_move_warp(const int* sb, int stm, int ep, const int32_t* castling,
                                int halfmove, const int32_t* extra, int move, int t,
                                int32_t* child, int32_t* codes, int32_t* sqs, int32_t* signs) {
-    const MoveParts m = decode_move(sb, stm, ep, move);
+    const MoveParts m = decode_move<V>(sb, stm, ep, move);
     child[BT_BOARD + t] = child_code(sb, m, t);
     child[BT_BOARD + t + WARP] = child_code(sb, m, t + WARP);
     bool gave_check = false;
@@ -223,18 +260,22 @@ __device__ void make_move_warp(const int* sb, int stm, int ep, const int32_t* ca
         const int i = w - BT_CAST;
         const int rook_sq = castling[i];
         const bool gone = (m.is_king && __ldg(&CASTLE_SLOT_COLOR[i]) == stm)
-                          || rook_sq == m.frm || rook_sq == m.to;
+                          || ((rook_sq == m.frm || rook_sq == m.to) && !m.drop);
         v = gone ? -1 : rook_sq;
-    } else if (w == BT_HM) {
-        v = (m.is_pawn || m.capture || m.is_ep) ? 0 : halfmove + 1;
+    } else if (w == BT_HM) {  // a pawn drop is a pawn move
+        v = (m.is_pawn || m.capture || m.is_ep || (m.drop && m.promo == 0)) ? 0 : halfmove + 1;
     } else if (w >= BT_EXTRA && w < BT_EXTRA + EXTRA_W) {
-        v = extra[w - BT_EXTRA] + (gave_check && w == BT_EXTRA + EXTRA_CHECKS + stm);
+        if constexpr (V == VARIANT_CRAZYHOUSE) {
+            v = crazyhouse_word(sb, m, stm, extra, w - BT_EXTRA);
+        } else {
+            v = extra[w - BT_EXTRA] + (gave_check && w == BT_EXTRA + EXTRA_CHECKS + stm);
+        }
     }
     child[w] = v;
     if (t < 4) {
         int code, sq;
         switch (t) {
-            case 0: code = m.piece; sq = m.frm; break;
+            case 0: code = m.drop ? 0 : m.piece; sq = m.frm; break;
             case 1:
                 code = m.is_ep ? sb[m.ep_victim] : ((m.is_castle || m.capture) ? m.target : 0);
                 sq = m.is_ep ? m.ep_victim : m.to;

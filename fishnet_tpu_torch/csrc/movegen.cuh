@@ -19,25 +19,51 @@
 // promotion (to a king) and makes a capture compulsory — its captures
 // (en passant included) are exactly its moves with keys below
 // NOISY_BELOW, which rank first, so when any exists the list keeps only
-// the first `noisy` ranks.
+// the first `noisy` ranks. Crazyhouse adds a drop of each type its pocket
+// holds on each empty square (a pawn not on the first or last rank),
+// keyed DROP_KEY, and keeps MAX_MOVES_ZH moves (max_moves<V>): the ranks
+// of drops that share a key are their packed values', as the plain
+// version's sort gives.
 #pragma once
 #include "board.cuh"
 
 namespace rules {
 
 // Room for every move of any board: at most 64 * 64 / 4 = 1,024 moves
-// from an own piece to a square that is empty or the opponent's, the 72
-// promotion variants beyond the first of 24 pawn moves (96 in antichess,
-// which promotes to five pieces), 2 castling moves and 2 en-passant
-// captures onto an own piece that the plain version's en-passant test
-// also admits: 1,024 + 96 + 2 + 2 = 1,124 at most.
+// from an own piece to a square that is empty or the opponent's (k own
+// pieces reach at most 64 - k squares each), the 72 promotion variants
+// beyond the first of 24 pawn moves (96 in antichess, which promotes to
+// five pieces), 2 castling moves and 2 en-passant captures onto an own
+// piece that the plain version's en-passant test also admits: 1,024 + 96
+// + 2 + 2 = 1,124 at most.
 constexpr int MOVE_LIST_CAP = 1152;
+// Crazyhouse's drops add at most 5 types x 64 squares = 320: 1,124 + 320 =
+// 1,444 at most. The board's geometry alone does not keep them inside
+// MOVE_LIST_CAP (k own pieces and e empty squares allow k (64 - k) board
+// moves and 5e drops: 1,185 with k = 29 and e = 34, before promotions), so
+// crazyhouse's list is wider, in its instantiations only.
+constexpr int MOVE_LIST_CAP_ZH = 1472;
 
-struct MoveList {
-    int packed[MOVE_LIST_CAP];
+template <int V>
+__host__ __device__ constexpr int move_list_cap() {
+    return V == VARIANT_CRAZYHOUSE ? MOVE_LIST_CAP_ZH : MOVE_LIST_CAP;
+}
+// The width of a variant's ordered move list (ops/movegen.py max_moves_for).
+template <int V>
+__host__ __device__ constexpr int max_moves() {
+    return V == VARIANT_CRAZYHOUSE ? MAX_MOVES_ZH : MAX_MOVES;
+}
+static_assert(MAX_MOVES_ZH <= MOVE_LIST_CAP_ZH && MAX_MOVES <= MOVE_LIST_CAP, "move lists");
+
+template <int Size>
+struct MoveListOf {
+    static constexpr int kCap = Size;
+    int packed[Size];
     int n;
     int noisy;
 };
+template <int V>
+using MoveList = MoveListOf<move_list_cap<V>()>;
 
 // The quiet-ordering state of a lane: history counters (4096, nullptr for
 // none) and two killer moves (-1 for none: no move encodes as -1). The
@@ -49,17 +75,34 @@ struct Ordering {
     int killer0, killer1;
 };
 
-__device__ __forceinline__ void emit(MoveList& list, const Ordering& o, int key, int move) {
-    if (o.hist != nullptr && key == QUIET_KEY) {
-        const int bonus = min(max(o.hist[move & 4095] >> HIST_SHIFT, 0), HIST_MAX_BONUS);
-        key = HIST_BASE - bonus;
-    }
+// A move's history bonus: its from|to counter, scaled and clamped.
+__device__ __forceinline__ int hist_bonus(const Ordering& o, int move) {
+    return min(max(o.hist[move & 4095] >> HIST_SHIFT, 0), HIST_MAX_BONUS);
+}
+
+template <class List>
+__device__ __forceinline__ void push(List& list, int key, int move) {
+    if (key < NOISY_BELOW) atomicAdd(&list.noisy, 1);
+    const int slot = atomicAdd(&list.n, 1);
+    if (slot < List::kCap) list.packed[slot] = (key << 16) | move;
+}
+
+template <class List>
+__device__ __forceinline__ void emit(List& list, const Ordering& o, int key, int move) {
+    if (o.hist != nullptr && key == QUIET_KEY) key = HIST_BASE - hist_bonus(o, move);
     if (key >= NOISY_BELOW && (move == o.killer0 || move == o.killer1)) {
         key = KILLER_KEY;
     }
-    if (key < NOISY_BELOW) atomicAdd(&list.noisy, 1);
-    const int slot = atomicAdd(&list.n, 1);
-    if (slot < MOVE_LIST_CAP) list.packed[slot] = (key << 16) | move;
+    push(list, key, move);
+}
+
+// A crazyhouse drop: DROP_KEY, or DROP_HIST_BASE less its history bonus
+// (its counter is to << 6 | to's), or KILLER_KEY for a killer.
+template <class List>
+__device__ __forceinline__ void emit_drop(List& list, const Ordering& o, int move) {
+    int key = o.hist != nullptr ? DROP_HIST_BASE - hist_bonus(o, move) : DROP_KEY;
+    if (move == o.killer0 || move == o.killer1) key = KILLER_KEY;
+    push(list, key, move);
 }
 
 __device__ __forceinline__ int pair_key(int mover, int target) {
@@ -70,8 +113,8 @@ __device__ __forceinline__ bool pair_take(int mover, int target) {
 }
 
 // The moves of the piece on sq, if it is the side to move's.
-template <int V>
-__device__ void piece_moves(const int* sb, int us, int ep, int sq, MoveList& list,
+template <int V, class List>
+__device__ void piece_moves(const int* sb, int us, int ep, int sq, List& list,
                             const Ordering& o) {
     const int code = sb[sq];
     if (code == 0 || pcolor(code) != us) return;
@@ -131,8 +174,9 @@ __device__ void piece_moves(const int* sb, int us, int ep, int sq, MoveList& lis
 // of the side to move's castling rooks, the squares between king and rook
 // and their destinations must be empty but for the two, and no square of
 // the king's path attacked with both lifted off the board.
+template <class List>
 __device__ void castling_moves(const int* sb, int us, const int32_t* castling, int t,
-                               MoveList& list, const Ordering& o) {
+                               List& list, const Ordering& o) {
     const int king_code = W_KING + 6 * us;
     const unsigned lo = __ballot_sync(FULL_MASK, sb[t] == king_code);
     const unsigned hi = __ballot_sync(FULL_MASK, sb[t + WARP] == king_code);
@@ -172,13 +216,28 @@ __device__ void castling_moves(const int* sb, int us, const int32_t* castling, i
     }
 }
 
-// The lane's ordered move list: moves (MAX_MOVES words, -1 padded), and
-// the count and the noisy prefix's length, each clamped to MAX_MOVES.
-// list is the warp's shared scratch; sb the lane's board in shared memory.
+// Crazyhouse's drops onto sq, if it is empty: one per type the side to
+// move's pocket (extra's EXTRA_POCKET words) holds.
+__device__ __forceinline__ void drop_moves(const int* sb, int us, const int32_t* extra, int sq,
+                                           MoveList<VARIANT_CRAZYHOUSE>& list,
+                                           const Ordering& o) {
+    if (sb[sq] != 0) return;
+    for (int pt = 0; pt < POCKET_TYPES; ++pt) {
+        if (extra[EXTRA_POCKET + us * POCKET_TYPES + pt] > 0 && __ldg(&DROP_OK[pt * 64 + sq])) {
+            emit_drop(list, o, DROP_FLAG | (pt << 12) | (sq << 6) | sq);
+        }
+    }
+}
+
+// The lane's ordered move list: moves (max_moves<V>() words, -1 padded),
+// and the count and the noisy prefix's length, each clamped to that
+// width. list is the warp's shared scratch; sb the lane's board in shared
+// memory; extra its variant words (read in crazyhouse only).
 template <int V>
 __device__ void generate_moves_warp(const int* sb, int stm, int ep, const int32_t* castling,
-                                    const Ordering& o, int t, MoveList& list, int32_t* moves,
-                                    int* count, int* noisy) {
+                                    const int32_t* extra, const Ordering& o, int t,
+                                    MoveList<V>& list, int32_t* moves, int* count, int* noisy) {
+    constexpr int MM = max_moves<V>();
     if (t == 0) {
         list.n = 0;
         list.noisy = 0;
@@ -187,8 +246,12 @@ __device__ void generate_moves_warp(const int* sb, int stm, int ep, const int32_
     piece_moves<V>(sb, stm, ep, t, list, o);
     piece_moves<V>(sb, stm, ep, t + WARP, list, o);
     castling_moves(sb, stm, castling, t, list, o);
+    if constexpr (V == VARIANT_CRAZYHOUSE) {
+        drop_moves(sb, stm, extra, t, list, o);
+        drop_moves(sb, stm, extra, t + WARP, list, o);
+    }
     __syncwarp();
-    const int n = min(list.n, MOVE_LIST_CAP);
+    const int n = min(list.n, move_list_cap<V>());
     // the moves kept: all, or in antichess the captures when there are any
     int keep = list.n;
     if constexpr (V == VARIANT_ANTICHESS) keep = list.noisy > 0 ? list.noisy : list.n;
@@ -199,11 +262,11 @@ __device__ void generate_moves_warp(const int* sb, int stm, int ep, const int32_
             const int w = list.packed[k];
             rank += w < v || (w == v && k < j);  // equal values (none in play) stay apart
         }
-        if (rank < MAX_MOVES && rank < keep) moves[rank] = v & 0xFFFF;
+        if (rank < MM && rank < keep) moves[rank] = v & 0xFFFF;
     }
-    for (int j = min(keep, MAX_MOVES) + t; j < MAX_MOVES; j += WARP) moves[j] = -1;
-    *count = min(keep, MAX_MOVES);
-    *noisy = min(list.noisy, MAX_MOVES);
+    for (int j = min(keep, MM) + t; j < MM; j += WARP) moves[j] = -1;
+    *count = min(keep, MM);
+    *noisy = min(list.noisy, MM);
     __syncwarp();  // the list may be reused by the warp's next lane
 }
 

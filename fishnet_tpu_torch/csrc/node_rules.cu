@@ -2,8 +2,9 @@
 // illegal (the mover's king missing or attacked, or the variant's own
 // duty broken), whether the side to move is in check, and the variant's
 // game end at the node (TERM_*), for standard chess and chess960 and, one
-// instantiation each, threeCheck, kingOfTheHill, racingKings, horde and
-// antichess.
+// instantiation each, threeCheck, kingOfTheHill, racingKings, horde,
+// antichess and crazyhouse (whose rules are standard chess's: its
+// instantiation takes no variant branch).
 //
 // Replaces: fishnet_tpu/ops/board.py:256 node_rules with :137 attack_map
 // (called every search step at fishnet_tpu/ops/search.py:377).
@@ -78,6 +79,7 @@ int launch(const void* board, int64_t board_stride, const void* stm, int64_t stm
 
 NODE_RULES_ENTRY(node_rules, rules::VARIANT_STANDARD)
 NODE_RULES_ENTRY(node_rules_threeCheck, rules::VARIANT_THREECHECK)
+NODE_RULES_ENTRY(node_rules_crazyhouse, rules::VARIANT_CRAZYHOUSE)
 NODE_RULES_ENTRY(node_rules_antichess, rules::VARIANT_ANTICHESS)
 NODE_RULES_ENTRY(node_rules_horde, rules::VARIANT_HORDE)
 NODE_RULES_ENTRY(node_rules_kingOfTheHill, rules::VARIANT_KINGOFTHEHILL)

@@ -23,8 +23,11 @@
 // board rules, keys, move generator and make-move take their variant
 // instantiations, a node at the variant's game end (node_rules' term) is
 // a leaf worth a mate score or a draw and is never stored in the table,
-// and antichess turns the null move off and scores a node without a move
-// as a win (the reference's _step_lane under its static variant flag).
+// antichess turns the null move off and scores a node without a move as a
+// win, and crazyhouse's move lists (the state's `moves` rows and the
+// warp's staged list) are MAX_MOVES_ZH wide where the others' are
+// MAX_MOVES (rules::max_moves<V>; the reference's _step_lane under its
+// static variant flag, its tables at max_moves_for(variant)).
 // The rows the step reads are staged in shared memory before any write,
 // and the writes land in the reference's order, each under its
 // mask: the entered row (ply0), the folded parent (parent0), the PV row,
@@ -46,7 +49,6 @@ namespace search {
 
 using namespace consts;
 using rules::FULL_MASK;
-using rules::MAX_MOVES;
 using rules::WARP;
 
 using rules::BT_CAST;
@@ -108,7 +110,7 @@ struct Segment {
     int32_t* lane;  // (B, LN_W)
     const int32_t* hist_hash;  // (B, H, 2)
     const int32_t* hist_halfmove;  // (B, H)
-    int32_t* moves;  // (B, P, MAX_MOVES)
+    int32_t* moves;  // (B, P, max_moves<V>()) for the variant V of the launch
     int32_t* hist;  // (B, HIST_SIZE)
     int32_t* pv;  // (B, P, P)
     typename Net::Acc* acc;  // (B, P+1, 2, L1): read and written on board768 only
@@ -127,20 +129,28 @@ struct Segment {
     bool pruning, deep_tt, prefer_deep;
 };
 
-// The rows a lane's step reads, staged by its warp.
+// The rows a lane's step reads, staged by its warp (the move lists as
+// wide as the variant's).
+template <int V>
 struct WarpRows {
     int btr[BT_W];  // the ply row; after ENTER, with its path hash (btE)
     int btp[BT_W];  // the parent's row
     int child[BT_W];  // the child's row
     int ntr[NT_W];  // the ply's node row; after ENTER, the entered row (ntE)
     int ntp[NT_W];  // the parent's node row; after RETURN, the folded row (ntP)
-    int gen[MAX_MOVES];  // the ordered move list ENTER generates
+    int gen[rules::max_moves<V>()];  // the ordered move list ENTER generates
     int chg[12];  // the child's piece changes: codes, squares, signs
-    rules::MoveList list;  // K9's scratch
+    rules::MoveList<V> list;  // K9's scratch
     nnue::Features feat;  // K12's and K13's feature lists
 };
 
+// Non-capture, non-promotion move (a crazyhouse drop is quiet; en passant
+// reads as quiet, which only costs ordering).
+template <int V>
 __device__ __forceinline__ bool is_quiet(int move, const int* board) {
+    if constexpr (V == VARIANT_CRAZYHOUSE) {
+        if (move & rules::DROP_FLAG) return true;
+    }
     return board[(move >> 6) & 63] == 0 && ((move >> 12) & 7) == 0;
 }
 
@@ -189,7 +199,7 @@ __device__ void store_commit(const Segment<Net>& a, int lane, int t) {
 // finished (not illegal, not a TT-sourced value of depth -1, within its
 // budget) stores the node's value with its bound flag and best move.
 template <class Net, int V>
-__device__ void interior_store_claim(const Segment<Net>& a, int lane, WarpRows& s, int t,
+__device__ void interior_store_claim(const Segment<Net>& a, int lane, WarpRows<V>& s, int t,
                                      unsigned* calls) {
     const int32_t* L = a.lane + (int64_t)lane * LN_W;
     const int ret = L[LN_RET], retd = L[LN_RETD];
@@ -220,9 +230,11 @@ __device__ void interior_store_claim(const Segment<Net>& a, int lane, WarpRows& 
 // (depth-0 EXACT under the pre-step keys). Returns whether the lane is
 // still live. Every thread of the warp calls it; branches are warp-uniform.
 template <class Net, int V>
-__device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows& s, int t,
+__device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows<V>& s, int t,
                           unsigned* calls) {
     using Acc = typename Net::Acc;
+    constexpr int MM = rules::max_moves<V>();  // the variant's move-list width
+    static_assert(MM % WARP == 0, "the TT move's search reads the list a warp at a time");
     int32_t* L = a.lane + (int64_t)lane * LN_W;
     const int P = a.P, P1 = P + 1;
     const int mode0 = L[LN_MODE];
@@ -244,7 +256,7 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows& s, int t,
     const int p0 = ply0, pp = max(p0 - 1, 0);
     int32_t* nt = a.nt + (int64_t)lane * P1 * NT_W;
     int32_t* bt = a.bt + (int64_t)lane * P1 * BT_W;
-    int32_t* mv = a.moves + (int64_t)lane * P * MAX_MOVES;
+    int32_t* mv = a.moves + (int64_t)lane * P * MM;
     int32_t* pv = a.pv + (int64_t)lane * P * P;
     Acc* acc = a.acc + (int64_t)lane * P1 * 2 * L1;  // board768 only
     if (t < NT_W) {
@@ -256,8 +268,8 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows& s, int t,
         s.btp[j] = bt[pp * BT_W + j];
     }
     // the move a fold credits to the parent, read before any write
-    const int tried = mv[pp * MAX_MOVES
-                         + min(max(nt[pp * NT_W + NT_MIDX] - 1, 0), MAX_MOVES - 1)];
+    const int tried = mv[pp * MM
+                         + min(max(nt[pp * NT_W + NT_MIDX] - 1, 0), MM - 1)];
     const int budget = L[LN_BUDGET];
     int ret = L[LN_RET], ret_depth = L[LN_RETD];
     const int root_alpha = L[LN_RALPHA], root_beta = L[LN_RBETA];
@@ -342,8 +354,9 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows& s, int t,
         o.killer0 = s.ntr[NT_K0];
         o.killer1 = s.ntr[NT_K1];
         int count, noisy;
-        rules::generate_moves_warp<V>(s.btr, stm, s.btr[BT_EP], &s.btr[BT_CAST], o, t, s.list,
-                                      s.gen, &count, &noisy);  // K9
+        rules::generate_moves_warp<V>(s.btr, stm, s.btr[BT_EP], &s.btr[BT_CAST],
+                                      &s.btr[BT_EXTRA], o, t, s.list, s.gen, &count,
+                                      &noisy);  // K9
         const bool quiet_node = noisy == 0;
         const bool window_ok_a = entry_alpha > -MATE_BOUND && entry_alpha < MATE_BOUND;
         bool qs_like = in_qs;
@@ -379,7 +392,7 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows& s, int t,
         // the stored move to the front of the list (not in quiescence)
         if (tt_move >= 0 && !qs_like) {
             int at = -1;
-            for (int j0 = 0; j0 < MAX_MOVES && at < 0; j0 += WARP) {
+            for (int j0 = 0; j0 < MM && at < 0; j0 += WARP) {
                 const unsigned hit = __ballot_sync(FULL_MASK, s.gen[j0 + t] == tt_move);
                 if (hit) at = j0 + __ffs(hit) - 1;
             }
@@ -433,7 +446,7 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows& s, int t,
             bt[p0 * BT_W + BT_PH2] = (int32_t)h2;
         }
         if (expand) {
-            for (int j = t; j < MAX_MOVES; j += WARP) mv[min(p0, P - 1) * MAX_MOVES + j] = s.gen[j];
+            for (int j = t; j < MM; j += WARP) mv[min(p0, P - 1) * MM + j] = s.gen[j];
         }
         __syncwarp();
 
@@ -525,7 +538,7 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows& s, int t,
 
         // killer/history credit on fail-high by a quiet move
         const int cause = nt1[NT_BMOVE];
-        const bool k_upd = cutoff && cause >= 0 && is_quiet(max(cause, 0), bt1);
+        const bool k_upd = cutoff && cause >= 0 && is_quiet<V>(max(cause, 0), bt1);
         const bool k_new = k_upd && cause != nt1[NT_K0];
         if (k_upd && t == 0) {
             int32_t* h = a.hist + (int64_t)lane * HIST_SIZE + (cause & (HIST_SIZE - 1));
@@ -540,14 +553,14 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows& s, int t,
                              : (nt1[NT_INCHECK] != 0 ? ply1 - MATE : DRAW);
         const int fin_val = (no_legal && exhausted) ? mate_val : nt1[NT_BEST];
 
-        const int m_ix = min(max(re_push ? midx - 1 : midx, 0), MAX_MOVES - 1);
-        const int move = max(expand ? s.gen[m_ix] : mv[pp * MAX_MOVES + m_ix], 0);
+        const int m_ix = min(max(re_push ? midx - 1 : midx, 0), MM - 1);
+        const int move = max(expand ? s.gen[m_ix] : mv[pp * MM + m_ix], 0);
         int red = 0, child_dl;
         if (a.pruning) {
             // late-move reduction; the null child is the same position
             // with the opponent to move, no ep square and a reset clock
             const bool lmr_ok = dl_node >= LMR_MIN_DEPTH && midx >= LMR_MIN_MOVE
-                                && nt1[NT_INCHECK] == 0 && is_quiet(move, bt1);
+                                && nt1[NT_INCHECK] == 0 && is_quiet<V>(move, bt1);
             red = (lmr_ok && !(re_push || do_null)) ? (midx >= LMR_DEEP_MOVE ? 2 : 1) : 0;
             const int null_r = NULL_R + (dl_node >= NULL_DEEP_DEPTH);
             child_dl = max(dl_node - 1 - (do_null ? null_r : red), 0);

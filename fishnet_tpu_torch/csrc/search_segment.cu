@@ -30,11 +30,13 @@
 //
 // Variants: the step takes the variant as a template parameter (the
 // reference compiles one program per static variant flag), so each
-// variant's instantiation carries only its own rules. Each variant is a
-// library of its own, built from this source with the generated
+// variant's instantiation carries only its own rules; crazyhouse's also
+// its 544-move lists (2,176 B a warp for the staged list, and K9's wider
+// scratch: ~9.9 KB of shared memory a warp against ~7.4 KB). Each variant
+// is a library of its own, built from this source with the generated
 // `segment_entries.cuh` of its build directory, which instantiates the
 // five net kinds for it (kernels.py segment_entries); kernels.build()
-// runs the six nvcc processes in parallel.
+// runs the seven nvcc processes in parallel.
 //
 // Design: a persistent cooperative grid (cudaLaunchCooperativeKernel,
 // cooperative_groups grid sync), sized by the occupancy API to the blocks
@@ -71,10 +73,10 @@ constexpr int THREADS = WARPS * WARP;
 template <class Net, int V>
 __global__ void __launch_bounds__(THREADS) segment_kernel(const Segment<Net> a) {
     cg::grid_group grid = cg::this_grid();
-    __shared__ WarpRows rows[WARPS];
+    __shared__ WarpRows<V> rows[WARPS];
     const int w = threadIdx.x / WARP, t = threadIdx.x % WARP;
     const int first_warp = blockIdx.x * WARPS + w, n_warps = gridDim.x * WARPS;
-    WarpRows& s = rows[w];
+    WarpRows<V>& s = rows[w];
     const bool leader = blockIdx.x == 0 && threadIdx.x == 0;
     // "any lane live" before step i: flags[i % 3]
     int* flags = a.scratch + (int64_t)a.B * SEGMENT_SCRATCH;
@@ -233,7 +235,8 @@ int segment(void* bt, void* nt, void* lane, const void* hist_hash, const void* h
 
 // The state's nine tables (contiguous: bt (batch, P+1, 96), nt (batch,
 // P+1, 16), lane (batch, 16), hist_hash (batch, H, 2), hist_halfmove
-// (batch, H), moves (batch, P, MAX_MOVES), hist (batch, 4096), pv (batch,
+// (batch, H), moves (batch, P, the variant's MAX_MOVES or MAX_MOVES_ZH),
+// hist (batch, 4096), pv (batch,
 // P, P), acc (batch, P+1, 2, l1)), the net's nine weight pointers
 // (set_weights: a board768 net of l1 64, a king-bucketed net, or an
 // imported Stockfish net, with l1, h1, h2), the key tables, the table (n,

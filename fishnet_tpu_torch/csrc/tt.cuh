@@ -11,7 +11,9 @@
 // storable score) come from search_consts.cuh, which kernels.build()
 // writes from ops/tt.py and ops/board.py. The keys take the variant as a
 // template parameter V: every variant but standard chess XORs in its salt,
-// threeCheck also its check counters (ops/tt.py hash_board_plain).
+// threeCheck also its check counters, crazyhouse its ten pocket counts and
+// a key per square of its promoted-piece bits (ops/tt.py hash_board_plain;
+// plain indexing where the reference picks its keys by one-hot selects).
 #pragma once
 #include "common.cuh"
 #include "search_consts.cuh"
@@ -25,6 +27,8 @@ using consts::EP_OFF;
 using consts::FLAG_EXACT;
 using consts::FLAG_LOWER;
 using consts::MAX_STORE;
+using consts::POCKET_OFF;
+using consts::PROMOTED_OFF;
 using consts::SCORE_BIAS;
 using consts::STM_OFF;
 using consts::VARIANT_OFF;
@@ -78,8 +82,28 @@ __device__ __forceinline__ void piece_key(int code, int sq, const uint32_t* z1,
     }
 }
 
+// Crazyhouse's key of square sq's promoted bit (extra's EXTRA_PROMOTED
+// words: bit sq % 32 of word sq / 32), if it is set.
+__device__ __forceinline__ void promoted_key(const int32_t* extra, int sq, const uint32_t* z1,
+                                             const uint32_t* z2, uint32_t& h1, uint32_t& h2) {
+    if (((uint32_t)extra[consts::EXTRA_PROMOTED + (sq >> 5)] >> (sq & 31)) & 1u) {
+        h1 ^= z1[PROMOTED_OFF + sq];
+        h2 ^= z2[PROMOTED_OFF + sq];
+    }
+}
+
+// Crazyhouse's key of pocket word `slot` (color * POCKET_TYPES + type):
+// one of POCKET_MAX + 1 keys, by the count clipped to 0..POCKET_MAX.
+__device__ __forceinline__ void pocket_key(const int32_t* extra, int slot, const uint32_t* z1,
+                                           const uint32_t* z2, uint32_t& h1, uint32_t& h2) {
+    const int k = POCKET_OFF + slot * (consts::POCKET_MAX + 1)
+                  + min(max(extra[consts::EXTRA_POCKET + slot], 0), consts::POCKET_MAX);
+    h1 ^= z1[k];
+    h2 ^= z2[k];
+}
+
 // K4's body: one thread hashes one position (board: 64 codes; extra its
-// variant words, read in threeCheck only).
+// variant words, read in threeCheck and crazyhouse only).
 template <int V>
 __device__ __forceinline__ void zobrist_keys(const int32_t* board, int stm, int ep,
                                              const int32_t* castling, const int32_t* extra,
@@ -88,13 +112,20 @@ __device__ __forceinline__ void zobrist_keys(const int32_t* board, int stm, int 
     h1 = 0;
     h2 = 0;
     for (int sq = 0; sq < 64; ++sq) piece_key(board[sq], sq, z1, z2, h1, h2);
+    if constexpr (V == consts::VARIANT_CRAZYHOUSE) {
+        for (int slot = 0; slot < 2 * consts::POCKET_TYPES; ++slot) {
+            pocket_key(extra, slot, z1, z2, h1, h2);
+        }
+        for (int sq = 0; sq < 64; ++sq) promoted_key(extra, sq, z1, z2, h1, h2);
+    }
     side_keys(stm, ep, castling, z1, z2, h1, h2);
     variant_keys<V>(extra, z1, z2, h1, h2);
 }
 
-// The same keys from a warp: each thread XORs two squares, the warp folds
-// them (XOR is order free, so the keys equal zobrist_keys' bit for bit);
-// every thread returns the pair.
+// The same keys from a warp: each thread XORs two squares (in crazyhouse
+// also their promoted bits, and threads below 2 * POCKET_TYPES a pocket
+// word each), the warp folds them (XOR is order free, so the keys equal
+// zobrist_keys' bit for bit); every thread returns the pair.
 template <int V>
 __device__ __forceinline__ void zobrist_keys_warp(const int* board, int stm, int ep,
                                                   const int* castling, const int* extra,
@@ -104,6 +135,12 @@ __device__ __forceinline__ void zobrist_keys_warp(const int* board, int stm, int
     h2 = 0;
     piece_key(board[t], t, z1, z2, h1, h2);
     piece_key(board[t + 32], t + 32, z1, z2, h1, h2);
+    if constexpr (V == consts::VARIANT_CRAZYHOUSE) {
+        const int32_t* e = (const int32_t*)extra;
+        promoted_key(e, t, z1, z2, h1, h2);
+        promoted_key(e, t + 32, z1, z2, h1, h2);
+        if (t < 2 * consts::POCKET_TYPES) pocket_key(e, t, z1, z2, h1, h2);
+    }
     for (int off = 16; off > 0; off >>= 1) {
         h1 ^= __shfl_xor_sync(0xffffffffu, h1, off);
         h2 ^= __shfl_xor_sync(0xffffffffu, h2, off);

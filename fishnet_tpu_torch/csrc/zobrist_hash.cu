@@ -2,17 +2,19 @@
 // piece-square keys of every occupied square, the en-passant key, the
 // four castling-slot keys and the side-to-move key, under the two tables
 // Z1 and Z2; one instantiation per variant, each but standard chess's
-// adding its salt, threeCheck its check counters.
+// adding its salt, threeCheck its check counters, crazyhouse its ten pocket
+// counts and the keys of its promoted-piece bits.
 //
-// Replaces: fishnet_tpu/ops/tt.py:113 hash_board (called every search
-// step at fishnet_tpu/ops/search.py:397 for the repetition scan, and once
-// per chunk over the game history at fishnet_tpu/engine/tpu.py:766).
+// Replaces: fishnet_tpu/ops/tt.py:113 hash_board with its variant keys
+// (:151-171; called every search step at fishnet_tpu/ops/search.py:397
+// for the repetition scan, and once per chunk over the game history at
+// fishnet_tpu/engine/tpu.py:766).
 //
 // Bound on the H100: bytes — per lane 64 board words plus 6 scalars in
-// (280 B; threeCheck also its two counters) and 8 B out. Of each
-// 1,409-key table it reads the first 1,159: piece-square, ep, castling
-// and stm, 2 x 4.6 KB that stay in L1, and a variant's salt and counter
-// keys from its tail. At B = 1024 that is 0.3 MB, ~0.1 us of HBM time, so
+// (280 B; threeCheck also its two counters, crazyhouse its 12 words) and
+// 8 B out. Of each 1,409-key table it reads the first 1,159:
+// piece-square, ep, castling and stm, 2 x 4.6 KB that stay in L1, and a
+// variant's salt, counter, pocket and promoted keys from its tail. At B = 1024 that is 0.3 MB, ~0.1 us of HBM time, so
 // the launch dominates.
 //
 // Design: one thread per lane, 128 lanes a block, each running tt.cuh
@@ -51,7 +53,7 @@ __global__ void hash_kernel(const int32_t* __restrict__ board, int64_t board_str
 }  // namespace
 
 // strides in elements along the batch dimension; extra (batch, 12) rows,
-// or null but in threeCheck; out (batch, 2). One entry point per variant
+// or null but in threeCheck and crazyhouse; out (batch, 2). One entry point per variant
 // (kernels.py _variant_symbol).
 #define ZOBRIST_ENTRY(NAME, V)                                                              \
     FISHNET_EXPORT int NAME(const void* board, int64_t board_stride, const void* stm,      \
@@ -70,6 +72,7 @@ __global__ void hash_kernel(const int32_t* __restrict__ board, int64_t board_str
 
 ZOBRIST_ENTRY(zobrist_hash, consts::VARIANT_STANDARD)
 ZOBRIST_ENTRY(zobrist_hash_threeCheck, consts::VARIANT_THREECHECK)
+ZOBRIST_ENTRY(zobrist_hash_crazyhouse, consts::VARIANT_CRAZYHOUSE)
 ZOBRIST_ENTRY(zobrist_hash_antichess, consts::VARIANT_ANTICHESS)
 ZOBRIST_ENTRY(zobrist_hash_horde, consts::VARIANT_HORDE)
 ZOBRIST_ENTRY(zobrist_hash_kingOfTheHill, consts::VARIANT_KINGOFTHEHILL)

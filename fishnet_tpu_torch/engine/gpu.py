@@ -18,12 +18,14 @@ boundaries (ops/search.py refill_lanes). With refill off, chunks run
 chunk-serially (`_analyse_single`).
 
 Variants: chunks of standard chess, chess960, threeCheck (and its alias
-3check), kingOfTheHill, racingKings, horde and antichess run on the card
-(`DEVICE_VARIANTS`), each under its device variant's kernels; the
-scheduler runs one device variant per drive session.
+3check), kingOfTheHill, racingKings, horde, antichess and crazyhouse run
+on the card (`DEVICE_VARIANTS`), each under its device variant's
+kernels; the scheduler runs one device variant per drive session, its
+state's move lists as wide as that variant's (crazyhouse's 544). A
+crazyhouse drop prints as "P@e4", as the reference's UCI does.
 
 Not ported yet, and refused rather than run another way: move jobs,
-multipv, crazyhouse and atomic, the mesh.
+multipv, atomic, the mesh.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from ..ipc import AnalysisWork, Chunk, Matrix, PositionResponse, Score, WorkPosi
 from ..models import nnue, nnue_import
 from ..ops import tt as tt_mod
 from ..ops.board import from_position, stack_boards
+from ..ops.movegen import DROP_FLAG
 from ..ops import search as search_ops
 from ..ops.search import HIST_HM_SENTINEL, INF, MATE, MAX_HIST, search_batch_resumable
 from ..syncstats import SegmentController, SyncStats
@@ -56,14 +59,15 @@ LANE_BUCKETS = (16, 64, 128, 256)
 ASPIRATION_DELTAS = (15, 120)
 
 # chunk.variant → device variant (ops/search.py's static flag). The JAX
-# package's map also sends crazyhouse and atomic to the device; they are
-# not ported here, so such a chunk is refused (NotImplementedError).
+# package's map also sends atomic to the device; it is not ported here,
+# so such a chunk is refused (NotImplementedError).
 DEVICE_VARIANTS = {
     "standard": "standard",
     "chess960": "standard",
     "fromPosition": "standard",
     "threeCheck": "threeCheck",
     "3check": "threeCheck",
+    "crazyhouse": "crazyhouse",
     "antichess": "antichess",
     "horde": "horde",
     "kingOfTheHill": "kingOfTheHill",
@@ -82,6 +86,8 @@ def device_variant(chunk_variant: str) -> str:
 
 def _decode_uci(m: int) -> str:
     frm, to, promo = m & 63, (m >> 6) & 63, (m >> 12) & 7
+    if m & DROP_FLAG:  # a crazyhouse drop: P@e4
+        return "PNBRQ"[promo] + "@" + "abcdefgh"[to & 7] + str((to >> 3) + 1)
     s = (
         "abcdefgh"[frm & 7] + str((frm >> 3) + 1)
         + "abcdefgh"[to & 7] + str((to >> 3) + 1)

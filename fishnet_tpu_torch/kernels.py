@@ -12,8 +12,8 @@ ops/tt.py, so no table or constant is typed twice. The board and table
 kernels (K4, K8-K10) have one entry point per device variant
 (`_variant_symbol`); the segment kernel (K11) one library per variant,
 each built from search_segment.cu with its generated `segment_entries.cuh`
-(one entry point per net kind), all six nvcc processes started with the
-others. The wrappers below take
+(one entry point per net kind), all seven nvcc processes started with
+the others. The wrappers below take
 CUDA tensors only: they check device, dtype, shape and contiguity,
 allocate the output with `torch.empty`, launch on the current stream,
 raise if the launch returned an error, and count the launch. The callers
@@ -36,7 +36,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .ops.tables import MAX_MOVES  # K9's move-list width
 from .ops.tables import PORTED_VARIANTS, VARIANT_ID
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -67,12 +66,15 @@ NUM_FEATURES = 22528
 
 # length of each Zobrist table (ops/tt.py Z_SHAPE; the kernel reads the
 # piece-square, en-passant, castling and side-to-move keys at its head,
-# and a variant's salt and threeCheck's counter keys from its tail)
+# and a variant's salt, threeCheck's counter keys and crazyhouse's pocket
+# and promoted keys from its tail)
 Z_KEYS = 1409
 
 # launches per kernel since the last reset; a wrapper adds one where it
 # launches its kernel and nowhere else
 LAUNCHES = {name: 0 for name in KERNELS}
+# the same launches by entry point (a variant's or a net kind's symbol)
+LAUNCHES_BY_ENTRY: dict = {}
 # K11's counters since the last reset, on the device: (K11_COUNTERS,)
 # int64 per device, each launch adding its warps' counts at its end
 _body_calls: dict = {}
@@ -119,7 +121,7 @@ _SIGNATURES = {
     "tt_store": {"tt_store": [_P, _I] + [_P, _L] * 6 + [_P, _P, _I, _I, _I, _P]},
     "lane_init": {"lane_init": [_P] * 20 + [_I] * 5 + [_P]},
     "node_rules": _per_variant("node_rules", [_P, _L] * 3 + [_P, _P, _P, _I, _P]),
-    "generate_moves": _per_variant("generate_moves", [_P, _L] * 6 + [_P, _P, _P, _I, _P]),
+    "generate_moves": _per_variant("generate_moves", [_P, _L] * 7 + [_P, _P, _P, _I, _P]),
     "make_move": _per_variant("make_move", [_P, _L] * 7 + [_P] * 4 + [_I, _P]),
     **{f"search_segment_{v}": {_variant_symbol(f"search_segment_{tag}", v): _SEGMENT_ARGS
                                for tag, _ in SEGMENT_NETS} for v in PORTED_VARIANTS},
@@ -169,6 +171,7 @@ _fns: dict = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCHES_BY_ENTRY.clear()
     for counts in _body_calls.values():
         counts.zero_()
 
@@ -207,11 +210,13 @@ def rules_header() -> str:
             "PROMO_Q", "MAX_MOVES")},
         **{k: getattr(movegen, k) for k in (
             "QUIET_KEY", "CASTLE_KEY", "KILLER_KEY", "NOISY_BELOW", "HIST_BASE",
-            "HIST_SHIFT", "HIST_MAX_BONUS", "QUEEN_PROMO_BONUS")},
+            "HIST_SHIFT", "HIST_MAX_BONUS", "QUEEN_PROMO_BONUS", "MAX_MOVES_ZH", "DROP_FLAG",
+            "DROP_KEY", "DROP_HIST_BASE")},
         **{k: getattr(board, k) for k in (
             "BT_BOARD", "BT_STM", "BT_EP", "BT_CAST", "BT_HM", "BT_EXTRA", "BT_PH1", "BT_PH2",
-            "BT_W", "EXTRA_W", "EXTRA_CHECKS", "THREE_CHECKS", "TERM_NONE", "TERM_LOSS",
-            "TERM_WIN", "TERM_DRAW", "GOAL_RANK_FROM")},
+            "BT_W", "EXTRA_W", "EXTRA_CHECKS", "THREE_CHECKS", "EXTRA_POCKET", "EXTRA_PROMOTED",
+            "POCKET_TYPES", "TERM_NONE", "TERM_LOSS", "TERM_WIN", "TERM_DRAW",
+            "GOAL_RANK_FROM")},
         "PROMO_K": T.PROMO_K,
         **_variant_consts(),
     }
@@ -237,6 +242,7 @@ def rules_header() -> str:
         ("PAIR_TAKE", "uint8_t", movegen._PAIR_TAKE),
         ("PAWN_CAP_KEY", "int16_t", movegen._PAWN_CAP_KEY),  # [target code]
         ("HILL", "int8_t", board.HILL),  # kingOfTheHill's centre squares
+        ("DROP_OK", "uint8_t", movegen._DROP_OK),  # [type][sq]: crazyhouse may drop there
     )
     lines = [
         "// Generated by fishnet_tpu_torch/kernels.py rules_header() from",
@@ -288,8 +294,9 @@ def search_header() -> str:
                   MAX_L1=MAX_L1)
     consts.update({k.lstrip("_"): getattr(tt, k) for k in (
         "_SCORE_BIAS", "_DEPTH_MASK", "_MAX_STORE", "_EP_OFF", "_CASTLE_OFF", "_STM_OFF",
-        "_CHECKS_OFF", "_VARIANT_OFF")})
-    consts.update({k: getattr(board, k) for k in ("EXTRA_CHECKS", "THREE_CHECKS")})
+        "_CHECKS_OFF", "_POCKET_OFF", "_PROMOTED_OFF", "_VARIANT_OFF", "POCKET_MAX")})
+    consts.update({k: getattr(board, k) for k in (
+        "EXTRA_CHECKS", "THREE_CHECKS", "EXTRA_POCKET", "EXTRA_PROMOTED", "POCKET_TYPES")})
     consts.update(_variant_consts())
     arrays = (
         ("NULL_MUL", "int32_t", search._NULL_MUL),  # the null child's row: parent * MUL + ADD
@@ -394,6 +401,7 @@ def _launch(kernel: str, sym: str, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{sym} launch failed: CUDA error {rc}")
     LAUNCHES[kernel] += 1
+    LAUNCHES_BY_ENTRY[sym] = LAUNCHES_BY_ENTRY.get(sym, 0) + 1
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
@@ -588,10 +596,11 @@ def _check_rows(t: torch.Tensor, name: str, shape) -> int:
 
 def _extra_rows(extra, B: int, variant: str) -> tuple:
     """The variant words (B, 12) a kernel reads → (pointer, batch
-    stride); threeCheck must pass them, the others may pass None."""
+    stride); threeCheck and crazyhouse must pass them, the others may
+    pass None."""
     if extra is None:
-        if variant == "threeCheck":
-            raise ValueError("threeCheck needs the boards' extra words")
+        if variant in ("threeCheck", "crazyhouse"):
+            raise ValueError(f"{variant} needs the boards' extra words")
         return None, 0
     return extra.data_ptr(), _check_rows(extra, "extra", (B, 12))
 
@@ -600,8 +609,9 @@ def zobrist_hash(board: torch.Tensor, stm: torch.Tensor, ep: torch.Tensor,
                  castling: torch.Tensor, z1: torch.Tensor, z2: torch.Tensor,
                  extra=None, variant: str = "standard") -> torch.Tensor:
     """K4: board (B, 64), stm/ep (B,), castling (B, 4), extra (B, 12) or
-    None (read in threeCheck only) — int32, rows may be strided views —
-    → (B, 2) int32 key bit patterns, under the device variant's keys."""
+    None (read in threeCheck and crazyhouse only) — int32, rows may be
+    strided views — → (B, 2) int32 key bit patterns, under the device
+    variant's keys."""
     B = board.shape[0]
     sym = _variant_symbol("zobrist_hash", variant)
     sb = _check_rows(board, "board", (B, 64))
@@ -773,12 +783,16 @@ def node_rules(board: torch.Tensor, stm: torch.Tensor, extra=None,
 
 
 def generate_moves(board: torch.Tensor, stm: torch.Tensor, ep: torch.Tensor,
-                   castling: torch.Tensor, killers=None, hist=None, variant: str = "standard"):
+                   castling: torch.Tensor, killers=None, hist=None, variant: str = "standard",
+                   extra=None):
     """K9: board (B, 64), stm/ep (B,), castling (B, 4), killers (B, 2) or
-    None, hist (B, 4096) or None — int32, rows may be strided views with
-    contiguous rows — → (moves (B, MAX_MOVES), count (B,), noisy (B,))
-    int32, moves ordered and -1 padded, under the device variant's
-    rules."""
+    None, hist (B, 4096) or None, extra (B, 12) or None (read in
+    crazyhouse only: the pockets) — int32, rows may be strided views with
+    contiguous rows — → (moves (B, max_moves_for(variant)), count (B,),
+    noisy (B,)) int32, moves ordered and -1 padded, under the device
+    variant's rules."""
+    from .ops.movegen import max_moves_for
+
     B = board.shape[0]
     sym = _variant_symbol("generate_moves", variant)
     strides = [_check_rows(t, name, shape) for name, t, shape in (
@@ -790,7 +804,8 @@ def generate_moves(board: torch.Tensor, stm: torch.Tensor, ep: torch.Tensor,
             opt += [None, 0]
         else:
             opt += [t.data_ptr(), _check_rows(t, name, (B, width))]
-    moves = torch.empty((B, MAX_MOVES), dtype=torch.int32, device=board.device)
+    opt += _extra_rows(extra, B, variant)
+    moves = torch.empty((B, max_moves_for(variant)), dtype=torch.int32, device=board.device)
     counts = torch.empty((2, B), dtype=torch.int32, device=board.device)
     if B:
         args = [a for t, s in zip((board, stm, ep, castling), strides) for a in (t.data_ptr(), s)]
@@ -871,10 +886,13 @@ def search_segment(params, state, steps: int, pruning: bool, table=None,
     (B,) int32 CUDA tensor of generations for the prefer_deep store.
     variant: the device variant (each has its own instantiations). One
     cooperative launch; raises if the card refuses it."""
+    from .ops.movegen import max_moves_for
+
     B, p1, max_moves, l1 = _check_state(state)
     p = p1 - 1
-    if max_moves != MAX_MOVES:
-        raise ValueError(f"K11 takes {MAX_MOVES}-move lists, got {max_moves}")
+    if max_moves != max_moves_for(variant):
+        raise ValueError(f"K11 takes {max_moves_for(variant)}-move lists in {variant}, "
+                         f"got {max_moves}")
     if not 1 <= p <= SEGMENT_MAX_PLY:
         raise ValueError(f"K11 takes MAX_PLY 1..{SEGMENT_MAX_PLY}, got {p}")
     adt = {torch.float32: torch.float32, torch.int16: torch.int32}.get(params.ft_w.dtype)

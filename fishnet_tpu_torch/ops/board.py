@@ -1,11 +1,11 @@
 """Device board representation, rules and move making, batched over lanes.
 
 A copy of the JAX package's ops/board.py for standard chess, chess960
-and the variants threeCheck, kingOfTheHill, racingKings, horde and
-antichess, written with the lane dimension spelled out: every function
-takes (B, …) tensors where the reference took one lane under `vmap`.
-The variant is a static argument (a name of VARIANT_ID), as the
-reference's; crazyhouse and atomic are refused (`variant_id`).
+and the variants threeCheck, kingOfTheHill, racingKings, horde,
+antichess and crazyhouse, written with the lane dimension spelled out:
+every function takes (B, …) tensors where the reference took one lane
+under `vmap`. The variant is a static argument (a name of VARIANT_ID),
+as the reference's; atomic is refused (`variant_id`).
 
 Board tensors (one row per lane):
   board:    (B, 64) int32 piece codes (tables.py: 0 empty, 1-6 white, 7-12 black)
@@ -16,7 +16,8 @@ Board tensors (one row per lane):
             black-queenside] (chess960-ready: actual rook squares)
   halfmove: (B,) int32
   extra:    (B, 12) int32 variant side-state (EXTRA_* below), zeros but
-            for threeCheck's check counters
+            for threeCheck's check counters and crazyhouse's pockets and
+            promoted-piece bits
 
 The search keeps boards as packed int32 rows (`BT_*` below); a Board of
 views into such rows is what the step passes around.
@@ -60,10 +61,15 @@ BT_PH2 = 84
 BT_W = 96
 
 # the variant side-state's layout (the reference's): threeCheck's checks
-# delivered by white and by black at EXTRA_CHECKS + color; the rest of
-# the words belong to crazyhouse, which is not ported
+# delivered by white and by black at EXTRA_CHECKS + color; crazyhouse's
+# pocket counts at EXTRA_POCKET + color * 5 + piece type (P N B R Q) and
+# its promoted-piece bitboard in two words at EXTRA_PROMOTED (square sq's
+# bit is bit sq % 32 of word sq // 32, as int32 bit patterns)
 EXTRA_W = 12
 EXTRA_CHECKS = 0
+EXTRA_POCKET = 0
+EXTRA_PROMOTED = 10
+POCKET_TYPES = 5  # droppable piece types, P N B R Q
 THREE_CHECKS = 3  # checks that end a threeCheck game
 
 # variant-terminal kinds of node_rules, from the side to move's view
@@ -74,7 +80,7 @@ GOAL_RANK_FROM = 56  # racingKings: a king on a square >= this is on the goal ra
 
 def variant_id(variant: str) -> int:
     """The device id of a ported variant; raises NotImplementedError for
-    crazyhouse, atomic and any other name."""
+    atomic and any other name."""
     if variant not in PORTED_VARIANTS:
         raise NotImplementedError(f"variant {variant!r} is not ported yet")
     return VARIANT_ID[variant]
@@ -112,7 +118,8 @@ def board_array(pos: Position) -> np.ndarray:
 def from_position(pos: Position) -> Board:
     """Host Position → one-lane Board of CPU tensors (batch dim 1). A
     variant without castling (antichess, racingKings) carries no rights,
-    whatever its FEN says; threeCheck's counters go into extra."""
+    whatever its FEN says; threeCheck's counters and crazyhouse's pockets
+    and promoted bits go into extra."""
     castling = np.full(4, -1, dtype=np.int32)
     for color in (0, 1) if pos.has_castling else ():
         ksq = pos.king_sq(color)
@@ -125,6 +132,10 @@ def from_position(pos: Position) -> Board:
     extra = np.zeros(EXTRA_W, dtype=np.int32)
     if pos.variant == "threeCheck":
         extra[EXTRA_CHECKS:EXTRA_CHECKS + 2] = pos.checks_given
+    elif pos.variant == "crazyhouse":
+        extra[EXTRA_POCKET:EXTRA_POCKET + 2 * POCKET_TYPES] = np.ravel(pos.pockets)
+        words = [(pos.promoted >> (32 * w)) & 0xFFFFFFFF for w in (0, 1)]
+        extra[EXTRA_PROMOTED:EXTRA_PROMOTED + 2] = np.array(words, np.uint32).view(np.int32)
     i32 = torch.int32
     return Board(
         board=torch.from_numpy(board_array(pos))[None],
@@ -369,15 +380,25 @@ class _MoveParts(NamedTuple):
     ep_victim: torch.Tensor  # clipped to 0..63
     king_to: torch.Tensor  # where the mover lands (king's castling square)
     r_dest: torch.Tensor  # castling rook's square
+    promo: torch.Tensor  # the promotion code, or a drop's piece type
+    drop: torch.Tensor | None  # a crazyhouse drop (None in the other variants)
 
 
-def _move_parts(b: Board, move: torch.Tensor) -> _MoveParts:
-    """Decode moves (from | to<<6 | promo<<12, move >= 0) against their
-    boards; every tensor is (B,) int32 or bool."""
+def _move_parts(b: Board, move: torch.Tensor, variant: str = "standard") -> _MoveParts:
+    """Decode moves (from | to<<6 | promo<<12, move >= 0; in crazyhouse
+    also drops, DROP_FLAG | type<<12 | to<<6 | to) against their boards;
+    every tensor is (B,) int32 or bool. A drop moves no piece of the
+    board: it is no pawn or king move, no castling and no capture, and it
+    places its piece type (0-4, P..Q) of the mover's color."""
     c = tables(b.board.device)
     frm = move & 63
     to = (move >> 6) & 63
-    promo = move >> 12  # standard-chess encodings carry no drop bit
+    drop = None
+    if variant == "crazyhouse":
+        drop = ((move >> 15) & 1) == 1
+        promo = (move >> 12) & 7
+    else:  # the other variants' encodings carry no drop bit
+        promo = move >> 12
     piece, target = b.board.gather(1, torch.stack([frm, to], 1).long()).unbind(1)
     us = b.stm
     us6 = 6 * us
@@ -386,15 +407,19 @@ def _move_parts(b: Board, move: torch.Tensor) -> _MoveParts:
     is_king = ptype == 5
     rook = T.W_ROOK + us6
     is_castle = is_king & (target == rook)  # king takes own rook
+    if drop is not None:
+        is_pawn, is_king, is_castle = is_pawn > drop, is_king > drop, is_castle > drop
     capture = c.pcolor[target.long()] == 1 - us
     is_ep = is_pawn & (to == b.ep) & (target == 0) & ((to & 7) != (frm & 7))
     ep_victim = (to - 8 + 16 * us).clamp(0, 63)
     placed = torch.where(promo > 0, c.promo_piece[promo.clamp(max=5).long()] + us6, piece)
+    if drop is not None:
+        placed = torch.where(drop, T.W_PAWN + promo.clamp(max=POCKET_TYPES - 1) + us6, placed)
     slot = (2 * us + (to <= frm)).long()  # [color * 2 + side], 0 kingside
     r_dest = c.castle_rook_to[slot]
     king_to = torch.where(is_castle, c.castle_king_to[slot], to)
     return _MoveParts(frm, to, piece, target, placed, rook, is_pawn, is_king,
-                      is_castle, is_ep, capture, ep_victim, king_to, r_dest)
+                      is_castle, is_ep, capture, ep_victim, king_to, r_dest, promo, drop)
 
 
 def _apply(b: Board, m: _MoveParts, variant: str = "standard") -> Board:
@@ -410,8 +435,10 @@ def _apply(b: Board, m: _MoveParts, variant: str = "standard") -> Board:
 
     cast = b.castling
     own_slots = tables(cast.device).slot_color == b.stm[:, None]
-    gone = ((m.is_king[:, None] & own_slots) | (cast == m.frm[:, None])
-            | (cast == m.to[:, None]))
+    touched = (cast == m.frm[:, None]) | (cast == m.to[:, None])
+    if m.drop is not None:  # a drop touches no castling rook
+        touched = touched > m.drop[:, None]
+    gone = (m.is_king[:, None] & own_slots) | touched
     dbl = m.is_pawn & ((m.to - m.frm).abs() == 16)
     if variant == "horde":  # the horde's back-rank doubles set no ep square
         dbl = dbl & ~((b.stm == 0) & ((m.frm >> 3) == 0))
@@ -423,19 +450,58 @@ def _apply(b: Board, m: _MoveParts, variant: str = "standard") -> Board:
         gave = (ek >= 0) & is_attacked(board, ek.clamp(min=0), b.stm)
         extra = extra.scatter_add(1, (EXTRA_CHECKS + b.stm).long()[:, None],
                                   gave.to(torch.int32)[:, None])
+    pawnish = m.is_pawn
+    if variant == "crazyhouse":
+        pawnish = pawnish | (m.drop & (m.promo == 0))  # a pawn drop resets the clock
+        extra = _crazyhouse_extra(b, m)
     return Board(
         board=board, stm=1 - b.stm,
         ep=torch.where(dbl, (m.frm + m.to) >> 1, -1),
         castling=torch.where(gone, -1, cast),
-        halfmove=torch.where(m.is_pawn | m.capture | m.is_ep, 0, b.halfmove + 1),
+        halfmove=torch.where(pawnish | m.capture | m.is_ep, 0, b.halfmove + 1),
         extra=extra,
     )
+
+
+def _crazyhouse_extra(b: Board, m: _MoveParts) -> torch.Tensor:
+    """The child's crazyhouse words (the reference's make_move): the
+    mover's pocket gains the piece it captured (a promoted one as a pawn)
+    and pays for a drop; the promoted bits leave the origin and the
+    captured piece's square, and the destination takes one if the
+    arriving piece is a fresh promotion or a promoted piece moving on."""
+    c = tables(b.board.device)
+    us = b.stm
+    words = b.extra[:, EXTRA_PROMOTED:EXTRA_PROMOTED + 2].long()
+    promoted = (words[:, 0] & 0xFFFFFFFF) | (words[:, 1] << 32)  # int64 bitboard
+
+    def bit(sq):
+        return ((promoted >> sq.long()) & 1) == 1
+
+    cap_sq = torch.where(m.is_ep, m.ep_victim, m.to)
+    victim = b.board.gather(1, cap_sq[:, None].long())[:, 0]
+    real_capture = (m.capture | m.is_ep) > (m.is_castle | m.drop)
+    cap_type = torch.where(bit(cap_sq) & real_capture, 0, c.ptype[victim.long()].clamp(min=0))
+    pockets = b.extra[:, EXTRA_POCKET:EXTRA_POCKET + 2 * POCKET_TYPES]
+    slot = EXTRA_POCKET + us * POCKET_TYPES
+    pockets = pockets.scatter_add(
+        1, torch.stack([slot + cap_type.clamp(max=POCKET_TYPES - 1),
+                        slot + m.promo.clamp(0, POCKET_TYPES - 1)], 1).long(),
+        torch.stack([real_capture.to(torch.int32), -m.drop.to(torch.int32)], 1))
+    dest = ((m.promo > 0) | bit(m.frm)) > m.drop
+    one = torch.ones_like(promoted)
+    promoted = promoted & ~(one << m.frm.long())
+    promoted = torch.where(real_capture, promoted & ~(one << cap_sq.long()), promoted)
+    promoted = (promoted & ~(one << m.to.long())) | (dest.long() << m.to.long())
+    lo = ((promoted << 32) >> 32).to(torch.int32)  # the low word's bits, sign-extended
+    hi = (promoted >> 32).to(torch.int32)
+    return torch.cat([pockets, lo[:, None], hi[:, None]], 1)
 
 
 def _changes(b: Board, m: _MoveParts):
     victim = b.board.gather(1, m.ep_victim[:, None].long())[:, 0]
     c1 = torch.where(m.is_ep, victim, torch.where(m.is_castle | m.capture, m.target, 0))
-    codes = torch.stack([m.piece, c1, m.placed, torch.where(m.is_castle, m.rook, 0)], 1)
+    c0 = m.piece if m.drop is None else torch.where(m.drop, 0, m.piece)  # a drop leaves nothing
+    codes = torch.stack([c0, c1, m.placed, torch.where(m.is_castle, m.rook, 0)], 1)
     sqs = torch.stack([m.frm, torch.where(m.is_ep, m.ep_victim, m.to), m.king_to, m.r_dest], 1)
     signs = tables(b.board.device).signs.expand(b.board.shape[0], 4).contiguous()
     return codes, sqs, signs
@@ -445,22 +511,25 @@ def make_move_with_changes_plain(b: Board, move: torch.Tensor, variant: str = "s
     """K10's plain version: make_move and move_piece_changes of the same
     moves, sharing the decode → (child Board, codes, sqs, signs)."""
     variant_id(variant)
-    m = _move_parts(b, move)
+    m = _move_parts(b, move, variant)
     return (_apply(b, m, variant), *_changes(b, m))
 
 
 def make_move_with_changes(b: Board, move: torch.Tensor, variant: str = "standard"):
-    """Apply encoded moves (from | to<<6 | promo<<12, move >= 0), one per
+    """Apply encoded moves (from | to<<6 | promo<<12, move >= 0; in
+    crazyhouse also drops, DROP_FLAG | type<<12 | to<<6 | to), one per
     lane → (child Board, codes, sqs, signs).
 
     Castling is encoded king-takes-own-rook; en passant and promotion are
     read off the board. codes, sqs, signs (B, 4) int32 are the <= 4 piece
     placements/removals each move causes, as fixed slots (code 0 marks an
     unused slot): [mover out, capture out, mover in, rook in (castle)];
-    they feed the incremental accumulator update (the five ported
-    variants change the pieces as standard chess does). The child's
-    extra words are the parent's, with threeCheck's counter of the mover
-    raised when the move gives check. K10 through make_move_rows for
+    they feed the incremental accumulator update (a crazyhouse drop fills
+    one slot, the piece arriving; the other ported variants change the
+    pieces as standard chess does). The child's extra words are the
+    parent's, with threeCheck's counter of the mover raised when the move
+    gives check, and crazyhouse's pockets and promoted bits moved with
+    the pieces (_crazyhouse_extra). K10 through make_move_rows for
     CUDA tensors (the child is then a Board of views into packed rows),
     the plain version for CPU tensors."""
     if b.board.device.type == "cpu":

@@ -3,12 +3,13 @@
 A copy of the JAX package's ops/movegen.py for standard chess, chess960
 and the variants threeCheck, kingOfTheHill, racingKings (which generate
 as standard chess), horde (white's pawns on the first rank also push
-two squares) and antichess (a fifth promotion, to a king, and capture
-compulsion), with the lane dimension spelled out. The candidate space is
-fixed — (64 sq x 8 dirs x 7 steps) slider slots, (64 x 8) knight and
+two squares), antichess (a fifth promotion, to a king, and capture
+compulsion) and crazyhouse (drops from the pocket, and a move list of
+MAX_MOVES_ZH), with the lane dimension spelled out. The candidate space
+is fixed — (64 sq x 8 dirs x 7 steps) slider slots, (64 x 8) knight and
 (64 x 8) king slots, (64 x 4) pawn slots, (8 x 3 x 4) promotion slots
 (x 5 in antichess; promotions start from the 8 pre-promotion squares),
-2 castling slots —
+2 castling slots, and in crazyhouse (5 x 64) drop slots —
 and one sort of packed (ordering_key << 16 | move) values both compacts
 the valid candidates and orders them. Packed values are unique, so the
 order of the moves is the reference's whatever the order of the slots:
@@ -35,21 +36,29 @@ import torch
 from .. import kernels
 from . import tables as T
 from .board import (
-    OFF, PIECE_COLOR, PIECE_TYPE, Board, Rays, attack_parts, clear_before, king_square,
-    pad_squares, rays_of, variant_id,
+    EXTRA_POCKET, OFF, PIECE_COLOR, PIECE_TYPE, POCKET_TYPES, Board, Rays, attack_parts,
+    clear_before, king_square, pad_squares, rays_of, variant_id,
 )
 from .board import tables as board_tables
 
 MAX_MOVES = T.MAX_MOVES
 INT32_MAX = 2**31 - 1
+# crazyhouse's move list: drops add at most 5 piece types x 64 empty
+# squares to the board moves MAX_MOVES bounds, so the reference's list of
+# 5 * 64 + MAX_MOVES keeps every move it sorts (its cap, and this one)
+MAX_MOVES_ZH = 5 * 64 + MAX_MOVES
+DROP_FLAG = 1 << 15  # a drop encodes as DROP_FLAG | type << 12 | to << 6 | to
 
 # ordering keys (smaller first; packed as key << 16 | move): captures
 # 100 + MVV-LVA (queen promotions QUEEN_PROMO_BONUS less), castling
 # CASTLE_KEY, quiet moves QUIET_KEY, or HIST_BASE less the history bonus
 # clamp(hist >> HIST_SHIFT, 0, HIST_MAX_BONUS) where a quiet key is
-# exactly QUIET_KEY; a killer among the keys >= NOISY_BELOW gets
-# KILLER_KEY. Keys below NOISY_BELOW are the noisy prefix.
+# exactly QUIET_KEY; a crazyhouse drop DROP_KEY, or DROP_HIST_BASE less
+# the same bonus; a killer among the keys >= NOISY_BELOW gets KILLER_KEY.
+# Keys below NOISY_BELOW are the noisy prefix.
 QUIET_KEY = 1000
+DROP_KEY = 1100
+DROP_HIST_BASE = 1110
 CASTLE_KEY = 900
 KILLER_KEY = 901
 NOISY_BELOW = 900
@@ -99,11 +108,11 @@ _PAWN_CAP_KEY = _mvv_lva(np.maximum(PIECE_TYPE, 0), 0)
 
 
 def max_moves_for(variant: str) -> int:
-    """The move list's width for a device variant (the five ported
-    variants keep standard chess's); raises NotImplementedError for a
-    variant that is not ported."""
+    """The move list's width for a device variant: MAX_MOVES_ZH in
+    crazyhouse, standard chess's MAX_MOVES in the others; raises
+    NotImplementedError for a variant that is not ported."""
     variant_id(variant)
-    return MAX_MOVES
+    return MAX_MOVES_ZH if variant == "crazyhouse" else MAX_MOVES
 
 
 def _promos(variant: str) -> np.ndarray:
@@ -135,16 +144,25 @@ def _static_moves(c: int, promos=_PROMOS) -> np.ndarray:
     ]).astype(np.int32)
 
 
+# crazyhouse's drop slots, (5, 64): type-major, then the target square,
+# and where each type may land (no pawn on the first or last rank)
+_DROP_MOVES = (DROP_FLAG | (np.arange(5)[:, None] << 12) | (_SQ << 6) | _SQ).astype(np.int32)
+_DROP_OK = np.stack([(_SQ >> 3 != 0) & (_SQ >> 3 != 7)] + [_SQ >= 0] * 4)
+
+
 @lru_cache(maxsize=None)
 def _hist_idx_tables(variant: str = "standard"):
     """Per-color (n_candidates,) tables of `cand & 4095` (the from|to
     history index) for every candidate slot, in this module's slot
     order; the two castling slots hold 0 (castling keys are 900, which
     the history bonus never touches). Antichess has five promotion slots
-    per (square, target)."""
+    per (square, target); crazyhouse's drop slots follow castling, a drop
+    to sq reading sq << 6 | sq, as the reference's."""
     max_moves_for(variant)
+    drops = [_DROP_MOVES.reshape(-1) & 4095] if variant == "crazyhouse" else []
     return tuple(
-        np.concatenate([_static_moves(c, _promos(variant)) & 4095, np.zeros(2, np.int32)])
+        np.concatenate([_static_moves(c, _promos(variant)) & 4095, np.zeros(2, np.int32),
+                        *drops])
         for c in (0, 1)
     )
 
@@ -167,6 +185,8 @@ class _Tables(NamedTuple):
     pair_key: torch.Tensor  # (13 * 13,) int32: ordering key of mover code x target code
     pair_take: torch.Tensor  # (13 * 13,) bool: the target square is empty or the mover's enemy's
     pawn_cap_key: torch.Tensor  # (13,) int32: a pawn capture's key by target code
+    drop_moves: torch.Tensor  # (5 * 64,) int32 drop encodings (crazyhouse)
+    drop_ok: torch.Tensor  # (5, 64) bool: the type may be dropped on the square
 
 
 @lru_cache(maxsize=None)
@@ -191,6 +211,7 @@ def _tables(device: torch.device, variant: str = "standard") -> _Tables:
         castle_side=t([[0, 1]], torch.int32),
         pair_key=t(_PAIR_KEY, torch.int32), pair_take=t(_PAIR_TAKE, torch.bool),
         pawn_cap_key=t(_PAWN_CAP_KEY, torch.int32),
+        drop_moves=t(_DROP_MOVES.reshape(-1), torch.int32), drop_ok=t(_DROP_OK, torch.bool),
     )
 
 
@@ -200,7 +221,10 @@ def _candidate_space(b: Board, r: Rays | None = None, attacks=None,
     r / attacks: rays_of(b.board) / board.attack_parts(r) when the caller
     already has them. In antichess a capture is compulsory: where a lane
     has one, its other candidates are invalid (a capture, en passant
-    included, is exactly a candidate whose key is below NOISY_BELOW)."""
+    included, is exactly a candidate whose key is below NOISY_BELOW). In
+    crazyhouse the side to move may drop each type its pocket holds
+    (extra's EXTRA_POCKET words) on every empty square, a pawn not on the
+    first or last rank; drops key DROP_KEY, after the board's quiets."""
     if r is None:
         r = rays_of(b.board)
     if attacks is None:
@@ -261,6 +285,13 @@ def _candidate_space(b: Board, r: Rays | None = None, attacks=None,
                             valid_pr.flatten(1), ok], 1)
     flat_keys = torch.cat([keys_sl.flatten(1), keys_kk.flatten(1), keys_pw.flatten(1),
                            keys_pr.flatten(1), c.castle_key.expand(B, 2)], 1)
+    if variant == "crazyhouse":
+        pocket = b.extra[:, EXTRA_POCKET:EXTRA_POCKET + 2 * POCKET_TYPES].view(B, 2, POCKET_TYPES)
+        held = pocket.gather(1, s.view(B, 1, 1).expand(B, 1, POCKET_TYPES))[:, 0] > 0  # (B, 5)
+        drop_ok = held[:, :, None] & c.drop_ok & (board == 0)[:, None]
+        flat_moves = torch.cat([flat_moves, c.drop_moves.expand(B, -1)], 1)
+        flat_valid = torch.cat([flat_valid, drop_ok.flatten(1)], 1)
+        flat_keys = torch.cat([flat_keys, torch.full_like(flat_moves[:, -5 * 64:], DROP_KEY)], 1)
     if variant == "antichess":
         capture = flat_keys < NOISY_BELOW
         flat_valid = flat_valid & (capture | ~(flat_valid & capture).any(1, keepdim=True))
@@ -312,22 +343,24 @@ def generate_moves_plain(b: Board, killers=None, hist=None, rays: Rays | None = 
         idx = _tables(b.board.device, variant).hist_idx[b.stm.long()]
         hbonus = (hist.gather(1, idx) >> HIST_SHIFT).clamp(0, HIST_MAX_BONUS)
         flat_keys = torch.where(flat_keys == QUIET_KEY, HIST_BASE - hbonus, flat_keys)
+        if variant == "crazyhouse":
+            flat_keys = torch.where(flat_keys == DROP_KEY, DROP_HIST_BASE - hbonus, flat_keys)
     if killers is not None:
         is_k = (flat_moves == killers[:, :1]) | (flat_moves == killers[:, 1:2])
         flat_keys = torch.where(is_k & (flat_keys >= NOISY_BELOW), KILLER_KEY, flat_keys)
+    cap = max_moves_for(variant)
     packed = torch.where(flat_valid, (flat_keys << 16) | flat_moves, INT32_MAX)
-    top = torch.sort(packed, dim=1, stable=True).values[:, :MAX_MOVES]
+    top = torch.sort(packed, dim=1, stable=True).values[:, :cap]
     moves = torch.where(top != INT32_MAX, top & 0xFFFF, -1)
-    count = flat_valid.sum(1, dtype=torch.int32).clamp(max=MAX_MOVES)
-    noisy = (flat_valid & (flat_keys < NOISY_BELOW)).sum(1, dtype=torch.int32).clamp(
-        max=MAX_MOVES)
+    count = flat_valid.sum(1, dtype=torch.int32).clamp(max=cap)
+    noisy = (flat_valid & (flat_keys < NOISY_BELOW)).sum(1, dtype=torch.int32).clamp(max=cap)
     return moves, count, noisy
 
 
 def generate_moves(b: Board, killers=None, hist=None, rays: Rays | None = None,
                    attacks=None, variant: str = "standard"):
-    """→ (moves (B, MAX_MOVES) sorted by ordering key, -1 padded;
-    count (B,); noisy (B,)).
+    """→ (moves (B, max_moves_for(variant)) sorted by ordering key, -1
+    padded; count (B,); noisy (B,)).
 
     noisy counts the leading captures / queen promotions (they sort
     first). killers (B, 2) / hist (B, 4096): optional quiet-move ordering
@@ -338,4 +371,5 @@ def generate_moves(b: Board, killers=None, hist=None, rays: Rays | None = None,
     device variant (ops/board.py PORTED_VARIANTS)."""
     if b.board.device.type == "cpu":
         return generate_moves_plain(b, killers, hist, rays, attacks, variant)
-    return kernels.generate_moves(b.board, b.stm, b.ep, b.castling, killers, hist, variant)
+    return kernels.generate_moves(b.board, b.stm, b.ep, b.castling, killers, hist, variant,
+                                  b.extra)

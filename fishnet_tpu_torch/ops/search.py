@@ -1,12 +1,13 @@
 """Lockstep batched alpha-beta search, batched over lanes in PyTorch.
 
 A port of the JAX package's ops/search.py (standard chess, chess960 and
-the variants threeCheck, kingOfTheHill, racingKings, horde and antichess,
-with or without the shared transposition table, with Lazy-SMP lane-group
-metadata). The variant is a static argument, as in the reference: a node
-at a variant's game end (node_rules' term_kind) is a leaf worth a mate
-score or a draw, and antichess changes the mate rule and turns the null
-move off. B independent lanes each keep an explicit DFS
+the variants threeCheck, kingOfTheHill, racingKings, horde, antichess
+and crazyhouse, with or without the shared transposition table, with
+Lazy-SMP lane-group metadata). The variant is a static argument, as in
+the reference: a node at a variant's game end (node_rules' term_kind)
+is a leaf worth a mate score or a draw, antichess changes the mate rule
+and turns the null move off, and crazyhouse's move lists are
+MAX_MOVES_ZH wide. B independent lanes each keep an explicit DFS
 stack and advance together, one ENTER/RETURN/TRYMOVE state-machine step
 per call of `_step`:
 
@@ -74,7 +75,7 @@ from .board import (
     TERM_LOSS, TERM_NONE, TERM_WIN, Board, attack_parts, board_from_rows, make_move_rows,
     node_rules, rays_of, rows_from_board,
 )
-from .movegen import MAX_MOVES, generate_moves, max_moves_for
+from .movegen import DROP_FLAG, generate_moves, max_moves_for
 
 INF = 32500
 MATE = 32000
@@ -151,7 +152,7 @@ class SearchState(NamedTuple):
     lane: torch.Tensor  # (B, LN_W) int32 per-lane scalars
     hist_hash: torch.Tensor  # (B, MAX_HIST, 2) int32 pre-root game hashes
     hist_halfmove: torch.Tensor  # (B, MAX_HIST) int32
-    moves: torch.Tensor  # (B, P, MAX_MOVES) int32
+    moves: torch.Tensor  # (B, P, max_moves_for(variant)) int32
     hist: torch.Tensor  # (B, HIST_SIZE) int32 from|to history counters
     pv: torch.Tensor  # (B, P, P) int32
     acc: torch.Tensor  # (B, P+1, 2, L1) incremental NNUE accumulators
@@ -177,10 +178,11 @@ def _set_row(table: torch.Tensor, idx: torch.Tensor, row: torch.Tensor,
 
 
 def _is_quiet(move: torch.Tensor, board: torch.Tensor) -> torch.Tensor:
-    """Non-capture, non-promotion move (en passant reads as quiet, which
-    only costs ordering); move >= 0."""
+    """Non-capture, non-promotion move (a crazyhouse drop is quiet; en
+    passant reads as quiet, which only costs ordering); move >= 0."""
     to = ((move >> 6) & 63).long()
-    return (board.gather(1, to[:, None])[:, 0] == 0) & (((move >> 12) & 7) == 0)
+    return ((move & DROP_FLAG) != 0) | (
+        (board.gather(1, to[:, None])[:, 0] == 0) & (((move >> 12) & 7) == 0))
 
 
 def init_state(params: nnue.NnueParams, roots: Board, depth: torch.Tensor,
@@ -206,13 +208,13 @@ def init_state(params: nnue.NnueParams, roots: Board, depth: torch.Tensor,
     writes every lane after K1's root refresh; on the CPU the plain
     version builds it."""
     B = roots.board.shape[0]
-    max_moves_for(variant)
+    width = max_moves_for(variant)
     args = _lane_inputs(params, roots, depth, node_budget, hist_hash, hist_halfmove,
                         root_alpha, root_beta, order_jitter, group)
     dev = roots.board.device
     if dev.type == "cpu":
-        return _fresh_state(*args, max_ply)
-    state = _empty_state(B, max_ply, params.l1, nnue.acc_dtype(params), dev)
+        return _fresh_state(*args, max_ply, width)
+    state = _empty_state(B, max_ply, params.l1, nnue.acc_dtype(params), dev, width)
     kernels.lane_init(state, torch.arange(B, device=dev), *args)
     return state
 
@@ -251,7 +253,8 @@ def _lane_inputs(params, roots: Board, depth, node_budget, hist_hash=None,
     )
 
 
-def _empty_state(B: int, max_ply: int, l1: int, acc_dtype, dev) -> SearchState:
+def _empty_state(B: int, max_ply: int, l1: int, acc_dtype, dev,
+                 max_moves: int) -> SearchState:
     P = max_ply
 
     def empty(shape, dtype=_I32):
@@ -260,15 +263,15 @@ def _empty_state(B: int, max_ply: int, l1: int, acc_dtype, dev) -> SearchState:
     return SearchState(
         bt=empty((B, P + 1, BT_W)), nt=empty((B, P + 1, NT_W)), lane=empty((B, LN_W)),
         hist_hash=empty((B, MAX_HIST, 2)), hist_halfmove=empty((B, MAX_HIST)),
-        moves=empty((B, P, MAX_MOVES)), hist=empty((B, HIST_SIZE)), pv=empty((B, P, P)),
+        moves=empty((B, P, max_moves)), hist=empty((B, HIST_SIZE)), pv=empty((B, P, P)),
         acc=empty((B, P + 1, 2, l1), acc_dtype),
     )
 
 
 def _fresh_state(rows, root_acc, depth, budget, alpha, beta, jitter, group, hist_hash,
-                 hist_halfmove, max_ply: int) -> SearchState:
+                 hist_halfmove, max_ply: int, max_moves: int) -> SearchState:
     """K7's plain version for n lanes: the state init_state gives them,
-    from K7's inputs."""
+    from K7's inputs, with move lists max_moves wide."""
     dev = rows.device
     B, P = rows.shape[0], max_ply
 
@@ -304,7 +307,7 @@ def _fresh_state(rows, root_acc, depth, budget, alpha, beta, jitter, group, hist
     lane[:, LN_GROUP] = group
     return SearchState(
         bt=bt, nt=nt, lane=lane, hist_hash=hist_hash.clone(),
-        hist_halfmove=hist_halfmove.clone(), moves=full((B, P, MAX_MOVES), -1),
+        hist_halfmove=hist_halfmove.clone(), moves=full((B, P, max_moves), -1),
         hist=_jitter_history(jitter), pv=full((B, P, P), -1), acc=acc,
     )
 
@@ -330,7 +333,7 @@ def _jitter_history(order_jitter: torch.Tensor) -> torch.Tensor:
 def lane_init_plain(state: SearchState, lane_idx: torch.Tensor, *args) -> None:
     """K7's plain version: the n fresh lanes built whole (_fresh_state),
     then copied into the listed lanes of every table."""
-    fresh = _fresh_state(*args, state.bt.shape[1] - 1)
+    fresh = _fresh_state(*args, state.bt.shape[1] - 1, state.moves.shape[2])
     for t, f in zip(state, fresh):
         t.index_copy_(0, lane_idx, f)
 

@@ -81,13 +81,13 @@ MAX_MOVES = 224  # fixed per-ply move-list capacity (max legal known is 218)
 
 # device variants by the reference's ids (ops/tt.py keys its per-variant
 # salt by them; the kernels are instantiated per id), and those this
-# package runs (crazyhouse and atomic are not ported)
+# package runs (atomic is not ported)
 VARIANT_ID = {
     "standard": 0, "threeCheck": 1, "crazyhouse": 2, "antichess": 3,
     "atomic": 4, "horde": 5, "kingOfTheHill": 6, "racingKings": 7,
 }
-PORTED_VARIANTS = ("standard", "threeCheck", "antichess", "horde", "kingOfTheHill",
-                   "racingKings")
+PORTED_VARIANTS = ("standard", "threeCheck", "crazyhouse", "antichess", "horde",
+                   "kingOfTheHill", "racingKings")
 
 
 def encode_move(from_sq: int, to_sq: int, promo: int = 0) -> int:

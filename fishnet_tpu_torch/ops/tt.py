@@ -33,11 +33,14 @@ import torch
 
 from .. import device as device_mod
 from .. import kernels
-from .board import EXTRA_CHECKS, THREE_CHECKS, Board, variant_id
+from .board import (
+    EXTRA_CHECKS, EXTRA_POCKET, EXTRA_PROMOTED, POCKET_TYPES, THREE_CHECKS, Board, variant_id,
+)
 
 # layout of each table: piece-square | ep | castling | stm | variant
-# extras (crazyhouse's pockets and promoted bits, not ported; threeCheck's
-# check counters; one salt per variant)
+# extras (crazyhouse's pocket counts, 17 keys a count word, and promoted
+# bits, a key a square; threeCheck's check counters; one salt per
+# variant)
 _rng = np.random.default_rng(0xF15F_4E7)
 _EP_OFF = 13 * 64
 _CASTLE_OFF = _EP_OFF + 65
@@ -46,6 +49,7 @@ _POCKET_OFF = _STM_OFF + 2
 _CHECKS_OFF = _POCKET_OFF + 10 * 17
 _PROMOTED_OFF = _CHECKS_OFF + 2 * 4
 _VARIANT_OFF = _PROMOTED_OFF + 64
+POCKET_MAX = 16  # a pocket count's key is that of the count clipped to 0..POCKET_MAX
 Z_SHAPE = _VARIANT_OFF + 8
 Z1 = _rng.integers(0, 2**32, Z_SHAPE, dtype=np.uint32)
 Z2 = _rng.integers(0, 2**32, Z_SHAPE, dtype=np.uint32)
@@ -73,9 +77,11 @@ def hash_board_plain(board, stm, ep, castling, z1, z2, extra=None,
     Empty squares read key slot 0..63 of the table, which no piece uses,
     and are masked; ep/castling values are -1..63. Every variant but
     standard chess XORs in its salt (one table serves every chunk, and
-    identical boards under different rules must not share an entry), and
+    identical boards under different rules must not share an entry),
     threeCheck its check counters from extra (B, 12), each clipped to
-    0..3; standard hashes are the reference's standard ones."""
+    0..3, and crazyhouse its ten pocket counts, each clipped to
+    0..POCKET_MAX, and a key for each square of its promoted-piece bits;
+    standard hashes are the reference's standard ones."""
     vid = variant_id(variant)
     z = torch.stack([z1, z2])  # (2, Z_SHAPE)
     sq = torch.arange(64, device=board.device)
@@ -89,6 +95,14 @@ def hash_board_plain(board, stm, ep, castling, z1, z2, extra=None,
         checks = extra[:, EXTRA_CHECKS:EXTRA_CHECKS + 2].clamp(0, THREE_CHECKS)
         slots = torch.cat([slots, (_CHECKS_OFF + checks + torch.tensor(
             [0, THREE_CHECKS + 1], device=board.device)).long()], 1)
+    elif variant == "crazyhouse":
+        counts = extra[:, EXTRA_POCKET:EXTRA_POCKET + 2 * POCKET_TYPES].clamp(0, POCKET_MAX)
+        slots = torch.cat([slots, (_POCKET_OFF + counts + torch.arange(
+            0, 2 * POCKET_TYPES * (POCKET_MAX + 1), POCKET_MAX + 1, device=board.device)).long()],
+            1)
+        words = extra[:, EXTRA_PROMOTED + (sq >> 5)]  # (B, 64): each square's word
+        promoted = ((words >> (sq & 31)) & 1) == 1
+        pieces = pieces ^ torch.where(promoted, z[:, None, _PROMOTED_OFF + sq], 0)
     keys = z[:, slots]  # (2, B, slots)
     h = _xor_fold(pieces)
     for i in range(slots.shape[1]):
@@ -100,7 +114,7 @@ def hash_board_plain(board, stm, ep, castling, z1, z2, extra=None,
 
 def hash_board(board, stm, ep, castling, extra=None, variant: str = "standard") -> torch.Tensor:
     """K4 wrapper: plain version on the CPU, kernel on the card. extra
-    (B, 12) is read in threeCheck only."""
+    (B, 12) is read in threeCheck and crazyhouse only."""
     z1, z2 = tables(board.device)
     if board.device.type == "cpu":
         return hash_board_plain(board, stm, ep, castling, z1, z2, extra, variant)

@@ -191,15 +191,26 @@ def test_castling_moves_applied_like_the_host():
 
 def test_hist_index_tables_match_candidates():
     """The static from|to table equals `cand & 4095` for every candidate
-    slot but the two castling slots, for both sides to move."""
-    tables = tm._hist_idx_tables("standard")
-    for color, fen in enumerate((
-        "rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR w KQkq - 0 1",
-        "rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR b KQkq - 0 1",
-    )):
-        flat_moves, _, _ = tm._candidate_space(tb.from_position(Position.from_fen(fen)))
-        cands = flat_moves[0].numpy() & 4095
-        assert cands.shape == tables[color].shape
-        assert np.array_equal(cands[:-2], tables[color][:-2])
+    slot but the two castling slots, for both sides to move, in standard
+    chess and in crazyhouse (whose drop slots follow castling); atomic,
+    not ported, has no table."""
+    from fishnet_tpu_torch.chess import from_fen
+
+    for variant in ("standard", "crazyhouse"):
+        tables = tm._hist_idx_tables(variant)
+        drops = 5 * 64 if variant == "crazyhouse" else 0
+        for color, fen in enumerate((
+            "rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR w KQkq - 0 1",
+            "rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR b KQkq - 0 1",
+        )):
+            flat_moves, _, _ = tm._candidate_space(tb.from_position(from_fen(fen, variant)),
+                                                   variant=variant)
+            cands = flat_moves[0].numpy() & 4095
+            assert cands.shape == tables[color].shape
+            castling = slice(cands.shape[0] - drops - 2, cands.shape[0] - drops)
+            keep = np.ones(cands.shape[0], bool)
+            keep[castling] = False
+            assert np.array_equal(cands[keep], tables[color][keep])
+    assert tm.max_moves_for("crazyhouse") == tm.MAX_MOVES_ZH
     with pytest.raises(NotImplementedError):
-        tm.max_moves_for("crazyhouse")
+        tm.max_moves_for("atomic")

@@ -15,7 +15,8 @@ run_segment_plain; the trainer's kernels (K14-K16) against their plain
 versions, their wrappers' refusals, and training steps on the card that
 run no plain version, against the CPU's; the variant instantiations of
 K4 and K8-K10 against their plain versions and K11 against
-run_segment_plain in each ported variant. Needs an NVIDIA card;
+run_segment_plain in each ported variant (in crazyhouse also on roots
+from its mid, heavy and full pockets). Needs an NVIDIA card;
 skipped elsewhere. Imports no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_card.py -q -p no:cacheprovider
@@ -28,7 +29,7 @@ import torch
 
 from chip_smoke import (
     TRAIN_GRAD_RTOL, TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL, TT_PROBE_ARGS, TT_STORE_ARGS, VARIANTS,
-    _rel_err, every_move, kb_case, lane_init_case, playout_boards, rules_inputs, segment_case,
+    ZH_POCKETS, _rel_err, every_move, kb_case, lane_init_case, playout_boards, rules_inputs, segment_case,
     sf_file, train_case, tt_inputs, tt_runner_layout,
 )
 from fishnet_tpu_torch import kernels
@@ -208,7 +209,8 @@ def test_lane_init_matches_plain_version(nets, net, batch, lanes):
     quarter (a refill splice) of a state of seeded garbage: every table
     equals the plain version's bit for bit, so the lanes not listed are
     untouched."""
-    state, idx, args = lane_init_case(nets[net], batch, lanes, batch + lanes, nets[net].device)
+    state, idx, args = lane_init_case(nets[net], batch, lanes, batch + lanes, nets[net].device,
+                                      tm.MAX_MOVES)
     want = search.SearchState(*[t.clone() for t in state])
     kernels.reset_launches()
     kernels.lane_init(state, idx, *args)
@@ -219,7 +221,7 @@ def test_lane_init_matches_plain_version(nets, net, batch, lanes):
 
 
 def test_lane_init_wrapper_checks_inputs(nets):
-    state, idx, args = lane_init_case(nets["int8"], 16, 4, 3, nets["int8"].device)
+    state, idx, args = lane_init_case(nets["int8"], 16, 4, 3, nets["int8"].device, tm.MAX_MOVES)
     kernels.reset_launches()
     with pytest.raises(TypeError):  # the int8 net's accumulators are int32
         kernels.lane_init(state, idx, args[0], args[1].float(), *args[2:])
@@ -634,19 +636,22 @@ def test_training_steps_on_the_card_run_no_plain_code(card, monkeypatch):
     assert float((card_params - cpu_params).abs().max()) <= TRAIN_PARAM_ATOL
 
 
-@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("variant,roots", [(v, None) for v in VARIANTS]
+                         + [("crazyhouse", label) for label in ZH_POCKETS])
 @pytest.mark.parametrize("net", ["f32", "int8"])
 @pytest.mark.parametrize("cfg", ["helpers", "engine"])
 @pytest.mark.parametrize("batch", [16, 64])
-def test_variant_segment_kernel_matches_plain_version(nets, batch, cfg, variant, net):
+def test_variant_segment_kernel_matches_plain_version(nets, batch, cfg, variant, roots, net):
     """K11 in each variant against run_segment_plain on 16 and 64 lanes
-    (the main path's width) of the variant's seeded roots, with jittered
-    helpers and the prefer_deep store into a small table, or on the main
-    path's table setup, over segments of 1, 33 and 100 steps: every state
-    table, the table and the summary equal, one launch a segment."""
+    (the main path's width) of the variant's seeded roots (or every lane
+    at one of crazyhouse's pocket FENs), with jittered helpers
+    and the prefer_deep store into a small table, or on the main path's
+    table setup, over segments of 1, 33 and 100 steps: every state table,
+    the table and the summary equal, one launch a segment."""
     params = nets[net]
     state, table, kw = segment_case(params, batch, cfg, batch + 1, params.device,
-                                    variant=variant)
+                                    variant=variant,
+                                    fens=None if roots is None else [ZH_POCKETS[roots]] * batch)
     plain = search.SearchState(*[t.clone() for t in state])
     plain_table = table.clone()
     for steps in (1, 33, 100):
@@ -668,6 +673,12 @@ def test_variant_wrappers_refuse(card):
     with pytest.raises(NotImplementedError):
         kernels.node_rules(b.board, b.stm, b.extra, "atomic")
     with pytest.raises(NotImplementedError):
+        kernels.generate_moves(b.board, b.stm, b.ep, b.castling, killers, hist, "atomic",
+                               b.extra)
+    with pytest.raises(ValueError):  # crazyhouse reads the pockets
         kernels.generate_moves(b.board, b.stm, b.ep, b.castling, killers, hist, "crazyhouse")
+    z1, z2 = tt.tables(card)
+    with pytest.raises(ValueError):  # and hashes them
+        kernels.zobrist_hash(b.board, b.stm, b.ep, b.castling, z1, z2, None, "crazyhouse")
     assert not any(kernels.LAUNCHES.values())
 

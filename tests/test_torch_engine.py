@@ -104,8 +104,9 @@ def test_terminal_position_response():
 def test_unported_paths_are_refused(monkeypatch):
     """refill=None follows FISHNET_TPU_REFILL (conftest pins 0) and an
     explicit argument wins; multipv (always the serial path) and the
-    variants that are not ported (crazyhouse, atomic) are refused with
-    refill off and on, and the five ported variants are not."""
+    variant that is not ported (atomic) are refused with refill off and
+    on, and the six ported variants are not: a depth-1 chunk of each
+    runs."""
     from fishnet_tpu_torch.chess import position_class
 
     tp = tn.load_params(device="cpu")
@@ -118,12 +119,12 @@ def test_unported_paths_are_refused(monkeypatch):
         with pytest.raises(NotImplementedError):
             asyncio.run(engine.go_multiple(ipc.chunk_from_wire(
                 chunk_to_wire(_chunk(_analysis(depth=1, multipv=3))))))
-        for variant in ("crazyhouse", "atomic"):
-            with pytest.raises(NotImplementedError):
-                asyncio.run(engine.go_multiple(ipc.chunk_from_wire(
-                    chunk_to_wire(_chunk(_analysis(depth=1), variant=variant)))))
+        with pytest.raises(NotImplementedError):
+            asyncio.run(engine.go_multiple(ipc.chunk_from_wire(
+                chunk_to_wire(_chunk(_analysis(depth=1), variant="atomic")))))
         assert engine.occupancy_totals["positions_done"] == 0
-        for variant in ("threeCheck", "kingOfTheHill", "racingKings", "horde", "antichess"):
+        for variant in ("threeCheck", "kingOfTheHill", "racingKings", "horde", "antichess",
+                        "crazyhouse"):
             chunk = _chunk(_analysis(depth=1), plies=(0,), variant=variant,
                            root_fen=position_class(variant).starting_fen())
             (res,) = asyncio.run(engine.go_multiple(ipc.chunk_from_wire(chunk_to_wire(chunk))))

@@ -231,6 +231,9 @@ CONST_GROUPS = {
                       "FLAG_UPPER": tt.FLAG_UPPER, "SCORE_BIAS": tt._SCORE_BIAS,
                       "DEPTH_MASK": tt._DEPTH_MASK, "MAX_STORE": tt._MAX_STORE,
                       "EP_OFF": tt._EP_OFF, "CASTLE_OFF": tt._CASTLE_OFF, "STM_OFF": tt._STM_OFF},
+    "variant keys": lambda: {"CHECKS_OFF": tt._CHECKS_OFF, "POCKET_OFF": tt._POCKET_OFF,
+                             "PROMOTED_OFF": tt._PROMOTED_OFF, "VARIANT_OFF": tt._VARIANT_OFF,
+                             "POCKET_MAX": tt.POCKET_MAX},
     "null child row": lambda: {"NULL_MUL": ts._NULL_MUL, "NULL_ADD": ts._NULL_ADD},
     "K11 layout": lambda: {"SEGMENT_MAX_PLY": kernels.SEGMENT_MAX_PLY,
                            "SEGMENT_SCRATCH": kernels.SEGMENT_SCRATCH,

@@ -202,6 +202,7 @@ def test_kernel_header_holds_the_plain_versions_tables():
         "PAWN_PRE_PROMO": tm._PRE_PROMO, "PROMOS": tm._PROMOS, "PAIR_KEY": tm._PAIR_KEY,
         "PAIR_TAKE": tm._PAIR_TAKE, "PAWN_CAP_KEY": tm._PAWN_CAP_KEY,
         "PAWN_PUSH": np.stack([np.stack([tm._TO1[c], tm._TO2[c]]) for c in (0, 1)]),
+        "DROP_OK": tm._DROP_OK,
     }
     for name, want in sources.items():
         assert np.array_equal(h[name], np.asarray(want).astype(np.int64).reshape(-1)), name
@@ -209,15 +210,18 @@ def test_kernel_header_holds_the_plain_versions_tables():
               "QUIET_KEY": tm.QUIET_KEY, "CASTLE_KEY": tm.CASTLE_KEY,
               "KILLER_KEY": tm.KILLER_KEY, "HIST_BASE": tm.HIST_BASE,
               "QUEEN_PROMO_BONUS": tm.QUEEN_PROMO_BONUS, "BT_W": tb.BT_W,
-              "BT_STM": tb.BT_STM, "BT_HM": tb.BT_HM}
+              "BT_STM": tb.BT_STM, "BT_HM": tb.BT_HM, "MAX_MOVES_ZH": tm.MAX_MOVES_ZH,
+              "DROP_FLAG": tm.DROP_FLAG, "DROP_KEY": tm.DROP_KEY,
+              "DROP_HIST_BASE": tm.DROP_HIST_BASE, "EXTRA_POCKET": tb.EXTRA_POCKET,
+              "EXTRA_PROMOTED": tb.EXTRA_PROMOTED, "POCKET_TYPES": tb.POCKET_TYPES}
     for name, want in consts.items():
         assert h[name] == want, name
-    assert kernels.MAX_MOVES == T.MAX_MOVES and kernels.BT_W == tb.BT_W
+    assert kernels.BT_W == tb.BT_W
     used = set()
     for src in ("board.cuh", "movegen.cuh"):
         code = re.sub(r"//[^\n]*", "", (kernels.CSRC / src).read_text())
         used |= set(re.findall(r"\b[A-Z][A-Z0-9_]{2,}\b", code))
-    local = {"FULL_MASK", "WARP", "MOVE_LIST_CAP", "FISHNET_EXPORT"}
+    local = {"FULL_MASK", "WARP", "MOVE_LIST_CAP", "MOVE_LIST_CAP_ZH", "FISHNET_EXPORT"}
     assert used - local <= set(h), sorted(used - local - set(h))
     for name in ("node_rules", "generate_moves", "make_move"):
         assert name in kernels.KERNELS and name in kernels._SIGNATURES

@@ -8,7 +8,8 @@ for field and on the f32 net within an eval's rounding; the rule cases of
 tests/test_device_variants.py; the null child keeping threeCheck's
 counters; a variant chunk through GpuEngine(device="cpu") against
 TpuEngine under int8, and a mixed-variant queue whose drive sessions each
-run one variant. Crazyhouse and atomic stay refused."""
+run one variant. Atomic stays refused (crazyhouse has its own file,
+tests/test_torch_crazyhouse.py)."""
 import asyncio
 import random
 import time
@@ -400,13 +401,16 @@ def test_mixed_variant_queue_runs_one_variant_per_session(shipped_int8, monkeypa
 
 
 def test_unported_variants_stay_refused():
-    """Crazyhouse and atomic raise NotImplementedError at every layer; the
-    engine's map names exactly the variants the host rules run."""
+    """Atomic raises NotImplementedError at every layer, as the kernels'
+    entry-point names do; the engine's map names exactly the variants the
+    host rules run, crazyhouse among them."""
+    from fishnet_tpu_torch import kernels
+
     assert set(gpu.DEVICE_VARIANTS) == set(VARIANTS)
-    for v in ("crazyhouse", "atomic"):
+    assert gpu.device_variant("crazyhouse") == "crazyhouse"
+    for refuse in (gpu.device_variant, tm.max_moves_for, tb.variant_id,
+                   lambda v: kernels._variant_symbol("node_rules", v)):
         with pytest.raises(NotImplementedError):
-            gpu.device_variant(v)
-        with pytest.raises(NotImplementedError):
-            tm.max_moves_for(v)
-        with pytest.raises(ValueError):
-            from_fen(position_class("standard").starting_fen(), v)
+            refuse("atomic")
+    with pytest.raises(ValueError):
+        from_fen(position_class("standard").starting_fen(), "atomic")
