@@ -70,12 +70,13 @@ ran inside K11, and none of the kernels whose bodies run inside K11
 launched on its own (but K4, which hashes the engine's game history once
 a chunk).
  14. the variants' main paths: one chunk each of threeCheck,
-     kingOfTheHill, racingKings, horde, antichess and crazyhouse (10
-     positions of one seeded game) through GpuEngine() with its defaults
-     (depth 3): wall, steps, segments, refills, nodes/s (crazyhouse: the
-     drops among the best moves); it fails unless the search's kernels
-     launched (K4 on the game history, K11 through the variant's own
-     entry point) and no plain version of the search ran;
+     kingOfTheHill, racingKings, horde, antichess, crazyhouse and atomic
+     (10 positions of one seeded game) through GpuEngine() with its
+     defaults (depth 3): wall, steps, segments, refills, nodes/s
+     (crazyhouse: the drops among the best moves); it fails unless the
+     search's kernels launched (K4 on the game history, K11 through the
+     variant's own entry point; in atomic K1's body inside K11 and K3's
+     never) and no plain version of the search ran;
  15. each variant's int8 chunk (1 position, depth 3, a 2^16 table, 2
      helper lanes, MAX_PLY 8) through GpuEngine on the card and on the
      CPU (the CPU sides at once, in worker processes): the responses
@@ -83,19 +84,21 @@ a chunk).
 The kernel phase (3) also holds the variant instantiations of K4 and
 K8-K10 against their plain versions at 16, 64 and 1024 lanes of seeded
 variant positions (game ends, promotions, horde's first-rank pawns,
-threeCheck counters, crazyhouse's pockets, promoted pieces and drops, and
-playouts), timed at 64 and 1024 lanes (crazyhouse's K9 also with every
-lane at a mid, heavy or full pocket), and K11 against run_segment_plain
-in each variant (16 and 64 lanes, both nets, a table and jittered
-helpers, segments of 1, 7, 33 and 100 steps; then the main path's
-64-lane setup, and crazyhouse's on each pocket case), with K11's time per
-step at 64 lanes.
+threeCheck counters, crazyhouse's pockets, promoted pieces and drops,
+atomic's blasts, adjacent and exploded kings, and playouts), timed at 64
+and 1024 lanes (crazyhouse's K9 also with every lane at a mid, heavy or
+full pocket), and K11 against run_segment_plain in each variant (16 and
+64 lanes, both nets, a table and jittered helpers, segments of 1, 7, 33
+and 100 steps, atomic also at 16 lanes on the king-bucketed int8 net;
+then the main path's 64-lane setup, and crazyhouse's on each pocket
+case), with K11's time per step at 64 lanes.
 Then a `kernels` JSON line (launches from phase 5, the board768 main
 path, for K13 from phase 6, for K12 from its parity search in phase
 10 and for K14-K16 from phase 13; for the bodies inside K11 their calls
 per step of that path; K1 and K2 also with their launches in phase 13;
 K4 and K8-K11 also per variant: max_abs_err, ms, plain_ms (K11: us per
-step), launches and calls per step in phase 14), the card's name and
+step), launches and calls per step in phase 14; K1 also its launches and
+its body's calls per step in atomic's phase 14 chunk), the card's name and
 power limit, and the result line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
@@ -207,26 +210,32 @@ EVAL_BODY = {"board768": "nnue_forward_from_acc", "king": "nnue_evaluate",
              "stockfish": "nnue_evaluate_sf"}
 
 
-def check_launches(path: str, engine: bool = False, net: str = "board768") -> dict:
+def check_launches(path: str, engine: bool = False, net: str = "board768",
+                   variant: str = "standard") -> dict:
     """The kernels' launch counts since the last reset: every kernel of a
-    search path must have launched (K1 on a board768 net and never on the
-    full-eval nets), its net's eval body must have run inside K11, and no
-    kernel whose body runs inside K11 may have launched on its own — but
-    on the engine's paths K4, which hashes the game history before each
-    chunk."""
+    search path must have launched (K1, for the roots, on a board768 net
+    and never on the full-eval nets), its net's eval body must have run
+    inside K11 (in atomic on a board768 net K1's body too, and K3's never),
+    and no other kernel whose body runs inside K11 may have launched on
+    its own — but on the engine's paths K4, which hashes the game history
+    before each chunk."""
     from fishnet_tpu_torch import kernels
 
     launches = dict(kernels.LAUNCHES)
     calls = kernels.body_calls()
     need = SEARCH_KERNELS + (("nnue_refresh_768",) if net == "board768" else ())
     missing = [name for name in need if launches[name] <= 0]
-    if calls[EVAL_BODY[net]] <= 0:
-        missing.append(f"{EVAL_BODY[net]} (inside K11)")
+    refresh_leaf = net == "board768" and variant == "atomic"
+    for body in (EVAL_BODY[net],) + (("nnue_refresh_768",) if refresh_leaf else ()):
+        if calls[body] <= 0:
+            missing.append(f"{body} (inside K11)")
     if missing:
         raise AssertionError(f"{path}: kernels {missing} were not launched ({launches})")
     if net != "board768" and launches["nnue_refresh_768"]:
         raise AssertionError(f"{path}: K1 launched on a {net} net ({launches})")
-    alone = [name for name in kernels.K11_BODIES if launches[name] > 0
+    if refresh_leaf and calls["nnue_acc_update_768"]:
+        raise AssertionError(f"{path}: K3's body ran in atomic ({calls})")
+    alone = [name for name in kernels.K11_BODIES if launches[name] > 0 and name not in need
              and not (engine and name == "zobrist_hash")]
     if alone:
         raise AssertionError(f"{path}: kernels {alone} launched outside K11 ({launches})")
@@ -1171,18 +1180,24 @@ def segment_bytes(calls: dict, acc_bytes: int, variant: str = "standard") -> int
     lane's 64-byte row; each entering lane (one eval) reads its board row
     (71 words, and of the 12 variant words those the variant's rules
     read: threeCheck's two check counters, all 12 in crazyhouse, its
-    pockets and promoted bits), its and its parent's node rows and its
+    pockets and promoted bits), its and its parent's node rows and, unless
+    it refreshes its pair from the board (atomic's leaf: K1's body), its
     accumulator pair, and writes its node row and two path-hash words;
-    each lane that advances (one make-move) reads the parent's
-    accumulator pair and writes the child's, its board row (96 words) and
-    node row; each probe reads and each masked store writes one 16-byte
-    table row."""
+    each lane that advances (one make-move) writes its board row (96
+    words) and node row, and where it updates accumulators (K3's body)
+    reads the parent's pair and writes the child's; each probe reads and
+    each masked store writes one 16-byte table row. A segment that
+    refreshes reads ft_w (the f32 net's: 768 rows of acc_bytes / 2) once,
+    its rows staying in L2."""
     enters, advances = calls["nnue_forward_from_acc"], calls["make_move"]
+    refreshes, updates = calls["nnue_refresh_768"], calls["nnue_acc_update_768"]
     row_words = 71 + {"threeCheck": 2, "crazyhouse": 12}.get(variant, 0)
     return (calls["live_lane_steps"] * 128
-            + enters * (row_words * 4 + 2 * 64 + acc_bytes + 64 + 8)
-            + advances * (2 * acc_bytes + 96 * 4 + 64)
-            + (calls["tt_probe"] + calls["tt_store"]) * 16)
+            + enters * (row_words * 4 + 2 * 64 + 64 + 8)
+            + (enters - refreshes + 2 * updates) * acc_bytes
+            + advances * (96 * 4 + 64)
+            + (calls["tt_probe"] + calls["tt_store"]) * 16
+            + (768 * acc_bytes // 2 if refreshes else 0))
 
 
 def segment_phase(params_f32, reps: int) -> dict:
@@ -1800,7 +1815,7 @@ def train_phase() -> dict:
 # ------------------------------------------------------------- variants
 
 # the device variants besides standard chess (ops/tables.py
-# PORTED_VARIANTS), and per variant the FENs its seeded positions start
+# VARIANT_ID), and per variant the FENs its seeded positions start
 # from beside its starting position: a game end one move away (a third
 # check, the hill, the goal rank with and without a rejoinder, the horde's
 # last pawn, antichess's forced capture and its last piece, crazyhouse's
@@ -1809,7 +1824,8 @@ def train_phase() -> dict:
 # ZH_POCKETS), promoted pieces (a promotion, the capture of a promoted
 # queen, promoted bits in both words: h4 is bit 31) and a pocket pawn
 # whose only empty squares are on the first and last ranks
-VARIANTS = ("threeCheck", "kingOfTheHill", "racingKings", "horde", "antichess", "crazyhouse")
+VARIANTS = ("threeCheck", "kingOfTheHill", "racingKings", "horde", "antichess", "crazyhouse",
+            "atomic")
 # crazyhouse's pockets by size: a few pieces, both sides' every type (243
 # moves, past standard chess's MAX_MOVES), and every type in an empty board's
 # pockets (299 moves: 4 x 62 drops, 48 pawn drops, 3 king moves)
@@ -1832,6 +1848,15 @@ VARIANT_FENS = {
                    "k6K/8/8/8/8/8/p7/1R6[] b - - 0 1", "k6K/8/8/8/8/8/8/q~R6[] w - - 0 2",
                    "3k3Q~/8/8/8/r6N~/8/8/4K3[Pb] b - - 0 20",
                    "4k3/pppppppp/pppppppp/pppppppp/PPPPPPPP/PPPPPPPP/PPPPPPPP/4K3[Pp] w - - 0 1"],
+    "atomic": ["3nk3/8/8/8/8/8/8/3QK3 w - - 0 1",  # Qxd8 explodes the king and wins
+               "4k3/8/8/8/8/8/1r6/nR2K3 w - - 0 1",  # Rxb2's blast reaches a1
+               "k7/8/2n1b3/3p4/8/8/8/K2Q4 w - - 0 1",  # Qxd5 takes c6 and e6 with it
+               "k7/8/8/2pp4/3P4/8/8/K7 w - - 0 1",  # pawns survive a blast
+               "k7/8/8/8/8/8/1p6/K7 w - - 0 1",  # the king cannot take b2
+               "8/8/8/8/8/1k6/1K6/4Q3 w - - 0 1",  # adjacent kings: no check
+               "4k3/8/8/8/8/8/3p4/3QK3 w - - 0 1",  # in check; Qxd2 would blow up its king
+               "r3k2r/6p1/8/8/8/8/1B6/R3K2R w KQkq - 0 1",  # Bxg7 blows up h8: KQq
+               "k7/2n5/8/3pP3/8/8/8/K7 w - d6 0 2"],  # an en-passant blast
 }
 # per variant, root sets its K9 and K11 checks also take, each every lane
 # at one FEN (crazyhouse: ZH_POCKETS)
@@ -1876,12 +1901,14 @@ def variant_positions(variant: str, n: int, seed: int, fens=None, ends: bool = T
     return out
 
 
-def variant_segment_phase(params_f32, reps: int) -> dict:
+def variant_segment_phase(params_f32, reps: int, kb_net) -> dict:
     """K11 against run_segment_plain in each device variant on the card,
     states, tables and summaries byte for byte and the step counts equal:
     at 16 and 64 lanes (the main path's width) of rules_inputs' roots,
     both nets, VARIANT_SEGMENT_CONFIGS' table setups, segments of
-    VARIANT_SEGMENT_STEPS in turn; then at 64 lanes on the main path's
+    VARIANT_SEGMENT_STEPS in turn (atomic, whose board768 leaf is its own,
+    also at 16 lanes on the king-bucketed net kb_net, under K12's body);
+    then at 64 lanes on the main path's
     table setup ("engine"), one segment of 200 steps, which is also timed
     (CUDA events, from the same state each launch) beside the plain
     version's wall and the bound from the bytes the timed segment moves;
@@ -1970,6 +1997,10 @@ def variant_segment_phase(params_f32, reps: int) -> dict:
                                                     variant=v)
                     for steps in VARIANT_SEGMENT_STEPS:
                         check(row, f"{v} B={B} {net} {cfg}", params, state, table, kw, steps)
+        if v == "atomic":
+            state, table, kw = segment_case(kb_net, 16, "helpers", seed=16, dev=dev, variant=v)
+            for steps in VARIANT_SEGMENT_STEPS:
+                check(row, f"{v} B=16 kb int8 helpers", kb_net, state, table, kw, steps)
 
         # the main path's setup at its width, then each root case's:
         # checked, then timed
@@ -2027,7 +2058,7 @@ def variant_engine_phase(params_f32, depth: int, n_positions: int) -> dict:
             responses = asyncio.run(engine.go_multiple(chunk))
             torch.cuda.synchronize()
         wall = time.monotonic() - t0
-        launches = check_launches(path, engine=True)
+        launches = check_launches(path, engine=True, variant=v)
         if any(plain.values()):
             raise AssertionError(f"{path}: plain versions ran on the card: {plain}")
         entry = kernels._variant_symbol("search_segment_f32", v)
@@ -2536,7 +2567,7 @@ def main() -> int:
     part("K11 on the full-eval nets", lambda: nets_segment_phase(nets, SEGMENT_REPS))
     stats.update(part("K14-K16", lambda: train_kernel_phase(TRAIN_REPS)))
     variant_rules["search_segment"] = part("K11 in the variants", lambda: variant_segment_phase(
-        params, SEGMENT_REPS))
+        params, SEGMENT_REPS, nets["kb int8"]))
     log(f"kernel phase: {time.monotonic() - t0:.1f} s")
     phases = [
         ("profile", lambda: [profile_phase(params, lanes, PROFILE_STEPS, tt_on)
@@ -2609,6 +2640,11 @@ def main() -> int:
             row["in_k11_calls_per_step"] = calls[name] / max(steps, 1)
         if name in TRAIN_KERNELS[:2]:  # K1 and K2 run on the training path too
             row["train_launches"] = train_launches[name]
+        if name == "nnue_refresh_768":  # K1's body is atomic's board768 leaf inside K11
+            vp = variant_paths["atomic"]
+            row["variants"] = {"atomic": {
+                "launches": vp["launches"][name],
+                "in_k11_calls_per_step": vp["body_calls"][name] / max(vp["steps"], 1)}}
         if name in variant_rules:  # K4, K8-K11 in each variant: check, time, its main path
             row["variants"] = {}
             for v, vstats in variant_rules[name].items():

@@ -2,18 +2,18 @@
 and game outcome for the variants this package analyses.
 
 A copy of the JAX package's chess/variants.py for threeCheck,
-kingOfTheHill, racingKings, horde, antichess and crazyhouse (the reference client
-analyses them with Fairy-Stockfish: src/logger.rs:201-213 short names,
-src/queue.rs:562-568). The device search implements the same rules
-(ops/board.py node_rules and make_move, ops/movegen.py); these classes
-validate the chunk's input, replay its moves and decide terminal roots.
-Atomic is not ported yet: `VARIANTS` names exactly the variants this
-package runs.
+kingOfTheHill, racingKings, horde, atomic, antichess and crazyhouse (the
+reference client analyses them with Fairy-Stockfish: src/logger.rs:201-213
+short names, src/queue.rs:562-568). The device search implements the same
+rules (ops/board.py node_rules and make_move, ops/movegen.py); these
+classes validate the chunk's input, replay its moves and decide terminal
+roots. `VARIANTS` names every variant the reference runs on its device.
 """
 from __future__ import annotations
 
 from typing import Iterator, List, Optional, Tuple
 
+from .attacks import KING_ATTACKS
 from .position import (
     RANK_1,
     RANK_2,
@@ -35,6 +35,7 @@ from .types import (
     WHITE,
     Move,
     bb,
+    lsb,
     popcount,
     scan,
     square_rank,
@@ -183,6 +184,78 @@ class HordePosition(Position):
         return False
 
 
+class AtomicPosition(Position):
+    variant = "atomic"
+
+    def _explosion_zone(self, sq: int) -> int:
+        return KING_ATTACKS[sq] | bb(sq)
+
+    def _kings_adjacent(self) -> bool:
+        wk, bk = self.king_sq(WHITE), self.king_sq(BLACK)
+        return wk is not None and bk is not None and bool(KING_ATTACKS[wk] & bb(bk))
+
+    def checkers(self) -> int:
+        if self._kings_adjacent():
+            return 0  # adjacent kings can never be in check (capture explodes both)
+        return super().checkers()
+
+    def is_check(self) -> bool:
+        return bool(self.checkers())
+
+    def _post_move_hook(self, move: Move, us: int, ptype: int, captured) -> None:
+        if captured is None:
+            return
+        # explosion centers on the landing square: the capturer and every
+        # non-pawn piece within one king-step are removed (the directly
+        # captured piece is already gone)
+        self._remove_piece(move.to_sq)
+        zone = self._explosion_zone(move.to_sq)
+        for color in (WHITE, BLACK):
+            for pt in (KNIGHT, BISHOP, ROOK, QUEEN, KING):
+                for s in scan(self.bbs[color][pt] & zone):
+                    self._remove_piece(s)
+                    self.castling &= ~bb(s)
+
+    def generate_pseudo_legal(self) -> Iterator[Move]:
+        them_occ = self.occ[self.turn ^ 1]
+        for move in super().generate_pseudo_legal():
+            # kings never capture in atomic (the capture would explode them)
+            pc = self.piece_at(move.from_sq)
+            if pc is not None and pc[1] == KING and bb(move.to_sq) & them_occ:
+                continue
+            yield move
+
+    def _move_is_safe(self, move: Move) -> bool:
+        child = self.copy()
+        child._apply(move)
+        us = self.turn
+        if child.king_sq(us ^ 1) is None:
+            return True  # exploding the enemy king wins regardless
+        if child.king_sq(us) is None:
+            return False  # exploding our own king is illegal
+        ksq = child.king_sq(us)
+        if child._kings_adjacent():
+            return True
+        return not child.attackers(child.turn, ksq)
+
+    def _variant_outcome(self) -> Optional[Tuple[Optional[int], str]]:
+        for color in (WHITE, BLACK):
+            if not self.bbs[color][KING]:
+                return (color ^ 1, "king exploded")
+        return None
+
+    def _validate(self) -> None:
+        for color in (WHITE, BLACK):
+            if popcount(self.bbs[color][KING]) > 1:
+                raise InvalidFenError("too many kings")
+        if self.bbs[WHITE][PAWN] & (RANK_1 | RANK_8) or self.bbs[BLACK][PAWN] & (RANK_1 | RANK_8):
+            raise InvalidFenError("pawn on back rank")
+        them = self.turn ^ 1
+        their_king = self.bbs[them][KING]
+        if their_king and not self._kings_adjacent() and self.attackers(self.turn, lsb(their_king)):
+            raise InvalidFenError("side not to move is in check")
+
+
 class AntichessPosition(Position):
     variant = "antichess"
     has_castling = False
@@ -280,6 +353,7 @@ VARIANTS = {
     "kingOfTheHill": KingOfTheHillPosition,
     "racingKings": RacingKingsPosition,
     "horde": HordePosition,
+    "atomic": AtomicPosition,
     "antichess": AntichessPosition,
     "crazyhouse": CrazyhousePosition,
 }

@@ -9,9 +9,11 @@
 // reference compiles one program per static variant flag: the standard
 // instantiation runs standard chess's rules (and chess960's), the others
 // add their branches (threeCheck, kingOfTheHill, racingKings, horde,
-// antichess; ops/board.py node_rules_plain and _apply). Crazyhouse has
-// standard chess's node rules (its K8 instantiation is standard's) and
-// adds drops, pockets and promoted bits to make-move.
+// atomic, antichess; ops/board.py node_rules_plain and _apply). Crazyhouse
+// has standard chess's node rules (its K8 instantiation is standard's) and
+// adds drops, pockets and promoted bits to make-move. Atomic's captures
+// explode (make_move_warp) and its kings may stand side by side
+// (node_rules_warp).
 //
 // The static tables and constants come from rules_tables.cuh, which
 // kernels.build() generates from the plain versions' own tables
@@ -97,7 +99,11 @@ __device__ __forceinline__ int first_square(const int* sb, int code, int t) {
 // racingKings or antichess, and only black in horde); term: the
 // variant's game end at this node, TERM_*, from the side to move's view.
 // Every square holding a king is tested, as the plain version's maps do.
-// extra: the lane's variant words (read in threeCheck only).
+// In atomic the mover's duty is to keep its king, and to keep it safe
+// unless the kings stand a king step apart (a capture would explode
+// both, so neither is in check); the side to move without a king has
+// lost, whatever befell the mover's. extra: the lane's variant words
+// (read in threeCheck only).
 template <int V>
 __device__ void node_rules_warp(const int* sb, int stm, const int32_t* extra, int t,
                                 bool* parent_illegal, bool* checked, int* term) {
@@ -119,7 +125,8 @@ __device__ void node_rules_warp(const int* sb, int stm, const int32_t* extra, in
         if (code == our_king) our_hit |= attacked(sb, sq, 1 - us, -1, -1);
         if constexpr (V == VARIANT_HORDE) white_piece |= pcolor(code) == 0;
     }
-    const bool self_check = !__any_sync(FULL_MASK, seen) || __any_sync(FULL_MASK, their_hit);
+    const bool their_attacked = __any_sync(FULL_MASK, their_hit);
+    const bool self_check = !__any_sync(FULL_MASK, seen) || their_attacked;
     const bool check = __any_sync(FULL_MASK, our_hit);
     *parent_illegal = self_check;
     *checked = check;
@@ -142,6 +149,15 @@ __device__ void node_rules_warp(const int* sb, int stm, const int32_t* extra, in
         *checked = false;
         *term = (our8 && their8) ? TERM_DRAW
                 : (their8 && us == 0) ? TERM_LOSS : ((our8 && us == 0) ? TERM_WIN : TERM_NONE);
+    } else if constexpr (V == VARIANT_ATOMIC) {
+        const int our_k = first_square(sb, our_king, t);
+        const int their_k = first_square(sb, their_king, t);
+        bool adj = false;  // KING_TARGETS' -1 pads never equal a square
+        for (int i = 0; i < 8 && our_k >= 0 && their_k >= 0; ++i) adj |= king_sq(their_k, i) == our_k;
+        const bool lost = our_k < 0;
+        *parent_illegal = !lost && (their_k < 0 || (their_attacked && !adj));
+        *checked = check && !adj;
+        if (lost) *term = TERM_LOSS;
     } else if constexpr (V == VARIANT_THREECHECK) {  // the mover's third check
         const int them_checks = extra[EXTRA_CHECKS + (us == 0 ? 1 : 0)];
         if (them_checks >= THREE_CHECKS) *term = TERM_LOSS;
@@ -196,6 +212,20 @@ __device__ __forceinline__ int child_code(const int* sb, const MoveParts& m, int
     return code;
 }
 
+// Atomic's blast zone: the landing square `to` and its king targets (the
+// -1 pads of KING_TARGETS never equal a square, so none stands for a1).
+__device__ __forceinline__ bool in_blast(int sq, int to) {
+    bool in = sq == to;
+    for (int i = 0; i < 8; ++i) in |= king_sq(to, i) == sq;
+    return in;
+}
+
+// Atomic's child code on sq after a capture's blast (board.py _explode):
+// the capturer on `to` and every non-pawn in the zone are gone.
+__device__ __forceinline__ int blast_code(int code, int sq, int to) {
+    return (in_blast(sq, to) && (sq == to || ptype(code) != 0)) ? 0 : code;
+}
+
 // Crazyhouse's child word i of the variant words (board.py
 // _crazyhouse_extra): the mover's pocket gains the piece it captured (a
 // promoted one as a pawn) and pays for a drop; the promoted bits (a 64-bit
@@ -228,7 +258,11 @@ __device__ __forceinline__ int crazyhouse_word(const int* sb, const MoveParts& m
 // move gives check, crazyhouse's pockets and promoted bits moved with the
 // pieces — then zeros, as board.py rows_from_board writes them) and the
 // four piece-change slots [mover out, capture out, mover in, rook in]
-// (codes, sqs, signs; board.py _changes; a drop fills only the third).
+// (codes, sqs, signs; board.py _changes; a drop fills only the third;
+// atomic's slots leave its blast out, and the search never applies them).
+// An atomic capture blows up the child's board squares first, and each
+// castling word then also reads whether the blast reached its rook and
+// whether each king survived it (warp votes over the blown squares).
 // Each thread writes its own words; the child's board is read back
 // (threeCheck) after a warp barrier, so `child` may be shared or global
 // memory.
@@ -237,8 +271,19 @@ __device__ void make_move_warp(const int* sb, int stm, int ep, const int32_t* ca
                                int halfmove, const int32_t* extra, int move, int t,
                                int32_t* child, int32_t* codes, int32_t* sqs, int32_t* signs) {
     const MoveParts m = decode_move<V>(sb, stm, ep, move);
-    child[BT_BOARD + t] = child_code(sb, m, t);
-    child[BT_BOARD + t + WARP] = child_code(sb, m, t + WARP);
+    int c0 = child_code(sb, m, t), c1 = child_code(sb, m, t + WARP);
+    const bool blast = V == VARIANT_ATOMIC && (m.capture || m.is_ep);
+    bool alive[2] = {true, true};  // after a blast: does each color keep its king?
+    if constexpr (V == VARIANT_ATOMIC) {
+        if (blast) {
+            c0 = blast_code(c0, t, m.to);
+            c1 = blast_code(c1, t + WARP, m.to);
+        }
+        alive[0] = __any_sync(FULL_MASK, c0 == W_KING || c1 == W_KING);
+        alive[1] = __any_sync(FULL_MASK, c0 == B_KING || c1 == B_KING);
+    }
+    child[BT_BOARD + t] = c0;
+    child[BT_BOARD + t + WARP] = c1;
     bool gave_check = false;
     if constexpr (V == VARIANT_THREECHECK) {  // the mover attacks the enemy king
         __syncwarp();
@@ -259,8 +304,10 @@ __device__ void make_move_warp(const int* sb, int stm, int ep, const int32_t* ca
     } else if (w >= BT_CAST && w < BT_CAST + 4) {
         const int i = w - BT_CAST;
         const int rook_sq = castling[i];
-        const bool gone = (m.is_king && __ldg(&CASTLE_SLOT_COLOR[i]) == stm)
-                          || ((rook_sq == m.frm || rook_sq == m.to) && !m.drop);
+        const int color = __ldg(&CASTLE_SLOT_COLOR[i]);
+        bool gone = (m.is_king && color == stm)
+                    || ((rook_sq == m.frm || rook_sq == m.to) && !m.drop);
+        if (blast) gone = gone || (rook_sq >= 0 && in_blast(rook_sq, m.to)) || !alive[color];
         v = gone ? -1 : rook_sq;
     } else if (w == BT_HM) {  // a pawn drop is a pawn move
         v = (m.is_pawn || m.capture || m.is_ep || (m.drop && m.promo == 0)) ? 0 : halfmove + 1;

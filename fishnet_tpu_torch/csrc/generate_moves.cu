@@ -4,12 +4,13 @@
 // promotions first, then castling and killers, then quiet moves by their
 // history counters — as MAX_MOVES moves padded with -1, with the count
 // and the length of the noisy prefix. One instantiation per variant:
-// horde's first-rank double pushes, antichess's king promotions and
-// capture compulsion, crazyhouse's drops and its MAX_MOVES_ZH-wide list
-// (movegen.cuh).
+// horde's first-rank double pushes, atomic's kings that never capture,
+// antichess's king promotions and capture compulsion, crazyhouse's drops
+// and its MAX_MOVES_ZH-wide list (movegen.cuh).
 //
 // Replaces: fishnet_tpu/ops/movegen.py:124 generate_moves with :187
-// _candidate_space (crazyhouse's drops :396-415) and the history and
+// _candidate_space (atomic's king captures :248-250, crazyhouse's drops
+// :396-415) and the history and
 // killer ordering (called every search step at
 // fishnet_tpu/ops/search.py:463).
 //
@@ -97,6 +98,7 @@ GENERATE_MOVES_ENTRY(generate_moves, rules::VARIANT_STANDARD)
 GENERATE_MOVES_ENTRY(generate_moves_threeCheck, rules::VARIANT_THREECHECK)
 GENERATE_MOVES_ENTRY(generate_moves_crazyhouse, rules::VARIANT_CRAZYHOUSE)
 GENERATE_MOVES_ENTRY(generate_moves_antichess, rules::VARIANT_ANTICHESS)
+GENERATE_MOVES_ENTRY(generate_moves_atomic, rules::VARIANT_ATOMIC)
 GENERATE_MOVES_ENTRY(generate_moves_horde, rules::VARIANT_HORDE)
 GENERATE_MOVES_ENTRY(generate_moves_kingOfTheHill, rules::VARIANT_KINGOFTHEHILL)
 GENERATE_MOVES_ENTRY(generate_moves_racingKings, rules::VARIANT_RACINGKINGS)

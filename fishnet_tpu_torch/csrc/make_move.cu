@@ -6,13 +6,15 @@
 // pushes set no ep square, threeCheck counts the mover's checks in the
 // variant words the child copies from its parent, crazyhouse drops pieces
 // from the pockets (DROP_FLAG | type<<12 | to<<6 | to: one change slot),
-// fills the capturer's pocket and moves the promoted-piece bits.
+// fills the capturer's pocket and moves the promoted-piece bits; an atomic
+// capture explodes the capturer and every non-pawn a king step around the
+// landing square, with the castling rights of the rooks and kings it takes.
 //
 // Replaces: fishnet_tpu/ops/board.py:345 make_move and :516
 // move_piece_changes, sharing the decode as the port's
 // make_move_with_changes does, with crazyhouse's branches (:359-392,
-// :469-504, :528-565; called every search step at
-// fishnet_tpu/ops/search.py:749 and :802).
+// :469-504, :528-565) and atomic's explosion (:424-456; called every
+// search step at fishnet_tpu/ops/search.py:749 and :802).
 //
 // Bound on the H100: bytes — per lane the parent's 64 codes and its side
 // to move, ep square, castling rooks, halfmove clock and 12 variant words
@@ -81,6 +83,7 @@ MAKE_MOVE_ENTRY(make_move, rules::VARIANT_STANDARD)
 MAKE_MOVE_ENTRY(make_move_threeCheck, rules::VARIANT_THREECHECK)
 MAKE_MOVE_ENTRY(make_move_crazyhouse, rules::VARIANT_CRAZYHOUSE)
 MAKE_MOVE_ENTRY(make_move_antichess, rules::VARIANT_ANTICHESS)
+MAKE_MOVE_ENTRY(make_move_atomic, rules::VARIANT_ATOMIC)
 MAKE_MOVE_ENTRY(make_move_horde, rules::VARIANT_HORDE)
 MAKE_MOVE_ENTRY(make_move_kingOfTheHill, rules::VARIANT_KINGOFTHEHILL)
 MAKE_MOVE_ENTRY(make_move_racingKings, rules::VARIANT_RACINGKINGS)

@@ -15,7 +15,9 @@
 // (~40 in a middlegame), and no thread waits on another's order.
 //
 // The variant is a template parameter V, as in board.cuh: horde's pawns
-// on white's first rank also push two squares, antichess adds a fifth
+// on white's first rank also push two squares, an atomic king never
+// captures (its candidate is dropped before it is counted, so the count,
+// the noisy prefix and the ranks are the plain version's), antichess adds a fifth
 // promotion (to a king) and makes a capture compulsory — its captures
 // (en passant included) are exactly its moves with keys below
 // NOISY_BELOW, which rank first, so when any exists the list keeps only
@@ -154,7 +156,11 @@ __device__ void piece_moves(const int* sb, int us, int ep, int sq, List& list,
         const int8_t* targets = pt == 1 ? KNIGHT_TARGETS : KING_TARGETS;
         for (int i = 0; i < 8; ++i) {
             const int to = __ldg(&targets[sq * 8 + i]);
-            if (to >= 0 && pair_take(code, sb[to])) emit(list, o, pair_key(code, sb[to]), sq | (to << 6));
+            if (to < 0 || !pair_take(code, sb[to])) continue;
+            if constexpr (V == VARIANT_ATOMIC) {  // a king's capture would blow it up
+                if (pt == 5 && sb[to] != 0) continue;
+            }
+            emit(list, o, pair_key(code, sb[to]), sq | (to << 6));
         }
     } else {
         for (int d = 0; d < 8; ++d) {

@@ -254,6 +254,25 @@ __device__ __forceinline__ void features_warp(const int32_t* board, int t, Featu
     __syncwarp();
 }
 
+// One board's board768 feature rows (K1's, common.cuh feature_768) for
+// both perspectives in the same lists and the same square order, so that
+// refresh_column sums them as K1 does (atomic's board768 leaf in K11).
+__device__ __forceinline__ void features_768_warp(const int32_t* board, int t, Features& f) {
+    const int c0 = board[t], c1 = board[t + 32];
+    const unsigned below = (1u << t) - 1u;
+    const unsigned m0 = __ballot_sync(FULL, c0 > 0), m1 = __ballot_sync(FULL, c1 > 0);
+    const int lo = __popc(m0);
+    for (int p = 0; p < 2; ++p) {
+        if (c0 > 0) f.idx[p][__popc(m0 & below)] = feature_768(c0, t, p);
+        if (c1 > 0) f.idx[p][lo + __popc(m1 & below)] = feature_768(c1, t + 32, p);
+    }
+    if (t == 0) {
+        f.lo[0] = f.lo[1] = lo;
+        f.n[0] = f.n[1] = lo + __popc(m1);
+    }
+    __syncwarp();
+}
+
 // The output bucket from the piece count (models/nnue.py output_bucket).
 __device__ __forceinline__ int output_bucket(const Features& f) {
     return min(max((f.n[0] - 1) / 4, 0), 7);

@@ -3,11 +3,13 @@
 // duty broken), whether the side to move is in check, and the variant's
 // game end at the node (TERM_*), for standard chess and chess960 and, one
 // instantiation each, threeCheck, kingOfTheHill, racingKings, horde,
-// antichess and crazyhouse (whose rules are standard chess's: its
-// instantiation takes no variant branch).
+// atomic (adjacent kings, an exploded king), antichess and crazyhouse
+// (whose rules are standard chess's: its instantiation takes no variant
+// branch).
 //
 // Replaces: fishnet_tpu/ops/board.py:256 node_rules with :137 attack_map
-// (called every search step at fishnet_tpu/ops/search.py:377).
+// and its variant branches (atomic's :292-305; called every search step
+// at fishnet_tpu/ops/search.py:377).
 //
 // Bound on the H100: bytes — per lane the 64 board codes and the side to
 // move in (260 B; threeCheck also two counters), two flags and the kind
@@ -81,6 +83,7 @@ NODE_RULES_ENTRY(node_rules, rules::VARIANT_STANDARD)
 NODE_RULES_ENTRY(node_rules_threeCheck, rules::VARIANT_THREECHECK)
 NODE_RULES_ENTRY(node_rules_crazyhouse, rules::VARIANT_CRAZYHOUSE)
 NODE_RULES_ENTRY(node_rules_antichess, rules::VARIANT_ANTICHESS)
+NODE_RULES_ENTRY(node_rules_atomic, rules::VARIANT_ATOMIC)
 NODE_RULES_ENTRY(node_rules_horde, rules::VARIANT_HORDE)
 NODE_RULES_ENTRY(node_rules_kingOfTheHill, rules::VARIANT_KINGOFTHEHILL)
 NODE_RULES_ENTRY(node_rules_racingKings, rules::VARIANT_RACINGKINGS)

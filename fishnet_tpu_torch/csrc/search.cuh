@@ -27,7 +27,12 @@
 // win, and crazyhouse's move lists (the state's `moves` rows and the
 // warp's staged list) are MAX_MOVES_ZH wide where the others' are
 // MAX_MOVES (rules::max_moves<V>; the reference's _step_lane under its
-// static variant flag, its tables at max_moves_for(variant)).
+// static variant flag, its tables at max_moves_for(variant)). In atomic a
+// capture's blast outruns K3's four change slots, so there, as in the
+// reference, a board768 leaf is a full eval: the warp refreshes the lane's
+// pair from its board in K1's order (nnue.cuh features_768_warp and
+// refresh_column, four columns a thread) into shared memory, K2's body
+// reads it, and no accumulator of the state is read or written.
 // The rows the step reads are staged in shared memory before any write,
 // and the writes land in the reference's order, each under its
 // mask: the entered row (ply0), the folded parent (parent0), the PV row,
@@ -68,7 +73,7 @@ static_assert(2 * L1 == 4 * WARP, "K3's body: four columns a thread");
 
 // the body calls and live lane-steps a launch counts (kernels.py K11_COUNTERS)
 enum Body { B_FORWARD, B_ACC_UPDATE, B_HASH, B_PROBE, B_STORE, B_NODE_RULES, B_MOVEGEN,
-            B_MAKE_MOVE, B_EVALUATE, B_EVALUATE_SF, B_LIVE, N_BODY };
+            B_MAKE_MOVE, B_EVALUATE, B_EVALUATE_SF, B_REFRESH, B_LIVE, N_BODY };
 
 // the nets K11 takes
 constexpr int BOARD768 = 0;  // incremental accumulators: K2's and K3's bodies
@@ -129,10 +134,24 @@ struct Segment {
     bool pruning, deep_tt, prefer_deep;
 };
 
-// The rows a lane's step reads, staged by its warp (the move lists as
-// wide as the variant's).
+// Atomic's board768 leaf pair, refreshed from the board each step: a base
+// of the atomic warp rows only (an empty base takes no room in the others).
 template <int V>
-struct WarpRows {
+struct LeafPair {};
+template <>
+struct LeafPair<VARIANT_ATOMIC> {
+    union {
+        float f32[2 * L1];
+        int32_t i32[2 * L1];
+    };
+};
+__device__ __forceinline__ float* pair_of(LeafPair<VARIANT_ATOMIC>& p, float) { return p.f32; }
+__device__ __forceinline__ int32_t* pair_of(LeafPair<VARIANT_ATOMIC>& p, int32_t) { return p.i32; }
+
+// The rows a lane's step reads, staged by its warp (the move lists as
+// wide as the variant's; in atomic also the leaf's accumulator pair).
+template <int V>
+struct WarpRows : LeafPair<V> {
     int btr[BT_W];  // the ply row; after ENTER, with its path hash (btE)
     int btp[BT_W];  // the parent's row
     int child[BT_W];  // the child's row
@@ -141,7 +160,7 @@ struct WarpRows {
     int gen[rules::max_moves<V>()];  // the ordered move list ENTER generates
     int chg[12];  // the child's piece changes: codes, squares, signs
     rules::MoveList<V> list;  // K9's scratch
-    nnue::Features feat;  // K12's and K13's feature lists
+    nnue::Features feat;  // K12's and K13's feature lists (atomic's board768 leaf: K1's)
 };
 
 // Non-capture, non-promotion move (a crazyhouse drop is quiet; en passant
@@ -320,14 +339,27 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows<V>& s, int t
         const bool in_qs = depth_left <= 0;
 
         // leaf value: on board768 K2's body on the lane's accumulator pair
-        // (one thread); any other net K12's or K13's full eval (the warp)
+        // (one thread), in atomic on the pair K1's body refreshes here (four
+        // columns a thread); any other net K12's or K13's full eval (the warp)
         float ev = 0.0f;
         if constexpr (Net::KIND == BOARD768) {
             const int pieces = __popc(__ballot_sync(FULL_MASK, s.btr[t] > 0))
                                + __popc(__ballot_sync(FULL_MASK, s.btr[t + WARP] > 0));
             const int bucket = min(max((pieces - 1) / 4, 0), 7);
+            const Acc* pair = acc + p0 * 2 * L1;
+            if constexpr (V == VARIANT_ATOMIC) {
+                nnue::features_768_warp(s.btr, t, s.feat);
+                Acc* fresh = pair_of(s, Acc{});
+                for (int i = 0; i < 4; ++i) {
+                    const int col = t + WARP * i;
+                    const int persp = col / L1, c = col % L1;
+                    fresh[col] = a.net.ft_b[c] + nnue::refresh_column<typename Net::Weights::Ft, Acc>(
+                                                     s.feat, persp, a.net.ft_w, L1, c);
+                }
+                __syncwarp();
+                pair = fresh;
+            }
             if (t == 0) {
-                const Acc* pair = acc + p0 * 2 * L1;
                 ev = nnue::forward_lane(pair + stm * L1, pair + (1 - stm) * L1, bucket,
                                         a.net.head);
             }
@@ -461,6 +493,7 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows<V>& s, int t
             calls[B_HASH] += 1;
             calls[Net::KIND == BOARD768 ? B_FORWARD
                   : (Net::KIND == KING ? B_EVALUATE : B_EVALUATE_SF)] += 1;
+            calls[B_REFRESH] += Net::KIND == BOARD768 && V == VARIANT_ATOMIC;
             calls[B_MOVEGEN] += 1;
             calls[B_PROBE] += a.table != nullptr;
         }
@@ -598,7 +631,7 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows<V>& s, int t
                 __syncwarp();
             }
             for (int j = t; j < BT_W; j += WARP) bt[nply * BT_W + j] = s.child[j];
-            if constexpr (Net::KIND == BOARD768) {
+            if constexpr (Net::KIND == BOARD768 && V != VARIANT_ATOMIC) {
                 // the child's accumulators: K3's body, four columns a thread
                 const Acc* src = acc + ply1 * 2 * L1;
                 Acc out[4];

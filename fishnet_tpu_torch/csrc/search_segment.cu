@@ -32,11 +32,16 @@
 // reference compiles one program per static variant flag), so each
 // variant's instantiation carries only its own rules; crazyhouse's also
 // its 544-move lists (2,176 B a warp for the staged list, and K9's wider
-// scratch: ~9.9 KB of shared memory a warp against ~7.4 KB). Each variant
-// is a library of its own, built from this source with the generated
-// `segment_entries.cuh` of its build directory, which instantiates the
-// five net kinds for it (kernels.py segment_entries); kernels.build()
-// runs the seven nvcc processes in parallel.
+// scratch: ~9.9 KB of shared memory a warp against ~7.4 KB); atomic's on
+// a board768 net a full eval a leaf (the reference's :440-445 and :801):
+// K1's refresh of the lane's pair from its board row into the warp's
+// shared memory (512 B more a warp, atomic's rows only; the 192 KiB of
+// ft_w stay in L2), then K2's body, and no accumulator read or written
+// past the root. Each variant is a library of its own, built from this
+// source with the generated `segment_entries.cuh` of its build directory,
+// which instantiates the five net kinds for it (kernels.py
+// segment_entries); kernels.build() runs the eight nvcc processes in
+// parallel.
 //
 // Design: a persistent cooperative grid (cudaLaunchCooperativeKernel,
 // cooperative_groups grid sync), sized by the occupancy API to the blocks
@@ -242,7 +247,7 @@ int segment(void* bt, void* nt, void* lane, const void* hist_hash, const void* h
 // imported Stockfish net, with l1, h1, h2), the key tables, the table (n,
 // 4) int32 with n = table_rows a power of two, or null, with its claim
 // words (n,) all -1; gen_lanes (batch,) int32 or null; scratch (batch * 8
-// + 4) int32; body_calls (11,) int64, added to (kernels.py K11_COUNTERS);
+// + 4) int32; body_calls (12,) int64, added to (kernels.py K11_COUNTERS);
 // summary (batch + 1, 4) int32 out; grid_out: the blocks launched (host
 // int). The entry points of one variant's library, one per net kind, are
 // the generated segment_entries.cuh's SEGMENT_ENTRY(name, net, variant)

@@ -2,8 +2,9 @@
 // piece-square keys of every occupied square, the en-passant key, the
 // four castling-slot keys and the side-to-move key, under the two tables
 // Z1 and Z2; one instantiation per variant, each but standard chess's
-// adding its salt, threeCheck its check counters, crazyhouse its ten pocket
-// counts and the keys of its promoted-piece bits.
+// adding its salt (atomic's is all it adds), threeCheck its check
+// counters, crazyhouse its ten pocket counts and the keys of its
+// promoted-piece bits.
 //
 // Replaces: fishnet_tpu/ops/tt.py:113 hash_board with its variant keys
 // (:151-171; called every search step at fishnet_tpu/ops/search.py:397
@@ -74,6 +75,7 @@ ZOBRIST_ENTRY(zobrist_hash, consts::VARIANT_STANDARD)
 ZOBRIST_ENTRY(zobrist_hash_threeCheck, consts::VARIANT_THREECHECK)
 ZOBRIST_ENTRY(zobrist_hash_crazyhouse, consts::VARIANT_CRAZYHOUSE)
 ZOBRIST_ENTRY(zobrist_hash_antichess, consts::VARIANT_ANTICHESS)
+ZOBRIST_ENTRY(zobrist_hash_atomic, consts::VARIANT_ATOMIC)
 ZOBRIST_ENTRY(zobrist_hash_horde, consts::VARIANT_HORDE)
 ZOBRIST_ENTRY(zobrist_hash_kingOfTheHill, consts::VARIANT_KINGOFTHEHILL)
 ZOBRIST_ENTRY(zobrist_hash_racingKings, consts::VARIANT_RACINGKINGS)

@@ -18,14 +18,14 @@ boundaries (ops/search.py refill_lanes). With refill off, chunks run
 chunk-serially (`_analyse_single`).
 
 Variants: chunks of standard chess, chess960, threeCheck (and its alias
-3check), kingOfTheHill, racingKings, horde, antichess and crazyhouse run
-on the card (`DEVICE_VARIANTS`), each under its device variant's
+3check), kingOfTheHill, racingKings, horde, atomic, antichess and
+crazyhouse run on the card (`DEVICE_VARIANTS`), each under its device variant's
 kernels; the scheduler runs one device variant per drive session, its
 state's move lists as wide as that variant's (crazyhouse's 544). A
 crazyhouse drop prints as "P@e4", as the reference's UCI does.
 
 Not ported yet, and refused rather than run another way: move jobs,
-multipv, atomic, the mesh.
+multipv, the mesh.
 """
 from __future__ import annotations
 
@@ -58,9 +58,9 @@ LANE_BUCKETS = (16, 64, 128, 256)
 # (the JAX package's measured default; FISHNET_TPU_ASPIRATION overrides)
 ASPIRATION_DELTAS = (15, 120)
 
-# chunk.variant → device variant (ops/search.py's static flag). The JAX
-# package's map also sends atomic to the device; it is not ported here,
-# so such a chunk is refused (NotImplementedError).
+# chunk.variant → device variant (ops/search.py's static flag), the JAX
+# package's map key for key; a chunk of any other variant is refused
+# (NotImplementedError).
 DEVICE_VARIANTS = {
     "standard": "standard",
     "chess960": "standard",
@@ -69,6 +69,7 @@ DEVICE_VARIANTS = {
     "3check": "threeCheck",
     "crazyhouse": "crazyhouse",
     "antichess": "antichess",
+    "atomic": "atomic",
     "horde": "horde",
     "kingOfTheHill": "kingOfTheHill",
     "racingKings": "racingKings",
@@ -77,11 +78,11 @@ DEVICE_VARIANTS = {
 
 def device_variant(chunk_variant: str) -> str:
     """The device variant of a chunk's variant; NotImplementedError for a
-    variant that is not ported."""
+    variant that has none."""
     try:
         return DEVICE_VARIANTS[chunk_variant]
     except KeyError:
-        raise NotImplementedError(f"variant {chunk_variant!r} is not ported yet") from None
+        raise NotImplementedError(f"variant {chunk_variant!r} has no device search") from None
 
 
 def _decode_uci(m: int) -> str:

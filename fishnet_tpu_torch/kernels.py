@@ -12,7 +12,7 @@ ops/tt.py, so no table or constant is typed twice. The board and table
 kernels (K4, K8-K10) have one entry point per device variant
 (`_variant_symbol`); the segment kernel (K11) one library per variant,
 each built from search_segment.cu with its generated `segment_entries.cuh`
-(one entry point per net kind), all seven nvcc processes started with
+(one entry point per net kind), all eight nvcc processes started with
 the others. The wrappers below take
 CUDA tensors only: they check device, dtype, shape and contiguity,
 allocate the output with `torch.empty`, launch on the current stream,
@@ -36,7 +36,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .ops.tables import PORTED_VARIANTS, VARIANT_ID
+from .ops.tables import VARIANT_ID
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build"
@@ -53,10 +53,13 @@ KERNELS = (
 )
 # the kernels whose bodies K11 runs inside a segment, and its per-launch
 # counters: those bodies' calls, then the live lane-steps (csrc/search.cuh
-# Body)
+# Body). K1's body runs there in atomic on a board768 net only (a full
+# refresh a leaf); its kernel also refreshes the roots of every board768
+# search.
 K11_BODIES = (
     "nnue_forward_from_acc", "nnue_acc_update_768", "zobrist_hash", "tt_probe", "tt_store",
     "node_rules", "generate_moves", "make_move", "nnue_evaluate", "nnue_evaluate_sf",
+    "nnue_refresh_768",
 )
 K11_COUNTERS = K11_BODIES + ("live_lane_steps",)
 
@@ -94,13 +97,13 @@ SEGMENT_NETS = (("f32", "NetF32"), ("i8", "NetI8"), ("kb_f32", "NetKbF32"),
 def _variant_symbol(base: str, variant: str) -> str:
     """An entry point's name in a device variant: the standard one keeps
     its base name, the others take the variant's as a suffix."""
-    if variant not in PORTED_VARIANTS:
-        raise NotImplementedError(f"variant {variant!r} is not ported yet")
+    if variant not in VARIANT_ID:
+        raise NotImplementedError(f"{variant!r} is not a device variant")
     return base if variant == "standard" else f"{base}_{variant}"
 
 
 def _per_variant(base: str, argtypes) -> dict:
-    return {_variant_symbol(base, v): argtypes for v in PORTED_VARIANTS}
+    return {_variant_symbol(base, v): argtypes for v in VARIANT_ID}
 
 
 # each library: its entry points and their argument types (a library is
@@ -124,7 +127,7 @@ _SIGNATURES = {
     "generate_moves": _per_variant("generate_moves", [_P, _L] * 7 + [_P, _P, _P, _I, _P]),
     "make_move": _per_variant("make_move", [_P, _L] * 7 + [_P] * 4 + [_I, _P]),
     **{f"search_segment_{v}": {_variant_symbol(f"search_segment_{tag}", v): _SEGMENT_ARGS
-                               for tag, _ in SEGMENT_NETS} for v in PORTED_VARIANTS},
+                               for tag, _ in SEGMENT_NETS} for v in VARIANT_ID},
     "nnue_stack_backward": {"nnue_stack_backward": [_P] * 13 + [_I, _P]},
     "nnue_ft_backward_768": {"nnue_ft_backward_768": [_P, _P, _P, _I, _I, _P]},
     "adam_update": {"adam_update": [_P] * 4 + [_L] + [_F] * 8 + [_P]},
@@ -322,7 +325,7 @@ def _headers() -> dict:
     return {
         "rules_tables.cuh": rules_header(), "search_consts.cuh": search_header(),
         **{f"search_segment_{v}/segment_entries.cuh": segment_entries(v)
-           for v in PORTED_VARIANTS},
+           for v in VARIANT_ID},
     }
 
 
@@ -880,9 +883,10 @@ def search_segment(params, state, steps: int, pruning: bool, table=None,
     `table` ((n, 4) int32, updated in place) is given → the packed
     (B+1, 4) int32 summary (done, nodes, root score, root move; row B the
     step count). params: a board768 net (f32 or int8; K2's and K3's
-    bodies), a king-bucketed one (K12's body) or an imported Stockfish
-    net (K13's); the state's `acc` has the net's L1 and accumulator
-    dtype, and only a board768 net reads or writes it. gen: an int or a
+    bodies, in atomic K1's and K2's), a king-bucketed one (K12's body) or
+    an imported Stockfish net (K13's); the state's `acc` has the net's L1
+    and accumulator dtype, and only a board768 net outside atomic reads
+    or writes it. gen: an int or a
     (B,) int32 CUDA tensor of generations for the prefer_deep store.
     variant: the device variant (each has its own instantiations). One
     cooperative launch; raises if the card refuses it."""

@@ -1,11 +1,11 @@
 """Device board representation, rules and move making, batched over lanes.
 
 A copy of the JAX package's ops/board.py for standard chess, chess960
-and the variants threeCheck, kingOfTheHill, racingKings, horde,
+and the variants threeCheck, kingOfTheHill, racingKings, horde, atomic,
 antichess and crazyhouse, written with the lane dimension spelled out:
 every function takes (B, …) tensors where the reference took one lane
 under `vmap`. The variant is a static argument (a name of VARIANT_ID),
-as the reference's; atomic is refused (`variant_id`).
+as the reference's; any other name is refused (`variant_id`).
 
 Board tensors (one row per lane):
   board:    (B, 64) int32 piece codes (tables.py: 0 empty, 1-6 white, 7-12 black)
@@ -43,7 +43,7 @@ from .. import kernels
 from ..chess.position import Position
 from ..chess.types import scan
 from . import tables as T
-from .tables import PORTED_VARIANTS, VARIANT_ID
+from .tables import VARIANT_ID
 
 OFF = 64  # the padded board's empty off-board square
 
@@ -79,10 +79,10 @@ GOAL_RANK_FROM = 56  # racingKings: a king on a square >= this is on the goal ra
 
 
 def variant_id(variant: str) -> int:
-    """The device id of a ported variant; raises NotImplementedError for
-    atomic and any other name."""
-    if variant not in PORTED_VARIANTS:
-        raise NotImplementedError(f"variant {variant!r} is not ported yet")
+    """The device id of a device variant; raises NotImplementedError for
+    any other name."""
+    if variant not in VARIANT_ID:
+        raise NotImplementedError(f"{variant!r} is not a device variant")
     return VARIANT_ID[variant]
 
 # castling destinations by [color * 2 + side] (side 0 kingside, 1
@@ -307,8 +307,11 @@ def node_rules_plain(b: Board, r: Rays | None = None, attacks=None,
     duty — left its king en prise or lost it, or gave check in
     racingKings; checked (B,) bool: the side to move is in check;
     term_kind (B,) int32: TERM_* by the variant's rule at this node, from
-    the side to move's view). attacks: attack_parts(r) when the caller
-    already has it."""
+    the side to move's view). In atomic the duty is the mover's king's
+    survival and its safety unless the kings stand adjacent (a capture
+    would explode both), and an exploded king of the side to move ends
+    the game (a loss, even if the mover's king exploded too). attacks:
+    attack_parts(r) when the caller already has it."""
     variant_id(variant)
     if attacks is None:
         attacks = attack_parts(rays_of(b.board) if r is None else r)
@@ -326,6 +329,15 @@ def node_rules_plain(b: Board, r: Rays | None = None, attacks=None,
         # no check concept, kings are ordinary pieces; running out of
         # moves or pieces wins, at the move's exhaustion (search.py)
         return torch.zeros_like(checked), torch.zeros_like(checked), term
+    if variant == "atomic":
+        our_k, their_k = king_square(b.board, us), king_square(b.board, 1 - us)
+        # the kings a king step apart: our king on one of the mover's
+        # king's targets (padded with OFF, which no king stands on)
+        near = tables(b.board.device).king[their_k.clamp(min=0).long()] == our_k[:, None]
+        adj = (our_k >= 0) & (their_k >= 0) & near.any(1)
+        lost = our_k < 0
+        illegal = ~lost & ((their_k < 0) | ((att_us & their_king).any(1) & ~adj))
+        return illegal, checked & ~adj, torch.where(lost, TERM_LOSS, term)
     if variant == "horde":
         # white is the kingless horde: no duty or check for white; the
         # horde loses once it has no piece left
@@ -439,6 +451,9 @@ def _apply(b: Board, m: _MoveParts, variant: str = "standard") -> Board:
     if m.drop is not None:  # a drop touches no castling rook
         touched = touched > m.drop[:, None]
     gone = (m.is_king[:, None] & own_slots) | touched
+    cast = torch.where(gone, -1, cast)
+    if variant == "atomic":
+        board, cast = _explode(board, cast, m)
     dbl = m.is_pawn & ((m.to - m.frm).abs() == 16)
     if variant == "horde":  # the horde's back-rank doubles set no ep square
         dbl = dbl & ~((b.stm == 0) & ((m.frm >> 3) == 0))
@@ -457,10 +472,31 @@ def _apply(b: Board, m: _MoveParts, variant: str = "standard") -> Board:
     return Board(
         board=board, stm=1 - b.stm,
         ep=torch.where(dbl, (m.frm + m.to) >> 1, -1),
-        castling=torch.where(gone, -1, cast),
+        castling=cast,
         halfmove=torch.where(pawnish | m.capture | m.is_ep, 0, b.halfmove + 1),
         extra=extra,
     )
+
+
+def _explode(board: torch.Tensor, cast: torch.Tensor, m: _MoveParts):
+    """Atomic's blast after a capture (en passant included) → (board,
+    castling): the capturer and every non-pawn on the landing square or a
+    king step from it are removed, and a castling slot loses its rook
+    where the blast reached the rook's square, and every slot of a side
+    whose king it took (the reference's make_move). The zone is read by
+    comparison with the landing square's king targets, padded with OFF,
+    which no square equals, so a pad never stands for a1."""
+    c = tables(board.device)
+    capture = (m.capture | m.is_ep)[:, None]
+    zone = (c.sq[None, :, None] == c.king[m.to.long()][:, None]).any(2)
+    zone = zone | (c.sq[None] == m.to[:, None])  # (B, 64)
+    blown = zone & ((c.ptype[board.long()] != 0) | (c.sq[None] == m.to[:, None]))
+    board = torch.where(capture & blown, 0, board)
+    rook_hit = zone.gather(1, cast.clamp(0, 63).long()) & (cast >= 0)
+    alive = torch.stack([(board == T.W_KING).any(1), (board == T.B_KING).any(1)], 1)
+    slot_alive = alive.gather(1, c.slot_color.long().expand_as(cast))
+    cast = torch.where(capture & (rook_hit | ~slot_alive), -1, cast)
+    return board, cast
 
 
 def _crazyhouse_extra(b: Board, m: _MoveParts) -> torch.Tensor:
@@ -525,8 +561,9 @@ def make_move_with_changes(b: Board, move: torch.Tensor, variant: str = "standar
     placements/removals each move causes, as fixed slots (code 0 marks an
     unused slot): [mover out, capture out, mover in, rook in (castle)];
     they feed the incremental accumulator update (a crazyhouse drop fills
-    one slot, the piece arriving; the other ported variants change the
-    pieces as standard chess does). The child's extra words are the
+    one slot, the piece arriving; the other variants change the pieces as
+    standard chess does: in atomic the slots leave out the blast, and the
+    search never applies them there, as the reference's never does). The child's extra words are the
     parent's, with threeCheck's counter of the mover raised when the move
     gives check, and crazyhouse's pockets and promoted bits moved with
     the pieces (_crazyhouse_extra). K10 through make_move_rows for

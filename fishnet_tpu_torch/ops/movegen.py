@@ -3,9 +3,10 @@
 A copy of the JAX package's ops/movegen.py for standard chess, chess960
 and the variants threeCheck, kingOfTheHill, racingKings (which generate
 as standard chess), horde (white's pawns on the first rank also push
-two squares), antichess (a fifth promotion, to a king, and capture
-compulsion) and crazyhouse (drops from the pocket, and a move list of
-MAX_MOVES_ZH), with the lane dimension spelled out. The candidate space
+two squares), atomic (a king never captures), antichess (a fifth
+promotion, to a king, and capture compulsion) and crazyhouse (drops from
+the pocket, and a move list of MAX_MOVES_ZH), with the lane dimension
+spelled out. The candidate space
 is fixed — (64 sq x 8 dirs x 7 steps) slider slots, (64 x 8) knight and
 (64 x 8) king slots, (64 x 4) pawn slots, (8 x 3 x 4) promotion slots
 (x 5 in antichess; promotions start from the 8 pre-promotion squares),
@@ -110,7 +111,7 @@ _PAWN_CAP_KEY = _mvv_lva(np.maximum(PIECE_TYPE, 0), 0)
 def max_moves_for(variant: str) -> int:
     """The move list's width for a device variant: MAX_MOVES_ZH in
     crazyhouse, standard chess's MAX_MOVES in the others; raises
-    NotImplementedError for a variant that is not ported."""
+    NotImplementedError for a name that is not a device variant."""
     variant_id(variant)
     return MAX_MOVES_ZH if variant == "crazyhouse" else MAX_MOVES
 
@@ -251,6 +252,8 @@ def _candidate_space(b: Board, r: Rays | None = None, attacks=None,
     pair = (board * 13)[:, :, None] + tp
     valid_kk = ((own[:, :, None] & (types[:, :, None] == c.kk_type)) & c.kk_valid
                 & c.pair_take[pair])
+    if variant == "atomic":  # a king never captures (the blast would take it)
+        valid_kk = valid_kk > ((c.kk_type == 5) & (bt.pcolor[tp] == them[:, None, None]))
     keys_kk = c.pair_key[pair]
 
     # pawns: push1, push2, capture left/right (en passant included)
@@ -368,7 +371,7 @@ def generate_moves(b: Board, killers=None, hist=None, rays: Rays | None = None,
     CUDA tensors (the board fields, killers and history may be views with
     contiguous rows); the plain version for CPU tensors, which may share
     the caller's rays_of(b.board) and attack_parts(rays). variant: a
-    device variant (ops/board.py PORTED_VARIANTS)."""
+    device variant (ops/tables.py VARIANT_ID)."""
     if b.board.device.type == "cpu":
         return generate_moves_plain(b, killers, hist, rays, attacks, variant)
     return kernels.generate_moves(b.board, b.stm, b.ep, b.castling, killers, hist, variant,

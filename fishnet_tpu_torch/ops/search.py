@@ -1,8 +1,8 @@
 """Lockstep batched alpha-beta search, batched over lanes in PyTorch.
 
 A port of the JAX package's ops/search.py (standard chess, chess960 and
-the variants threeCheck, kingOfTheHill, racingKings, horde, antichess
-and crazyhouse, with or without the shared transposition table, with
+the variants threeCheck, kingOfTheHill, racingKings, horde, atomic,
+antichess and crazyhouse, with or without the shared transposition table, with
 Lazy-SMP lane-group metadata). The variant is a static argument, as in
 the reference: a node at a variant's game end (node_rules' term_kind)
 is a leaf worth a mate score or a draw, antichess changes the mate rule
@@ -39,7 +39,11 @@ stack (K3) and evaluates a leaf from them (K2). Any other net (a
 king-bucketed NnueParams, an imported Stockfish net) pays a full eval at
 every leaf (K12, K13), updates no accumulator, and starts from zero root
 accumulators without K1, as the reference does; the state keeps the
-reference's (B, P+1, 2, L1) `acc` table all the same.
+reference's (B, P+1, 2, L1) `acc` table all the same. In atomic a
+capture's blast removes up to ten pieces, more than the four change
+slots the update takes, so there, as in the reference, a board768 leaf
+is a full eval too (the refresh, K1's body, then K2's) and the step
+carries no accumulator: `acc` keeps the roots' pairs init_state wrote.
 
 `run_segment_plain` is K11's plain version: the batched PyTorch step
 `_step` (and `_tt_step`, the reference's TT runner: a store of the
@@ -202,7 +206,7 @@ def init_state(params: nnue.NnueParams, roots: Board, depth: torch.Tensor,
     (the lane searches as without the argument). group (B,): an opaque
     lane-group tag, stored and not read by the search. variant: the
     device variant the state will be searched under (its move lists'
-    width; NotImplementedError for one that is not ported).
+    width; NotImplementedError for a name that is not one).
 
     On the card the state is allocated uninitialised and K7 (lane_init)
     writes every lane after K1's root refresh; on the CPU the plain
@@ -441,7 +445,7 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
     here. tt_hit (B,) bool / tt_score / tt_move (B,) int32: the TT probe
     of each lane's ENTER node (a usable cutoff, its score, the stored
     move for ordering, -1 for none); None runs without the table.
-    variant: the device variant (ops/board.py PORTED_VARIANTS).
+    variant: the device variant (ops/tables.py VARIANT_ID).
 
     All reads of the state happen before the writes they could see, and
     the writes land in the reference's order (nt: entered row, parent
@@ -499,13 +503,16 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
     in_qs = depth_left <= 0
 
     # leaf value: on board768 the layer stack from the incremental
-    # accumulator (K2); any other net pays a full eval (K12, K13)
-    if nnue.is_board768(params):
+    # accumulator (K2), but in atomic a refresh first (K1, K2); any other
+    # net pays a full eval (K12, K13)
+    if not nnue.is_board768(params):
+        ev = nnue.evaluate(params, b.board, us)
+    elif variant == "atomic":
+        ev = nnue.evaluate(params, b.board.contiguous(), us.contiguous())
+    else:
         ev = nnue.forward_from_acc(
             params, _row(s.acc, p0), us.contiguous(), nnue.output_bucket(b.board)
         )
-    else:
-        ev = nnue.evaluate(params, b.board, us)
     static_val = ev.to(_I32).clamp(-MATE_BOUND, MATE_BOUND)
     draw = fifty | repet
     # a variant's game end (never one in standard chess) ends the node at
@@ -720,7 +727,7 @@ def _step(params: nnue.NnueParams, s: SearchState, pruning: bool, keys=None,
     research = research > try_m
 
     _set_row(bt, pn, child, advance)
-    if nnue.is_board768(params):  # the other nets keep no accumulators
+    if nnue.is_board768(params) and variant != "atomic":  # the others keep no accumulators
         child_acc = nnue.apply_acc_updates_768(params, _row(s.acc, p1), codes, sqs, signs)
         _set_row(s.acc, pn, child_acc, advance)
 

@@ -80,14 +80,12 @@ PROMO_TO_PIECE = np.array([0, 2, 3, 4, 5, 6], dtype=np.int32)  # white codes; +6
 MAX_MOVES = 224  # fixed per-ply move-list capacity (max legal known is 218)
 
 # device variants by the reference's ids (ops/tt.py keys its per-variant
-# salt by them; the kernels are instantiated per id), and those this
-# package runs (atomic is not ported)
+# salt by them; the kernels are instantiated per id): every variant this
+# package runs, as the reference runs
 VARIANT_ID = {
     "standard": 0, "threeCheck": 1, "crazyhouse": 2, "antichess": 3,
     "atomic": 4, "horde": 5, "kingOfTheHill": 6, "racingKings": 7,
 }
-PORTED_VARIANTS = ("standard", "threeCheck", "crazyhouse", "antichess", "horde",
-                   "kingOfTheHill", "racingKings")
 
 
 def encode_move(from_sq: int, to_sq: int, promo: int = 0) -> int:

@@ -192,8 +192,9 @@ def test_castling_moves_applied_like_the_host():
 def test_hist_index_tables_match_candidates():
     """The static from|to table equals `cand & 4095` for every candidate
     slot but the two castling slots, for both sides to move, in standard
-    chess and in crazyhouse (whose drop slots follow castling); atomic,
-    not ported, has no table."""
+    chess and in crazyhouse (whose drop slots follow castling); atomic
+    keeps standard chess's table and width, and a variant no layer knows
+    has none."""
     from fishnet_tpu_torch.chess import from_fen
 
     for variant in ("standard", "crazyhouse"):
@@ -212,5 +213,7 @@ def test_hist_index_tables_match_candidates():
             keep[castling] = False
             assert np.array_equal(cands[keep], tables[color][keep])
     assert tm.max_moves_for("crazyhouse") == tm.MAX_MOVES_ZH
+    assert tm._hist_idx_tables("atomic")[0].tolist() == tm._hist_idx_tables()[0].tolist()
+    assert tm.max_moves_for("atomic") == tm.MAX_MOVES
     with pytest.raises(NotImplementedError):
-        tm.max_moves_for("atomic")
+        tm.max_moves_for("bughouse")

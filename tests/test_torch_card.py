@@ -15,8 +15,9 @@ run_segment_plain; the trainer's kernels (K14-K16) against their plain
 versions, their wrappers' refusals, and training steps on the card that
 run no plain version, against the CPU's; the variant instantiations of
 K4 and K8-K10 against their plain versions and K11 against
-run_segment_plain in each ported variant (in crazyhouse also on roots
-from its mid, heavy and full pockets). Needs an NVIDIA card;
+run_segment_plain in each variant (in crazyhouse also on roots from its
+mid, heavy and full pockets; atomic also on the king-bucketed net). Needs
+an NVIDIA card;
 skipped elsewhere. Imports no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_card.py -q -p no:cacheprovider
@@ -116,7 +117,9 @@ def test_int8_search_card_equals_cpu(nets, lanes):
     kernels.reset_launches()
     card = search_batch(nets["int8"], roots, 2, 100_000, max_ply=6)
     assert kernels.LAUNCHES["search_segment"] >= 1
-    assert all(kernels.LAUNCHES[k] == 0 for k in kernels.K11_BODIES), kernels.LAUNCHES
+    # K1 refreshes the roots; every other body runs inside K11 only
+    assert all(kernels.LAUNCHES[k] == 0 for k in kernels.K11_BODIES
+               if k != "nnue_refresh_768"), kernels.LAUNCHES
     cpu = search_batch(nets["int8"].to("cpu"), roots.to("cpu"), 2, 100_000, max_ply=6,
                        device="cpu")
     for k in ("score", "move", "nodes", "pv", "pv_len", "done"):
@@ -496,16 +499,18 @@ def test_full_eval_wrappers_refuse_bad_inputs(card, full_nets):
     assert kernels.LAUNCHES["nnue_forward_from_acc"] == 0
 
 
-@pytest.mark.parametrize("net,cfg", [("kb int8", "no table"), ("kb int8", "table"),
-                                     ("kb f32", "helpers"), ("sf 3072", "helpers"),
-                                     ("sf 128", "table")])
-def test_segment_kernel_on_full_eval_nets(full_nets, net, cfg):
+@pytest.mark.parametrize("net,cfg,variant", [
+    ("kb int8", "no table", "standard"), ("kb int8", "table", "standard"),
+    ("kb f32", "helpers", "standard"), ("sf 3072", "helpers", "standard"),
+    ("sf 128", "table", "standard"), ("kb int8", "helpers", "atomic")])
+def test_segment_kernel_on_full_eval_nets(full_nets, net, cfg, variant):
     """K11 on the king-bucketed and Stockfish nets against
     run_segment_plain (whose step launches K12's or K13's kernel): states,
     tables and summaries byte for byte; K11 launches none of its bodies'
-    kernels on its own, runs the net's eval body and never K2 or K3."""
+    kernels on its own, runs the net's eval body and never K1, K2 or K3
+    (in atomic too, whose rules branches run under K12's body)."""
     params = full_nets[net]
-    state, table, kw = segment_case(params, 64, cfg, 17, params.device)
+    state, table, kw = segment_case(params, 64, cfg, 17, params.device, variant=variant)
     plain = search.SearchState(*[t.clone() for t in state])
     plain_table = None if table is None else table.clone()
     body = "nnue_evaluate_sf" if net.startswith("sf") else "nnue_evaluate"
@@ -516,6 +521,7 @@ def test_segment_kernel_on_full_eval_nets(full_nets, net, cfg):
         calls = kernels.body_calls()
         assert calls[body] > 0
         assert calls["nnue_forward_from_acc"] == calls["nnue_acc_update_768"] == 0
+        assert calls["nnue_refresh_768"] == 0
         n_p, sum_p = search.run_segment_plain(params, plain, steps, True,
                                               **dict(kw, table=plain_table))
         assert n_k == n_p
@@ -646,18 +652,27 @@ def test_variant_segment_kernel_matches_plain_version(nets, batch, cfg, variant,
     (the main path's width) of the variant's seeded roots (or every lane
     at one of crazyhouse's pocket FENs), with jittered helpers
     and the prefer_deep store into a small table, or on the main path's
-    table setup, over segments of 1, 33 and 100 steps: every state table,
-    the table and the summary equal, one launch a segment."""
+    table setup, over segments of 1, 33 and 100 steps: every state table
+    (atomic's accumulators past the roots' row untouched), the table and
+    the summary equal, one launch a segment; in atomic K1's body refreshes
+    each leaf and K3's never runs."""
     params = nets[net]
     state, table, kw = segment_case(params, batch, cfg, batch + 1, params.device,
                                     variant=variant,
                                     fens=None if roots is None else [ZH_POCKETS[roots]] * batch)
     plain = search.SearchState(*[t.clone() for t in state])
     plain_table = table.clone()
+    acc0 = state.acc.clone()
     for steps in (1, 33, 100):
         kernels.reset_launches()
         n_k, sum_k = search.run_segment(params, state, steps, True, **kw)
         assert kernels.LAUNCHES["search_segment"] == 1
+        if variant == "atomic":
+            calls = kernels.body_calls()
+            assert calls["nnue_refresh_768"] == calls["nnue_forward_from_acc"]
+            assert calls["nnue_refresh_768"] > 0 or steps > 1
+            assert calls["nnue_acc_update_768"] == 0
+            assert torch.equal(state.acc, acc0)
         n_p, sum_p = search.run_segment_plain(params, plain, steps, True,
                                               **dict(kw, table=plain_table))
         assert n_k == n_p
@@ -670,10 +685,10 @@ def test_variant_wrappers_refuse(card):
     kernels.reset_launches()
     with pytest.raises(ValueError):  # threeCheck reads the counters
         kernels.node_rules(b.board, b.stm, None, "threeCheck")
+    with pytest.raises(NotImplementedError):  # a variant no layer knows
+        kernels.node_rules(b.board, b.stm, b.extra, "bughouse")
     with pytest.raises(NotImplementedError):
-        kernels.node_rules(b.board, b.stm, b.extra, "atomic")
-    with pytest.raises(NotImplementedError):
-        kernels.generate_moves(b.board, b.stm, b.ep, b.castling, killers, hist, "atomic",
+        kernels.generate_moves(b.board, b.stm, b.ep, b.castling, killers, hist, "bughouse",
                                b.extra)
     with pytest.raises(ValueError):  # crazyhouse reads the pockets
         kernels.generate_moves(b.board, b.stm, b.ep, b.castling, killers, hist, "crazyhouse")

@@ -103,10 +103,9 @@ def test_terminal_position_response():
 
 def test_unported_paths_are_refused(monkeypatch):
     """refill=None follows FISHNET_TPU_REFILL (conftest pins 0) and an
-    explicit argument wins; multipv (always the serial path) and the
-    variant that is not ported (atomic) are refused with refill off and
-    on, and the six ported variants are not: a depth-1 chunk of each
-    runs."""
+    explicit argument wins; multipv (always the serial path) and a
+    variant that no layer knows are refused with refill off and on, and
+    the seven lichess variants are not: a depth-1 chunk of each runs."""
     from fishnet_tpu_torch.chess import position_class
 
     tp = tn.load_params(device="cpu")
@@ -121,10 +120,10 @@ def test_unported_paths_are_refused(monkeypatch):
                 chunk_to_wire(_chunk(_analysis(depth=1, multipv=3))))))
         with pytest.raises(NotImplementedError):
             asyncio.run(engine.go_multiple(ipc.chunk_from_wire(
-                chunk_to_wire(_chunk(_analysis(depth=1), variant="atomic")))))
+                chunk_to_wire(_chunk(_analysis(depth=1), variant="bughouse")))))
         assert engine.occupancy_totals["positions_done"] == 0
         for variant in ("threeCheck", "kingOfTheHill", "racingKings", "horde", "antichess",
-                        "crazyhouse"):
+                        "crazyhouse", "atomic"):
             chunk = _chunk(_analysis(depth=1), plies=(0,), variant=variant,
                            root_fen=position_class(variant).starting_fen())
             (res,) = asyncio.run(engine.go_multiple(ipc.chunk_from_wire(chunk_to_wire(chunk))))

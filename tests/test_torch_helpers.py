@@ -111,13 +111,13 @@ def test_engine_defaults_and_refusals(monkeypatch):
     # helpers talk only through the table: none without it
     no_tt = GpuEngine(params=tp, tt_size_log2=0, helper_lanes=4, device="cpu")
     assert no_tt.tt is None and no_tt.helper_lanes == 1
-    # refill=True constructs; on the refill path a variant that is not
-    # ported is refused before anything is queued
+    # refill=True constructs; on the refill path a variant that no layer
+    # knows is refused before anything is queued
     engine = GpuEngine(params=tp, tt_size_log2=4, device="cpu", refill=True)
     assert engine.refill is True
     with pytest.raises(NotImplementedError):
         asyncio.run(engine.go_multiple(ipc.chunk_from_wire(chunk_to_wire(
-            _chunk((0,), 1, variant="atomic")))))
+            _chunk((0,), 1, variant="bughouse")))))
     assert not engine._scheduler._pending
 
 

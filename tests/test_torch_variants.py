@@ -8,8 +8,9 @@ for field and on the f32 net within an eval's rounding; the rule cases of
 tests/test_device_variants.py; the null child keeping threeCheck's
 counters; a variant chunk through GpuEngine(device="cpu") against
 TpuEngine under int8, and a mixed-variant queue whose drive sessions each
-run one variant. Atomic stays refused (crazyhouse has its own file,
-tests/test_torch_crazyhouse.py)."""
+run one variant. A variant name that no layer knows stays refused
+(crazyhouse and atomic have their own files, tests/test_torch_crazyhouse.py
+and tests/test_torch_atomic.py)."""
 import asyncio
 import random
 import time
@@ -401,16 +402,21 @@ def test_mixed_variant_queue_runs_one_variant_per_session(shipped_int8, monkeypa
 
 
 def test_unported_variants_stay_refused():
-    """Atomic raises NotImplementedError at every layer, as the kernels'
-    entry-point names do; the engine's map names exactly the variants the
-    host rules run, crazyhouse among them."""
+    """A variant name that no layer knows raises NotImplementedError at
+    every layer, as the kernels' entry-point names do, and the host rules
+    refuse it; the engine's map names exactly the variants the host rules
+    run, crazyhouse and atomic among them, and equals the reference's key
+    for key."""
+    from fishnet_tpu.engine.tpu import DEVICE_VARIANTS as JAX_DEVICE_VARIANTS
     from fishnet_tpu_torch import kernels
 
     assert set(gpu.DEVICE_VARIANTS) == set(VARIANTS)
+    assert gpu.DEVICE_VARIANTS == JAX_DEVICE_VARIANTS
     assert gpu.device_variant("crazyhouse") == "crazyhouse"
+    assert gpu.device_variant("atomic") == "atomic"
     for refuse in (gpu.device_variant, tm.max_moves_for, tb.variant_id,
                    lambda v: kernels._variant_symbol("node_rules", v)):
         with pytest.raises(NotImplementedError):
-            refuse("atomic")
+            refuse("bughouse")
     with pytest.raises(ValueError):
-        from_fen(position_class("standard").starting_fen(), "atomic")
+        from_fen(position_class("standard").starting_fen(), "bughouse")
