@@ -80,7 +80,9 @@ a chunk).
  15. each variant's int8 chunk (1 position, depth 3, a 2^16 table, 2
      helper lanes, MAX_PLY 8) through GpuEngine on the card and on the
      CPU (the CPU sides at once, in worker processes): the responses
-     equal.
+     equal; and the same way a 2-position standard chunk on the bf16 net
+     (cast_params), by the f32 rule: equal depths and best moves, scores
+     within 2 cp.
 The kernel phase (3) also holds the variant instantiations of K4 and
 K8-K10 against their plain versions at 16, 64 and 1024 lanes of seeded
 variant positions (game ends, promotions, horde's first-rank pawns,
@@ -91,14 +93,30 @@ full pocket), and K11 against run_segment_plain in each variant (16 and
 64 lanes, both nets, a table and jittered helpers, segments of 1, 7, 33
 and 100 steps, atomic also at 16 lanes on the king-bucketed int8 net;
 then the main path's 64-lane setup, and crazyhouse's on each pocket
-case), with K11's time per step at 64 lanes.
+case), with K11's time per step at 64 lanes; and the bf16 entry points
+(FISHNET_TPU_DTYPE=bf16, cast_params: bf16 weights, f32 arithmetic) of
+K1, K2, K3 and K12 at 16, 64 and 1024 lanes against their plain versions
+and against the f32 kernels on the widened weights (byte for byte), and
+of K11 (16 and 64 lanes, atomic at 64, the king-bucketed net at 16)
+against run_segment_plain and the f32 K11 byte for byte, timed beside
+the f32 kernels in turn. Right after K12's timing it also logs K12's
+f32 warm time read by the profiler and by queued CUDA events on the
+boards of both phases that time K12, at both phases' call counts.
+ 16. the bf16 main path: the board768 chunk of phase 5 through GpuEngine()
+     under FISHNET_TPU_DTYPE=bf16 (its weights bf16 on the card), through
+     the bf16 entry points of K1 and K11 only; then a bf16 search on the
+     king-bucketed net (K12's bf16 body in K11). Both run right after
+     phase 5, so the bf16 and the f32 main path both follow phase 4's
+     warm-up.
 Then a `kernels` JSON line (launches from phase 5, the board768 main
 path, for K13 from phase 6, for K12 from its parity search in phase
 10 and for K14-K16 from phase 13; for the bodies inside K11 their calls
 per step of that path; K1 and K2 also with their launches in phase 13;
 K4 and K8-K11 also per variant: max_abs_err, ms, plain_ms (K11: us per
 step), launches and calls per step in phase 14; K1 also its launches and
-its body's calls per step in atomic's phase 14 chunk), the card's name and
+its body's calls per step in atomic's phase 14 chunk; then a row per bf16
+entry point with its launches on phase 16's bf16 main path, K12's on its
+bf16 king-bucketed search), the card's name and
 power limit, and the result line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
@@ -144,6 +162,9 @@ NET_REPS = 20  # launches per full-eval kernel timing
 # H100's 50 MB L2, and about 0.3 ms of writes, in which the host queues
 # the timed call
 L2_SCRUB_BYTES = 1 << 30
+# cycles the card spins (about 0.1 s) while the host queues a timed run
+# of calls (time_queued_ms)
+QUEUE_SPIN_CYCLES = 200_000_000
 NET_SEGMENT_STEPS = (1, 7, 33, 120)  # K11's checked segments on these nets
 
 # the trainer: train_material_net at the shipped widths with
@@ -1866,6 +1887,7 @@ VARIANT_SEGMENT_CONFIGS = ("table", "helpers")
 VARIANT_REPS = 50  # launches per variant kernel timing
 VARIANT_PARITY_POSITIONS = 1  # positions of each variant's card-against-CPU chunk
 VARIANT_PARITY_MAX_PLY = 8
+BF16_PARITY_POSITIONS = 2  # positions of the bf16 card-against-CPU chunk
 
 
 def variant_positions(variant: str, n: int, seed: int, fens=None, ends: bool = True,
@@ -2116,10 +2138,11 @@ def _variant_parity_engine(params, depth: int, dev: str):
                      helper_lanes=2, refill=True, device=dev)
 
 
-def _variant_parity_cpu(variant: str, depth: int, params_blob: bytes) -> tuple[list, float]:
+def _variant_parity_cpu(variant: str, n_positions: int, depth: int,
+                        params_blob: bytes) -> tuple[list, float]:
     """variant_parity_phase's CPU side in a worker process, one thread:
-    the pickled int8 net's chunk of `variant` through GpuEngine on the
-    CPU → _parity_wire."""
+    the pickled net's chunk of `variant` through GpuEngine on the CPU →
+    _parity_wire."""
     import pickle
 
     import torch
@@ -2127,7 +2150,33 @@ def _variant_parity_cpu(variant: str, depth: int, params_blob: bytes) -> tuple[l
     os.environ["FISHNET_TPU_MAX_PLY"] = str(VARIANT_PARITY_MAX_PLY)
     torch.set_num_threads(1)
     engine = _variant_parity_engine(pickle.loads(params_blob), depth, "cpu")
-    return _parity_wire(engine, variant_chunk(variant, VARIANT_PARITY_POSITIONS, depth))
+    return _parity_wire(engine, variant_chunk(variant, n_positions, depth))
+
+
+def f32_rule(got: list, want: list, depth: int) -> int:
+    """The f32 rule of two engines' answers to one chunk (responses on
+    the wire): at every position the same depth, `depth`, and the same
+    best move, and every score of its lines within 2 cp (mates equal).
+    → the largest score difference in cp; AssertionError where they
+    break the rule."""
+    if len(got) != len(want):
+        raise AssertionError(f"f32 rule: {len(got)} responses against {len(want)}")
+    worst = 0
+    for g, w in zip(got, want):
+        gs, ws = sum(g["scores"], []), sum(w["scores"], [])
+        if not (g["depth"] == w["depth"] == depth and g["best_move"] == w["best_move"]
+                and g["best_move"] is not None and len(gs) == len(ws)):
+            raise AssertionError(f"f32 rule: {g} against {w}")
+        for gc, wc in zip(gs, ws):
+            if (gc is None) != (wc is None):
+                raise AssertionError(f"f32 rule: scores {g['scores']} against {w['scores']}")
+            if gc is not None:
+                (gk, gv), = gc.items()
+                (wk, wv), = wc.items()
+                if gk != wk or abs(gv - wv) > (0 if gk == "mate" else 2):
+                    raise AssertionError(f"f32 rule: scores {g['scores']} against {w['scores']}")
+                worst = max(worst, abs(gv - wv))
+    return worst
 
 
 def variant_parity_phase(params_f32, depth: int) -> None:
@@ -2135,9 +2184,12 @@ def variant_parity_phase(params_f32, depth: int) -> None:
     positions, `depth`) through GpuEngine on the card and on the CPU,
     with refill, a 2^TT_PARITY_LOG2 table and 2 helper lanes at MAX_PLY
     VARIANT_PARITY_MAX_PLY: the responses equal (but for time and nps).
-    The CPU sides, nearly all of the phase's time, run at once in a pool
-    of spawned worker processes (one a variant, at most one a core)
-    while the card's run here."""
+    Then, the same way, a standard chunk of BF16_PARITY_POSITIONS on the
+    bf16 net (cast_params): card and CPU by the f32 rule, since K2's sums
+    differ from the plain version's in their last bits. The CPU sides,
+    nearly all of the phase's time, run at once in a pool of spawned
+    worker processes (one a chunk, at most one a core) while the card's
+    run here."""
     import multiprocessing
     import pickle
     from concurrent.futures import ProcessPoolExecutor
@@ -2145,29 +2197,375 @@ def variant_parity_phase(params_f32, depth: int) -> None:
     from fishnet_tpu_torch.models import nnue
 
     params_i8 = nnue.quantize_int8(params_f32)
-    blob = pickle.dumps(params_i8.to("cpu"))
+    cases = [(v, v, "int8", params_i8, VARIANT_PARITY_POSITIONS) for v in VARIANTS] + [
+        ("standard, bf16 weights", "standard", "bf16", nnue.cast_params(params_f32),
+         BF16_PARITY_POSITIONS)]
     saved = os.environ.get("FISHNET_TPU_MAX_PLY")
     os.environ["FISHNET_TPU_MAX_PLY"] = str(VARIANT_PARITY_MAX_PLY)
-    workers = max(1, min(len(VARIANTS), os.cpu_count() or 1))
+    workers = max(1, min(len(cases), os.cpu_count() or 1))
     try:
         with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
-            cpu = {v: pool.submit(_variant_parity_cpu, v, depth, blob) for v in VARIANTS}
-            for v in VARIANTS:
-                chunk = variant_chunk(v, VARIANT_PARITY_POSITIONS, depth)
+            cpu = [pool.submit(_variant_parity_cpu, v, n, depth, pickle.dumps(net.to("cpu")))
+                   for _, v, _, net, n in cases]
+            for (label, v, kind, net, n), future in zip(cases, cpu):
+                chunk = variant_chunk(v, n, depth)
                 card, card_wall = _parity_wire(
-                    _variant_parity_engine(params_i8.to("cuda"), depth, "cuda"), chunk)
-                want, cpu_wall = cpu[v].result()
-                if card != want:
-                    raise AssertionError(f"variant parity {v}: card {card} != cpu {want}")
-                log(f"variant parity {v}: int8 chunk of {len(chunk.positions)} depth {depth}: "
-                    f"card == cpu responses (score, pv, depth, nodes, best move); card "
-                    f"{card_wall:.3f} s, cpu {cpu_wall:.3f} s (one of {workers} worker "
-                    f"processes, one thread each)")
+                    _variant_parity_engine(net.to("cuda"), depth, "cuda"), chunk)
+                want, cpu_wall = future.result()
+                if kind == "int8" and card != want:
+                    raise AssertionError(f"variant parity {label}: card {card} != cpu {want}")
+                agree = ("card == cpu responses (score, pv, depth, nodes, best move)"
+                         if kind == "int8" else
+                         f"card and cpu agree by the f32 rule (best moves "
+                         f"{[g['best_move'] for g in card]}, largest score difference "
+                         f"{f32_rule(card, want, depth)} cp, responses "
+                         f"{'equal' if card == want else 'not equal'})")
+                log(f"variant parity {label}: {kind} chunk of {len(chunk.positions)} depth "
+                    f"{depth}: {agree}; card {card_wall:.3f} s, cpu {cpu_wall:.3f} s (one of "
+                    f"{workers} worker processes, one thread each)")
     finally:
         if saved is None:
             os.environ.pop("FISHNET_TPU_MAX_PLY", None)
         else:
             os.environ["FISHNET_TPU_MAX_PLY"] = saved
+
+
+# bf16 weights (FISHNET_TPU_DTYPE=bf16, cast_params): the entry points
+# that read them, each beside the f32 kernel of the same name
+BF16_ENTRIES = ("nnue_refresh_768_bf16", "nnue_forward_from_acc_bf16",
+                "nnue_acc_update_768_bf16", "nnue_evaluate_bf16", "search_segment_bf16")
+
+
+def _bit_diff(a, b) -> float:
+    """The largest difference between two f32 tensors' bit patterns; 0
+    when byte-equal."""
+    import torch
+
+    return float((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
+
+
+def bf16_kernel_phase(params_f32, kb_f32, reps: int) -> dict:
+    """K1, K2, K3 (the shipped net) and K12 (the king-bucketed net at
+    KB_WIDTHS) on bf16 weights (cast_params), through their _bf16 entry
+    points, at 16, 64 and 1024 lanes of seeded playout boards: each
+    against its plain version (K1 and K3 byte for byte, K2 and K12 within
+    F32_EVAL_TOL) and against the f32 kernel on the same weights widened
+    to f32 (byte for byte). Times at 1024 lanes (K12 with a cold L2, its
+    repeated-call time as ms_l2_warm), the f32 kernel's on the widened
+    weights beside them, the plain version's, and the bound from the bf16
+    bytes. No one PyTorch call computes f32 sums of bf16 rows
+    (embedding_bag on bf16 weights sums in bf16), so library_ms is None.
+    → {entry: stats}."""
+    import torch
+
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.models import nnue
+    from fishnet_tpu_torch.ops.board import move_piece_changes
+
+    dev = torch.device("cuda")
+    p16 = nnue.cast_params(params_f32)
+    k16 = nnue.cast_params(kb_f32)
+    wide = {"board768": nnue.widened(p16), "kb": nnue.widened(k16)}
+    nets = {"board768": p16, "kb": k16}
+    stats = {name: {"max_abs_err": 0.0} for name in BF16_ENTRIES[:4]}
+    scrub = torch.empty(L2_SCRUB_BYTES, dtype=torch.uint8, device=dev)
+    for B in (16, 64, 1024):
+        cpu_boards, moves = playout_boards(B, seed=B + 3)
+        b = cpu_boards.to(dev)
+        mv = torch.tensor([encode(m) for m in moves], dtype=torch.int32, device=dev)
+        codes, sqs, signs = move_piece_changes(b, mv)
+        bucket = nnue.output_bucket(b.board)
+        acc = nnue.accumulators_768_plain(p16, b.board)
+        cases = {
+            "nnue_refresh_768_bf16": (
+                "board768", lambda p: nnue.accumulators_768(p, b.board),
+                lambda: nnue.accumulators_768_plain(p16, b.board), 0.0),
+            "nnue_acc_update_768_bf16": (
+                "board768", lambda p: nnue.apply_acc_updates_768(p, acc, codes, sqs, signs),
+                lambda: nnue.apply_acc_updates_768_plain(p16, acc, codes, sqs, signs), 0.0),
+            "nnue_forward_from_acc_bf16": (
+                "board768", lambda p: nnue.forward_from_acc(p, acc, b.stm, bucket),
+                lambda: nnue.forward_from_acc_plain(p16, acc, b.stm, bucket), nnue.F32_EVAL_TOL),
+            "nnue_evaluate_bf16": (
+                "kb", lambda p: nnue.evaluate(p, b.board, b.stm),
+                lambda: nnue.evaluate_plain(k16, b.board, b.stm), nnue.F32_EVAL_TOL),
+        }
+        for name, (net, kern, plain, tol) in cases.items():
+            kernels.reset_launches()
+            got = kern(nets[net])
+            entries = {k: v for k, v in kernels.LAUNCHES_BY_ENTRY.items() if v}
+            if entries != {name: 1}:
+                raise AssertionError(f"{name} B={B}: launched {entries}")
+            want, f32_kernel = plain(), kern(wide[net])
+            torch.cuda.synchronize()
+            if not got.dtype == want.dtype == f32_kernel.dtype == torch.float32 or \
+                    got.shape != want.shape:
+                raise AssertionError(f"{name} B={B}: {got.shape}/{got.dtype} vs plain "
+                                     f"{want.shape}/{want.dtype}")
+            err = float((got.double() - want.double()).abs().max())
+            bits = _bit_diff(got, f32_kernel)
+            log(f"check {name} B={B}: max_abs_err={err} against the plain version (tolerance "
+                f"{tol}); bit difference {bits} against the f32 kernel on the widened weights "
+                f"(tolerance 0)")
+            if not err <= tol or bits != 0:
+                raise AssertionError(f"{name} B={B}: error {err} > {tol} or bits {bits} != 0")
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+        if B != 1024:
+            continue
+
+        # times at 1024 lanes, bounds from the bf16 bytes these inputs need
+        l1 = p16.l1
+        acc_bytes = B * 2 * l1 * 4
+        sq = torch.arange(64, device=dev, dtype=torch.int32)
+        feats = torch.stack([nnue.feature_index_768(b.board, sq, q) for q in (0, 1)], 1)
+        upd = torch.stack([nnue.feature_index_768(codes, sqs, q) for q in (0, 1)], 1)
+        pieces = int((b.board > 0).sum())
+        head = int(bucket.unique().numel()) * sum(t[0].numel() * t.element_size() for t in p16[2:])
+        costs = {
+            "nnue_refresh_768_bf16": (
+                B * 256 + int(feats[feats >= 0].unique().numel()) * l1 * 2 + l1 * 2 + acc_bytes,
+                2 * pieces * l1 + 2 * B * l1),
+            "nnue_acc_update_768_bf16": (
+                2 * acc_bytes + B * 48 + int(upd[upd >= 0].unique().numel()) * l1 * 2,
+                int((upd >= 0).sum()) * l1 + B * 2 * l1),
+            "nnue_forward_from_acc_bf16": (acc_bytes + B * 8 + head + B * 4,
+                                           B * 2 * (128 * 16 + 16 * 32 + 32)),
+            "nnue_evaluate_bf16": full_eval_cost(k16, b.board),
+        }
+        for name, (net, kern, plain, _) in cases.items():
+            nbytes, nops = costs[name]
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = nops / F32_OPS_PER_S * 1e3
+            # f32, bf16, bf16, f32 in turn on the same card
+            bf16, f32 = nets[net], wide[net]
+            (f32_ms, _), (ms, call_ms) = time_ms(lambda: kern(f32), reps), time_ms(
+                lambda: kern(bf16), reps)
+            ms2, f32_ms2 = time_ms(lambda: kern(bf16), reps)[0], time_ms(
+                lambda: kern(f32), reps)[0]
+            plain_ms, plain_call = time_ms(plain, reps)
+            row = stats[name]
+            row.update(ms=(ms + ms2) / 2, f32_kernel_ms=(f32_ms + f32_ms2) / 2,
+                       plain_ms=plain_ms, library_ms=None, bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations")
+            cold = ""
+            if name == "nnue_evaluate_bf16":  # K12's row keeps its cold-L2 times
+                cold_ms = time_cold_ms(lambda: kern(bf16), reps, scrub)
+                f32_cold = time_cold_ms(lambda: kern(f32), reps, scrub)
+                plain_cold = time_cold_ms(plain, reps, scrub)
+                row.update(ms=cold_ms, ms_l2_warm=(ms + ms2) / 2, f32_kernel_ms=f32_cold,
+                           f32_kernel_ms_l2_warm=(f32_ms + f32_ms2) / 2, plain_ms=plain_cold)
+                cold = (f"; cold L2: bf16 {cold_ms:.5f}, f32 {f32_cold:.5f}, plain "
+                        f"{plain_cold:.5f}")
+            log(f"time {name} B={B} (device ms): bf16 kernel {ms:.5f}, {ms2:.5f} (call "
+                f"{call_ms:.5f}); f32 kernel on the widened weights {f32_ms:.5f}, {f32_ms2:.5f}; "
+                f"plain {plain_ms:.5f} (call {plain_call:.5f}){cold}; library none (no one call "
+                f"sums bf16 rows in f32); bound {row['bound_ms']:.6f} ({row['bound_by']}, "
+                f"{nbytes} bytes, {nops} ops)")
+    return stats
+
+
+def time_queued_ms(fn, reps: int) -> float:
+    """ms of one fn() on the card, reps calls back to back with a warm L2:
+    the card first spins (QUEUE_SPIN_CYCLES) while the host queues every
+    call, so the CUDA events around them read the card's time alone, not
+    the host's launch rate."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def k12_warm_readings(kb_f32) -> None:
+    """K12's warm (repeated-call) time on the f32 king-bucketed net at
+    1024 lanes, read two ways on the boards of both phases that time it
+    (nets_kernel_phase's seed 1124, bf16_kernel_phase's seed 1027) at
+    both phases' call counts (NET_REPS, REPS): time_ms's profiler reading
+    and time_queued_ms'. Logged only: it says whether the boards, the
+    call count or the reader sets the warm figure."""
+    from functools import partial
+
+    from fishnet_tpu_torch.models import nnue
+
+    for seed in (1124, 1027):
+        b = playout_boards(1024, seed=seed)[0].to("cuda")
+        fn = partial(nnue.evaluate, kb_f32, b.board, b.stm)
+        for reps in (NET_REPS, REPS):
+            (prof, call), queued = time_ms(fn, reps), time_queued_ms(fn, reps)
+            log(f"K12 warm reading, f32 king-bucketed net B=1024 boards of seed {seed}, {reps} "
+                f"calls: profiler {prof:.5f} ms, queued events {queued:.5f} ms, call {call:.5f} ms")
+
+
+def bf16_segment_phase(params_f32, kb_f32, reps: int) -> dict:
+    """K11 on bf16 weights (search_segment_bf16*, search_segment_kb_bf16)
+    against run_segment_plain and against the f32 K11 on the same weights
+    widened to f32, on seeded states: the shipped net at 16 lanes ("table"
+    setup, VARIANT_SEGMENT_STEPS) and at 64 lanes (the main path's
+    "engine" setup, SEGMENT_STEPS), atomic at 64 lanes (the engine setup;
+    K1's body is its leaf) and the king-bucketed net at 16 lanes ("table",
+    NET_SEGMENT_STEPS): states, tables and summaries byte for byte, equal
+    steps, one launch of the bf16 entry a segment. Then the 64-lane engine
+    segment of 200 steps timed (CUDA events, from the same state each
+    launch) in turn with the f32 K11 on the widened weights, beside the
+    plain version's wall and the bound from the bytes it moves. → stats of
+    search_segment_bf16."""
+    import torch
+
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.models import nnue
+    from fishnet_tpu_torch.ops import search
+
+    dev = torch.device("cuda")
+    nets = {"board768": nnue.cast_params(params_f32), "kb": nnue.cast_params(kb_f32)}
+    stats = {"max_abs_err": 0.0}
+    cases = (("board768", 16, "table", "standard", VARIANT_SEGMENT_STEPS),
+             ("board768", 64, "engine", "standard", SEGMENT_STEPS),
+             ("board768", 64, "engine", "atomic", SEGMENT_STEPS),
+             ("kb", 16, "table", "standard", NET_SEGMENT_STEPS))
+    for net, B, cfg, v, segs in cases:
+        p16 = nets[net]
+        wide = nnue.widened(p16)
+        entry = kernels._variant_symbol(
+            "search_segment_bf16" if net == "board768" else "search_segment_kb_bf16", v)
+        state, table, kw = segment_case(p16, B, cfg, seed=B + len(cfg), dev=dev, variant=v)
+        plain, plain_table = _clone(state, table)
+        f32, f32_table = _clone(state, table)
+        for steps in segs:
+            kernels.reset_launches()
+            n_k, sum_k = search.run_segment(p16, state, steps, True, **kw)
+            entries = {k: c for k, c in kernels.LAUNCHES_BY_ENTRY.items() if c}
+            n_f, sum_f = search.run_segment(wide, f32, steps, True, **dict(kw, table=f32_table))
+            n_p, sum_p = search.run_segment_plain(p16, plain, steps, True,
+                                                  **dict(kw, table=plain_table))
+            torch.cuda.synchronize()
+            err = _state_diff(state, plain, table, plain_table)
+            err = max(err, float((sum_k.long() - sum_p.long()).abs().max()))
+            err_f32 = _state_diff(state, f32, table, f32_table)
+            err_f32 = max(err_f32, float((sum_k.long() - sum_f.long()).abs().max()))
+            done = int(sum_k[:B, search.SUM_DONE].sum())
+            label = f"{entry} B={B} {net} bf16 {cfg} segment {steps}"
+            log(f"check search_segment {label}: steps {n_k} (plain {n_p}, f32 kernel {n_f}), "
+                f"done {done}/{B}, max_abs_err={err} against run_segment_plain, {err_f32} "
+                f"against the f32 K11 on the widened weights (tolerance 0), launches {entries}")
+            stats["max_abs_err"] = max(stats["max_abs_err"], err, err_f32)
+            if err != 0 or err_f32 != 0 or not n_k == n_p == n_f or entries != {entry: 1}:
+                raise AssertionError(f"search_segment {label}: K11 differs (steps {n_k} / "
+                                     f"{n_p} / {n_f}; launches {entries})")
+
+    # the main path's 64-lane setup: bf16 and f32 K11 in turn, same state
+    p16 = nets["board768"]
+    wide = nnue.widened(p16)
+    state0, table0, kw = segment_case(p16, 64, "engine", seed=64, dev=dev)
+    state, table = _clone(state0, table0)
+    kw = dict(kw, table=table)
+    steps = SEGMENT_STEPS[-1]
+    times = {"bf16": [], "f32": []}
+    calls = None
+    for order in [("f32", "bf16", "bf16", "f32")] * reps:
+        for tag in order:
+            for t, t0 in zip(list(state) + [table], list(state0) + [table0]):
+                t.copy_(t0)
+            kernels.reset_launches()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            n, _ = search.run_segment(p16 if tag == "bf16" else wide, state, steps, True, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            times[tag].append(start.elapsed_time(end))
+            if tag == "bf16":
+                calls = kernels.body_calls()
+    ms = sum(times["bf16"]) / len(times["bf16"])
+    f32_ms = sum(times["f32"]) / len(times["f32"])
+    plain, plain_table = _clone(state0, table0)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    search.run_segment_plain(p16, plain, steps, True, **dict(kw, table=plain_table))
+    torch.cuda.synchronize()
+    plain_ms = (time.monotonic() - t0) * 1e3
+    nbytes = segment_bytes(calls, 2 * 64 * 4)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"time search_segment_bf16 B=64 engine table (CUDA events, {2 * reps} launches each, "
+        f"f32/bf16 in turn): bf16 {ms:.4f} ms per segment of {n} steps, {ms / n * 1e3:.2f} "
+        f"us/step; f32 on the widened weights {f32_ms:.4f} ms, {f32_ms / n * 1e3:.2f} us/step "
+        f"(bf16/f32 {ms / f32_ms:.4f}); plain {plain_ms:.1f} ms ({plain_ms / n:.3f} ms/step); "
+        f"bound {bound:.6f} ms, {bound / n * 1e3:.4f} us/step (bytes, {nbytes} bytes; counters "
+        f"{calls})")
+    if n != steps:
+        raise AssertionError(f"timed bf16 segment ran {n} of {steps} steps")
+    stats.update(ms=ms, f32_kernel_ms=f32_ms, plain_ms=plain_ms, bound_ms=bound,
+                 bound_by="bytes", library_ms=None, steps=n, us_per_step=ms / n * 1e3,
+                 f32_kernel_us_per_step=f32_ms / n * 1e3)
+    return {"search_segment_bf16": stats}
+
+
+def bf16_kb_search_phase(kb_f32, depth: int) -> tuple:
+    """search_batch on the bf16 king-bucketed net on the card (16 lanes,
+    MAX_PLY 8): every lane done, K7 and K11's search_segment_kb_bf16 entry
+    launched, K12's body inside K11 and no kernel of a body on its own.
+    → (launches, steps, K11's body calls)."""
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.models import nnue
+    from fishnet_tpu_torch.ops.search import search_batch
+
+    k16 = nnue.cast_params(kb_f32)
+    roots, _ = playout_boards(16, seed=23)
+    kernels.reset_launches()
+    t0 = time.monotonic()
+    out = search_batch(k16, roots, depth, 200_000, max_ply=8, device="cuda")
+    wall = time.monotonic() - t0
+    launches = check_launches("search_batch, bf16 king-bucketed net", net="king")
+    entries = dict(kernels.LAUNCHES_BY_ENTRY)
+    if not entries.get("search_segment_kb_bf16") or not out["done"].all():
+        raise AssertionError(f"bf16 king-bucketed search: {entries}, done {out['done']}")
+    calls = kernels.body_calls()
+    log(f"search_batch, bf16 king-bucketed net B=16 depth {depth}: steps {out['steps']}, nodes "
+        f"{int(out['nodes'].sum())}, wall {wall:.3f} s, launches by entry {entries}")
+    return launches, out["steps"], calls
+
+
+def bf16_engine_phase(params_f32, depth: int, n_positions: int) -> tuple:
+    """The board768 main path under FISHNET_TPU_DTYPE=bf16: GpuEngine()
+    given the f32 net keeps every weight in bf16 on the card (no f32
+    field), then engine_phase's chunk through its defaults; it fails
+    unless K1 and K11 launched through their bf16 entry points and no f32
+    entry of K1 or K11 did. → engine_phase's tuple and the launches by
+    entry."""
+    import torch
+
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.engine.gpu import GpuEngine
+
+    saved = os.environ.get("FISHNET_TPU_DTYPE")
+    os.environ["FISHNET_TPU_DTYPE"] = "bf16"
+    try:
+        engine = GpuEngine(params=params_f32, tt_size_log2=0)
+        dtypes = {str(t.dtype) for t in engine.params} | {t.device.type for t in engine.params}
+        if dtypes != {"torch.bfloat16", "cuda"}:
+            raise AssertionError(f"bf16 engine weights: {dtypes}")
+        del engine
+        out = engine_phase(params_f32, depth, n_positions, refill=True, label="bf16 weights")
+        entries = dict(kernels.LAUNCHES_BY_ENTRY)
+    finally:
+        if saved is None:
+            os.environ.pop("FISHNET_TPU_DTYPE", None)
+        else:
+            os.environ["FISHNET_TPU_DTYPE"] = saved
+    torch.cuda.synchronize()
+    bad = [k for k in ("nnue_refresh_768_f32", "search_segment_f32") if entries.get(k)]
+    if bad or not (entries.get("nnue_refresh_768_bf16") and entries.get("search_segment_bf16")):
+        raise AssertionError(f"bf16 main path: launches by entry {entries}")
+    log(f"engine chunk, bf16 weights (main path): launches by entry {entries}")
+    return out + (entries,)
 
 
 def make_chunk(n_positions: int, depth: int):
@@ -2186,13 +2584,13 @@ def make_chunk(n_positions: int, depth: int):
 
 
 def engine_phase(params_f32, depth: int, n_positions: int, refill: bool,
-                 tt_on: bool = True, weights_path=None):
+                 tt_on: bool = True, weights_path=None, label: str = ""):
     """One chunk through GpuEngine: through the LaneScheduler (refill;
     each segment's occupancy logged) or chunk-serially (each dispatch
     logged), with the defaults' 2^21 table and helper lanes (tt_on) or
     with neither; on params_f32, or on the net GpuEngine(weights_path=)
-    loads. → (launches, the wire
-    responses without their times, steps, K11's body calls)."""
+    loads; `label` is added to the path's name in the log. → (launches,
+    the wire responses without their times, steps, K11's body calls)."""
     import numpy as np
     import torch
 
@@ -2229,6 +2627,7 @@ def engine_phase(params_f32, depth: int, n_positions: int, refill: bool,
     path = ("engine chunk, " + ("refill" if refill else "chunk-serial")
             + ("" if tt_on else ", no table")
             + ("" if weights_path is None else f", {net} net {os.path.basename(weights_path)}")
+            + (f", {label}" if label else "")
             + (" (main path)" if refill and tt_on else ""))
     slots = 0 if engine.tt is None else engine.tt.shape[0]
     if engine.refill != refill or slots != (1 << 21 if tt_on else 0):
@@ -2564,15 +2963,23 @@ def main() -> int:
     variant_rules["lane_init"] = stats["lane_init"].pop("variants")
     stats.update(part("K11", lambda: segment_phase(params, SEGMENT_REPS)))
     stats.update(part("K12, K13", lambda: nets_kernel_phase(nets, NET_REPS)))
+    part("K12 warm readings", lambda: k12_warm_readings(nets["kb f32"]))
     part("K11 on the full-eval nets", lambda: nets_segment_phase(nets, SEGMENT_REPS))
     stats.update(part("K14-K16", lambda: train_kernel_phase(TRAIN_REPS)))
     variant_rules["search_segment"] = part("K11 in the variants", lambda: variant_segment_phase(
         params, SEGMENT_REPS, nets["kb int8"]))
+    stats.update(part("K1-K3, K12 bf16", lambda: bf16_kernel_phase(params, nets["kb f32"], REPS)))
+    stats.update(part("K11 bf16", lambda: bf16_segment_phase(params, nets["kb f32"],
+                                                             SEGMENT_REPS)))
     log(f"kernel phase: {time.monotonic() - t0:.1f} s")
     phases = [
         ("profile", lambda: [profile_phase(params, lanes, PROFILE_STEPS, tt_on)
                              for lanes, tt_on in ((16, False), (1024, False), (64, True))]),
         ("engine (main path)", lambda: engine_phase(params, DEPTH, POSITIONS, refill=True)),
+        ("engine, bf16 weights (main path)", lambda: bf16_engine_phase(params, DEPTH,
+                                                                      POSITIONS)),
+        ("search, bf16 king-bucketed net", lambda: bf16_kb_search_phase(nets["kb f32"],
+                                                                        PARITY_DEPTH)),
         ("engine, Stockfish net (main path)", lambda: engine_phase(
             None, DEPTH, POSITIONS, refill=True, weights_path=sf_file(SF_L1, 7))),
         ("engine chunk-serial", lambda: engine_phase(params, SERIAL_DEPTH, POSITIONS,
@@ -2653,6 +3060,30 @@ def main() -> int:
                 if name in kernels.K11_BODIES:
                     row["variants"][v]["in_k11_calls_per_step"] = (
                         vp["body_calls"][name] / max(vp["steps"], 1))
+        rows.append(row)
+    # the bf16 entry points: launches and body calls on the bf16 main path
+    # (K12's on the bf16 king-bucketed search)
+    bf16_launches, _, bf16_steps, bf16_calls, bf16_entries = results[
+        "engine, bf16 weights (main path)"]
+    kb16_launches, kb16_steps, kb16_calls = results["search, bf16 king-bucketed net"]
+    for entry in BF16_ENTRIES:
+        base = entry[:-len("_bf16")]
+        if base == "nnue_evaluate":
+            path, n, calls, steps = ("search_batch, bf16 king-bucketed net", kb16_launches[base],
+                                     kb16_calls, kb16_steps)
+        else:
+            path, n, calls, steps = ("engine, board768 net, bf16 weights",
+                                     bf16_entries.get(entry, 0), bf16_calls, bf16_steps)
+        row = {"name": entry, "route": "cuda", "source": f"fishnet_tpu_torch/csrc/{base}.cu",
+               "replaces": sources[base], "weights": "bf16 (fishnet_tpu/models/nnue.py:202)",
+               "launches": n, "path": path,
+               **{k: stats[entry][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms", "f32_kernel_ms")}}
+        for k in ("ms_l2_warm", "us_per_step", "f32_kernel_us_per_step"):
+            if k in stats[entry]:
+                row[k] = stats[entry][k]
+        if base in kernels.K11_BODIES:
+            row["in_k11_calls_per_step"] = calls[base] / max(steps, 1)
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -12,7 +12,18 @@
 // never contracts into a fused multiply-add, so a body gives the same bits
 // wherever it is inlined; a warp sum is an xor butterfly, which leaves the
 // same bits in every thread.
+//
+// bf16 nets (models/nnue.py cast_params) store every weight and bias in
+// bf16 and compute in f32: each body reads a bf16 value and widens it
+// with __bfloat162float at its load (wide), which is exact, and then runs
+// the f32 body's arithmetic in the f32 body's order. No arithmetic is done
+// in bf16, so a bf16 body gives the f32 body's bits on the widened
+// weights. The conversions are explicit overloads, never
+// __nv_bfloat16's own operator float, which beside the int8 overloads
+// could pick the wrong one.
 #pragma once
+#include <cuda_bf16.h>
+
 #include "common.cuh"
 #include "search_consts.cuh"
 
@@ -55,8 +66,8 @@ struct Head {
 };
 
 // A board768 or king-bucketed NnueParams net: ft_w (features, L1), ft_b
-// (L1,) in the accumulators' type, the head. F/W/B: float for the f32
-// net; int16/int8/int32 for the int8 net.
+// (L1,) in the biases' type, the head. F/W/B: float for the f32 net;
+// __nv_bfloat16 for the bf16 net; int16/int8/int32 for the int8 net.
 template <typename F, typename W, typename B>
 struct Net {
     using Ft = F;
@@ -64,6 +75,24 @@ struct Net {
     const B* ft_b;
     Head<W, B> head;
 };
+
+// The arithmetic type of a net whose biases are B: f32 for f32 and bf16
+// nets, int32 for the int8 net (the accumulators' type).
+template <typename B>
+struct Wide {
+    using type = B;
+};
+template <>
+struct Wide<__nv_bfloat16> {
+    using type = float;
+};
+
+// A stored weight or bias as the arithmetic reads it: bf16 widened
+// exactly, every other type as it is.
+__device__ __forceinline__ float wide(float x) { return x; }
+__device__ __forceinline__ float wide(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ int wide(int32_t x) { return x; }
+__device__ __forceinline__ int wide(int16_t x) { return x; }
 
 // An imported Stockfish net, f32: ft_w (22528, L1), ft_b (L1,), psqt_w
 // (22528, 8), fc0_w (8, 16, L1), fc0_b (8, 16), fc1_w (8, 32, 30), fc1_b
@@ -89,12 +118,24 @@ __device__ __forceinline__ int clip_qa(int x) { return min(max(x, 0), QA); }
 __device__ __forceinline__ float act_in(float x) { return crelu(x); }
 __device__ __forceinline__ int act_in(int x) { return clip_qa(x); }
 __device__ __forceinline__ float mac(float x, float w, float a) { return fmaf(x, w, a); }
+__device__ __forceinline__ float mac(float x, __nv_bfloat16 w, float a) {
+    return fmaf(x, __bfloat162float(w), a);
+}
 __device__ __forceinline__ int mac(int x, int8_t w, int a) { return a + x * (int)w; }
 __device__ __forceinline__ float act_hidden(float v, float b) { return crelu(__fadd_rn(v, b)); }
+__device__ __forceinline__ float act_hidden(float v, __nv_bfloat16 b) {
+    return crelu(__fadd_rn(v, __bfloat162float(b)));
+}
 __device__ __forceinline__ int act_hidden(int v, int b) { return clip_qa((v + b) >> QW_SHIFT); }
 __device__ __forceinline__ float times(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float times(float a, __nv_bfloat16 b) {
+    return __fmul_rn(a, __bfloat162float(b));
+}
 __device__ __forceinline__ int times(int a, int8_t b) { return a * (int)b; }
 __device__ __forceinline__ float score(float o, float b) { return __fadd_rn(o, b) * OUTPUT_SCALE; }
+__device__ __forceinline__ float score(float o, __nv_bfloat16 b) {
+    return __fadd_rn(o, __bfloat162float(b)) * OUTPUT_SCALE;
+}
 __device__ __forceinline__ float score(int o, int b) { return (float)(o + b) * INT8_SCALE; }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -106,28 +147,31 @@ __device__ __forceinline__ int warp_sum(int v) {
     return v;
 }
 
-// K2's body on the f32 net: own/opp are the side to move's and the other
-// side's L1 accumulator columns, b the output bucket. Sums run in input
-// order with fused multiply-adds; one thread computes the whole lane.
+// K2's body on the f32 net (W float) and the bf16 net (W __nv_bfloat16,
+// each weight widened at its load): own/opp are the side to move's and
+// the other side's L1 f32 accumulator columns, b the output bucket. Sums
+// run in input order with fused multiply-adds, in f32; one thread
+// computes the whole lane.
+template <typename W>
 __device__ __forceinline__ float forward_lane(const float* own, const float* opp, int b,
-                                              const Head<float, float>& w) {
-    const float* w1 = w.l1_w + (int64_t)b * IN * H1;
+                                              const Head<W, W>& w) {
+    const W* w1 = w.l1_w + (int64_t)b * IN * H1;
     float h1[H1];
     for (int j = 0; j < H1; ++j) h1[j] = 0.0f;
     for (int k = 0; k < IN; ++k) {
         float x = crelu(k < L1 ? own[k] : opp[k - L1]);
-        for (int j = 0; j < H1; ++j) h1[j] = fmaf(x, w1[k * H1 + j], h1[j]);
+        for (int j = 0; j < H1; ++j) h1[j] = fmaf(x, wide(w1[k * H1 + j]), h1[j]);
     }
-    for (int j = 0; j < H1; ++j) h1[j] = crelu(h1[j] + w.l1_b[b * H1 + j]);
-    const float* w2 = w.l2_w + (int64_t)b * H1 * H2;
+    for (int j = 0; j < H1; ++j) h1[j] = crelu(h1[j] + wide(w.l1_b[b * H1 + j]));
+    const W* w2 = w.l2_w + (int64_t)b * H1 * H2;
     float h2[H2];
     for (int j = 0; j < H2; ++j) h2[j] = 0.0f;
     for (int k = 0; k < H1; ++k)
-        for (int j = 0; j < H2; ++j) h2[j] = fmaf(h1[k], w2[k * H2 + j], h2[j]);
+        for (int j = 0; j < H2; ++j) h2[j] = fmaf(h1[k], wide(w2[k * H2 + j]), h2[j]);
     float o = 0.0f;
     for (int k = 0; k < H2; ++k)
-        o = fmaf(crelu(h2[k] + w.l2_b[b * H2 + k]), w.out_w[b * H2 + k], o);
-    return (o + w.out_b[b]) * OUTPUT_SCALE;
+        o = fmaf(crelu(h2[k] + wide(w.l2_b[b * H2 + k])), wide(w.out_w[b * H2 + k]), o);
+    return (o + wide(w.out_b[b])) * OUTPUT_SCALE;
 }
 
 // K2's body on the int8 net: the fixed-point ladder (activations [0, QA],
@@ -153,9 +197,10 @@ __device__ __forceinline__ float forward_lane(const int32_t* own, const int32_t*
     return (float)(o + w.out_b[b]) * INT8_SCALE;
 }
 
-// K3's body: the signed sum of the <= 4 changed feature rows of one lane,
-// for perspective `persp` and accumulator column `col` (the child is the
-// parent's column plus this). Equal features merge into one weight (a
+// K3's body: the signed sum of the <= 4 changed feature rows of one lane
+// (f32; bf16 widened at its load; int16 into int32), for perspective
+// `persp` and accumulator column `col` (the child is the parent's column
+// plus this). Equal features merge into one weight (a
 // chess960 castle can move a piece onto its own square: +1 and -1
 // cancel, as the reference's weight vector does), and rows are added in
 // the order XLA:CPU reduces the reference's 768-long contraction:
@@ -197,7 +242,7 @@ __device__ __forceinline__ A acc_delta(const int32_t* codes, const int32_t* sqs,
             block = 0;
             cur = idx[i] >> 5;
         }
-        block = block + (A)ft_w[(int64_t)idx[i] * l1 + col] * (A)w[i];
+        block = block + (A)wide(ft_w[(int64_t)idx[i] * l1 + col]) * (A)w[i];
     }
     return total + block;
 }
@@ -279,37 +324,41 @@ __device__ __forceinline__ int output_bucket(const Features& f) {
 }
 
 // One column of perspective p's refresh without its bias: the pieces'
-// rows summed in the reference's order (squares 0-31 and 32-63 each in
-// order, then the halves added; models/nnue.py sum_rows).
+// rows (bf16 widened at its load) summed in the reference's order
+// (squares 0-31 and 32-63 each in order, then the halves added;
+// models/nnue.py sum_rows).
 template <typename F, typename A>
 __device__ __forceinline__ A refresh_column(const Features& f, int p, const F* ft_w, int l1,
                                             int c) {
     A s0 = 0, s1 = 0;
     const int lo = f.lo[p], n = f.n[p];
-    for (int i = 0; i < lo; ++i) s0 = s0 + (A)ft_w[(int64_t)f.idx[p][i] * l1 + c];
-    for (int i = lo; i < n; ++i) s1 = s1 + (A)ft_w[(int64_t)f.idx[p][i] * l1 + c];
+    for (int i = 0; i < lo; ++i) s0 = s0 + (A)wide(ft_w[(int64_t)f.idx[p][i] * l1 + c]);
+    for (int i = lo; i < n; ++i) s1 = s1 + (A)wide(ft_w[(int64_t)f.idx[p][i] * l1 + c]);
     return s0 + s1;
 }
 
 // K12's body: a king-bucketed net's full eval of one lane (a warp), f32
-// (F, W, B float) or int8 (int16, int8, int32). Each thread refreshes the
-// columns c = t, t + 32, ... of both perspectives (ft_b + the pieces'
-// rows, the reference's order, so the accumulators are the plain
-// version's bit for bit) and folds them straight into its partial sums
-// of the H1 first-layer units; a warp sum finishes each unit, thread j
-// computes second-layer unit j, and a warp sum the output.
+// (F, W, B float), bf16 (__nv_bfloat16, computed in f32) or int8 (int16,
+// int8, int32). Each thread refreshes the columns c = t, t + 32, ... of
+// both perspectives (ft_b + the pieces' rows, the reference's order, so
+// the accumulators are the plain version's bit for bit) and folds them
+// straight into its partial sums of the H1 first-layer units; a warp sum
+// finishes each unit, thread j computes second-layer unit j, and a warp
+// sum the output.
 template <typename F, typename W, typename B>
 __device__ float evaluate_warp(const Features& f, int stm, int bucket, const Net<F, W, B>& net,
                                int t) {
+    using A = typename Wide<B>::type;
     const Head<W, B>& w = net.head;
     const int l1 = w.l1, n1 = w.h1, n2 = w.h2;
     const W* w1 = w.l1_w + (int64_t)bucket * 2 * l1 * n1;
-    B part[MAX_H];
+    A part[MAX_H];
 #pragma unroll
     for (int j = 0; j < MAX_H; ++j) part[j] = 0;
     for (int c = t; c < l1; c += 32) {
-        const B x_own = act_in(net.ft_b[c] + refresh_column<F, B>(f, stm, net.ft_w, l1, c));
-        const B x_opp = act_in(net.ft_b[c] + refresh_column<F, B>(f, 1 - stm, net.ft_w, l1, c));
+        const A bias = wide(net.ft_b[c]);
+        const A x_own = act_in(bias + refresh_column<F, A>(f, stm, net.ft_w, l1, c));
+        const A x_opp = act_in(bias + refresh_column<F, A>(f, 1 - stm, net.ft_w, l1, c));
         const W* r_own = w1 + (int64_t)c * n1;
         const W* r_opp = w1 + (int64_t)(l1 + c) * n1;
 #pragma unroll
@@ -317,16 +366,16 @@ __device__ float evaluate_warp(const Features& f, int stm, int bucket, const Net
             if (j < n1) part[j] = mac(x_opp, r_opp[j], mac(x_own, r_own[j], part[j]));
         }
     }
-    B h1[MAX_H];
+    A h1[MAX_H];
 #pragma unroll
     for (int j = 0; j < MAX_H; ++j) {
         h1[j] = 0;
         if (j < n1) h1[j] = act_hidden(warp_sum(part[j]), w.l1_b[bucket * n1 + j]);
     }
-    B v = 0;
+    A v = 0;
     if (t < n2) {
         const W* w2 = w.l2_w + (int64_t)bucket * n1 * n2 + t;
-        B u = 0;
+        A u = 0;
 #pragma unroll
         for (int k = 0; k < MAX_H; ++k) {
             if (k < n1) u = mac(h1[k], w2[k * n2], u);

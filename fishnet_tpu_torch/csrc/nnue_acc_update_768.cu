@@ -16,7 +16,11 @@
 // (feature, sign) pairs recomputed per thread (cheap integer work, no
 // shared memory), equal features merged, rows added in XLA:CPU's order
 // (measured bit-exact); only then is the delta added to the parent.
-// Integer accumulators are exact in any order.
+// Integer accumulators are exact in any order. A bf16 net's rows are read
+// as bf16 (2 B a column, one scalar load each: no wider load whose
+// alignment could change) and widened at the load, the sums f32 in the
+// same order, so its accumulators are the f32 kernel's bits on the
+// widened rows.
 #include "nnue.cuh"
 
 namespace {
@@ -69,4 +73,13 @@ FISHNET_EXPORT int nnue_acc_update_768_i16(const void* acc_in, const void* codes
                                            int batch, int l1, void* stream) {
     return launch<int16_t, int32_t>(acc_in, codes, sqs, signs, ft_w, acc_out,
                                     batch, l1, stream);
+}
+
+// bf16 net: ft_w (768, l1) bf16, acc f32
+FISHNET_EXPORT int nnue_acc_update_768_bf16(const void* acc_in, const void* codes,
+                                            const void* sqs, const void* signs,
+                                            const void* ft_w, void* acc_out,
+                                            int batch, int l1, void* stream) {
+    return launch<__nv_bfloat16, float>(acc_in, codes, sqs, signs, ft_w, acc_out,
+                                        batch, l1, stream);
 }

@@ -27,6 +27,11 @@
 // one second-layer unit a thread, a warp sum for the output. The f32
 // layer stack sums in another order than the plain version's matmul: its
 // eval is held to it within a stated tolerance, the int8 eval exactly.
+// A bf16 net (models/nnue.py cast_params) reads half the f32 rows' bytes
+// (2 B a column) and widens each value at its load; the sums are f32 in
+// the f32 body's order, so its eval is the f32 kernel's bits on the
+// widened weights. Each thread loads one column of a row at a time, so
+// no load is wider than the type and an even L1 keeps the rows aligned.
 #include "nnue.cuh"
 
 namespace {
@@ -87,4 +92,15 @@ FISHNET_EXPORT int nnue_evaluate_i8(const void* boards, int64_t sb, const void* 
                                     int l1, int h1, int h2, void* stream) {
     return launch<int16_t, int8_t, int32_t>(boards, sb, stm, ss, ft_w, ft_b, l1_w, l1_b, l2_w,
                                             l2_b, out_w, out_b, out, batch, l1, h1, h2, stream);
+}
+
+FISHNET_EXPORT int nnue_evaluate_bf16(const void* boards, int64_t sb, const void* stm,
+                                      int64_t ss, const void* ft_w, const void* ft_b,
+                                      const void* l1_w, const void* l1_b, const void* l2_w,
+                                      const void* l2_b, const void* out_w, const void* out_b,
+                                      void* out, int batch, int l1, int h1, int h2,
+                                      void* stream) {
+    return launch<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(
+        boards, sb, stm, ss, ft_w, ft_b, l1_w, l1_b, l2_w, l2_b, out_w, out_b, out, batch, l1,
+        h1, h2, stream);
 }

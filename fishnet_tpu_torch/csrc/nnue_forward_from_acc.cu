@@ -21,7 +21,11 @@
 // hidden activations in registers. Float sums run in input order with
 // fused multiply-adds, which differs from the reference's XLA dot in the
 // last bits: the f32 eval is held to its plain version within a stated
-// tolerance, the int8 eval exactly.
+// tolerance, the int8 eval exactly. The bf16 net (models/nnue.py
+// cast_params) keeps f32 accumulators and reads its bf16 weights (42 KiB
+// for the 8 buckets), widening each at its load: the same f32 arithmetic
+// in the same order, so its eval is the f32 kernel's bits on the widened
+// weights.
 #include "nnue.cuh"
 
 namespace {
@@ -72,4 +76,13 @@ FISHNET_EXPORT int nnue_forward_from_acc_i8(
         const void* out_b, void* out, int batch, void* stream) {
     return launch<int32_t, int8_t, int32_t>(acc, stm, bucket, l1_w, l1_b, l2_w, l2_b, out_w,
                                             out_b, out, batch, stream);
+}
+
+// acc (batch, 2, 64) f32; the weights and biases bf16, the shapes as above
+FISHNET_EXPORT int nnue_forward_from_acc_bf16(
+        const void* acc, const void* stm, const void* bucket, const void* l1_w,
+        const void* l1_b, const void* l2_w, const void* l2_b, const void* out_w,
+        const void* out_b, void* out, int batch, void* stream) {
+    return launch<float, __nv_bfloat16, __nv_bfloat16>(acc, stm, bucket, l1_w, l1_b, l2_w,
+                                                       l2_b, out_w, out_b, out, batch, stream);
 }

@@ -17,17 +17,20 @@
 // the JAX reference's XLA:CPU reduction uses (measured bit-exact): squares
 // 0-31 summed in order, squares 32-63 summed in order, the two halves
 // added, then ft_b added. Integer (int8-net) accumulators are exact in any
-// order.
-#include "common.cuh"
+// order. A bf16 net (models/nnue.py cast_params) reads bf16 rows and bias
+// (half the bytes: its table is 96 KiB) and widens each value as it loads
+// it (nnue::wide), then adds in f32 in the same order, so its accumulators
+// are the f32 kernel's bits on the widened weights.
+#include "nnue.cuh"
 
 namespace {
 
 constexpr int ROWS_PER_BLOCK = 4;
 
-template <typename W, typename A>
+template <typename W, typename Bi, typename A>
 __global__ void refresh_kernel(const int32_t* __restrict__ boards,
                                const W* __restrict__ ft_w,
-                               const A* __restrict__ ft_b,
+                               const Bi* __restrict__ ft_b,
                                A* __restrict__ acc, int n_rows, int l1) {
     int col = threadIdx.x;
     int row = blockIdx.x * ROWS_PER_BLOCK + threadIdx.y;  // lane * 2 + persp
@@ -41,21 +44,21 @@ __global__ void refresh_kernel(const int32_t* __restrict__ boards,
         for (int sq = h * 32; sq < h * 32 + 32; ++sq) {
             int code = board[sq];
             if (code <= 0) continue;
-            s = s + (A)ft_w[(int64_t)feature_768(code, sq, persp) * l1 + col];
+            s = s + (A)nnue::wide(ft_w[(int64_t)feature_768(code, sq, persp) * l1 + col]);
         }
         half[h] = s;
     }
-    acc[(int64_t)row * l1 + col] = ft_b[col] + (half[0] + half[1]);
+    acc[(int64_t)row * l1 + col] = (A)nnue::wide(ft_b[col]) + (half[0] + half[1]);
 }
 
-template <typename W, typename A>
+template <typename W, typename Bi, typename A>
 int launch(const void* boards, const void* ft_w, const void* ft_b, void* acc,
            int batch, int l1, void* stream) {
     int n_rows = batch * 2;
     dim3 block(l1, ROWS_PER_BLOCK);
     dim3 grid((n_rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK);
-    refresh_kernel<W, A><<<grid, block, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)boards, (const W*)ft_w, (const A*)ft_b, (A*)acc,
+    refresh_kernel<W, Bi, A><<<grid, block, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)boards, (const W*)ft_w, (const Bi*)ft_b, (A*)acc,
         n_rows, l1);
     return (int)cudaGetLastError();
 }
@@ -66,12 +69,20 @@ int launch(const void* boards, const void* ft_w, const void* ft_b, void* acc,
 FISHNET_EXPORT int nnue_refresh_768_f32(const void* boards, const void* ft_w,
                                         const void* ft_b, void* acc, int batch,
                                         int l1, void* stream) {
-    return launch<float, float>(boards, ft_w, ft_b, acc, batch, l1, stream);
+    return launch<float, float, float>(boards, ft_w, ft_b, acc, batch, l1, stream);
 }
 
 // int8 net: ft_w (768, l1) int16, ft_b (l1,) int32 → acc int32
 FISHNET_EXPORT int nnue_refresh_768_i16(const void* boards, const void* ft_w,
                                         const void* ft_b, void* acc, int batch,
                                         int l1, void* stream) {
-    return launch<int16_t, int32_t>(boards, ft_w, ft_b, acc, batch, l1, stream);
+    return launch<int16_t, int32_t, int32_t>(boards, ft_w, ft_b, acc, batch, l1, stream);
+}
+
+// bf16 net: ft_w (768, l1) bf16, ft_b (l1,) bf16 → acc (batch, 2, l1) f32
+FISHNET_EXPORT int nnue_refresh_768_bf16(const void* boards, const void* ft_w,
+                                         const void* ft_b, void* acc, int batch,
+                                         int l1, void* stream) {
+    return launch<__nv_bfloat16, __nv_bfloat16, float>(boards, ft_w, ft_b, acc, batch, l1,
+                                                       stream);
 }

@@ -104,6 +104,18 @@ struct NetSf {
     using Weights = nnue::SfNet;
     static constexpr int KIND = STOCKFISH;
 };
+// bf16 weights (models/nnue.py cast_params), f32 accumulators and
+// arithmetic: the bodies widen each weight at its load
+struct NetBf16 {
+    using Acc = float;
+    using Weights = nnue::Net<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16>;
+    static constexpr int KIND = BOARD768;
+};
+struct NetKbBf16 {
+    using Acc = float;
+    using Weights = nnue::Net<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16>;
+    static constexpr int KIND = KING;
+};
 
 // A segment's arguments: the state's nine tables ((B, ...) contiguous,
 // ops/search.py SearchState), the net, the key tables, the table (null
@@ -353,8 +365,9 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows<V>& s, int t
                 for (int i = 0; i < 4; ++i) {
                     const int col = t + WARP * i;
                     const int persp = col / L1, c = col % L1;
-                    fresh[col] = a.net.ft_b[c] + nnue::refresh_column<typename Net::Weights::Ft, Acc>(
-                                                     s.feat, persp, a.net.ft_w, L1, c);
+                    fresh[col] = (Acc)nnue::wide(a.net.ft_b[c])
+                                 + nnue::refresh_column<typename Net::Weights::Ft, Acc>(
+                                       s.feat, persp, a.net.ft_w, L1, c);
                 }
                 __syncwarp();
                 pair = fresh;

@@ -119,7 +119,9 @@ class GpuEngine(BatchEngine):
     weights_path (a `.nnue` file through nnue_import.load_nnue, any other
     path through nnue.load_params), else the shipped board768 net.
     FISHNET_TPU_DTYPE=int8 with FISHNET_TPU_EXPERIMENTAL_INT8 quantizes a
-    board768 net (quantize_int8); "bf16" raises (not ported). device:
+    board768 net (quantize_int8); "bf16" stores a board768 or
+    king-bucketed net in bf16 (cast_params; a Stockfish net raises
+    TypeError, as in TpuEngine). device:
     where it runs (default the card — it raises without one). tt_size_log2: the shared table's slots as a
     power of two (0: no table, and then no helpers); helper_lanes: lanes
     per position (None reads FISHNET_TPU_HELPERS, clamped to 1..16);
@@ -199,15 +201,15 @@ class GpuEngine(BatchEngine):
         print(f"W: {msg}", file=sys.stderr, flush=True)
 
     def _quantized(self, params):
-        """The net under FISHNET_TPU_DTYPE, as TpuEngine reads it: "int8"
-        quantizes an f32 board768 net when FISHNET_TPU_EXPERIMENTAL_INT8
-        is set (and is ignored with a warning when it is not); "bf16"
-        raises, since cast_params is not ported."""
+        """The net under FISHNET_TPU_DTYPE, as TpuEngine reads it: "bf16"
+        (or "bfloat16") stores every weight in bf16 (cast_params: the
+        accumulators and the arithmetic stay f32; a Stockfish net raises
+        TypeError); "int8" quantizes an f32 board768 net when
+        FISHNET_TPU_EXPERIMENTAL_INT8 is set (and is ignored with a
+        warning when it is not)."""
         dtype = (settings.raw("FISHNET_TPU_DTYPE") or "").lower()
         if dtype in ("bf16", "bfloat16"):
-            raise NotImplementedError(
-                "FISHNET_TPU_DTYPE=bf16 needs cast_params, which is not ported yet "
-                "(ROADMAP.md, Queue 2)")
+            return nnue.cast_params(params)
         if dtype != "int8":
             return params
         if not settings.get_bool("FISHNET_TPU_EXPERIMENTAL_INT8"):

@@ -89,9 +89,11 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
 _SEGMENT_ARGS = [_P] * 20 + [_P, _I, _P, _P, _I, _P, _P, _P] + [_I] * 10 + [_P, _P]
-# K11's entry point tags, one per net kind, and csrc/search.cuh's net traits
+# K11's entry point tags, one per net kind and weight type, and
+# csrc/search.cuh's net traits
 SEGMENT_NETS = (("f32", "NetF32"), ("i8", "NetI8"), ("kb_f32", "NetKbF32"),
-                ("kb_i8", "NetKbI8"), ("sf", "NetSf"))
+                ("kb_i8", "NetKbI8"), ("sf", "NetSf"), ("bf16", "NetBf16"),
+                ("kb_bf16", "NetKbBf16"))
 
 
 def _variant_symbol(base: str, variant: str) -> str:
@@ -110,14 +112,14 @@ def _per_variant(base: str, argtypes) -> dict:
 # built from csrc/<its name>.cu, but K11's libraries search_segment_<variant>,
 # which are built from search_segment.cu, _LIBRARY_SOURCE)
 _SIGNATURES = {
-    "nnue_refresh_768": {"nnue_refresh_768_f32": [_P, _P, _P, _P, _I, _I, _P],
-                         "nnue_refresh_768_i16": [_P, _P, _P, _P, _I, _I, _P]},
-    "nnue_acc_update_768": {"nnue_acc_update_768_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-                            "nnue_acc_update_768_i16": [_P, _P, _P, _P, _P, _P, _I, _I, _P]},
-    "nnue_forward_from_acc": {"nnue_forward_from_acc_f32": [_P] * 10 + [_I, _P],
-                              "nnue_forward_from_acc_i8": [_P] * 10 + [_I, _P]},
-    "nnue_evaluate": {"nnue_evaluate_f32": [_P, _L, _P, _L] + [_P] * 9 + [_I] * 4 + [_P],
-                      "nnue_evaluate_i8": [_P, _L, _P, _L] + [_P] * 9 + [_I] * 4 + [_P]},
+    "nnue_refresh_768": {f"nnue_refresh_768_{tag}": [_P, _P, _P, _P, _I, _I, _P]
+                         for tag in ("f32", "i16", "bf16")},
+    "nnue_acc_update_768": {f"nnue_acc_update_768_{tag}": [_P, _P, _P, _P, _P, _P, _I, _I, _P]
+                            for tag in ("f32", "i16", "bf16")},
+    "nnue_forward_from_acc": {f"nnue_forward_from_acc_{tag}": [_P] * 10 + [_I, _P]
+                              for tag in ("f32", "i8", "bf16")},
+    "nnue_evaluate": {f"nnue_evaluate_{tag}": [_P, _L, _P, _L] + [_P] * 9 + [_I] * 4 + [_P]
+                      for tag in ("f32", "i8", "bf16")},
     "nnue_evaluate_sf": {"nnue_evaluate_sf": [_P, _L, _P, _L] + [_P] * 10 + [_I] * 2 + [_P]},
     "zobrist_hash": _per_variant("zobrist_hash", [_P, _L] * 5 + [_P, _P, _P, _I, _P]),
     "tt_probe": {"tt_probe": [_P, _I] + [_P, _L] * 5 + [_P, _I, _P, _P, _P, _I, _P]},
@@ -426,23 +428,36 @@ def _check_layout(t: torch.Tensor, name: str, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+# each weight type a net may have, by ft_w's dtype: its tag in the entry
+# points of K1 and K3 and in those of K2, K11 and K12, the accumulators'
+# dtype, ft_b's, the head weights' and the head biases' (bf16: the
+# weights stored in bf16, the arithmetic and the accumulators f32)
+NET_TYPES = {
+    torch.float32: ("f32", "f32", torch.float32, torch.float32, torch.float32, torch.float32),
+    torch.int16: ("i16", "i8", torch.int32, torch.int32, torch.int8, torch.int32),
+    torch.bfloat16: ("bf16", "bf16", torch.float32, torch.bfloat16, torch.bfloat16,
+                     torch.bfloat16),
+}
+
+
 def _net_types(ft_w: torch.Tensor):
-    if ft_w.dtype == torch.float32:
-        return "f32", torch.float32
-    if ft_w.dtype == torch.int16:
-        return "i16", torch.int32
-    raise TypeError(f"ft_w must be float32 or int16, got {ft_w.dtype}")
+    """ft_w's dtype → (K1's and K3's entry tag, the accumulators' dtype,
+    ft_b's dtype)."""
+    if ft_w.dtype not in NET_TYPES:
+        raise TypeError(f"ft_w must be float32, bfloat16 or int16, got {ft_w.dtype}")
+    tag, _, adt, fdt, _, _ = NET_TYPES[ft_w.dtype]
+    return tag, adt, fdt
 
 
 def nnue_refresh_768(boards: torch.Tensor, ft_w: torch.Tensor,
                      ft_b: torch.Tensor) -> torch.Tensor:
-    """K1: boards (B, 64) int32 → acc (B, 2, L1) (f32, or int32 for the
-    int8 net)."""
+    """K1: boards (B, 64) int32 → acc (B, 2, L1) (f32 for f32 and bf16
+    weights, int32 for the int8 net)."""
     B, l1 = boards.shape[0], ft_w.shape[1]
-    tag, adt = _net_types(ft_w)
+    tag, adt, fdt = _net_types(ft_w)
     _check(boards, "boards", torch.int32, (B, 64))
     _check(ft_w, "ft_w", ft_w.dtype, (768, l1))
-    _check(ft_b, "ft_b", adt, (l1,))
+    _check(ft_b, "ft_b", fdt, (l1,))
     if not 0 < l1 <= 256:
         raise ValueError(f"L1 {l1} is outside the kernel's 1..256 columns")
     acc = torch.empty((B, 2, l1), dtype=adt, device=boards.device)
@@ -459,7 +474,7 @@ def nnue_acc_update_768(acc: torch.Tensor, codes: torch.Tensor,
     """K3: acc (B, 2, L1), codes/sqs/signs (B, 4) int32 → the updated
     (B, 2, L1) accumulators (a new tensor)."""
     B, l1 = acc.shape[0], ft_w.shape[1]
-    tag, adt = _net_types(ft_w)
+    tag, adt, _ = _net_types(ft_w)
     _check(acc, "acc", adt, (B, 2, l1))
     for name, t in (("codes", codes), ("sqs", sqs), ("signs", signs)):
         _check(t, name, torch.int32, (B, 4))
@@ -479,18 +494,15 @@ def _head_types(params):
     K12, K11) → (tag, acc dtype, (L1, H1, H2)), after checking the head
     weights: 8 buckets of 2*L1 → H1 → H2 → 1, H1 and H2 at most MAX_HIDDEN,
     L1 at most MAX_L1 (K2 takes the shipped widths only)."""
-    if params.ft_w.dtype == torch.float32:
-        tag, adt, wdt, bdt = "f32", torch.float32, torch.float32, torch.float32
-    elif params.ft_w.dtype == torch.int16:
-        tag, adt, wdt, bdt = "i8", torch.int32, torch.int8, torch.int32
-    else:
+    if params.ft_w.dtype not in NET_TYPES:
         raise TypeError(f"unsupported net dtype {params.ft_w.dtype}")
+    _, tag, adt, fdt, wdt, bdt = NET_TYPES[params.ft_w.dtype]
     l1, h1, h2 = params.ft_w.shape[1], params.l1_w.shape[-1], params.l2_w.shape[-1]
     if not 0 < l1 <= MAX_L1 or not 0 < h1 <= MAX_HIDDEN or not 0 < h2 <= MAX_HIDDEN:
         raise ValueError(f"the layer stack takes L1 1..{MAX_L1} and hidden widths 1.."
                          f"{MAX_HIDDEN}, got {l1}, {h1}, {h2}")
     for name, shape, dt in (
-        ("ft_b", (l1,), adt),
+        ("ft_b", (l1,), fdt),
         ("l1_w", (8, 2 * l1, h1), wdt), ("l1_b", (8, h1), bdt),
         ("l2_w", (8, h1, h2), wdt), ("l2_b", (8, h2), bdt),
         ("out_w", (8, h2), wdt), ("out_b", (8,), bdt),
@@ -501,9 +513,10 @@ def _head_types(params):
 
 def nnue_forward_from_acc(acc: torch.Tensor, stm: torch.Tensor,
                           bucket: torch.Tensor, params) -> torch.Tensor:
-    """K2: acc (B, 2, 64), stm/bucket (B,) int32 → eval (B,) f32, for
-    the shipped net's widths (L1 64, 8 buckets of 128→16→32→1), which its
-    kernel is compiled for."""
+    """K2: acc (B, 2, 64) (f32 for f32 and bf16 weights, int32 for the
+    int8 net), stm/bucket (B,) int32 → eval (B,) f32, for the shipped
+    net's widths (L1 64, 8 buckets of 128→16→32→1), which its kernel is
+    compiled for."""
     B = acc.shape[0]
     tag, adt, widths = _head_types(params)
     if widths != SHIPPED_WIDTHS:
@@ -555,7 +568,7 @@ def _sf_weights(net):
 
 def nnue_evaluate(boards: torch.Tensor, stm: torch.Tensor, params) -> torch.Tensor:
     """K12: a king-bucketed net's (NnueParams with NUM_FEATURES rows,
-    f32 or int8) full eval of boards (B, 64), stm (B,) — int32, rows may
+    f32, bf16 or int8) full eval of boards (B, 64), stm (B,) — int32, rows may
     be strided views — → (B,) f32."""
     B = boards.shape[0]
     sb = _check_rows(boards, "boards", (B, 64))
@@ -851,11 +864,12 @@ def _claim_words(device: torch.device, n: int) -> torch.Tensor:
 
 def _segment_net(params):
     """K11's net arguments → (entry tag, its nine weight pointers,
-    (L1, H1, H2), the tensors they point into). board768 nets (f32 or
-    int8) take the shipped net's widths SEGMENT_L1 (K3's column layout),
+    (L1, H1, H2), the tensors they point into). board768 nets (f32, bf16
+    or int8) take the shipped net's widths SEGMENT_L1 (K3's column layout),
     SEGMENT_H1 and SEGMENT_H2 (K2's body compiled for them), king-bucketed
-    nets (K12's body) and imported Stockfish nets (K13's) an even L1 up to
-    MAX_L1; the weight slots a net does not fill are null."""
+    nets (K12's body; f32, bf16 or int8) and imported Stockfish nets
+    (K13's) an even L1 up to MAX_L1; the weight slots a net does not fill
+    are null."""
     from .models import nnue
 
     kind = nnue.net_kind(params)
@@ -882,7 +896,7 @@ def search_segment(params, state, steps: int, pruning: bool, table=None,
     once every lane is DONE, with the TT runner around each step when
     `table` ((n, 4) int32, updated in place) is given → the packed
     (B+1, 4) int32 summary (done, nodes, root score, root move; row B the
-    step count). params: a board768 net (f32 or int8; K2's and K3's
+    step count). params: a board768 net (f32, bf16 or int8; K2's and K3's
     bodies, in atomic K1's and K2's), a king-bucketed one (K12's body) or
     an imported Stockfish net (K13's); the state's `acc` has the net's L1
     and accumulator dtype, and only a board768 net outside atomic reads
@@ -899,7 +913,7 @@ def search_segment(params, state, steps: int, pruning: bool, table=None,
                          f"got {max_moves}")
     if not 1 <= p <= SEGMENT_MAX_PLY:
         raise ValueError(f"K11 takes MAX_PLY 1..{SEGMENT_MAX_PLY}, got {p}")
-    adt = {torch.float32: torch.float32, torch.int16: torch.int32}.get(params.ft_w.dtype)
+    adt = NET_TYPES[params.ft_w.dtype][2] if params.ft_w.dtype in NET_TYPES else None
     if state.acc.dtype != adt:
         raise TypeError(f"acc must be {adt} for a net of {params.ft_w.dtype}, got "
                         f"{state.acc.dtype}")

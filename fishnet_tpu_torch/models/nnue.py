@@ -22,6 +22,13 @@ same function: `accumulators_768` (K1), `forward_from_acc` (K2),
 (K12, `evaluate` → `evaluate_plain`). A wrapper runs the plain version for
 CPU tensors and the kernel for CUDA tensors.
 
+bf16 (`cast_params`, FISHNET_TPU_DTYPE=bf16) is a storage format, as in
+the reference: every weight is rounded to bf16 once, and all arithmetic
+stays f32 (the accumulators too). The plain versions widen the weights
+they read (exactly) and run the f32 code; the kernels read bf16 and widen
+each weight in registers, so on bf16 weights every function gives the f32
+function's bits on the widened weights.
+
 Float order: the plain versions add feature rows in the order the JAX
 reference's XLA:CPU reductions do (measured bit-exact on the CPU), and
 the kernels follow the same order, so K1/K3 and K12's accumulators agree
@@ -71,14 +78,14 @@ ASSET = Path(__file__).resolve().parent.parent / "assets" / "nnue-board768-64.np
 
 
 class NnueParams(NamedTuple):
-    ft_w: torch.Tensor  # (768 or NUM_FEATURES, L1) f32, or int16 for the int8 net
-    ft_b: torch.Tensor  # (L1,) f32 / int32
-    l1_w: torch.Tensor  # (8, 2*L1, H1) f32 / int8
-    l1_b: torch.Tensor  # (8, H1) f32 / int32
-    l2_w: torch.Tensor  # (8, H1, H2) f32 / int8
-    l2_b: torch.Tensor  # (8, H2) f32 / int32
-    out_w: torch.Tensor  # (8, H2) f32 / int8
-    out_b: torch.Tensor  # (8,) f32 / int32
+    ft_w: torch.Tensor  # (768 or NUM_FEATURES, L1) f32 or bf16, or int16 for the int8 net
+    ft_b: torch.Tensor  # (L1,) f32 / bf16 / int32
+    l1_w: torch.Tensor  # (8, 2*L1, H1) f32 / bf16 / int8
+    l1_b: torch.Tensor  # (8, H1) f32 / bf16 / int32
+    l2_w: torch.Tensor  # (8, H1, H2) f32 / bf16 / int8
+    l2_b: torch.Tensor  # (8, H2) f32 / bf16 / int32
+    out_w: torch.Tensor  # (8, H2) f32 / bf16 / int8
+    out_b: torch.Tensor  # (8,) f32 / bf16 / int32
 
     @property
     def l1(self) -> int:
@@ -92,15 +99,23 @@ class NnueParams(NamedTuple):
         return NnueParams(*[t.to(device) for t in self])
 
 
+def _from_numpy(a) -> torch.Tensor:
+    """A tensor of a numpy array's values; a bfloat16 array (ml_dtypes',
+    as JAX hands them out: numpy has no bf16 of its own) crosses as its
+    16-bit patterns, so this module needs no ml_dtypes."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def params_from_numpy(mapping: Mapping[str, np.ndarray], device=None) -> NnueParams:
     """NnueParams from numpy arrays under the JAX package's NnueParams
-    field names (f32 and the int8 net's integer dtypes are kept): a
-    board768 net (768 features) or a king-bucketed one (NUM_FEATURES)."""
+    field names (f32, bfloat16 and the int8 net's integer dtypes are
+    kept): a board768 net (768 features) or a king-bucketed one
+    (NUM_FEATURES)."""
     dev = device_mod.resolve(device)
-    params = NnueParams(**{
-        f: torch.from_numpy(np.array(mapping[f])).to(dev)
-        for f in NnueParams._fields
-    })
+    params = NnueParams(**{f: _from_numpy(mapping[f]).to(dev) for f in NnueParams._fields})
     if params.ft_w.shape[0] not in (NUM_FEATURES_768, NUM_FEATURES):
         raise ValueError(
             f"a net has {NUM_FEATURES_768} (board768) or {NUM_FEATURES} (HalfKAv2_hm) "
@@ -109,10 +124,20 @@ def params_from_numpy(mapping: Mapping[str, np.ndarray], device=None) -> NnuePar
     return params
 
 
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a numpy array; bf16 goes through its 16-bit
+    patterns into numpy's "bfloat16" dtype, which exists once JAX's
+    ml_dtypes has registered it (numpy alone raises TypeError)."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    return t.view(torch.int16).numpy().view(np.dtype("bfloat16"))
+
+
 def params_to_numpy(params: NnueParams) -> dict:
     """{field: numpy array}: the reverse of params_from_numpy, so weights go
     across to the JAX package (its NnueParams(**mapping))."""
-    return {f: getattr(params, f).detach().cpu().numpy() for f in NnueParams._fields}
+    return {f: _to_numpy(getattr(params, f)) for f in NnueParams._fields}
 
 
 def init_params(generator: torch.Generator, l1: int = 256, h1: int = 16, h2: int = 32,
@@ -193,6 +218,30 @@ def quantize_int8(params: NnueParams) -> NnueParams:
     }, params.device)
 
 
+def cast_params(params: NnueParams) -> NnueParams:
+    """Every field of a board768 or king-bucketed net stored as bf16
+    (round to nearest even, as the reference's astype): a storage format
+    — the accumulators stay f32 (acc_dtype) and every function computes
+    in f32 on the widened weights. An imported Stockfish net raises
+    TypeError, as the reference's cast_params does (it cannot iterate
+    that net)."""
+    if not isinstance(params, NnueParams):
+        raise TypeError(f"cast_params takes an NnueParams net, got {type(params).__name__}")
+    return NnueParams(*[t.to(torch.bfloat16) for t in params])
+
+
+# the layer stack's fields: what forward_from_acc reads of a net
+HEAD_FIELDS = ("l1_w", "l1_b", "l2_w", "l2_b", "out_w", "out_b")
+
+
+def widened(params: NnueParams) -> NnueParams:
+    """A bf16 net's weights widened to f32 (exactly); any other net as it
+    is. Every function gives on a bf16 net the bits it gives on this."""
+    if params.ft_w.dtype != torch.bfloat16:
+        return params
+    return NnueParams(*[t.float() for t in params])
+
+
 def is_int8(params) -> bool:
     """An int8-quantized NnueParams (an imported Stockfish net is f32)."""
     return isinstance(params, NnueParams) and not params.ft_w.dtype.is_floating_point
@@ -224,7 +273,8 @@ def is_board768(params) -> bool:
 
 
 def acc_dtype(params) -> torch.dtype:
-    """Accumulator dtype: int32 for the int8 net (exact adds), else f32."""
+    """Accumulator dtype: int32 for the int8 net (exact adds), else f32
+    (bf16 weights too)."""
     return torch.int32 if is_int8(params) else torch.float32
 
 
@@ -288,11 +338,12 @@ def sum_rows(table: torch.Tensor, idx: torch.Tensor, dtype) -> torch.Tensor:
 
 def accumulators_768_plain(params: NnueParams, boards: torch.Tensor) -> torch.Tensor:
     """(B, 64) int32 boards → (B, 2, L1) accumulators: ft_b + the sum of
-    the pieces' rows (sum_rows' order)."""
+    the pieces' rows (sum_rows' order; bf16 rows widened as they are
+    gathered)."""
     adt = acc_dtype(params)
     sq = torch.arange(64, dtype=torch.int32, device=boards.device)
     return torch.stack([
-        params.ft_b + sum_rows(params.ft_w, feature_index_768(boards, sq, p), adt)
+        params.ft_b.to(adt) + sum_rows(params.ft_w, feature_index_768(boards, sq, p), adt)
         for p in (0, 1)], 1)
 
 
@@ -358,7 +409,10 @@ def apply_acc_updates_768(params: NnueParams, acc: torch.Tensor,
 def forward_from_acc_plain(params: NnueParams, acc: torch.Tensor,
                            stm: torch.Tensor, bucket: torch.Tensor) -> torch.Tensor:
     """acc (B, 2, L1), stm/bucket (B,) → centipawns (B,) f32 from the
-    side to move's view."""
+    side to move's view (a bf16 net's head widened first; ft_w is not
+    read here, so it stays as it is)."""
+    if params.l1_w.dtype == torch.bfloat16:
+        params = params._replace(**{f: getattr(params, f).float() for f in HEAD_FIELDS})
     ar = torch.arange(acc.shape[0], device=acc.device)
     s = stm.long()
     own, opp = acc[ar, s], acc[ar, 1 - s]
@@ -395,10 +449,11 @@ def forward_from_acc(params: NnueParams, acc: torch.Tensor, stm: torch.Tensor,
 def accumulators(params: NnueParams, boards: torch.Tensor) -> torch.Tensor:
     """(B, 64) boards → (B, 2, L1) HalfKAv2_hm accumulators of a
     king-bucketed net, each perspective refreshed from scratch: ft_b + the
-    sum of the pieces' rows (sum_rows' order)."""
+    sum of the pieces' rows (sum_rows' order; bf16 rows widened as they
+    are gathered)."""
     adt = acc_dtype(params)
     return torch.stack([
-        params.ft_b + sum_rows(
+        params.ft_b.to(adt) + sum_rows(
             params.ft_w, feature_indices(boards, p, king_square(boards, p)), adt)
         for p in (0, 1)], 1)
 

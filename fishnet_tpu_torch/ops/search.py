@@ -210,7 +210,9 @@ def init_state(params: nnue.NnueParams, roots: Board, depth: torch.Tensor,
 
     On the card the state is allocated uninitialised and K7 (lane_init)
     writes every lane after K1's root refresh; on the CPU the plain
-    version builds it."""
+    version builds it. The accumulators are the net's acc_dtype: int32 on
+    the int8 net, f32 on the others, bf16 weights included (nothing of
+    the state takes the weights' dtype)."""
     B = roots.board.shape[0]
     width = max_moves_for(variant)
     args = _lane_inputs(params, roots, depth, node_budget, hist_hash, hist_halfmove,

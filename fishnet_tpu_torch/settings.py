@@ -31,7 +31,8 @@ DEFAULTS = {
     "FISHNET_TPU_NO_PRUNING": "0",
     "FISHNET_TPU_ASPIRATION": "",
     # weight quantization: "int8" (with the flag below; board768 nets
-    # only) or "bf16" (not ported: the engine refuses it)
+    # only) or "bf16"/"bfloat16" (board768 and king-bucketed nets stored
+    # in bf16, f32 arithmetic)
     "FISHNET_TPU_DTYPE": "",
     "FISHNET_TPU_EXPERIMENTAL_INT8": "0",
 }

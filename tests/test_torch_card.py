@@ -16,8 +16,9 @@ versions, their wrappers' refusals, and training steps on the card that
 run no plain version, against the CPU's; the variant instantiations of
 K4 and K8-K10 against their plain versions and K11 against
 run_segment_plain in each variant (in crazyhouse also on roots from its
-mid, heavy and full pockets; atomic also on the king-bucketed net). Needs
-an NVIDIA card;
+mid, heavy and full pockets; atomic also on the king-bucketed net); the
+bf16 entry points of K1, K2, K3, K12 and K11 against their plain versions
+and against the f32 kernels on the widened weights. Needs an NVIDIA card;
 skipped elsewhere. Imports no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_card.py -q -p no:cacheprovider
@@ -697,3 +698,112 @@ def test_variant_wrappers_refuse(card):
         kernels.zobrist_hash(b.board, b.stm, b.ep, b.castling, z1, z2, None, "crazyhouse")
     assert not any(kernels.LAUNCHES.values())
 
+
+
+def _bits_equal(a, b):
+    return a.dtype == b.dtype and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.fixture(scope="module")
+def bf16_nets(card, full_nets):
+    """bf16 nets (cast_params) and the same weights widened to f32: the
+    shipped board768 net and the king-bucketed one at L1 256."""
+    out = {}
+    for name, p in (("board768", nnue.load_params(device=card)), ("kb", full_nets["kb f32"])):
+        p16 = nnue.cast_params(p)
+        out[name] = (p16, nnue.widened(p16))
+    return out
+
+
+@pytest.mark.parametrize("batch", [16, 64, 1024])
+def test_bf16_board768_kernels(bf16_nets, batch):
+    """K1, K3 and K2 on bf16 weights (their _bf16 entry points, one
+    launch each): K1 and K3 equal their plain versions and the f32
+    kernels on the widened weights byte for byte; K2 equals the f32
+    kernel on the widened weights byte for byte and its plain version
+    within F32_EVAL_TOL."""
+    p16, wide = bf16_nets["board768"]
+    b, moves = playout_boards(batch, seed=batch + 5)
+    b = b.to(p16.device)
+    mv = torch.tensor([m.from_sq | (m.to_sq << 6) | ((m.promotion or 0) << 12) for m in moves],
+                      dtype=torch.int32, device=p16.device)
+    codes, sqs, signs = tb.move_piece_changes(b, mv)
+    bucket = nnue.output_bucket(b.board)
+    kernels.reset_launches()
+    acc = nnue.accumulators_768(p16, b.board)
+    up = nnue.apply_acc_updates_768(p16, acc, codes, sqs, signs)
+    ev = nnue.forward_from_acc(p16, acc, b.stm, bucket)
+    assert {k: v for k, v in kernels.LAUNCHES_BY_ENTRY.items() if v} == {
+        "nnue_refresh_768_bf16": 1, "nnue_acc_update_768_bf16": 1,
+        "nnue_forward_from_acc_bf16": 1}
+    assert acc.dtype == up.dtype == ev.dtype == torch.float32
+    assert _bits_equal(acc, nnue.accumulators_768_plain(p16, b.board))
+    assert _bits_equal(acc, nnue.accumulators_768(wide, b.board))
+    assert _bits_equal(up, nnue.apply_acc_updates_768_plain(p16, acc, codes, sqs, signs))
+    assert _bits_equal(up, nnue.apply_acc_updates_768(wide, acc, codes, sqs, signs))
+    assert _bits_equal(ev, nnue.forward_from_acc(wide, acc, b.stm, bucket))
+    want = nnue.forward_from_acc_plain(p16, acc, b.stm, bucket)
+    assert float((ev.double() - want.double()).abs().max()) <= nnue.F32_EVAL_TOL
+
+
+@pytest.mark.parametrize("batch", [16, 64, 1024])
+def test_bf16_full_eval_kernel(bf16_nets, batch):
+    """K12 on the bf16 king-bucketed net (nnue_evaluate_bf16): the f32
+    kernel's bits on the widened weights, its plain version within
+    F32_EVAL_TOL."""
+    p16, wide = bf16_nets["kb"]
+    b = playout_boards(batch, seed=batch + 9)[0].to(p16.device)
+    kernels.reset_launches()
+    got = nnue.evaluate(p16, b.board, b.stm)
+    assert {k: v for k, v in kernels.LAUNCHES_BY_ENTRY.items() if v} == {"nnue_evaluate_bf16": 1}
+    assert _bits_equal(got, nnue.evaluate(wide, b.board, b.stm))
+    want = nnue.evaluate_plain(p16, b.board, b.stm)
+    assert float((got.double() - want.double()).abs().max()) <= nnue.F32_EVAL_TOL
+
+
+def test_bf16_wrappers_refuse_mixed_types(bf16_nets, lanes):
+    p16, wide = bf16_nets["board768"]
+    b, _ = lanes
+    acc = nnue.accumulators_768(wide, b.board)
+    state, _, _ = segment_case(nnue.quantize_int8(wide), 16, "no table", 5, b.board.device)
+    kernels.reset_launches()
+    with pytest.raises(TypeError):  # an f32 bias beside bf16 rows
+        kernels.nnue_refresh_768(b.board, p16.ft_w, wide.ft_b)
+    with pytest.raises(TypeError):  # bf16 accumulators: they stay f32
+        kernels.nnue_acc_update_768(torch.zeros((48, 2, 64), dtype=torch.bfloat16,
+                                                device=b.board.device),
+                                    *[torch.zeros((48, 4), dtype=torch.int32,
+                                                  device=b.board.device)] * 3, p16.ft_w)
+    with pytest.raises(TypeError):  # f32 head weights on a bf16 net
+        kernels.nnue_forward_from_acc(acc, b.stm, nnue.output_bucket(b.board),
+                                      p16._replace(l1_w=wide.l1_w))
+    with pytest.raises(TypeError):  # a bf16 net on int32 accumulators
+        kernels.search_segment(p16, state, 5, True)
+    assert not any(kernels.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("net,batch,cfg,variant", [
+    ("board768", 16, "table", "standard"), ("board768", 64, "engine", "standard"),
+    ("board768", 64, "helpers", "atomic"), ("kb", 16, "table", "standard")])
+def test_bf16_segment_kernel(bf16_nets, net, batch, cfg, variant):
+    """K11 on bf16 weights (search_segment_bf16*, search_segment_kb_bf16*)
+    against run_segment_plain and against the f32 K11 on the widened
+    weights, over segments of 1, 33 and 100 steps: states, tables and
+    summaries byte for byte, the step counts equal."""
+    p16, wide = bf16_nets[net]
+    state, table, kw = segment_case(p16, batch, cfg, batch + 3, p16.device, variant=variant)
+    plain, plain_table = search.SearchState(*[t.clone() for t in state]), table.clone()
+    f32, f32_table = search.SearchState(*[t.clone() for t in state]), table.clone()
+    tag = "bf16" if net == "board768" else "kb_bf16"
+    entry = kernels._variant_symbol(f"search_segment_{tag}", variant)
+    for steps in (1, 33, 100):
+        kernels.reset_launches()
+        n_k, sum_k = search.run_segment(p16, state, steps, True, **kw)
+        assert kernels.LAUNCHES_BY_ENTRY == {entry: 1}
+        n_f, sum_f = search.run_segment(wide, f32, steps, True, **dict(kw, table=f32_table))
+        n_p, sum_p = search.run_segment_plain(p16, plain, steps, True,
+                                              **dict(kw, table=plain_table))
+        assert n_k == n_p == n_f
+        assert torch.equal(sum_k, sum_p) and torch.equal(sum_k, sum_f)
+        _same_state(state, plain, table, plain_table)
+        _same_state(state, f32, table, f32_table)

@@ -13,7 +13,7 @@ helpers; GpuEngine(device="cpu") answers a chunk as TpuEngine does,
 bit for bit on the int8 king-bucketed net given by params=, and within
 the f32 rule (tests/test_torch_search.py) on a `.nnue` file given by
 weights_path=; and GpuEngine reads FISHNET_TPU_DTYPE and
-FISHNET_TPU_EXPERIMENTAL_INT8 as TpuEngine does, refusing bf16."""
+FISHNET_TPU_EXPERIMENTAL_INT8 as TpuEngine does, bf16 included."""
 import asyncio
 import time
 
@@ -257,15 +257,15 @@ DTYPES = {
     "int8 without the flag": ({"FISHNET_TPU_DTYPE": "int8"}, "float32", "float32"),
     "int8 with the flag": ({"FISHNET_TPU_DTYPE": "int8", "FISHNET_TPU_EXPERIMENTAL_INT8": "1"},
                            "int16", "float32"),
-    "bf16": ({"FISHNET_TPU_DTYPE": "bf16"}, None, None),
+    "bf16": ({"FISHNET_TPU_DTYPE": "bf16"}, "bfloat16", "bfloat16"),
 }
 
 
 @pytest.mark.parametrize("case", list(DTYPES))
 def test_dtype_settings_as_tpu_engine(nets, monkeypatch, capsys, case):
     """Each setting gives the weights TpuEngine gives (int8 quantizes a
-    board768 net only, with the flag; without it both warn and keep f32);
-    bf16, which the reference casts with cast_params, is refused."""
+    board768 net only, with the flag; without it both warn and keep f32;
+    bf16 casts both nets with cast_params, every field's bits equal)."""
     env, board768_dtype, kb_dtype = DTYPES[case]
     for name in ("FISHNET_TPU_DTYPE", "FISHNET_TPU_EXPERIMENTAL_INT8"):
         monkeypatch.delenv(name, raising=False)
@@ -274,11 +274,6 @@ def test_dtype_settings_as_tpu_engine(nets, monkeypatch, capsys, case):
     b768 = jn.load_params(default_weights_path("board768"))
     for jp, want_dtype in ((b768, board768_dtype), (nets["f32"][0], kb_dtype)):
         want = TpuEngine(params=jp, tt_size_log2=0, refill=False)
-        if want_dtype is None:
-            assert want.params.ft_w.dtype == jnp.bfloat16
-            with pytest.raises(NotImplementedError, match="bf16"):
-                GpuEngine(params=_port(jp), tt_size_log2=0, device="cpu")
-            continue
         capsys.readouterr()
         got = GpuEngine(params=_port(jp), tt_size_log2=0, device="cpu")
         warned = "FISHNET_TPU_DTYPE=int8 ignored" in capsys.readouterr().err
@@ -286,5 +281,7 @@ def test_dtype_settings_as_tpu_engine(nets, monkeypatch, capsys, case):
         assert str(got.params.ft_w.dtype) == f"torch.{want_dtype}"
         assert np.asarray(want.params.ft_w).dtype == np.dtype(want_dtype)
         for f in jn.NnueParams._fields:
-            assert np.array_equal(getattr(got.params, f).numpy(),
-                                  np.asarray(getattr(want.params, f)))
+            g, w = getattr(got.params, f), np.asarray(getattr(want.params, f))
+            if g.dtype == torch.bfloat16:  # numpy has no bf16: compare the 16-bit patterns
+                g, w = g.view(torch.int16), w.view(np.int16)
+            assert np.array_equal(g.numpy(), w)
