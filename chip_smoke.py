@@ -32,8 +32,9 @@ Phases (any failure exits non-zero before the final line):
      layer stack's backward, K15 the feature transform's, K16 the Adam
      update) at batch 16 and 512 on seeded diverse positions: K14 and K15
      within a stated tolerance and the same bytes when repeated, K16 bit
-     for bit; with times (CUDA events and torch.profiler) and bounds from
-     the bytes these inputs need;
+     for bit; with times (queued CUDA events: the card spins while the
+     host queues the calls; torch.profiler only as a logged check) and
+     bounds from the bytes these inputs need;
   4. where a segment's time goes (torch.profiler over one K11 segment of
      PROFILE_STEPS steps: B = 16 and 1024 without the table, B = 64 with
      it): host ms/step, device busy ms/step, the device's idle share;
@@ -108,6 +109,19 @@ boards of both phases that time K12, at both phases' call counts.
      king-bucketed net (K12's bf16 body in K11). Both run right after
      phase 5, so the bf16 and the f32 main path both follow phase 4's
      warm-up.
+ 17. the lane mesh (parallel/mesh.py), right after phase 16: 4 shards of
+     cuda:0, each with its own 16 lanes, 2^21-slot table and CUDA stream.
+     The board768 main path through GpuEngine(mesh=make_mesh(["cuda:0"] *
+     4)) at its defaults (steps a shard and the largest, segments,
+     refills, nodes, wall, boundary host ms, transfers; K11 launched once
+     a shard and segment, K7, K1); the chunk without tables or helpers on
+     the mesh equal to one device's; the sharded segment's time with each
+     shard's CUDA events (do the shards' launches overlap?) and one
+     shard's K11 alone; K11 a shard against run_segment_plain on a seeded
+     64-lane state, without and with tables (states, tables, step counts,
+     the stacked summary byte for byte); K7 a shard (refill_lanes_sharded)
+     against its plain version. Phase 15 adds an int8 2-position chunk on
+     the 4-shard mesh, card against CPU shards, responses equal.
 Then a `kernels` JSON line (launches from phase 5, the board768 main
 path, for K13 from phase 6, for K12 from its parity search in phase
 10 and for K14-K16 from phase 13; for the bodies inside K11 their calls
@@ -116,8 +130,15 @@ K4 and K8-K11 also per variant: max_abs_err, ms, plain_ms (K11: us per
 step), launches and calls per step in phase 14; K1 also its launches and
 its body's calls per step in atomic's phase 14 chunk; then a row per bf16
 entry point with its launches on phase 16's bf16 main path, K12's on its
-bf16 king-bucketed search), the card's name and
+bf16 king-bucketed search; then a row each for K11 and K7 a shard on
+phase 17's mesh main path), the card's name and
 power limit, and the result line `{"ok": true, "device": {...}}`.
+
+`python3 chip_smoke.py --main-path-ab TREE [REPS]` instead runs only the
+one-card main path, REPS times a process, for an earlier tree of the
+repository (TREE, unpacked with git archive; it needs only its
+fishnet_tpu_torch package) and for this one, parent, this, this, parent,
+each run's counts and times one JSON line.
 """
 from __future__ import annotations
 
@@ -268,14 +289,37 @@ def _device_us(e) -> float:
     return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
 
 
-def time_ms(fn, reps: int):
-    """(device ms, call ms) of one fn() on the card: the device time of
-    the kernels it launches (torch.profiler, summed over reps calls) and
-    the wall time per call with the host's launch overhead (CUDA events
-    around reps back-to-back calls). Where the profiler records no device
-    time, the device figure is the CUDA-event one."""
+def profile_ms(fn, reps: int) -> float:
+    """The device ms of one fn() that torch.profiler records over reps
+    calls (0 where it records none). A short profile under-reads (PERF.md
+    §7), so no time in the kernels line comes from it; time_ms logs it
+    beside the queued-event reading as a check."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = sum(_device_us(e) for e in prof.key_averages() if e.device_type.name == "CUDA")
+    return dev_us / reps / 1e3
+
+
+# (queued ms, profiler ms) of every time_ms reading checked in this run
+TIME_CHECKS: list = []
+PROFILE_CHECK_MS = 200.0  # time_ms profiles fn when reps calls take less
+
+
+def time_ms(fn, reps: int):
+    """(warm ms, call ms) of one fn() on the card: the warm figure from
+    queued CUDA events (time_queued_ms, the card spinning while the host
+    queues the reps calls, so the events read the card's time), the call
+    figure from CUDA events around reps back-to-back calls (the host's
+    launch overhead included). Where reps calls take under
+    PROFILE_CHECK_MS, torch.profiler reads the same calls too, and a
+    reading more than 10% off the queued one is logged (TIME_CHECKS
+    keeps every pair)."""
+    import torch
 
     for _ in range(3):
         fn()
@@ -288,12 +332,14 @@ def time_ms(fn, reps: int):
     end.record()
     torch.cuda.synchronize()
     call_ms = start.elapsed_time(end) / reps
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev_us = sum(_device_us(e) for e in prof.key_averages() if e.device_type.name == "CUDA")
-    return (dev_us / reps / 1e3 if dev_us > 0 else call_ms), call_ms
+    queued = time_queued_ms(fn, reps, spin_ms=reps * call_ms)
+    if reps * call_ms < PROFILE_CHECK_MS:
+        prof = profile_ms(fn, reps)
+        TIME_CHECKS.append((queued, prof))
+        if abs(prof - queued) > 0.1 * queued:
+            log(f"time check: queued events {queued:.5f} ms, profiler {prof:.5f} ms "
+                f"({prof / queued:.3f}x) over {reps} calls (call {call_ms:.5f} ms)")
+    return queued, call_ms
 
 
 def time_cold_ms(fn, reps: int, scrub) -> float:
@@ -2131,25 +2177,29 @@ def _parity_wire(engine, chunk) -> tuple[list, float]:
     return wire, wall
 
 
-def _variant_parity_engine(params, depth: int, dev: str):
+def _variant_parity_engine(params, depth: int, dev: str, shards: int = 0):
+    """The parity engine on `dev`, its lanes sharded over `shards` shards of
+    it when shards > 0 (a table a shard)."""
     from fishnet_tpu_torch.engine.gpu import GpuEngine
+    from fishnet_tpu_torch.parallel.mesh import make_mesh
 
     return GpuEngine(params=params, max_depth=depth, tt_size_log2=TT_PARITY_LOG2,
-                     helper_lanes=2, refill=True, device=dev)
+                     helper_lanes=2, refill=True, device=dev,
+                     mesh=make_mesh([dev] * shards) if shards else None)
 
 
 def _variant_parity_cpu(variant: str, n_positions: int, depth: int,
-                        params_blob: bytes) -> tuple[list, float]:
+                        params_blob: bytes, shards: int = 0) -> tuple[list, float]:
     """variant_parity_phase's CPU side in a worker process, one thread:
-    the pickled net's chunk of `variant` through GpuEngine on the CPU →
-    _parity_wire."""
+    the pickled net's chunk of `variant` through GpuEngine on the CPU (on
+    `shards` CPU shards when > 0) → _parity_wire."""
     import pickle
 
     import torch
 
     os.environ["FISHNET_TPU_MAX_PLY"] = str(VARIANT_PARITY_MAX_PLY)
     torch.set_num_threads(1)
-    engine = _variant_parity_engine(pickle.loads(params_blob), depth, "cpu")
+    engine = _variant_parity_engine(pickle.loads(params_blob), depth, "cpu", shards)
     return _parity_wire(engine, variant_chunk(variant, n_positions, depth))
 
 
@@ -2186,10 +2236,12 @@ def variant_parity_phase(params_f32, depth: int) -> None:
     VARIANT_PARITY_MAX_PLY: the responses equal (but for time and nps).
     Then, the same way, a standard chunk of BF16_PARITY_POSITIONS on the
     bf16 net (cast_params): card and CPU by the f32 rule, since K2's sums
-    differ from the plain version's in their last bits. The CPU sides,
-    nearly all of the phase's time, run at once in a pool of spawned
-    worker processes (one a chunk, at most one a core) while the card's
-    run here."""
+    differ from the plain version's in their last bits; and an int8
+    standard chunk of MESH_PARITY_POSITIONS on a MESH_SHARDS-shard mesh
+    (a table a shard), cuda:0's shards against CPU shards, responses
+    equal. The CPU sides, nearly all of the phase's time, run at once in
+    a pool of spawned worker processes (one a chunk, at most one a core)
+    while the card's run here."""
     import multiprocessing
     import pickle
     from concurrent.futures import ProcessPoolExecutor
@@ -2197,20 +2249,24 @@ def variant_parity_phase(params_f32, depth: int) -> None:
     from fishnet_tpu_torch.models import nnue
 
     params_i8 = nnue.quantize_int8(params_f32)
-    cases = [(v, v, "int8", params_i8, VARIANT_PARITY_POSITIONS) for v in VARIANTS] + [
+    cases = [(v, v, "int8", params_i8, VARIANT_PARITY_POSITIONS, 0) for v in VARIANTS] + [
+        (f"standard, {MESH_SHARDS}-shard mesh", "standard", "int8", params_i8,
+         MESH_PARITY_POSITIONS, MESH_SHARDS),
         ("standard, bf16 weights", "standard", "bf16", nnue.cast_params(params_f32),
-         BF16_PARITY_POSITIONS)]
+         BF16_PARITY_POSITIONS, 0)]
     saved = os.environ.get("FISHNET_TPU_MAX_PLY")
     os.environ["FISHNET_TPU_MAX_PLY"] = str(VARIANT_PARITY_MAX_PLY)
     workers = max(1, min(len(cases), os.cpu_count() or 1))
     try:
         with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
-            cpu = [pool.submit(_variant_parity_cpu, v, n, depth, pickle.dumps(net.to("cpu")))
-                   for _, v, _, net, n in cases]
-            for (label, v, kind, net, n), future in zip(cases, cpu):
+            cpu = [pool.submit(_variant_parity_cpu, v, n, depth, pickle.dumps(net.to("cpu")),
+                               shards) for _, v, _, net, n, shards in cases]
+            for (label, v, kind, net, n, shards), future in zip(cases, cpu):
                 chunk = variant_chunk(v, n, depth)
-                card, card_wall = _parity_wire(
-                    _variant_parity_engine(net.to("cuda"), depth, "cuda"), chunk)
+                engine = _variant_parity_engine(net.to("cuda"), depth, "cuda:0", shards)
+                if shards and (engine.n_dev != shards or len(engine.tt) != shards):
+                    raise AssertionError(f"variant parity {label}: {engine.n_dev} shards")
+                card, card_wall = _parity_wire(engine, chunk)
                 want, cpu_wall = future.result()
                 if kind == "int8" and card != want:
                     raise AssertionError(f"variant parity {label}: card {card} != cpu {want}")
@@ -2364,18 +2420,33 @@ def bf16_kernel_phase(params_f32, kb_f32, reps: int) -> dict:
     return stats
 
 
-def time_queued_ms(fn, reps: int) -> float:
+# cycles of the card's spin per ms (measured once, time_queued_ms)
+_SPIN_RATE: list = []
+
+
+def time_queued_ms(fn, reps: int, spin_ms: float = 0.0) -> float:
     """ms of one fn() on the card, reps calls back to back with a warm L2:
-    the card first spins (QUEUE_SPIN_CYCLES) while the host queues every
-    call, so the CUDA events around them read the card's time alone, not
-    the host's launch rate."""
+    the card first spins (QUEUE_SPIN_CYCLES, or longer than spin_ms, the
+    host's time to queue the calls, up to 5 s) while the host queues
+    every call, so the CUDA events around them read the card's time
+    alone, not the host's launch rate. A function that queues more
+    launches than the card's queue holds still reads the host's rate."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    if not _SPIN_RATE:  # the spin's cycles per ms on this card
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+        b.record()
+        torch.cuda.synchronize()
+        _SPIN_RATE.append(QUEUE_SPIN_CYCLES / max(a.elapsed_time(b), 1e-3))
+    cycles = int(min(max(QUEUE_SPIN_CYCLES, 1.25 * spin_ms * _SPIN_RATE[0]),
+                     5000 * _SPIN_RATE[0]))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+    torch.cuda._sleep(cycles)
     start.record()
     for _ in range(reps):
         fn()
@@ -2399,7 +2470,7 @@ def k12_warm_readings(kb_f32) -> None:
         b = playout_boards(1024, seed=seed)[0].to("cuda")
         fn = partial(nnue.evaluate, kb_f32, b.board, b.stm)
         for reps in (NET_REPS, REPS):
-            (prof, call), queued = time_ms(fn, reps), time_queued_ms(fn, reps)
+            (queued, call), prof = time_ms(fn, reps), profile_ms(fn, reps)
             log(f"K12 warm reading, f32 king-bucketed net B=1024 boards of seed {seed}, {reps} "
                 f"calls: profiler {prof:.5f} ms, queued events {queued:.5f} ms, call {call:.5f} ms")
 
@@ -2584,13 +2655,15 @@ def make_chunk(n_positions: int, depth: int):
 
 
 def engine_phase(params_f32, depth: int, n_positions: int, refill: bool,
-                 tt_on: bool = True, weights_path=None, label: str = ""):
+                 tt_on: bool = True, weights_path=None, label: str = "", mesh=None):
     """One chunk through GpuEngine: through the LaneScheduler (refill;
     each segment's occupancy logged) or chunk-serially (each dispatch
     logged), with the defaults' 2^21 table and helper lanes (tt_on) or
     with neither; on params_f32, or on the net GpuEngine(weights_path=)
-    loads; `label` is added to the path's name in the log. → (launches,
-    the wire responses without their times, steps, K11's body calls)."""
+    loads; on one device, or sharded over `mesh` (a table a shard, each
+    shard's steps logged); `label` is added to the path's name in the
+    log. → (launches, the wire responses without their times, steps,
+    K11's body calls)."""
     import numpy as np
     import torch
 
@@ -2599,6 +2672,7 @@ def engine_phase(params_f32, depth: int, n_positions: int, refill: bool,
     from fishnet_tpu_torch.engine.gpu import GpuEngine
     from fishnet_tpu_torch.models import nnue
     from fishnet_tpu_torch.ops import search
+    from fishnet_tpu_torch.parallel import mesh as mesh_mod
 
     steps, helpers = [], {}
 
@@ -2622,27 +2696,43 @@ def engine_phase(params_f32, depth: int, n_positions: int, refill: bool,
         kw["params"] = params_f32
     else:
         kw["weights_path"] = str(weights_path)
+    if mesh is not None:
+        kw["mesh"] = mesh
     engine = (GpuEngine if refill else CountingEngine)(max_depth=depth, **kw)
     net = nnue.net_kind(engine.params)
     path = ("engine chunk, " + ("refill" if refill else "chunk-serial")
             + ("" if tt_on else ", no table")
             + ("" if weights_path is None else f", {net} net {os.path.basename(weights_path)}")
             + (f", {label}" if label else "")
+            + ("" if mesh is None else f", {len(mesh)}-shard mesh")
             + (" (main path)" if refill and tt_on else ""))
-    slots = 0 if engine.tt is None else engine.tt.shape[0]
-    if engine.refill != refill or slots != (1 << 21 if tt_on else 0):
-        raise AssertionError(f"engine: refill {engine.refill}, {slots} slots")
+    tables = [] if engine.tt is None else engine.tt if mesh is not None else [engine.tt]
+    slots = {t.shape[0] for t in tables}
+    want = {1 << 21} if tt_on else set()
+    if engine.refill != refill or slots != want or len(tables) != (
+            (1 if mesh is None else len(mesh)) if tt_on else 0):
+        raise AssertionError(f"engine: refill {engine.refill}, {len(tables)} tables of {slots} "
+                             f"slots")
+    slots = sum(t.shape[0] for t in tables)
     assert engine.max_ply == 32, engine.max_ply
     chunk = make_chunk(n_positions, depth)
-    ran = []  # each segment call's step count
-    run_segment = search.run_segment
+    ran = []  # each segment call's step count (the largest shard's)
+    shard_launches = []  # each sharded segment call's shards
+    run_segment, run_sharded = search.run_segment, mesh_mod.run_segment_sharded
 
     def counted_segment(*args, **kwargs):
         out = run_segment(*args, **kwargs)
         ran.append(out[0])
         return out
 
+    def counted_sharded(*args, **kwargs):
+        out = run_sharded(*args, **kwargs)
+        ran.append(max(out[0]))
+        shard_launches.append(len(out[0]))
+        return out
+
     search.run_segment = counted_segment
+    mesh_mod.run_segment_sharded = counted_sharded
     kernels.reset_launches()
     t0 = time.monotonic()
     try:
@@ -2650,10 +2740,14 @@ def engine_phase(params_f32, depth: int, n_positions: int, refill: bool,
         torch.cuda.synchronize()
     finally:
         search.run_segment = run_segment
+        mesh_mod.run_segment_sharded = run_sharded
     wall = time.monotonic() - t0
     launches = check_launches(path, engine=True, net=net)
     log(f"{path}: {len(ran)} segment calls, {sum(n > 0 for n in ran)} of them ran steps "
         f"({sum(ran)} steps)")
+    if mesh is not None and sum(shard_launches) != launches["search_segment"]:
+        raise AssertionError(f"{path}: {launches['search_segment']} K11 launches in "
+                             f"{len(ran)} sharded segments of {shard_launches} shards")
     body_calls = kernels.body_calls()
     if len(responses) != len(chunk.positions):
         raise AssertionError(f"{len(responses)} responses for {len(chunk.positions)} positions")
@@ -2679,6 +2773,11 @@ def engine_phase(params_f32, depth: int, n_positions: int, refill: bool,
             f"device_ms {tot['device_ms']:.3f} aspiration {engine.aspiration_stats}")
         if tot["positions_done"] != len(responses):
             raise AssertionError(f"scheduler finished {tot['positions_done']} positions")
+        if mesh is not None:
+            per_shard = [sum(r["shard_steps"][i] for r in engine.occupancy_log)
+                         for i in range(len(mesh))]
+            extra += (f" transfers {tot['transfers']} steps a shard {per_shard} (max "
+                      f"{n_steps}: a boundary's step count is its largest shard's)")
     else:
         n_steps, extra = sum(steps), f"dispatches {len(steps)} helpers per depth {helpers}"
     log(f"{path}: {len(responses)} positions depth {depth} table {slots} slots, "
@@ -2911,6 +3010,337 @@ def profile_phase(params_f32, lanes: int, steps: int, tt_on: bool = False) -> No
             f"x{e.count / steps:<6.3f} {e.key[:90]}")
 
 
+# the mesh phase: MESH_SHARDS shards on cuda:0 (parallel/mesh.py), each
+# with its own lanes, table and CUDA stream
+MESH_SHARDS = 4
+MESH_LANES = 64  # the main path's width: 16 lanes a shard
+MESH_SEGMENT_CONFIGS = ("no table", "helpers")  # K11 a shard, without and with tables
+MESH_REFILL_LANES = 24  # lanes the K7-per-shard check splices
+MESH_PARITY_POSITIONS = 2  # positions of the int8 mesh chunk, card against CPU
+
+
+def _mesh():
+    from fishnet_tpu_torch.parallel import mesh as mesh_mod
+
+    return mesh_mod.make_mesh(["cuda:0"] * MESH_SHARDS)
+
+
+def _shard_spans(start, events) -> list:
+    """Each shard's (start, end) ms after `start` from run_segment_sharded's
+    events."""
+    return [(s, start.elapsed_time(a), start.elapsed_time(b)) for s, a, b in events]
+
+
+def mesh_segment_checks(params_f32) -> float:
+    """K11 a shard against run_segment_plain: a seeded MESH_LANES-lane state
+    split into MESH_SHARDS shards of cuda:0, without tables and with a
+    2^12-slot table a shard (helpers: jittered lanes, the prefer_deep store
+    under per-lane generations, colliding slots), over segments of
+    SEGMENT_STEPS steps in turn. Each shard's state and table after each
+    segment, its step count and its rows of the stacked summary equal
+    run_segment_plain run on a copy of that shard alone, byte for byte. →
+    the largest difference (0)."""
+    import numpy as np
+    import torch
+
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.ops import search
+    from fishnet_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh = _mesh()
+    local = MESH_LANES // MESH_SHARDS
+    worst = 0.0
+    for cfg in MESH_SEGMENT_CONFIGS:
+        state, table, kw = segment_case(params_f32, MESH_LANES, cfg, seed=700 + len(cfg),
+                                        dev=torch.device("cuda"))
+        shards = mesh_mod.shard_batch(mesh, state)
+        tables = None if table is None else mesh_mod.make_sharded_table(
+            mesh, int(table.shape[0]).bit_length() - 1)
+        gen = kw["tt_gen"]
+        plain = [_clone(sh, None if tables is None else tables[i])
+                 for i, sh in enumerate(shards)]
+        for steps in SEGMENT_STEPS:
+            n, stacked = mesh_mod.run_segment_sharded(
+                mesh, params_f32, shards, tables, steps, True, kw["deep_tt"], kw["prefer_deep"],
+                gen)
+            grid = kernels.LAST_GRID["blocks"]
+            rows, err = [], 0.0
+            for i, (pst, ptab) in enumerate(plain):
+                g = gen[i * local:(i + 1) * local] if torch.is_tensor(gen) else gen
+                n_p, summ = search.run_segment_plain(params_f32, pst, steps, True, ptab,
+                                                     kw["deep_tt"], kw["prefer_deep"], g)
+                torch.cuda.synchronize()
+                if n_p != n[i]:
+                    raise AssertionError(f"mesh {cfg} segment {steps}: shard {i} ran {n[i]} "
+                                         f"steps, plain {n_p}")
+                err = max(err, _state_diff(shards[i], pst, None if tables is None
+                                           else tables[i], ptab))
+                rows.append(summ.cpu().numpy())
+            err = max(err, float(np.abs(stacked.astype(np.int64)
+                                        - np.stack(rows).astype(np.int64)).max()))
+            done = int(stacked[:, :local, search.SUM_DONE].sum())
+            log(f"check search_segment mesh {MESH_SHARDS} shards x {local} lanes f32 {cfg} "
+                f"segment {steps}: steps a shard {n} (plain equal), done {done}/{MESH_LANES}, "
+                f"max_abs_err={err} (tolerance 0; states, tables, stacked summary == the "
+                f"plain summaries concatenated; grid {grid} blocks a shard)")
+            if err != 0:
+                raise AssertionError(f"mesh {cfg} segment {steps}: K11 a shard differs from "
+                                     f"run_segment_plain")
+            worst = max(worst, err)
+    return worst
+
+
+def mesh_segment_times(params_f32, reps: int) -> dict:
+    """The card time of one sharded segment (PROFILE_STEPS steps, the main
+    path's table setup: a 2^21-slot table a shard, prefer_deep, per-lane
+    generations) over MESH_SHARDS shards of cuda:0, CUDA events around
+    run_segment_sharded (the stacked summary's read included), with each
+    shard's K11 timed by its own events on its stream: whether the shards'
+    cooperative launches overlap, and how the span compares with their
+    sum. Then one shard's K11 alone (its 16 lanes, the same state), the
+    plain version's wall (every shard in turn) and the bound from the
+    bytes the sharded segment moves. → the kernels line's row stats."""
+    import torch
+
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.ops import search
+    from fishnet_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh = _mesh()
+    local = MESH_LANES // MESH_SHARDS
+    steps = PROFILE_STEPS
+    state0, _, kw = segment_case(params_f32, MESH_LANES, "engine", seed=MESH_LANES,
+                                 dev=torch.device("cuda"))
+    state = search.SearchState(*[t.clone() for t in state0])
+    shards = mesh_mod.shard_batch(mesh, state)
+    tables = mesh_mod.make_sharded_table(mesh, 21)
+    gen = kw["tt_gen"]
+
+    def restore():
+        for t, t0 in zip(state, state0):
+            t.copy_(t0)
+        for t in tables:
+            t.zero_()
+
+    def sharded(events=None):
+        return mesh_mod.run_segment_sharded(mesh, params_f32, shards, tables, steps, True,
+                                            False, True, gen, events=events)
+
+    sharded()  # warm up
+    times, spans, n = [], [], None
+    for _ in range(reps):
+        restore()
+        kernels.reset_launches()
+        events = []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        n, _ = sharded(events)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        spans.append(_shard_spans(start, events))
+    calls = kernels.body_calls()
+    ms = sum(times) / len(times)
+    # overlap: every shard's kernel running at one moment, in each rep
+    overlapped = all(max(a for _, a, _ in sp) < min(b for _, _, b in sp) for sp in spans)
+    busy = [sum(b - a for _, a, b in sp) for sp in spans]
+    span = [max(b for _, _, b in sp) - min(a for _, a, _ in sp) for sp in spans]
+    one = []
+    for _ in range(reps):
+        restore()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        n0, _ = search.run_segment(params_f32, shards[0], steps, True, tables[0], False, True,
+                                   gen[:local])
+        b.record()
+        torch.cuda.synchronize()
+        one.append(a.elapsed_time(b))
+    one_ms = sum(one) / len(one)
+    restore()
+    plain = [_clone(sh, tables[i]) for i, sh in enumerate(shards)]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for i, (pst, ptab) in enumerate(plain):
+        search.run_segment_plain(params_f32, pst, steps, True, ptab, False, True,
+                                 gen[i * local:(i + 1) * local])
+    torch.cuda.synchronize()
+    plain_ms = (time.monotonic() - t0) * 1e3
+    nbytes = segment_bytes(calls, 2 * 64 * 4)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"time search_segment mesh {MESH_SHARDS} shards x {local} lanes on one card, engine "
+        f"table setup (CUDA events, {reps} segments): {ms:.4f} ms per sharded segment, steps a "
+        f"shard {n} ({ms / max(n) * 1e3:.2f} us per step of the largest); shard spans (ms "
+        f"after the segment's start) {[[round(a, 4), round(b, 4)] for _, a, b in spans[-1]]}; "
+        f"shards overlapped in every segment: {overlapped}; kernel time summed over shards / "
+        f"span {sum(busy) / len(busy):.4f} / {sum(span) / len(span):.4f} ms; one shard alone "
+        f"{one_ms:.4f} ms for {n0} steps ({one_ms / max(n0, 1) * 1e3:.2f} us/step at {local} "
+        f"lanes); plain (shards in turn) {plain_ms:.1f} ms; bound {bound:.6f} ms (bytes, "
+        f"{nbytes} bytes; counters {calls})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": None, "steps_a_shard": n, "us_per_step": ms / max(n) * 1e3,
+            "one_shard_us_per_step": one_ms / max(n0, 1) * 1e3, "shards_overlapped": overlapped,
+            "kernel_ms_summed": sum(busy) / len(busy), "span_ms": sum(span) / len(span)}
+
+
+def mesh_refill_checks(params_f32, reps: int) -> dict:
+    """K7 a shard: refill_lanes_sharded on the card against
+    refill_lanes_sharded_plain (K7's plain version a shard) on copies of
+    a seeded-garbage MESH_LANES-lane state split into MESH_SHARDS shards
+    of cuda:0, MESH_REFILL_LANES scattered lanes spliced with playout
+    roots, depths, budgets, windows, jitters, groups and history seeds:
+    every shard byte for byte. Then the shards' K7 launches timed (queued
+    events) against their plain versions, and the bound from the bytes
+    they move. → the kernels line's row stats."""
+    import numpy as np
+    import torch
+
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.ops import search
+    from fishnet_tpu_torch.ops.movegen import MAX_MOVES
+    from fishnet_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh = _mesh()
+    local = MESH_LANES // MESH_SHARDS
+    dev = torch.device("cuda")
+    state, _, _ = lane_init_case(params_f32, MESH_LANES, MESH_LANES, 41, dev, MAX_MOVES)
+    rng = np.random.default_rng(43)
+    n = MESH_REFILL_LANES
+    lanes = rng.permutation(MESH_LANES)[:n]
+    roots, _ = playout_boards(n, seed=47)
+    splice = dict(
+        hist_hash=rng.integers(-2**31, 2**31, (n, search.MAX_HIST, 2), dtype=np.int64).astype(
+            np.int32),
+        hist_halfmove=rng.integers(-32000, 100, (n, search.MAX_HIST)).astype(np.int32),
+        root_alpha=rng.integers(-32500, 0, n).astype(np.int32),
+        root_beta=rng.integers(0, 32501, n).astype(np.int32),
+        order_jitter=np.where(np.arange(n) % 3, rng.integers(-2**31, 2**31, n), 0).astype(
+            np.int32),
+        group=rng.integers(0, MESH_LANES, n).astype(np.int32))
+    depth = rng.integers(0, 12, n).astype(np.int32)
+    budget = rng.integers(0, 2**31 - 1, n).astype(np.int32)
+    card = mesh_mod.shard_batch(mesh, search.SearchState(*[t.clone() for t in state]))
+    plain = mesh_mod.shard_batch(mesh, search.SearchState(*[t.clone() for t in state]))
+    kernels.reset_launches()
+    mesh_mod.refill_lanes_sharded(mesh, params_f32, card, roots, lanes, depth, budget, **splice)
+    torch.cuda.synchronize()
+    k7 = kernels.LAUNCHES["lane_init"]
+    mesh_mod.refill_lanes_sharded_plain(mesh, params_f32, plain, roots, lanes, depth, budget,
+                                        **splice)
+    torch.cuda.synchronize()
+    err = max(_state_diff(a, b, None, None) for a, b in zip(card, plain))
+    owners = sorted({int(x) // local for x in lanes})
+    log(f"check lane_init mesh {MESH_SHARDS} shards x {local} lanes: {n} lanes spliced on "
+        f"shards {owners} ({k7} K7 launches), max_abs_err={err} (tolerance 0; every shard "
+        f"against refill_lanes_sharded_plain)")
+    if err != 0 or k7 != len(owners):
+        raise AssertionError(f"mesh K7: error {err}, {k7} launches for shards {owners}")
+    # the shards' K7 launches alone, on their inputs (K1's rows from the card)
+    jobs, nbytes = [], 0
+    for s in owners:
+        sel = np.nonzero(lanes // local == s)[0]
+        idx, args = search._refill_inputs(
+            params_f32, card[s], search.Board(*[t[torch.from_numpy(sel)] for t in roots]),
+            lanes[sel] - s * local, depth[sel], budget[sel],
+            **{k: v[sel] for k, v in splice.items()})
+        jobs.append((card[s], idx, args))
+        nbytes += lane_init_bytes(card[s], idx, args)
+    (ms, call_ms), (plain_ms, _) = [
+        time_ms(lambda f=f: [f(st, idx, *args) for st, idx, args in jobs], reps)
+        for f in (kernels.lane_init, search.lane_init_plain)]
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"time lane_init mesh ({len(jobs)} shards' launches, {n} lanes): {ms:.5f} ms (call "
+        f"{call_ms:.5f}), plain {plain_ms:.5f} ms, bound {bound:.6f} ms (bytes, {nbytes} bytes)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None}
+
+
+def mesh_phase(params_f32, depth: int, n_positions: int) -> dict:
+    """The lane mesh on one card: MESH_SHARDS shards of cuda:0, each with
+    its own MESH_LANES / MESH_SHARDS lanes, table and CUDA stream. (1) the
+    board768 main path through GpuEngine(mesh=...) at its defaults (refill,
+    a 2^21-slot table a shard, K = 4 helpers, 64 lanes, f32): steps a
+    shard and the largest, segments, refills, nodes, wall, ms/step,
+    boundary host ms and transfers; it fails unless K1, K7 and K11 launched
+    (K11 once a shard and segment). (2) The chunk without tables or
+    helpers on the mesh and on one device: the same responses (lanes are
+    independent). (3) K11 a shard against run_segment_plain, without and
+    with tables; the sharded segment's time and whether the shards
+    overlap. (4) K7 a shard against its plain version. → the launches of
+    (1) and the two kernel rows' stats."""
+    mesh = _mesh()
+    launches, _, steps, _ = engine_phase(params_f32, depth, n_positions, refill=True, mesh=mesh)
+    sharded = engine_phase(params_f32, depth, n_positions, refill=True, tt_on=False,
+                           mesh=mesh)[1]
+    single = engine_phase(params_f32, depth, n_positions, refill=True, tt_on=False)[1]
+    if sharded != single:
+        raise AssertionError(f"mesh, no table: {sharded} != one device {single}")
+    log(f"mesh, no table: the {MESH_SHARDS}-shard chunk's {len(sharded)} responses equal the "
+        f"one-device chunk's (score, pv, depth, nodes, best move)")
+    seg = mesh_segment_times(params_f32, SEGMENT_REPS)
+    seg["max_abs_err"] = mesh_segment_checks(params_f32)
+    k7 = mesh_refill_checks(params_f32, REPS)
+    return {"launches": launches, "steps": steps, "search_segment": seg, "lane_init": k7}
+
+
+def main_path_run(root: str, reps: int) -> int:
+    """The one-card board768 main path (GpuEngine at its defaults: refill,
+    a 2^21 table, K = 4, f32; POSITIONS positions at DEPTH) `reps` times
+    in one process with the fishnet_tpu_torch package of the tree `root`,
+    each run's counts and times one JSON line. Uses only what every tree
+    of the port has, so an earlier commit's tree runs it too."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.engine.gpu import GpuEngine
+    from fishnet_tpu_torch.models import nnue
+
+    if not kernels.__file__.startswith(root):
+        raise AssertionError(f"imported {kernels.__file__}, not the tree {root}")
+    os.environ["FISHNET_TPU_MAX_PLY"] = "32"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.monotonic()
+    kernels.build()
+    build_s = time.monotonic() - t0
+    params = nnue.load_params(device="cuda")
+    for rep in range(reps):
+        engine = GpuEngine(params=params, max_depth=DEPTH)
+        chunk = make_chunk(POSITIONS, DEPTH)
+        t0 = time.monotonic()
+        responses = asyncio.run(engine.go_multiple(chunk))
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        tot = engine.occupancy_totals
+        print(json.dumps({
+            "tree": root, "rep": rep, "build_s": build_s, "wall_s": wall,
+            "responses": len(responses), "nodes": sum(r.nodes for r in responses),
+            **{k: tot[k] for k in ("steps", "segments", "refills", "host_ms", "device_ms")},
+        }), flush=True)
+    return 0
+
+
+def main_path_ab(parent: str, reps: int) -> int:
+    """The one-card main path of an earlier tree (`parent`, unpacked with
+    git archive) and of this one, in that order: parent, this, this,
+    parent, each in a process of its own (main_path_run), so host and
+    card drift show as the two parent runs' difference. Prints each run's
+    lines, then the card's name and power limit."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    for root in (parent, here, here, parent):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--main-path-run",
+                              root, str(reps)], capture_output=True, text=True, timeout=900)
+        sys.stdout.write(out.stdout)
+        if out.returncode:
+            sys.stderr.write(out.stderr[-4000:])
+            return out.returncode
+    print(card_line())
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2972,6 +3402,10 @@ def main() -> int:
     stats.update(part("K11 bf16", lambda: bf16_segment_phase(params, nets["kb f32"],
                                                              SEGMENT_REPS)))
     log(f"kernel phase: {time.monotonic() - t0:.1f} s")
+    off = [(q, p) for q, p in TIME_CHECKS if abs(p - q) > 0.1 * q]
+    log(f"time checks: {len(TIME_CHECKS)} readings of the kernel phase also profiled, "
+        f"{len(off)} more than 10% off the queued events (profiler / queued "
+        f"{sorted(round(p / q, 3) for q, p in off)})")
     phases = [
         ("profile", lambda: [profile_phase(params, lanes, PROFILE_STEPS, tt_on)
                              for lanes, tt_on in ((16, False), (1024, False), (64, True))]),
@@ -2980,6 +3414,8 @@ def main() -> int:
                                                                       POSITIONS)),
         ("search, bf16 king-bucketed net", lambda: bf16_kb_search_phase(nets["kb f32"],
                                                                         PARITY_DEPTH)),
+        ("mesh, 4 shards on one card (main path)", lambda: mesh_phase(params, DEPTH,
+                                                                      POSITIONS)),
         ("engine, Stockfish net (main path)", lambda: engine_phase(
             None, DEPTH, POSITIONS, refill=True, weights_path=sf_file(SF_L1, 7))),
         ("engine chunk-serial", lambda: engine_phase(params, SERIAL_DEPTH, POSITIONS,
@@ -3006,6 +3442,7 @@ def main() -> int:
     kb_launches, kb_steps, kb_calls = results["TT parity, king-bucketed net"]
     train_launches = results["train (main path)"]
     variant_paths = results["engine, variants (variant main paths)"]
+    mesh_run = results["mesh, 4 shards on one card (main path)"]
 
     sources = {
         "nnue_refresh_768": "fishnet_tpu/models/nnue.py:160",
@@ -3085,6 +3522,22 @@ def main() -> int:
         if base in kernels.K11_BODIES:
             row["in_k11_calls_per_step"] = calls[base] / max(steps, 1)
         rows.append(row)
+    # K11 and K7 a shard on the mesh main path (parallel/mesh.py's two
+    # shard_map'd programs)
+    for name, replaces in (("search_segment", "fishnet_tpu/parallel/mesh.py:79"),
+                           ("lane_init", "fishnet_tpu/parallel/mesh.py:174")):
+        st = mesh_run[name]
+        row = {"name": f"{name} per shard, {MESH_SHARDS}-shard mesh", "route": "cuda",
+               "source": f"fishnet_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+               "launches": mesh_run["launches"][name],
+               "path": f"engine, board768 net, {MESH_SHARDS}-shard mesh on one card",
+               **{k: st[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")}}
+        for k in ("us_per_step", "one_shard_us_per_step", "shards_overlapped",
+                  "kernel_ms_summed", "span_ms"):
+            if k in st:
+                row[k] = st[k]
+        rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3095,4 +3548,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--main-path-run"]:
+        sys.exit(main_path_run(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["--main-path-ab"]:
+        sys.exit(main_path_ab(sys.argv[2], int(sys.argv[3]) if len(sys.argv) > 3 else 3))
     sys.exit(main())

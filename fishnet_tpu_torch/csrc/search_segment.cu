@@ -141,29 +141,34 @@ __global__ void __launch_bounds__(THREADS) segment_kernel(const Segment<Net> a) 
     }
 }
 
+constexpr int MAX_DEVICES = 64;  // the occupancy cache's devices
+
 template <class Net, int V>
 int launch(Segment<Net> a, int* grid_out, cudaStream_t stream) {
-    static int blocks_per_sm = -1, sms = 0;
-    if (blocks_per_sm < 0) {
-        int dev;
-        cudaError_t e = cudaGetDevice(&dev);
-        if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    // the grid that fits, read once a device (the current one: each shard
+    // of a mesh launches under its own device)
+    static int blocks_per_sm[MAX_DEVICES], sms[MAX_DEVICES];
+    static bool known[MAX_DEVICES];
+    int dev;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+    if (!known[dev]) {
+        e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
         if (e == cudaSuccess) {
-            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_per_sm,
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_per_sm[dev],
                                                               segment_kernel<Net, V>, THREADS, 0);
         }
-        if (e != cudaSuccess) {
-            blocks_per_sm = -1;
-            return (int)e;
-        }
+        if (e != cudaSuccess) return (int)e;
+        known[dev] = true;
     }
-    if (blocks_per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    const int want = (a.B + WARPS - 1) / WARPS, fit = blocks_per_sm * sms;
+    if (blocks_per_sm[dev] < 1) return (int)cudaErrorInvalidConfiguration;
+    const int want = (a.B + WARPS - 1) / WARPS, fit = blocks_per_sm[dev] * sms[dev];
     const int grid = want < fit ? want : fit;
     *grid_out = grid;
     void* args[] = {&a};
-    cudaError_t e = cudaLaunchCooperativeKernel((const void*)segment_kernel<Net, V>, grid,
-                                                THREADS, args, 0, stream);
+    e = cudaLaunchCooperativeKernel((const void*)segment_kernel<Net, V>, grid, THREADS, args, 0,
+                                    stream);
     return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 

@@ -24,8 +24,18 @@ kernels; the scheduler runs one device variant per drive session, its
 state's move lists as wide as that variant's (crazyhouse's 544). A
 crazyhouse drop prints as "P@e4", as the reference's UCI does.
 
+The mesh: on a host with several cards, and no `device` given, the
+engine shards its lanes over all of them (parallel/mesh.py make_mesh());
+`mesh=` names the devices instead (a device may repeat: make_mesh(
+["cuda:0"] * 4) runs four shards on one card). Dispatch widths round up
+to a multiple of the shards, each shard has its own full-size table and
+advances on its own (one K11 a shard and segment), the scheduler admits
+each position to the shard with the most free lanes and logs per-shard
+occupancy columns, and FISHNET_TPU_MESH_REFILL=0 sends a meshed engine's
+chunks down the chunk-serial path.
+
 Not ported yet, and refused rather than run another way: move jobs,
-multipv, the mesh.
+multipv.
 """
 from __future__ import annotations
 
@@ -48,6 +58,7 @@ from ..ops.board import from_position, stack_boards
 from ..ops.movegen import DROP_FLAG
 from ..ops import search as search_ops
 from ..ops.search import HIST_HM_SENTINEL, INF, MATE, MAX_HIST, search_batch_resumable
+from ..parallel import mesh as mesh_mod
 from ..syncstats import SegmentController, SyncStats
 from .base import BatchEngine, EngineError
 
@@ -113,6 +124,11 @@ def _pad_lanes(n: int) -> int:
     return ((n + 255) // 256) * 256
 
 
+# GpuEngine's mesh argument when none is given (make_mesh() on a host
+# with several cards)
+_DEFAULT_MESH = object()
+
+
 class GpuEngine(BatchEngine):
     """Batched analysis engine. params: an nnue.NnueParams (board768 or
     king-bucketed) or an imported nnue_import.StockfishNet; without it,
@@ -127,7 +143,12 @@ class GpuEngine(BatchEngine):
     per position (None reads FISHNET_TPU_HELPERS, clamped to 1..16);
     max_lanes: the per-dispatch lane ceiling (None reads
     FISHNET_TPU_MAX_LANES); refill: continuous lane refill through the
-    LaneScheduler (None reads FISHNET_TPU_REFILL)."""
+    LaneScheduler (None reads FISHNET_TPU_REFILL). mesh: the devices
+    the lanes shard over (parallel/mesh.py), None for one device; by
+    default make_mesh() when no device is given and the host has several
+    cards, else None. device is then where the host-side work runs
+    (default the mesh's first device). mesh_refill: refill on a meshed
+    engine too (None reads FISHNET_TPU_MESH_REFILL)."""
 
     name = "gpu"
 
@@ -141,11 +162,27 @@ class GpuEngine(BatchEngine):
         helper_lanes: Optional[int] = None,
         refill: Optional[bool] = None,
         device=None,
+        mesh=_DEFAULT_MESH,
+        mesh_refill: Optional[bool] = None,
     ) -> None:
-        self.device = device_mod.resolve(device)
-        # one table for every lane and every chunk (0 disables it); chunks
-        # run one at a time under self._lock, so no two searches share it
-        self.tt = tt_mod.make_table(tt_size_log2, self.device) if tt_size_log2 else None
+        if mesh is _DEFAULT_MESH:
+            several = device is None and torch.cuda.is_available() and (
+                torch.cuda.device_count() > 1)
+            mesh = mesh_mod.make_mesh() if several else None
+        # lanes shard over the mesh's devices, each shard with its own table
+        self.mesh = None if mesh is None else mesh_mod.make_mesh(mesh)
+        self.n_dev = 1 if self.mesh is None else len(self.mesh)
+        self.device = device_mod.resolve(
+            device if device is not None or self.mesh is None else self.mesh[0])
+        # one table for every lane and every chunk (0 disables it; one a
+        # shard under a mesh); chunks run one at a time under self._lock,
+        # so no two searches share it
+        if not tt_size_log2:
+            self.tt = None
+        elif self.mesh is not None:
+            self.tt = mesh_mod.make_sharded_table(self.mesh, tt_size_log2)
+        else:
+            self.tt = tt_mod.make_table(tt_size_log2, self.device)
         # per-dispatch lane ceiling
         self.max_lanes = (max_lanes if max_lanes is not None
                           else settings.get_int("FISHNET_TPU_MAX_LANES"))
@@ -168,6 +205,9 @@ class GpuEngine(BatchEngine):
             else:
                 params = nnue.load_params(device=self.device)
         self.params = self._quantized(params).to(self.device)
+        # the net on each shard's device, once a distinct device
+        self.shard_params = None if self.mesh is None else mesh_mod.replicate(self.mesh,
+                                                                             self.params)
         self.max_depth = max_depth
         self.max_ply = settings.get_int("FISHNET_TPU_MAX_PLY")
         self.aspiration = (
@@ -179,6 +219,11 @@ class GpuEngine(BatchEngine):
         if refill is None:
             refill = settings.get_bool("FISHNET_TPU_REFILL")
         self.refill = bool(refill)
+        # a meshed engine's chunks through the scheduler too (0: the
+        # chunk-serial sharded path; no effect without a mesh)
+        if mesh_refill is None:
+            mesh_refill = settings.get_bool("FISHNET_TPU_MESH_REFILL")
+        self.mesh_refill = bool(mesh_refill)
         self._scheduler = LaneScheduler(self)
         # per-segment occupancy of the scheduler's sessions (the
         # reference's keys)
@@ -226,8 +271,8 @@ class GpuEngine(BatchEngine):
 
     def _go_multiple_sync(self, chunk: Chunk) -> List[PositionResponse]:
         work = chunk.work
-        if (self.refill and isinstance(work, AnalysisWork)
-                and work.effective_multipv() == 1):
+        if (self.refill and (self.mesh is None or self.mesh_refill)
+                and isinstance(work, AnalysisWork) and work.effective_multipv() == 1):
             return self._scheduler.run_chunk(chunk)
         with self._lock:
             return self._go_multiple_locked(chunk)
@@ -262,11 +307,12 @@ class GpuEngine(BatchEngine):
         helper_store: the depth-preferred, generation-aware store of
         helper dispatches."""
         out = search_batch_resumable(
-            self.params, roots, depth_arr, budget_arr, max_ply=self.max_ply,
+            self.params if self.mesh is None else self.shard_params, roots, depth_arr,
+            budget_arr, max_ply=self.max_ply,
             deadline=deadline, tt=self.tt, hist=hist, window=window,
             order_jitter=order_jitter, group=group, required=required,
             prefer_deep_store=helper_store, tt_gen=self._tt_gen if helper_store else 0,
-            device=self.device, variant=variant,
+            device=self.device, variant=variant, mesh=self.mesh,
         )
         self.tt = out.pop("tt")
         return out
@@ -358,13 +404,19 @@ class GpuEngine(BatchEngine):
                 break
         return out
 
+    def _pad(self, n: int) -> int:
+        """The lane bucket of n lanes, rounded up to a multiple of the
+        mesh's shards."""
+        b = _pad_lanes(n)
+        return -(-b // self.n_dev) * self.n_dev
+
     def _helper_width(self, n: int) -> int:
         """Dispatch width for n primaries: the lane bucket grown toward
         n*K so the planner has spare rows, never above max_lanes. K=1
         keeps the width without helpers."""
-        B = _pad_lanes(n)
+        B = self._pad(n)
         if self.helper_lanes > 1:
-            grown = _pad_lanes(min(n * self.helper_lanes, self.max_lanes))
+            grown = self._pad(min(n * self.helper_lanes, self.max_lanes))
             if grown <= max(self.max_lanes, B):
                 B = max(B, grown)
         return B
@@ -741,6 +793,11 @@ class LaneScheduler:
             filler = self._pending[0].board
         K = eng.helper_lanes
         B = eng._helper_width(min(max(n_hint, 1), eng.max_lanes))
+        # under a mesh B is a multiple of the shards, each owning `local`
+        # consecutive lanes; every shard is one this process fills
+        mesh = eng.mesh
+        n_shard = eng.n_dev
+        local = B // n_shard
         seg = settings.get_segment()
         ctrl = None
         if seg is None:  # FISHNET_TPU_SEGMENT=auto
@@ -765,6 +822,8 @@ class LaneScheduler:
         zeros = torch.zeros(B, dtype=torch.int32, device=dev)
         state = search_ops.init_state(eng.params, stack_boards([filler] * B).to(dev), zeros,
                                       zeros, eng.max_ply, variant=variant)
+        shards = None if mesh is None else mesh_mod.shard_batch(mesh, state)
+        states = shards or [state]  # the boundary reads' shards (one device: one)
         tt = eng.tt
 
         # admissions accumulated between boundaries, flushed as ONE
@@ -922,17 +981,17 @@ class LaneScheduler:
                 return  # _finalize waits in flush_pv for the PV row
             next_depth(job, lane)
 
-        def flush_pv(st, now: float):
+        def flush_pv(now: float):
             """Read the deferred PV rows (two small gathers), then finalize
             the jobs that waited only on them. Runs before flush_adm: a
             splice resets the spliced lanes' PV tables."""
             if not pv_pending:
                 return
-            rows = torch.as_tensor(np.asarray([e[1] for e in pv_pending], np.int64),
-                                   device=dev)
-            pv_rows = stats.fetch(st.pv[:, 0].index_select(0, rows), "pv")
-            pv_lens = stats.fetch(st.nt[:, 0, search_ops.NT_PVLEN].index_select(0, rows),
-                                  "pv_len")
+            lanes = [e[1] for e in pv_pending]
+            pv_rows = search_ops.fetch_rows(states, lanes, lambda x: x.pv[:, 0], stats, "pv")
+            pv_lens = search_ops.fetch_rows(states, lanes,
+                                            lambda x: x.nt[:, 0, search_ops.NT_PVLEN], stats,
+                                            "pv_len")
             for i, (job, _lane, depth, final) in enumerate(pv_pending):
                 job.pvs.set(1, depth, pv_list(pv_rows[i], pv_lens[i]))
                 if final:
@@ -958,13 +1017,25 @@ class LaneScheduler:
                         self._finalize(job, now)
 
         def admit_new(now: float):
-            # pending positions, earliest deadline first, into the free
-            # lanes in ascending order
-            free = [i for i in range(B) if lane_job[i] is None and lane_owner[i] is None]
+            # pending positions, earliest deadline first; each admission
+            # takes the lowest free lane of the shard with the most free
+            # lanes (the lowest such shard on a tie), so positions spread
+            # over the shards; on one device, the free lanes in ascending
+            # order
+            free_by_shard: List[List[int]] = [[] for _ in range(n_shard)]
+            for i in range(B):
+                if lane_job[i] is None and lane_owner[i] is None:
+                    free_by_shard[i // local].append(i)
+            n_free = sum(len(f) for f in free_by_shard)
+
+            def take_lane() -> int:
+                s = max(range(n_shard), key=lambda i: len(free_by_shard[i]))
+                return free_by_shard[s].pop(0)
+
             if not entry.event.is_set():
                 with self._q_lock:
                     self._pending.sort(key=lambda j: j.deadline)
-                    take = [j for j in self._pending if j.variant == variant][:len(free)]
+                    take = [j for j in self._pending if j.variant == variant][:n_free]
                     for j in take:
                         self._pending.remove(j)
                 for job in take:
@@ -972,45 +1043,76 @@ class LaneScheduler:
                         self._finalize(job, now, error="chunk deadline expired before "
                                                        "depth 1 completed")
                         continue
-                    admit_primary(job, free.pop(0))
+                    admit_primary(job, take_lane())
+                    n_free -= 1
                     active.append(job)
             # leftover free lanes run Lazy-SMP helpers
-            if K > 1 and tt is not None and free and active:
+            if K > 1 and tt is not None and n_free and active:
                 n_act = len(active)
                 cur = sum(len(j.helpers) for j in active)
                 hardness = [j.hardness if j.remaining > 0 else 0 for j in active]
-                plan = GpuEngine._plan_helpers(n_act, n_act + cur + len(free), K, hardness)
+                plan = GpuEngine._plan_helpers(n_act, n_act + cur + n_free, K, hardness)
                 want: dict = {}
                 for r, _h in plan:
                     want[r] = want.get(r, 0) + 1
                 for r, job in enumerate(active):
-                    while free and len(job.helpers) < want.get(r, 0):
-                        admit_helper(job, free.pop(0), len(job.helpers) + 1)
+                    while n_free and len(job.helpers) < want.get(r, 0):
+                        admit_helper(job, take_lane(), len(job.helpers) + 1)
+                        n_free -= 1
 
-        def flush_adm(st):
-            # the staged admissions in ONE in-place splice → admissions
+        def shard_occup():
+            """Busy (primary or helper) lanes a shard, or None without a
+            mesh: the per-shard occupancy column."""
+            if mesh is None:
+                return None
+            return [sum(1 for i in range(s * local, (s + 1) * local)
+                        if lane_job[i] is not None or lane_owner[i] is not None)
+                    for s in range(n_shard)]
+
+        def flush_adm():
+            # the staged admissions in ONE in-place splice (each shard's
+            # lanes spliced on its own under a mesh) → (admissions, per-shard
+            # admissions or None)
             n_adm = len(adm["lane"])
             if not n_adm:
-                return 0
-            search_ops.refill_lanes(
-                eng.params, st, stack_boards(adm["board"]), adm["lane"],
-                np.asarray(adm["depth"], np.int32), np.asarray(adm["budget"], np.int32),
+                return 0, None
+            adm_shard = None if mesh is None else np.bincount(
+                np.asarray(adm["lane"], np.int64) // local, minlength=n_shard).astype(
+                    int).tolist()
+            splice_args = (
+                stack_boards(adm["board"]), adm["lane"], np.asarray(adm["depth"], np.int32),
+                np.asarray(adm["budget"], np.int32))
+            splice_kw = dict(
                 hist_hash=np.stack(adm["hh"]), hist_halfmove=np.stack(adm["hm"]),
                 root_alpha=np.asarray(adm["alpha"], np.int32),
                 root_beta=np.asarray(adm["beta"], np.int32),
                 order_jitter=np.asarray(adm["jitter"], np.int32),
-                group=np.asarray(adm["group"], np.int32), variant=variant,
-            )
+                group=np.asarray(adm["group"], np.int32), variant=variant)
+            if mesh is None:
+                search_ops.refill_lanes(eng.params, state, *splice_args, **splice_kw)
+            else:
+                mesh_mod.refill_lanes_sharded(mesh, eng.shard_params, shards, *splice_args,
+                                              **splice_kw)
             for k in adm:
                 adm[k].clear()
-            return n_adm
+            return n_adm, adm_shard
 
         def dispatch(n_steps: int):
             """One segment over the state and table, in place, with each
-            lane's generation → (steps, packed summary)."""
+            lane's generation → (steps, packed summary); under a mesh
+            (steps of each shard, stacked host summary)."""
+            if mesh is not None:
+                return stats.device_call(mesh_mod.run_segment_sharded, mesh, eng.shard_params,
+                                         shards, tt, n_steps, None, False, prefer_deep,
+                                         gen.copy(), variant)
             return stats.device_call(search_ops.run_segment, eng.params, state, n_steps,
                                      None, tt, False, prefer_deep,
                                      torch.from_numpy(gen.copy()).to(dev), variant)
+
+        def shard_cols(live, refilled, steps):
+            return None if mesh is None else {
+                "shard_live": live, "shard_refilled": refilled or [0] * n_shard,
+                "shard_steps": steps}
 
         def charge_helpers(lane_done, nodes_row, staged=()):
             # helper lanes that parked on their own: charge and free
@@ -1032,20 +1134,21 @@ class LaneScheduler:
                     now = time.monotonic()
                     reap_jobs(now, res["nodes"] if res is not None else None)
                     admit_new(now)
-                    n_adm = flush_adm(state)
+                    n_adm, adm_shard = flush_adm()
                     if not active:
                         break  # nothing running; the next session continues
                     live_n = len(active)
                     helper_n = sum(len(j.helpers) for j in active)
+                    shard_live = shard_occup()
                     disp_steps = seg
-                    _n, summ = dispatch(seg)
-                    n = int(stats.fetch(summ[B, search_ops.SUM_DONE], "steps"))
+                    n, shard_steps = search_ops.boundary_steps(dispatch(seg), B, stats, mesh)
                     q_len = q_len_locked()
-                    lane_done = stats.fetch(
-                        state.lane[:, search_ops.LN_MODE] == search_ops.MODE_DONE, "done")
-                    res = {k: stats.fetch(v, k)
-                           for k, v in search_ops.extract_results(state, 0).items()
-                           if k != "steps"}
+                    lane_done = search_ops.fetch_lanes(
+                        [x.lane[:, search_ops.LN_MODE] == search_ops.MODE_DONE for x in states],
+                        stats, "done")
+                    parts = [search_ops.extract_results(x, 0) for x in states]
+                    res = {k: search_ops.fetch_lanes([p[k] for p in parts], stats, k)
+                           for k in parts[0] if k != "steps"}
                     now = time.monotonic()
                     charge_helpers(lane_done, res["nodes"])
                     for lane in range(B):
@@ -1055,7 +1158,8 @@ class LaneScheduler:
                     snap = stats.boundary()
                     self._record_occupancy(B, n, live_n, helper_n, n_adm, q_len,
                                            snap["host_ms"], snap["device_ms"],
-                                           snap["transfers"])
+                                           snap["transfers"],
+                                           shard_cols(shard_live, adm_shard, shard_steps))
                     if ctrl is not None:
                         seg = ctrl.update(n >= disp_steps, snap["host_ms"], snap["device_ms"])
             else:
@@ -1066,15 +1170,14 @@ class LaneScheduler:
                 now = time.monotonic()
                 reap_jobs(now, None)
                 admit_new(now)
-                n_adm = flush_adm(state)
+                n_adm, adm_shard = flush_adm()
                 pend = None
                 if active:
                     pend_meta = (len(active), sum(len(j.helpers) for j in active), n_adm,
-                                 q_len_locked())
+                                 q_len_locked(), shard_occup(), adm_shard)
                     pend_steps = seg
                     pend = dispatch(seg)
                 while pend is not None:
-                    _p_n, p_summ = pend
                     nxt = None
                     now = time.monotonic()
                     margin = now + 2.0 * last_device_s
@@ -1083,11 +1186,11 @@ class LaneScheduler:
                         # nothing staged, no PV owed, nothing queued, no
                         # deadline within ~2 segments: the synchronous loop
                         # would run the next segment unchanged
-                        nxt_meta = (len(active), sum(len(j.helpers) for j in active), 0, 0)
+                        nxt_meta = (len(active), sum(len(j.helpers) for j in active), 0, 0,
+                                    shard_occup(), None)
                         nxt_steps = seg
                         nxt = dispatch(seg)
-                    raw = stats.fetch(p_summ, "summary")
-                    summ, n = raw[:B], int(raw[B, search_ops.SUM_DONE])
+                    summ, n, shard_steps = search_ops.boundary_summary(pend, B, stats, mesh)
                     lane_done = summ[:, search_ops.SUM_DONE].astype(bool)
                     nodes_row = summ[:, search_ops.SUM_NODES]
                     # lanes whose park was handled at an earlier boundary
@@ -1106,21 +1209,22 @@ class LaneScheduler:
                     admit_new(now)
                     if nxt is None:
                         # the PV rows are read before the splice below
-                        flush_pv(state, now)
+                        flush_pv(now)
                     snap = stats.boundary()
                     last_device_s = snap["device_ms"] / 1000.0
-                    self._record_occupancy(B, n, *pend_meta, snap["host_ms"],
-                                           snap["device_ms"], snap["transfers"])
+                    self._record_occupancy(B, n, *pend_meta[:4], snap["host_ms"],
+                                           snap["device_ms"], snap["transfers"],
+                                           shard_cols(*pend_meta[4:], shard_steps))
                     if ctrl is not None:
                         seg = ctrl.update(n >= pend_steps, snap["host_ms"], snap["device_ms"])
                     if nxt is not None:
                         pend, pend_meta, pend_steps = nxt, nxt_meta, nxt_steps
                         continue
-                    n_adm = flush_adm(state)
+                    n_adm, adm_shard = flush_adm()
                     if not active:
                         break  # the next session handles the rest
                     pend_meta = (len(active), sum(len(j.helpers) for j in active), n_adm,
-                                 q_len_locked())
+                                 q_len_locked(), shard_occup(), adm_shard)
                     pend_steps = seg
                     pend = dispatch(seg)
         except BaseException as e:
@@ -1138,7 +1242,7 @@ class LaneScheduler:
             raise
 
     def _record_occupancy(self, width, steps, live, helpers, refilled, queue, host_ms,
-                          device_ms, transfers):
+                          device_ms, transfers, shard=None):
         tot = self.engine.occupancy_totals
         idle = width - live - helpers
         tot["host_ms"] += host_ms
@@ -1157,10 +1261,15 @@ class LaneScheduler:
         tot["idle_lane_steps"] += steps * idle
         tot["refills"] += refilled
         log = self.engine.occupancy_log
-        log.append({
+        row = {
             "segment": tot["segments"], "width": width, "steps": steps, "live": live,
             "helpers": helpers, "idle": idle, "refilled": refilled, "queue": queue,
             "transfers": transfers, "host_ms": host_ms, "device_ms": device_ms,
-        })
+        }
+        if shard is not None:
+            # mesh sessions: busy lanes (primaries and helpers), admissions
+            # and step counts a shard
+            row.update(shard)
+        log.append(row)
         if len(log) > 4096:
             del log[:-4096]

@@ -81,7 +81,7 @@ LAUNCHES_BY_ENTRY: dict = {}
 # K11's counters since the last reset, on the device: (K11_COUNTERS,)
 # int64 per device, each launch adding its warps' counts at its end
 _body_calls: dict = {}
-# K11's per-slot claim words per device (_claim_words)
+# K11's per-slot claim words per device and stream (_claim_words)
 _claims: dict = {}
 
 _P = ctypes.c_void_p
@@ -398,11 +398,14 @@ def build() -> float:
         return time.monotonic() - t0
 
 
-def _launch(kernel: str, sym: str, *args) -> None:
+def _launch(kernel: str, sym: str, device: torch.device, *args) -> None:
+    """Launch entry point `sym` on `device`, the card its tensors lie on:
+    with that card current (the runtime launches on the current device)
+    and on its current stream, whichever card is current for the caller."""
     if not _fns:
         build()
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = _fns[sym](*args, stream)
+    with torch.cuda.device(device):
+        rc = _fns[sym](*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{sym} launch failed: CUDA error {rc}")
     LAUNCHES[kernel] += 1
@@ -462,7 +465,7 @@ def nnue_refresh_768(boards: torch.Tensor, ft_w: torch.Tensor,
         raise ValueError(f"L1 {l1} is outside the kernel's 1..256 columns")
     acc = torch.empty((B, 2, l1), dtype=adt, device=boards.device)
     if B:
-        _launch("nnue_refresh_768", f"nnue_refresh_768_{tag}",
+        _launch("nnue_refresh_768", f"nnue_refresh_768_{tag}", boards.device,
                 boards.data_ptr(), ft_w.data_ptr(), ft_b.data_ptr(),
                 acc.data_ptr(), B, l1)
     return acc
@@ -483,7 +486,7 @@ def nnue_acc_update_768(acc: torch.Tensor, codes: torch.Tensor,
         raise ValueError(f"L1 {l1} is outside the kernel's 1..256 columns")
     out = torch.empty_like(acc)
     if B:
-        _launch("nnue_acc_update_768", f"nnue_acc_update_768_{tag}",
+        _launch("nnue_acc_update_768", f"nnue_acc_update_768_{tag}", acc.device,
                 acc.data_ptr(), codes.data_ptr(), sqs.data_ptr(),
                 signs.data_ptr(), ft_w.data_ptr(), out.data_ptr(), B, l1)
     return out
@@ -526,7 +529,7 @@ def nnue_forward_from_acc(acc: torch.Tensor, stm: torch.Tensor,
     _check(bucket, "bucket", torch.int32, (B,))
     out = torch.empty((B,), dtype=torch.float32, device=acc.device)
     if B:
-        _launch("nnue_forward_from_acc", f"nnue_forward_from_acc_{tag}",
+        _launch("nnue_forward_from_acc", f"nnue_forward_from_acc_{tag}", acc.device,
                 acc.data_ptr(), stm.data_ptr(), bucket.data_ptr(),
                 params.l1_w.data_ptr(), params.l1_b.data_ptr(),
                 params.l2_w.data_ptr(), params.l2_b.data_ptr(),
@@ -576,7 +579,7 @@ def nnue_evaluate(boards: torch.Tensor, stm: torch.Tensor, params) -> torch.Tens
     tag, widths, ptrs = _kb_weights(params)
     out = torch.empty((B,), dtype=torch.float32, device=boards.device)
     if B:
-        _launch("nnue_evaluate", f"nnue_evaluate_{tag}", boards.data_ptr(), sb,
+        _launch("nnue_evaluate", f"nnue_evaluate_{tag}", boards.device, boards.data_ptr(), sb,
                 stm.data_ptr(), ss, *ptrs, out.data_ptr(), B, *widths)
     return out
 
@@ -591,7 +594,7 @@ def nnue_evaluate_sf(boards: torch.Tensor, stm: torch.Tensor, net) -> torch.Tens
     l1, ptrs = _sf_weights(net)
     out = torch.empty((B,), dtype=torch.float32, device=boards.device)
     if B:
-        _launch("nnue_evaluate_sf", "nnue_evaluate_sf", boards.data_ptr(), sb,
+        _launch("nnue_evaluate_sf", "nnue_evaluate_sf", boards.device, boards.data_ptr(), sb,
                 stm.data_ptr(), ss, *ptrs, out.data_ptr(), B, l1)
     return out
 
@@ -639,7 +642,7 @@ def zobrist_hash(board: torch.Tensor, stm: torch.Tensor, ep: torch.Tensor,
     _check(z2, "z2", torch.int32, (Z_KEYS,))
     out = torch.empty((B, 2), dtype=torch.int32, device=board.device)
     if B:
-        _launch("zobrist_hash", sym,
+        _launch("zobrist_hash", sym, board.device,
                 board.data_ptr(), sb, stm.data_ptr(), ss, ep.data_ptr(), se,
                 castling.data_ptr(), sc, *ext, z1.data_ptr(), z2.data_ptr(),
                 out.data_ptr(), B)
@@ -685,9 +688,9 @@ def tt_probe(table: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor,
     if B:
         args = [a for t, s in zip((h1, h2, depth_left, alpha, beta), strides)
                 for a in (t.data_ptr(), s)]
-        _launch("tt_probe", "tt_probe", table.data_ptr(), n, *args, enter.data_ptr(),
-                int(bool(deep_bounds)), usable.data_ptr(), score.data_ptr(),
-                order.data_ptr(), B)
+        _launch("tt_probe", "tt_probe", table.device, table.data_ptr(), n, *args,
+                enter.data_ptr(), int(bool(deep_bounds)), usable.data_ptr(),
+                score.data_ptr(), order.data_ptr(), B)
     return usable, score, order
 
 
@@ -715,8 +718,8 @@ def tt_store(table: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor,
         gen_int = int(gen)
     if B:
         args = [a for (_, t), s in zip(cols, strides) for a in (t.data_ptr(), s)]
-        _launch("tt_store", "tt_store", table.data_ptr(), n, *args, mask.data_ptr(),
-                gen_ptr, gen_int, int(bool(prefer_deep)), B)
+        _launch("tt_store", "tt_store", table.device, table.data_ptr(), n, *args,
+                mask.data_ptr(), gen_ptr, gen_int, int(bool(prefer_deep)), B)
     return table
 
 
@@ -773,7 +776,7 @@ def lane_init(state, lane_idx: torch.Tensor, rows: torch.Tensor, root_acc: torch
     _check(hist_hash, "hist_hash (rows)", torch.int32, (n, MAX_HIST, 2))
     _check(hist_halfmove, "hist_halfmove (rows)", torch.int32, (n, MAX_HIST))
     if n:
-        _launch("lane_init", "lane_init", *[t.data_ptr() for t in state],
+        _launch("lane_init", "lane_init", state.lane.device, *[t.data_ptr() for t in state],
                 lane_idx.data_ptr(), rows.data_ptr(), root_acc.data_ptr(),
                 *[t.data_ptr() for t in cols], hist_hash.data_ptr(),
                 hist_halfmove.data_ptr(), B, n, p1, max_moves, l1)
@@ -793,8 +796,8 @@ def node_rules(board: torch.Tensor, stm: torch.Tensor, extra=None,
     out = torch.empty((2, B), dtype=torch.bool, device=board.device)
     term = torch.empty((B,), dtype=torch.int32, device=board.device)
     if B:
-        _launch("node_rules", sym, board.data_ptr(), sb, stm.data_ptr(), ss, *ext,
-                out[0].data_ptr(), out[1].data_ptr(), term.data_ptr(), B)
+        _launch("node_rules", sym, board.device, board.data_ptr(), sb, stm.data_ptr(), ss,
+                *ext, out[0].data_ptr(), out[1].data_ptr(), term.data_ptr(), B)
     return out[0], out[1], term
 
 
@@ -825,7 +828,7 @@ def generate_moves(board: torch.Tensor, stm: torch.Tensor, ep: torch.Tensor,
     counts = torch.empty((2, B), dtype=torch.int32, device=board.device)
     if B:
         args = [a for t, s in zip((board, stm, ep, castling), strides) for a in (t.data_ptr(), s)]
-        _launch("generate_moves", sym, *args, *opt, moves.data_ptr(),
+        _launch("generate_moves", sym, board.device, *args, *opt, moves.data_ptr(),
                 counts[0].data_ptr(), counts[1].data_ptr(), B)
     return moves, counts[0], counts[1]
 
@@ -847,7 +850,7 @@ def make_move(board: torch.Tensor, stm: torch.Tensor, ep: torch.Tensor,
     child = torch.empty((B, BT_W), dtype=torch.int32, device=board.device)
     changes = torch.empty((3, B, 4), dtype=torch.int32, device=board.device)
     if B:
-        _launch("make_move", sym, *args, child.data_ptr(),
+        _launch("make_move", sym, child.device, *args, child.data_ptr(),
                 *[c.data_ptr() for c in changes], B)
     return child, changes[0], changes[1], changes[2]
 
@@ -855,10 +858,13 @@ def make_move(board: torch.Tensor, stm: torch.Tensor, ep: torch.Tensor,
 def _claim_words(device: torch.device, n: int) -> torch.Tensor:
     """K11's per-slot claim words for a table of n rows on `device`: one
     int32 a slot, all -1 between stores (a store's winners reset theirs),
-    so one buffer, grown to the largest table, serves every table."""
-    words = _claims.get(device.index)
+    so one buffer, grown to the largest table, serves every table of the
+    launches on one stream. Launches on separate streams (the shards of
+    parallel/mesh.py) may run at once, so each stream has its own."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    words = _claims.get(key)
     if words is None or words.shape[0] < n:
-        words = _claims[device.index] = torch.full((n,), -1, dtype=torch.int32, device=device)
+        words = _claims[key] = torch.full((n,), -1, dtype=torch.int32, device=device)
     return words
 
 
@@ -890,7 +896,7 @@ def _segment_net(params):
 
 def search_segment(params, state, steps: int, pruning: bool, table=None,
                    deep_tt: bool = False, prefer_deep: bool = False, gen=0,
-                   variant: str = "standard") -> torch.Tensor:
+                   variant: str = "standard", out=None) -> torch.Tensor:
     """K11: up to `steps` lockstep search steps of every lane of `state`
     (ops/search.py SearchState on the card, updated in place), stopping
     once every lane is DONE, with the TT runner around each step when
@@ -902,8 +908,11 @@ def search_segment(params, state, steps: int, pruning: bool, table=None,
     and accumulator dtype, and only a board768 net outside atomic reads
     or writes it. gen: an int or a
     (B,) int32 CUDA tensor of generations for the prefer_deep store.
-    variant: the device variant (each has its own instantiations). One
-    cooperative launch; raises if the card refuses it."""
+    variant: the device variant (each has its own instantiations). out:
+    None, or the contiguous (B+1, 4) int32 tensor on the state's device
+    to write the summary into (a shard's rows of parallel/mesh.py's
+    stacked summary). One cooperative launch on the current stream;
+    raises if the card refuses it."""
     from .ops.movegen import max_moves_for
 
     B, p1, max_moves, l1 = _check_state(state)
@@ -939,8 +948,13 @@ def search_segment(params, state, steps: int, pruning: bool, table=None,
     else:
         gen_int = int(gen)
     steps = max(0, min(int(steps), 2**31 - 1))
+    if out is None:
+        out = torch.empty((B + 1, 4), dtype=torch.int32, device=dev)
+    _check(out, "out", torch.int32, (B + 1, 4))
+    if out.device != dev:
+        raise ValueError(f"out is on {out.device}, the state on {dev}")
     if not B:  # no lane: no step
-        return torch.zeros((1, 4), dtype=torch.int32, device=dev)
+        return out.zero_()
     counts = _body_calls.get(dev.index)
     if counts is None:
         counts = _body_calls[dev.index] = torch.zeros(len(K11_COUNTERS), dtype=torch.int64,
@@ -949,18 +963,17 @@ def search_segment(params, state, steps: int, pruning: bool, table=None,
 
     z1, z2 = zobrist_tables(dev)
     scratch = torch.empty(B * SEGMENT_SCRATCH + 4, dtype=torch.int32, device=dev)
-    summary = torch.empty((B + 1, 4), dtype=torch.int32, device=dev)
     grid = ctypes.c_int(0)
-    _launch("search_segment", sym,
+    _launch("search_segment", sym, dev,
             *[t.data_ptr() for t in state], *ptrs,
             z1.data_ptr(), z2.data_ptr(),
             None if table is None else table.data_ptr(), n_rows,
             None if claims is None else claims.data_ptr(), gen_ptr, gen_int,
-            scratch.data_ptr(), counts.data_ptr(), summary.data_ptr(),
+            scratch.data_ptr(), counts.data_ptr(), out.data_ptr(),
             B, p, MAX_HIST, steps, int(bool(pruning)), int(bool(deep_tt)),
             int(bool(prefer_deep)), *widths, ctypes.addressof(grid))
     LAST_GRID["blocks"] = grid.value
-    return summary
+    return out
 
 
 def nnue_stack_backward(acc: torch.Tensor, stm: torch.Tensor, bucket: torch.Tensor,
@@ -982,7 +995,7 @@ def nnue_stack_backward(acc: torch.Tensor, stm: torch.Tensor, bucket: torch.Tens
     _check(grad, "grad", torch.float32, (STACK_GRADS,))
     d_acc = torch.empty_like(acc)
     scratch = torch.empty((B, STACK_SCRATCH_W), dtype=torch.float32, device=acc.device)
-    _launch("nnue_stack_backward", "nnue_stack_backward",
+    _launch("nnue_stack_backward", "nnue_stack_backward", acc.device,
             acc.data_ptr(), stm.data_ptr(), bucket.data_ptr(), d_pred.data_ptr(),
             *[t.data_ptr() for t in params[2:]], d_acc.data_ptr(), grad.data_ptr(),
             scratch.data_ptr(), B)
@@ -999,7 +1012,7 @@ def nnue_ft_backward_768(d_acc: torch.Tensor, boards: torch.Tensor, grad: torch.
     _check(grad, "grad", torch.float32, ((768 + 1) * l1,))
     if not 0 < l1 <= 1024:
         raise ValueError(f"L1 {l1} is outside the kernel's 1..1024 columns")
-    _launch("nnue_ft_backward_768", "nnue_ft_backward_768",
+    _launch("nnue_ft_backward_768", "nnue_ft_backward_768", d_acc.device,
             d_acc.data_ptr(), boards.data_ptr(), grad.data_ptr(), B, l1)
 
 
@@ -1014,5 +1027,6 @@ def adam_update(params: torch.Tensor, grad: torch.Tensor, mu: torch.Tensor, nu: 
     for name, t in (("params", params), ("grad", grad), ("mu", mu), ("nu", nu)):
         _check(t, name, torch.float32, (n,))
     if n:
-        _launch("adam_update", "adam_update", params.data_ptr(), grad.data_ptr(),
-                mu.data_ptr(), nu.data_ptr(), n, -lr, b1, 1 - b1, b2, 1 - b2, eps, bc1, bc2)
+        _launch("adam_update", "adam_update", params.device, params.data_ptr(),
+                grad.data_ptr(), mu.data_ptr(), nu.data_ptr(), n, -lr, b1, 1 - b1, b2,
+                1 - b2, eps, bc1, bc2)

@@ -59,6 +59,11 @@ lanes of a running state in place (K1 on the new roots of a board768
 net, then K7 writes those lanes; every other lane keeps its state bit for bit), and
 `search_stream` streams N positions through a fixed width, refilling
 DONE lanes at segment boundaries.
+
+The lane mesh: `search_stream(mesh=...)` and
+`search_batch_resumable(mesh=...)` shard the lanes over the devices of a
+parallel/mesh.py mesh, each shard advancing and refilled on its own (one
+K11 and one K7 a shard), with a table a shard.
 """
 from __future__ import annotations
 
@@ -799,12 +804,14 @@ def _tt_step(params: nnue.NnueParams, s: SearchState, pruning: bool,
 def run_segment(params: nnue.NnueParams, state: SearchState,
                 segment_steps: int, pruning: bool | None = None, table=None,
                 deep_tt: bool = False, prefer_deep: bool = False, tt_gen=0,
-                variant: str = "standard"):
+                variant: str = "standard", out=None):
     """Advance all lanes <= segment_steps steps, stopping once every lane
     is DONE. → (steps, summary): steps counts the steps in which any lane
     was live (the reference's while-loop count); summary is the packed
     (B+1, 4) int32 boundary summary (done, nodes, root score, root move;
-    row B carries the step count).
+    row B carries the step count), written into `out` when it is given
+    (a contiguous (B+1, 4) int32 tensor on the state's device: a shard's
+    rows of parallel/mesh.py's stacked summary).
 
     table: the shared (n, 4) TT, updated in place, or None. deep_tt: the
     probe also cuts on deeper bounds (ops/tt.py probe deep_bounds).
@@ -821,15 +828,16 @@ def run_segment(params: nnue.NnueParams, state: SearchState,
         pruning = not settings.get_bool("FISHNET_TPU_NO_PRUNING")
     if state.lane.device.type == "cpu":
         return run_segment_plain(params, state, segment_steps, pruning, table, deep_tt,
-                                 prefer_deep, tt_gen, variant)
+                                 prefer_deep, tt_gen, variant, out)
     summary = kernels.search_segment(params, state, segment_steps, pruning, table, deep_tt,
-                                     prefer_deep, tt_gen, variant)
+                                     prefer_deep, tt_gen, variant, out=out)
     return int(summary[-1, SUM_DONE]), summary
 
 
 def run_segment_plain(params: nnue.NnueParams, state: SearchState, segment_steps: int,
                       pruning: bool, table=None, deep_tt: bool = False,
-                      prefer_deep: bool = False, tt_gen=0, variant: str = "standard"):
+                      prefer_deep: bool = False, tt_gen=0, variant: str = "standard",
+                      out=None):
     """K11's plain version: the reference's while loop (a step while any
     lane is live, at most segment_steps) over `_step`, or `_tt_step` with
     a table, then the packed summary; the same arguments and results as
@@ -849,6 +857,9 @@ def run_segment_plain(params: nnue.NnueParams, state: SearchState, segment_steps
         ], 1),
         torch.full((1, SUM_W), n, dtype=_I32, device=lane.device),
     ])
+    if out is not None:
+        out.copy_(summary)
+        summary = out
     return n, summary
 
 
@@ -891,12 +902,19 @@ def search_batch_resumable(
     tt_gen: int = 0,
     device=None,
     variant: str = "standard",
+    mesh=None,
 ) -> dict:
     """Search B roots in lockstep, dispatched in bounded segments, under
     the device variant `variant`.
 
     Runs on `device` (default: the card; the params and roots are moved
-    there). depth/node_budget: scalars or (B,). hist: optional
+    there), or with `mesh` (parallel/mesh.py) sharded over its devices: B
+    must divide over them, params may be one net a shard (replicate), the
+    state is built on `device` (default the mesh's first) and split, each
+    shard advances on its own (one K11 a shard and segment) and a
+    segment's step count is the largest shard's; tt is then None or one
+    table a shard (make_sharded_table), and nothing narrows (shards keep
+    their width). depth/node_budget: scalars or (B,). hist: optional
     (hist_hash (B, MAX_HIST, 2), hist_halfmove (B, MAX_HIST)) game tails;
     window: optional (root_alpha (B,), root_beta (B,)) aspiration window —
     a root whose value falls outside reports the bound.
@@ -924,14 +942,17 @@ def search_batch_resumable(
 
     Returns numpy arrays keyed score, move, pv (B, P), pv_len, nodes,
     done, the int step count "steps", and "tt" (the table, or None)."""
-    dev = device_mod.resolve(device)
+    dev = device_mod.resolve(device if device is not None or mesh is None else mesh[0])
     if segment_steps is None:
         segment_steps = settings.get_segment()
         if segment_steps is None:
             segment_steps = settings.get_int("FISHNET_TPU_SEGMENT_MAX")
     narrow_floor = settings.get_int("FISHNET_TPU_NARROW_FLOOR")
     pruning = not settings.get_bool("FISHNET_TPU_NO_PRUNING")
-    params = params.to(dev)
+    # under a mesh params may be one net a shard (parallel/mesh.py
+    # replicate), so a caller that keeps them pays no copy a dispatch
+    nets = params if isinstance(params, list) else None
+    params = (params[0] if nets else params).to(dev)
     roots = roots.to(dev)
     B = roots.board.shape[0]
     hist_hash, hist_halfmove = (None, None) if hist is None else (
@@ -945,7 +966,15 @@ def search_batch_resumable(
         order_jitter=None if order_jitter is None else _lanes(order_jitter, B, dev),
         group=None if group is None else _lanes(group, B, dev), variant=variant,
     )
-    if tt is not None and tt.device != roots.board.device:
+    shards = None
+    if mesh is not None:
+        from ..parallel import mesh as mesh_mod
+
+        mesh = mesh_mod.make_mesh(mesh)
+        shards = mesh_mod.shard_batch(mesh, state)
+        nets = nets or mesh_mod.replicate(mesh, params)
+        _check_tables(tt, mesh)
+    elif tt is not None and tt.device != roots.board.device:
         raise ValueError(f"the table is on {tt.device}, the search on {roots.board.device}")
     req = None if required is None else np.asarray(required, bool).copy()
 
@@ -967,18 +996,27 @@ def search_batch_resumable(
     while total < max_steps:
         if deadline is not None and _time.monotonic() >= deadline:
             break
-        n, summary = run_segment(params, state, segment_steps, pruning, tt, deep_tt,
-                                 prefer_deep_store, tt_gen, variant)
+        if mesh is None:
+            n, summary = run_segment(params, state, segment_steps, pruning, tt, deep_tt,
+                                     prefer_deep_store, tt_gen, variant)
+        else:  # shards stop on their own: go on while any used the whole segment
+            shard_steps, stacked = mesh_mod.run_segment_sharded(
+                mesh, nets, shards, tt, segment_steps, pruning, deep_tt, prefer_deep_store,
+                tt_gen, variant)
+            n = max(shard_steps)
         total += n
         if n < segment_steps:
             break  # every lane parked in DONE
         cur = state.lane.shape[0]
-        done = summary[:cur, SUM_DONE].cpu().numpy() != 0
+        if mesh is None:
+            done = summary[:cur, SUM_DONE].cpu().numpy() != 0
+        else:
+            done = stacked[:, :-1, SUM_DONE].reshape(-1) != 0
         if req is not None and not np.any(req & valid & ~done):
             break  # every required lane finished: abandon the helpers
         if deadline is not None and _time.monotonic() >= deadline:
             break
-        if narrow and cur > narrow_floor:
+        if narrow and mesh is None and cur > narrow_floor:
             live = int((~done & valid).sum())
             new_b = narrow_floor
             while new_b < live:
@@ -997,8 +1035,8 @@ def search_batch_resumable(
                     [np.ones(len(keep), bool), np.zeros(len(pad), bool)]
                 )
 
-    out = {k: v.cpu().numpy() for k, v in extract_results(state, total).items()
-           if k != "steps"}
+    res = [extract_results(st, total) for st in (shards or [state])]
+    out = {k: fetch_lanes([r[k] for r in res]) for k in res[0] if k != "steps"}
     if flushed is not None:
         for k, buf in flushed.items():
             buf[orig[valid]] = out[k][valid]
@@ -1049,8 +1087,16 @@ def search_stream(
     returns, so the pipelined loop makes the reference's decisions
     without overlapping host and device. sync_stats: optional
     syncstats.SyncStats to count transfers into. segment_steps None reads
-    FISHNET_TPU_SEGMENT; "auto" runs the SegmentController. mesh: not
-    ported (raises NotImplementedError).
+    FISHNET_TPU_SEGMENT; "auto" runs the SegmentController.
+
+    mesh (parallel/mesh.py): the lanes shard over its devices (width must
+    divide over them; the state is built on `device`, default the mesh's
+    first, and split), each shard advances and is refilled on its own
+    (run_segment_sharded, refill_lanes_sharded), a boundary's step count
+    is the largest shard's, and its summary comes back stacked in one read
+    a distinct device. tt is then None or one table a shard
+    (make_sharded_table), and each occupancy row gains shard_live,
+    shard_refilled and shard_steps lists (one entry a shard).
 
     Returns per-position (N,) numpy results keyed as extract_results,
     the int step count "steps", "tt", and:
@@ -1058,9 +1104,7 @@ def search_stream(
                  queue, transfers, elements, host_ms, device_ms};
       refills:   the number of lanes spliced across the run.
     Positions not finished by deadline/max_steps report done=False."""
-    if mesh is not None:
-        raise NotImplementedError("the sharded stream (mesh) is not ported yet")
-    dev = device_mod.resolve(device)
+    dev = device_mod.resolve(device if device is not None or mesh is None else mesh[0])
     if pipeline is None:
         pipeline = settings.get_bool("FISHNET_TPU_PIPELINE")
     stats = sync_stats if sync_stats is not None else SyncStats()
@@ -1074,7 +1118,17 @@ def search_stream(
     pruning = not settings.get_bool("FISHNET_TPU_NO_PRUNING")
     params = params.to(dev)
     roots = roots.to(dev)
-    if tt is not None and tt.device != roots.board.device:
+    ndev = local = 1
+    if mesh is not None:
+        from ..parallel import mesh as mesh_mod
+
+        mesh = mesh_mod.make_mesh(mesh)
+        ndev = len(mesh)
+        if width % ndev:
+            raise ValueError(f"stream width {width} must divide over {ndev} devices")
+        local = width // ndev
+        _check_tables(tt, mesh)
+    elif tt is not None and tt.device != roots.board.device:
         raise ValueError(f"the table is on {tt.device}, the search on {roots.board.device}")
     N = int(roots.board.shape[0])
     P = max_ply
@@ -1110,6 +1164,10 @@ def search_stream(
         hist_hash=None if hh0 is None else _to_dev(hh0, dev),
         hist_halfmove=None if hm0 is None else _to_dev(hm0, dev), variant=variant,
     )
+    shards = None
+    if mesh is not None:
+        shards = mesh_mod.shard_batch(mesh, state)
+        nets = mesh_mod.replicate(mesh, params)
     gen = np.zeros(width, np.int32)
     next_gen = int(tt_gen_start)
     gen[assigned0] = np.arange(next_gen, next_gen + k, dtype=np.int32)
@@ -1130,10 +1188,33 @@ def search_stream(
 
     def dispatch(seg_n):
         """One segment over the state and the table, in place, with each
-        lane's current generation → (steps, packed summary)."""
+        lane's current generation → (steps, packed summary); under a mesh
+        (steps of each shard, stacked host summary)."""
+        if mesh is not None:
+            return stats.device_call(mesh_mod.run_segment_sharded, mesh, nets, shards, tt,
+                                     seg_n, pruning, False, prefer_deep_store, gen.copy(),
+                                     variant)
         return stats.device_call(run_segment, params, state, seg_n, pruning, tt, False,
                                  prefer_deep_store, torch.from_numpy(gen.copy()).to(dev),
                                  variant)
+
+    states = shards or [state]
+
+    def shard_row(free, n_ref, shard_steps):
+        """The per-shard occupancy columns (mesh runs only): live lanes,
+        lanes spliced this boundary, step counts. lane_pos is read before
+        the splice (do_refill changes it), so `free` carries the
+        boundary's free lanes."""
+        if mesh is None:
+            return {}
+        busy = lane_pos >= 0
+        busy[free] = False
+        sel = np.asarray(free[:n_ref], np.int64)
+        return {
+            "shard_live": [int(busy[s * local:(s + 1) * local].sum()) for s in range(ndev)],
+            "shard_refilled": np.bincount(sel // local, minlength=ndev).astype(int).tolist(),
+            "shard_steps": shard_steps,
+        }
 
     def do_refill(free, n_ref):
         nonlocal next_gen, refills_total
@@ -1145,23 +1226,27 @@ def search_stream(
         next_gen += n_ref
         hh, hm = hist_rows(take_pos)
         refills_total += n_ref
+        if mesh is not None:
+            mesh_mod.refill_lanes_sharded(mesh, nets, shards, gather_roots(take_pos), sel,
+                                          depth[take_pos], node_budget[take_pos], hist_hash=hh,
+                                          hist_halfmove=hm, variant=variant)
+            return
         refill_lanes(params, state, gather_roots(take_pos), sel, depth[take_pos],
                      node_budget[take_pos], hist_hash=hh, hist_halfmove=hm, variant=variant)
 
     def pull_pv(lanes, pos):
         """PV rows of finished lanes only: two small gathers."""
-        rows = torch.as_tensor(np.asarray(lanes, np.int64), device=dev)
-        out["pv"][pos] = stats.fetch(state.pv[:, 0].index_select(0, rows), "pv")
-        out["pv_len"][pos] = stats.fetch(state.nt[:, 0, NT_PVLEN].index_select(0, rows),
-                                         "pv_len")
+        out["pv"][pos] = fetch_rows(states, lanes, lambda st: st.pv[:, 0], stats, "pv")
+        out["pv_len"][pos] = fetch_rows(states, lanes, lambda st: st.nt[:, 0, NT_PVLEN], stats,
+                                        "pv_len")
 
-    def record(n, live, n_ref, pend_steps):
+    def record(n, live, n_ref, pend_steps, shard=None):
         nonlocal seg_i, segment_steps
         seg_i += 1
         snap = stats.boundary()
         occupancy.append({
             "segment": seg_i, "steps": int(n), "live": live, "refilled": int(n_ref),
-            "idle": width - live - int(n_ref), "queue": len(queue), **snap,
+            "idle": width - live - int(n_ref), "queue": len(queue), **snap, **(shard or {}),
         })
         if ctrl is not None:
             segment_steps = ctrl.update(int(n) >= pend_steps, snap["host_ms"],
@@ -1173,16 +1258,16 @@ def search_stream(
         while total < max_steps:
             if deadline is not None and _time.monotonic() >= deadline:
                 break
-            _n, summ = dispatch(segment_steps)
+            n, shard_steps = boundary_steps(dispatch(segment_steps), width, stats, mesh)
             pend_steps = segment_steps
-            n = int(stats.fetch(summ[width, SUM_DONE], "steps"))
             total += n
-            lane_done = stats.fetch(state.lane[:, LN_MODE] == MODE_DONE, "done")
-            res = extract_results(state, total)
+            lane_done = fetch_lanes([st.lane[:, LN_MODE] == MODE_DONE for st in states], stats,
+                                    "done")
+            res = [extract_results(st, total) for st in states]
             fin = np.nonzero(lane_done & (lane_pos >= 0))[0]
             if fin.size:
                 for key in out:
-                    out[key][lane_pos[fin]] = stats.fetch(res[key], key)[fin]
+                    out[key][lane_pos[fin]] = fetch_lanes([r[key] for r in res], stats, key)[fin]
                 done_out[lane_pos[fin]] = True
                 lane_pos[fin] = -1
             live = int((lane_pos >= 0).sum())
@@ -1192,7 +1277,7 @@ def search_stream(
                 do_refill(free, n_ref)
             else:
                 n_ref = 0
-            record(n, live, n_ref, pend_steps)
+            record(n, live, n_ref, pend_steps, shard_row(free, n_ref, shard_steps))
             if live == 0 and n_ref == 0 and not queue:
                 break
     else:
@@ -1206,7 +1291,6 @@ def search_stream(
         if total < max_steps and (deadline is None or _time.monotonic() < deadline):
             pend = dispatch(segment_steps)
         while pend is not None:
-            _p_n, p_summ = pend
             nxt = None
             nxt_steps = segment_steps
             if (prev_live and not queue and total + pend_steps < max_steps
@@ -1214,8 +1298,7 @@ def search_stream(
                 # the queue is empty, so the synchronous loop would run
                 # this exact segment after the boundary anyway
                 nxt = dispatch(nxt_steps)
-            raw = stats.fetch(p_summ, "summary")
-            summ, n = raw[:width], int(raw[width, SUM_DONE])
+            summ, n, shard_steps = boundary_summary(pend, width, stats, mesh)
             total += n
             lane_done = summ[:, SUM_DONE].astype(bool)
             fin = np.nonzero(lane_done & (lane_pos >= 0))[0]
@@ -1245,7 +1328,7 @@ def search_stream(
                 do_refill(free, n_ref)
             else:
                 n_ref = 0
-            record(n, live, n_ref, pend_steps)
+            record(n, live, n_ref, pend_steps, shard_row(free, n_ref, shard_steps))
             if nxt is not None:
                 pend = nxt
                 pend_steps = nxt_steps
@@ -1264,6 +1347,83 @@ def search_stream(
         **out, "done": done_out, "steps": total, "occupancy": occupancy,
         "refills": refills_total, "tt": tt,
     }
+
+
+def boundary_steps(pend, width: int, stats: SyncStats, mesh=None):
+    """A segment dispatch's result (run_segment's, or under a mesh
+    run_segment_sharded's) → (its step count, per-shard steps or None),
+    counting its one read (one a distinct device under a mesh, where the
+    count is the largest shard's: shards park on their own). The
+    synchronous loops' boundary."""
+    n, summ = pend
+    if mesh is None:
+        return int(stats.fetch(summ[width, SUM_DONE], "steps")), None
+    stats.count(np.asarray(n), len(set(mesh)))
+    return max(n), n
+
+
+def boundary_summary(pend, width: int, stats: SyncStats, mesh=None):
+    """A segment dispatch's result → ((width, 4) host lane rows, step
+    count, per-shard steps or None), counting its one summary read as
+    boundary_steps does. The pipelined loops' boundary."""
+    n, summ = pend
+    if mesh is None:
+        raw = stats.fetch(summ, "summary")
+        return raw[:width], int(raw[width, SUM_DONE]), None
+    stats.count(summ, len(set(mesh)))
+    return summ[:, :-1].reshape(width, SUM_W), max(n), n
+
+
+def fetch_lanes(parts, stats: SyncStats | None = None, label: str = "") -> np.ndarray:
+    """One tensor a shard (its lanes, in shard order; one device is one
+    shard) → their concatenation as a host array, in one read a distinct
+    device, through stats when it is given."""
+    groups: dict = {}
+    for i, t in enumerate(parts):
+        groups.setdefault(t.device, []).append(i)
+    host = [None] * len(parts)
+    for ids in groups.values():
+        joined = parts[ids[0]] if len(ids) == 1 else torch.cat([parts[i] for i in ids])
+        arr = stats.fetch(joined, label) if stats is not None else joined.cpu().numpy()
+        off = 0
+        for i in ids:
+            host[i] = arr[off:off + parts[i].shape[0]]
+            off += parts[i].shape[0]
+    return host[0] if len(host) == 1 else np.concatenate(host)
+
+
+def fetch_rows(states, lanes, pick, stats: SyncStats, label: str) -> np.ndarray:
+    """The rows of pick(state) at `lanes` (global lane numbers over the
+    states, one a shard in shard order), in their order, as a host array
+    in one read a distinct device."""
+    lanes = np.asarray(lanes, np.int64).reshape(-1)
+    local = int(states[0].lane.shape[0])
+    owner = lanes // local
+    parts, order = [], []
+    for s, st in enumerate(states):
+        sel = np.nonzero(owner == s)[0]
+        if sel.size:
+            t = pick(st)
+            parts.append(t.index_select(0, torch.as_tensor(lanes[sel] - s * local,
+                                                           device=t.device)))
+            order.append(sel)
+    rows = fetch_lanes(parts, stats, label)
+    if len(order) == 1:  # every lane on one shard, in order
+        return rows
+    out = np.empty_like(rows)
+    out[np.concatenate(order)] = rows
+    return out
+
+
+def _check_tables(tt, mesh) -> None:
+    """A sharded search's tables: None, or one a shard on its device."""
+    if tt is None:
+        return
+    if len(tt) != len(mesh):
+        raise ValueError(f"{len(tt)} tables for a mesh of {len(mesh)} devices")
+    for t, d in zip(tt, mesh):
+        if t.device != d:
+            raise ValueError(f"a shard's table is on {t.device}, the shard on {d}")
 
 
 def _to_dev(x, dev) -> torch.Tensor:

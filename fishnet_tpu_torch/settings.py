@@ -21,6 +21,9 @@ DEFAULTS = {
     "FISHNET_TPU_MAX_LANES": "1024",
     # continuous lane refill: single-pv analysis through the LaneScheduler
     "FISHNET_TPU_REFILL": "1",
+    # the same on a meshed engine (0: its chunks take the chunk-serial
+    # sharded path; no effect without a mesh or with FISHNET_TPU_REFILL=0)
+    "FISHNET_TPU_MESH_REFILL": "1",
     # the streaming loops' pipelined boundary (0: the synchronous loop)
     "FISHNET_TPU_PIPELINE": "1",
     "FISHNET_TPU_SEGMENT": "20000",

@@ -60,6 +60,18 @@ class SyncStats:
         self.blocked_ms_total += dt_ms
         return arr
 
+    def count(self, arr: np.ndarray, transfers: int = 1) -> np.ndarray:
+        """Count `transfers` reads that brought the host array `arr` over
+        outside fetch: parallel/mesh.py run_segment_sharded reads its
+        stacked summary itself, one copy a distinct device, inside the
+        segment call's device time; the loops count it where they use it,
+        as the reference counts its fetch. Returns arr."""
+        self._seg_transfers += transfers
+        self._seg_elements += int(arr.size)
+        self.transfers_total += transfers
+        self.elements_total += int(arr.size)
+        return arr
+
     def device_call(self, fn, *args, **kwargs):
         """fn(*args, **kwargs) for a call that returns only once the
         device has finished the work it launched (run_segment), counting

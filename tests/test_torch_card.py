@@ -18,7 +18,9 @@ K4 and K8-K10 against their plain versions and K11 against
 run_segment_plain in each variant (in crazyhouse also on roots from its
 mid, heavy and full pockets; atomic also on the king-bucketed net); the
 bf16 entry points of K1, K2, K3, K12 and K11 against their plain versions
-and against the f32 kernels on the widened weights. Needs an NVIDIA card;
+and against the f32 kernels on the widened weights; K11 and K7 a shard
+on a 4-shard mesh of one card against their plain versions, and the int8
+mesh searches against the CPU's shards. Needs an NVIDIA card;
 skipped elsewhere. Imports no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_card.py -q -p no:cacheprovider
@@ -44,6 +46,10 @@ from fishnet_tpu_torch.ops import movegen as tm
 from fishnet_tpu_torch.ops import tt
 from fishnet_tpu_torch.ops import search
 from fishnet_tpu_torch.ops.search import search_batch, search_batch_resumable, search_stream
+from fishnet_tpu_torch.parallel.mesh import (
+    make_mesh, make_sharded_table, refill_lanes_sharded, refill_lanes_sharded_plain,
+    run_segment_sharded, shard_batch,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -807,3 +813,98 @@ def test_bf16_segment_kernel(bf16_nets, net, batch, cfg, variant):
         assert torch.equal(sum_k, sum_p) and torch.equal(sum_k, sum_f)
         _same_state(state, plain, table, plain_table)
         _same_state(state, f32, table, f32_table)
+
+
+# --------------------------------------------------------------- the mesh
+
+
+@pytest.mark.parametrize("cfg", ["no table", "helpers"])
+@pytest.mark.parametrize("net", ["f32", "int8"])
+def test_segment_kernel_per_shard_matches_plain_version(nets, net, cfg):
+    """K11 a shard on a 4-shard mesh of one card (parallel/mesh.py): a
+    seeded 64-lane state split into 4 shards of 16 lanes, each with its
+    own table (helpers: 2^12 slots, colliding); over segments of 1, 33
+    and 100 steps each shard's state, table, step count and rows of the
+    stacked summary equal run_segment_plain on a copy of that shard
+    alone, and each segment is one K11 launch a shard."""
+    params = nets[net]
+    mesh = make_mesh(["cuda:0"] * 4)
+    state, table, kw = segment_case(params, 64, cfg, 65, params.device)
+    shards = shard_batch(mesh, state)
+    tables = None if table is None else make_sharded_table(mesh, 12)
+    gen = kw["tt_gen"]
+    plain = [(search.SearchState(*[t.clone() for t in sh]),
+              None if tables is None else tables[i].clone()) for i, sh in enumerate(shards)]
+    for steps in (1, 33, 100):
+        kernels.reset_launches()
+        n, stacked = run_segment_sharded(mesh, params, shards, tables, steps, True,
+                                         kw["deep_tt"], kw["prefer_deep"], gen)
+        assert kernels.LAUNCHES["search_segment"] == 4
+        assert stacked.shape == (4, 17, 4)
+        for i, (pst, ptab) in enumerate(plain):
+            g = gen[16 * i:16 * (i + 1)] if torch.is_tensor(gen) else gen
+            n_p, summ = search.run_segment_plain(params, pst, steps, True, ptab, kw["deep_tt"],
+                                                 kw["prefer_deep"], g)
+            assert n_p == n[i] and np.array_equal(summ.cpu().numpy(), stacked[i])
+            _same_state(shards[i], pst, None if tables is None else tables[i], ptab)
+
+
+def test_lane_init_per_shard_matches_plain_version(nets):
+    """K7 a shard: refill_lanes_sharded on a seeded-garbage 64-lane state
+    split into 4 shards equals refill_lanes_sharded_plain, every shard
+    byte for byte, with one K7 launch a shard that owns spliced lanes."""
+    params = nets["f32"]
+    mesh = make_mesh(["cuda:0"] * 4)
+    state, _, _ = lane_init_case(params, 64, 64, 41, params.device, tm.MAX_MOVES)
+    card = shard_batch(mesh, search.SearchState(*[t.clone() for t in state]))
+    plain = shard_batch(mesh, search.SearchState(*[t.clone() for t in state]))
+    lanes = np.asarray([3, 17, 18, 40, 41, 42, 9], np.int64)  # shards 0, 1, 2 (none on 3)
+    roots, _ = playout_boards(len(lanes), seed=5)
+    kw = dict(order_jitter=np.asarray([0, 5, -3, 9, 1, 0, 2], np.int32),
+              root_alpha=np.full(len(lanes), -40, np.int32),
+              root_beta=np.full(len(lanes), 40, np.int32))
+    depth = np.asarray([1, 2, 3, 1, 2, 3, 4], np.int32)
+    budget = np.full(len(lanes), 1000, np.int32)
+    kernels.reset_launches()
+    refill_lanes_sharded(mesh, params, card, roots, lanes, depth, budget, **kw)
+    assert kernels.LAUNCHES["lane_init"] == 3
+    refill_lanes_sharded_plain(mesh, params, plain, roots, lanes, depth, budget, **kw)
+    for a, b in zip(card, plain):
+        _same_state(a, b)
+    untouched = shard_batch(mesh, state)[3]
+    _same_state(card[3], untouched)
+
+
+def test_int8_mesh_searches_card_equal_cpu(nets, lanes):
+    """search_stream and search_batch_resumable on a 4-shard mesh with a
+    table a shard (the helpers' store), card (4 shards of cuda:0) against
+    CPU (4 CPU shards): every field equal and every shard's table byte for
+    byte; the card's mesh stream runs K11 once a shard and segment."""
+    b, _ = lanes
+    roots = tb.Board(*[t[:24] for t in b])
+    depth = np.asarray([1 + i % 3 for i in range(24)], np.int32)
+    outs = {}
+    for dev in ("cuda:0", "cpu"):
+        mesh = make_mesh([dev] * 4)
+        kernels.reset_launches()
+        stream = search_stream(nets["int8"].to(dev), roots.to(dev), depth, 100_000,
+                               max_ply=6, width=16, segment_steps=48,
+                               tt=make_sharded_table(mesh, 14), prefer_deep_store=True,
+                               device=dev, mesh=mesh)
+        if dev != "cpu":
+            assert kernels.LAUNCHES["search_segment"] == 4 * len(stream["occupancy"])
+        batch = search_batch_resumable(nets["int8"].to(dev), tb.Board(*[t[:16] for t in roots]),
+                                       depth[:16], 100_000, max_ply=6, segment_steps=32,
+                                       tt=make_sharded_table(mesh, 12), device=dev, mesh=mesh)
+        outs[dev] = stream, batch
+    for card, cpu in zip(outs["cuda:0"], outs["cpu"]):
+        for k in ("score", "move", "nodes", "pv", "pv_len", "done"):
+            assert (np.asarray(card[k]) == np.asarray(cpu[k])).all(), k
+        assert card["steps"] == cpu["steps"]
+        for t_card, t_cpu in zip(card["tt"], cpu["tt"]):
+            assert torch.equal(t_card.cpu(), t_cpu)
+    def rows(out):  # the occupancy rows but for their times
+        return [{k: v for k, v in r.items() if k not in ("host_ms", "device_ms")}
+                for r in out["occupancy"]]
+
+    assert rows(outs["cuda:0"][0]) == rows(outs["cpu"][0])

@@ -165,6 +165,7 @@ def test_port_imports_no_jax():
         "assert 'fishnet_tpu_torch.models.nnue_import' in sys.modules\n"
         "assert 'fishnet_tpu_torch.models.train' in sys.modules\n"
         "assert 'fishnet_tpu_torch.chess.variants' in sys.modules\n"
+        "assert 'fishnet_tpu_torch.parallel.mesh' in sys.modules\n"
         "print(len([m for m in sys.modules if m.startswith('fishnet_tpu_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", prog], cwd=REPO, capture_output=True,

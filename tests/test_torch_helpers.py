@@ -66,12 +66,19 @@ def test_plan_helpers_cases_of_the_reference():
 @pytest.mark.parametrize("K", [1, 2, 4, 16])
 @pytest.mark.parametrize("max_lanes", [16, 64, 1024])
 def test_helper_width_matches_reference(K, max_lanes):
-    port = GpuEngine.__new__(GpuEngine)
-    port.helper_lanes, port.max_lanes = K, max_lanes
-    want = SimpleNamespace(helper_lanes=K, max_lanes=max_lanes, _pad=ref._pad_lanes)
-    for n in (1, 3, 10, 16, 17, 64, 100, 300, 1000):
-        assert port._helper_width(n) == TpuEngine._helper_width(want, n)
-        assert _pad_lanes(n) <= port._helper_width(n)
+    """The dispatch width on one device and, rounded up to a multiple of
+    the shards, on a mesh of 3 and of 8 (the reference's _pad)."""
+    for n_dev in (1, 3, 8):
+        port = GpuEngine.__new__(GpuEngine)
+        port.helper_lanes, port.max_lanes, port.n_dev = K, max_lanes, n_dev
+        mesh = SimpleNamespace(n_dev=n_dev)
+        want = SimpleNamespace(helper_lanes=K, max_lanes=max_lanes,
+                               _pad=lambda n, mesh=mesh: TpuEngine._pad(mesh, n))
+        for n in (1, 3, 10, 16, 17, 64, 100, 300, 1000):
+            assert port._pad(n) == TpuEngine._pad(mesh, n)
+            assert port._helper_width(n) == TpuEngine._helper_width(want, n)
+            assert _pad_lanes(n) <= port._helper_width(n)
+            assert port._helper_width(n) % n_dev == 0
 
 
 def test_jittered_history_matches_reference():

@@ -218,7 +218,9 @@ def test_search_stream_matches_reference(nets, monkeypatch, table, pipeline):
 def test_search_stream_auto_segments_and_refusals(nets, monkeypatch):
     """FISHNET_TPU_SEGMENT=auto runs the controller from SEGMENT_MIN;
     without a table, per-position results do not depend on segment
-    lengths, so they equal a fixed-length stream's. The mesh is refused."""
+    lengths, so they equal a fixed-length stream's. A mesh whose shards
+    do not divide the width is refused (tests/test_torch_mesh.py runs
+    the mesh)."""
     _, tp = nets
     _, tbs = _game_boards(5)
     roots = tb.stack_boards(tbs[1:])
@@ -231,8 +233,8 @@ def test_search_stream_auto_segments_and_refusals(nets, monkeypatch):
         assert np.array_equal(auto[k], fixed[k]), k
     assert auto["occupancy"][0]["steps"] <= 16 and len(fixed["occupancy"]) > len(
         auto["occupancy"])
-    with pytest.raises(NotImplementedError):
-        ts.search_stream(tp, roots, 1, 1, max_ply=4, width=2, mesh=object(), device="cpu")
+    with pytest.raises(ValueError):
+        ts.search_stream(tp, roots, 1, 1, max_ply=4, width=2, mesh=("cpu",) * 3, device="cpu")
 
 
 def test_segment_controller_matches_reference():
