@@ -122,10 +122,29 @@ boards of both phases that time K12, at both phases' call counts.
      the stacked summary byte for byte); K7 a shard (refill_lanes_sharded)
      against its plain version. Phase 15 adds an int8 2-position chunk on
      the 4-shard mesh, card against CPU shards, responses equal.
+ 18. right after phase 13, the king-bucketed trainer: phase 13 on a
+     king-bucketed net (train_material_net(feature_set="halfkav2_hm"),
+     L1 64; K17 for K1 and K18 for K15), its first 20 steps against the
+     CPU's, its profiled window;
+ 19. then the dp×tp step (make_sharded_train_step) on make_2d_mesh(4, 2,
+     ["cuda:0"] * 8) at batch 512, for a board768 and a king-bucketed
+     net: 20 steps in which every position launches K1 or K17, K2, K14,
+     K15 or K18 and K16 once a step and no plain version runs, the
+     losses and every position's params against the same grid of 8 cpu
+     devices, then ms a step, the host's share and launches a step.
+The kernel phase (3) also holds K17 nnue_refresh_kb (byte for byte, also
+on a tp shard's columns) and K18 nnue_ft_backward_kb (within the K15
+tolerance, the same bytes repeated) to their plain versions at batch 32
+and 512, times them, and holds and times K16 over the king-bucketed flat
+buffer. K11's plain yardsticks (phase 3's timed segments, the bf16 and
+the mesh segment) time a PLAIN_TIMING_STEPS-step segment; the plain
+segments that are checked against K11 run at their full lengths.
 Then a `kernels` JSON line (launches from phase 5, the board768 main
 path, for K13 from phase 6, for K12 from its parity search in phase
-10 and for K14-K16 from phase 13; for the bodies inside K11 their calls
-per step of that path; K1 and K2 also with their launches in phase 13;
+10, for K14-K16 from phase 13 and for K17 and K18 from phase 18; for the
+bodies inside K11 their calls per step of that path; K1 and K2 also with
+their launches in phase 13, K2, K14 and K16 in phase 18, and K1, K2 and
+K14-K18 on phase 19's grids;
 K4 and K8-K11 also per variant: max_abs_err, ms, plain_ms (K11: us per
 step), launches and calls per step in phase 14; K1 also its launches and
 its body's calls per step in atomic's phase 14 chunk; then a row per bf16
@@ -144,6 +163,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import functools
 import json
 import os
 import random
@@ -172,6 +192,10 @@ SEGMENT_STEPS = (1, 7, 33, 200)  # K11's checked segments, in turn on one state
 FINISH_STEPS = 20_000  # then, at 16 lanes, one segment in which every lane finishes
 SEGMENT_CONFIGS = ("no table", "table", "helpers", "deep_tt")
 SEGMENT_REPS = 10  # K11 launches per timing
+# steps of the short segment that times K11's plain yardstick (the "plain"
+# figures of K11's timed rows; the plain segments that are checked against
+# K11 run at their full lengths)
+PLAIN_TIMING_STEPS = 10
 # the full-eval nets: a king-bucketed net at the JAX
 # package's init_params defaults, and seeded Stockfish nets, the main
 # path's at Stockfish's big net's width
@@ -210,6 +234,18 @@ TRAIN_PARAM_ATOL = 1e-4
 # the kernels of a training step: the forward's K1 and K2, then K14-K16
 TRAIN_KERNELS = ("nnue_refresh_768", "nnue_forward_from_acc", "nnue_stack_backward",
                  "nnue_ft_backward_768", "adam_update")
+# on a king-bucketed net: K17 for K1, K18 for K15
+TRAIN_KB_KERNELS = ("nnue_refresh_kb", "nnue_forward_from_acc", "nnue_stack_backward",
+                    "nnue_ft_backward_kb", "adam_update")
+TRAIN_PATH_KERNELS = {"board768": TRAIN_KERNELS, "halfkav2_hm": TRAIN_KB_KERNELS}
+# the dp×tp step (models/train.py make_sharded_train_step): the reference
+# caller's grid on 8 devices (make_2d_mesh(n // 2, 2), L1 32 * tp), here
+# eight positions of cuda:0, its batch, the steps held against the same
+# grid of cpu devices; and K17/K18's checks also at the caller's batch
+# (8 x dp)
+GRID = (4, 2)
+GRID_STEPS = 20
+GRID_CALLER_BATCH = 8 * GRID[0]
 
 START = "rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR w KQkq - 0 1"
 # a Sicilian and a Ruy Lopez with repetitions near the end (so the
@@ -1241,6 +1277,20 @@ def _state_diff(a, b, ta, tb) -> float:
     return err
 
 
+def plain_segment_ms(run) -> tuple:
+    """(ms, steps) of the plain version's yardstick: run(steps), a fresh
+    run_segment_plain (or several in turn) from the timed state, over
+    PLAIN_TIMING_STEPS steps, on the host's clock between synchronisations.
+    It times the plain version only; the phases' checks hold it to K11."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    n = run(PLAIN_TIMING_STEPS)
+    torch.cuda.synchronize()
+    return (time.monotonic() - t0) * 1e3, n
+
+
 def segment_bytes(calls: dict, acc_bytes: int, variant: str = "standard") -> int:
     """The bytes a segment must move, from K11's counters of its body
     calls and live lane-steps: each live lane-step reads and writes the
@@ -1334,22 +1384,19 @@ def segment_phase(params_f32, reps: int) -> dict:
         calls = kernels.body_calls()
         ms = sum(times) / len(times)
         plain, plain_table = _clone(state0, table0)
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        search.run_segment_plain(params_f32, plain, steps, True, **dict(kw, table=plain_table))
-        torch.cuda.synchronize()
-        plain_ms = (time.monotonic() - t0) * 1e3
+        plain_ms, n_p = plain_segment_ms(lambda k: search.run_segment_plain(
+            params_f32, plain, k, True, **dict(kw, table=plain_table))[0])
         nbytes = segment_bytes(calls, 2 * 64 * 4)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         log(f"time search_segment B={B} engine table (CUDA events, {reps} launches): "
             f"{ms:.4f} ms per segment of {n} steps, {ms / n * 1e3:.2f} us/step; plain "
-            f"{plain_ms:.1f} ms ({plain_ms / n:.3f} ms/step); bound {bound:.6f} ms, "
-            f"{bound / n * 1e3:.4f} us/step (bytes, {nbytes} bytes; counters {calls}); "
-            f"grid {kernels.LAST_GRID['blocks']} blocks")
+            f"{plain_ms:.1f} ms for a segment of {n_p} steps ({plain_ms / n_p:.3f} ms/step); "
+            f"bound {bound:.6f} ms, {bound / n * 1e3:.4f} us/step (bytes, {nbytes} bytes; "
+            f"counters {calls}); grid {kernels.LAST_GRID['blocks']} blocks")
         if n != steps:
             raise AssertionError(f"timed segment B={B} ran {n} of {steps} steps")
-        stats.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
-                     library_ms=None, steps=n)
+        stats.update(ms=ms, plain_ms=plain_ms, plain_steps=n_p, bound_ms=bound,
+                     bound_by="bytes", library_ms=None, steps=n)
     return {"search_segment": stats}
 
 
@@ -1756,8 +1803,9 @@ def count_plain_calls(twins=None):
     from fishnet_tpu_torch.models import nnue, train
 
     if twins is None:
-        twins = ((nnue, "accumulators_768_plain"), (nnue, "forward_from_acc_plain"),
-                 (train, "stack_backward_plain"), (train, "ft_backward_768_plain"),
+        twins = ((nnue, "accumulators_768_plain"), (nnue, "accumulators"),
+                 (nnue, "forward_from_acc_plain"), (train, "stack_backward_plain"),
+                 (train, "ft_backward_768_plain"), (train, "ft_backward_kb_plain"),
                  (train, "adam_update_plain"))
     counts = {name: 0 for _, name in twins}
     saved = [(mod, name, getattr(mod, name)) for mod, name in twins]
@@ -1774,29 +1822,41 @@ def count_plain_calls(twins=None):
             setattr(mod, name, fn)
 
 
-def train_phase() -> dict:
-    """The trainer's main path: TRAIN_SAMPLES diverse positions generated
-    on the host, then train_material_net on the card (TRAIN_STEPS steps of
-    TRAIN_BATCH at lr TRAIN_LR from the seeded init, the shipped widths).
-    Fails unless K1, K2 and K14-K16 each launched once a step and no plain
-    version ran; holds the first TRAIN_CHECK_STEPS steps (losses and
-    params) against the same run on the CPU's plain path; then profiles
-    TRAIN_PROFILE_STEPS more steps: ms/step, device busy ms/step and the
-    device's idle share (the host's share of a step). Returns the launch
-    counts."""
-    import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from fishnet_tpu_torch import kernels
+@functools.lru_cache(maxsize=1)
+def train_dataset():
+    """TRAIN_SAMPLES diverse positions (seed 0), generated on the host
+    once a run."""
     from fishnet_tpu_torch.models import train
 
     t0 = time.monotonic()
     dataset = train.diverse_position_dataset(TRAIN_SAMPLES, seed=0)
     log(f"train: {TRAIN_SAMPLES} diverse positions generated on the host in "
         f"{time.monotonic() - t0:.2f} s")
+    return dataset
+
+
+def train_phase(feature_set: str = "board768") -> dict:
+    """The trainer's main path on a board768 or king-bucketed
+    ("halfkav2_hm") net: train_material_net on the card (TRAIN_STEPS steps
+    of TRAIN_BATCH at lr TRAIN_LR over train_dataset() from the seeded
+    init, L1 64 and the shipped layer stack). Fails unless the path's
+    kernels (TRAIN_PATH_KERNELS: K1 or K17, K2, K14, K15 or K18, K16) each
+    launched once a step and no plain version ran; holds the first
+    TRAIN_CHECK_STEPS steps (losses and params) against the same run on
+    the CPU's plain path; then profiles TRAIN_PROFILE_STEPS more steps:
+    ms/step, device busy ms/step and the device's idle share (the host's
+    share of a step). Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.models import train
+
+    tag = "train" if feature_set == "board768" else f"train {feature_set}"
+    path_kernels = TRAIN_PATH_KERNELS[feature_set]
+    dataset = train_dataset()
     kw = dict(l1=64, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seed=0, dataset=dataset,
-              lr=TRAIN_LR)
+              lr=TRAIN_LR, feature_set=feature_set)
     runs = {}
     for dev in ("cuda", "cpu"):
         record = []
@@ -1818,13 +1878,13 @@ def train_phase() -> dict:
         if dev == "cuda":
             launches = dict(kernels.LAUNCHES)
             card_params, card_loss, card_wall = params, loss, wall
-            missing = [k for k in TRAIN_KERNELS if launches[k] != TRAIN_STEPS]
+            missing = [k for k in path_kernels if launches[k] != TRAIN_STEPS]
             ran = {k: v for k, v in plain.items() if v}
             if missing or ran:
-                raise AssertionError(f"train: kernels {missing} did not launch once a step, "
+                raise AssertionError(f"{tag}: kernels {missing} did not launch once a step, "
                                      f"plain versions ran {ran} ({launches})")
-            log(f"launches train: {launches}; plain versions: {plain}")
-        log(f"train on {dev}: {steps} steps in {wall:.3f} s ({wall / steps * 1e3:.3f} ms/step, "
+            log(f"launches {tag}: {launches}; plain versions: {plain}")
+        log(f"{tag} on {dev}: {steps} steps in {wall:.3f} s ({wall / steps * 1e3:.3f} ms/step, "
             f"the first step included), final loss {loss:.4f}")
     worst_loss = worst_param = 0.0
     for i, ((l_k, p_k), (l_c, p_c)) in enumerate(zip(runs["cuda"], runs["cpu"])):
@@ -1832,14 +1892,14 @@ def train_phase() -> dict:
         worst_loss = max(worst_loss, abs(l_k - l_c) / abs(l_c))
         worst_param = max(worst_param, float((p_k.cpu() - p_c).abs().max()))
         if i in (0, TRAIN_CHECK_STEPS - 1):
-            log(f"train step {i}: loss card {l_k} cpu {l_c}")
-    log(f"train: the first {TRAIN_CHECK_STEPS} steps, card against CPU: losses within "
+            log(f"{tag} step {i}: loss card {l_k} cpu {l_c}")
+    log(f"{tag}: the first {TRAIN_CHECK_STEPS} steps, card against CPU: losses within "
         f"{worst_loss:.3g} relative (tolerance {TRAIN_LOSS_RTOL}), params within "
         f"{worst_param:.3g} (tolerance {TRAIN_PARAM_ATOL})")
     if not (worst_loss <= TRAIN_LOSS_RTOL and worst_param <= TRAIN_PARAM_ATOL):
-        raise AssertionError("train: the card's steps differ from the CPU's")
+        raise AssertionError(f"{tag}: the card's steps differ from the CPU's")
     if not np.isfinite(card_loss) or card_loss >= float(runs["cuda"][0][0]):
-        raise AssertionError(f"train: loss {card_loss} did not fall from {runs['cuda'][0][0]}")
+        raise AssertionError(f"{tag}: loss {card_loss} did not fall from {runs['cuda'][0][0]}")
 
     # where a step's time goes: TRAIN_PROFILE_STEPS more steps from the
     # trained net, the batches drawn as train_material_net draws them
@@ -1853,13 +1913,39 @@ def train_phase() -> dict:
     for b in batches[:3]:  # warm-up
         step(card_params, state, *[t.to(dev) for t in b])
     torch.cuda.synchronize()
+
+    def run(b):
+        nonlocal state
+        _, state, _ = step(card_params, state, *[t.to(dev) for t in b])
+
+    ms, idle, busy, source, events = profile_steps(run, batches)
+    n = TRAIN_PROFILE_STEPS
+    log(f"{tag} profile: wall {ms:.4f} ms/step (profiled; unprofiled, the "
+        f"{TRAIN_STEPS}-step run above: {card_wall / TRAIN_STEPS * 1e3:.4f}), device busy "
+        f"{busy:.4f} ms/step ({source}), device idle share (the host's share of a step) "
+        f"{idle:.3f}, device entries {sum(e.count for e in events) / n:.2f}/step, batch "
+        f"{TRAIN_BATCH}")
+    for e in sorted(events, key=lambda e: -_device_us(e))[:8]:
+        log(f"{tag} profile: {_device_us(e) / n:9.2f} us/step x{e.count / n:<5.2f} {e.key[:90]}")
+    return launches
+
+
+def profile_steps(run, batches) -> tuple:
+    """run(b) for every batch b under torch.profiler, the card synchronised
+    at the end → (wall ms a step, the device's idle share, device busy ms a
+    step, where the busy time came from, the profiler's CUDA entries). The
+    busy time is the profiler's sum of device time, or the window's
+    CUDA-event time where it records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         start.record()
         for b in batches:
-            card_params, state, loss = step(card_params, state, *[t.to(dev) for t in b])
+            run(b)
         end.record()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
@@ -1868,15 +1954,259 @@ def train_phase() -> dict:
     source = "torch.profiler"
     if dev_us <= 0:  # no device time recorded: the window's CUDA-event time
         dev_us, source = start.elapsed_time(end) * 1e3, "CUDA events"
-    n = TRAIN_PROFILE_STEPS
-    log(f"train profile: wall {wall / n * 1e3:.4f} ms/step (profiled; unprofiled, the "
-        f"{TRAIN_STEPS}-step run above: {card_wall / TRAIN_STEPS * 1e3:.4f}), device busy "
-        f"{dev_us / n / 1e3:.4f} ms/step ({source}), device idle share (the host's share of a step) "
-        f"{max(0.0, 1 - dev_us / 1e3 / (wall * 1e3)):.3f}, device entries "
-        f"{sum(e.count for e in events) / n:.2f}/step, batch {TRAIN_BATCH}")
-    for e in sorted(events, key=lambda e: -_device_us(e))[:8]:
-        log(f"train profile: {_device_us(e) / n:9.2f} us/step x{e.count / n:<5.2f} {e.key[:90]}")
-    return launches
+    n = len(batches)
+    return (wall / n * 1e3, max(0.0, 1 - dev_us / 1e3 / (wall * 1e3)), dev_us / n / 1e3, source,
+            events)
+
+
+def kb_train_case(B: int, seed: int, dev) -> dict:
+    """The inputs of K17 and K18 at batch B: a seeded king-bucketed f32 net
+    (kb_case at the shipped widths, L1 64, packed), B diverse positions
+    from the seed, their accumulators (the plain version's) and K14's
+    plain d_acc for the loss's gradient by each score."""
+    import torch
+
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.models import nnue, train
+
+    boards, stms, targets = (torch.from_numpy(a).to(dev)
+                             for a in train.diverse_position_dataset(B, seed=seed))
+    params = train.pack_params(nnue.params_from_numpy(
+        kb_case(*kernels.SHIPPED_WIDTHS, seed=seed), dev))
+    acc = nnue.accumulators(params, boards)
+    bucket = nnue.output_bucket(boards)
+    pred = nnue.forward_from_acc_plain(params, acc, stms, bucket)
+    d_pred = (2 * (pred - targets) / 1e4 / B).contiguous()
+    d_acc, _ = train.stack_backward_plain(params, acc, stms, bucket, d_pred)
+    return {"params": params, "boards": boards, "d_acc": d_acc.contiguous()}
+
+
+def train_kb_kernel_phase(reps: int) -> dict:
+    """K17 and K18 against their plain versions on the card at batch
+    GRID_CALLER_BATCH and TRAIN_BATCH on a seeded king-bucketed net at L1
+    64: K17 byte for byte, also on a tp shard's half of the columns; K18
+    within TRAIN_GRAD_RTOL and the same bytes on a repeated launch (its
+    difference from the plain version run on the CPU, which sums in its
+    order, logged). Then times at TRAIN_BATCH (kernel, plain, library) with
+    bounds from these inputs' bytes, and K16 over the king-bucketed flat
+    buffer (equal to its plain version, timed beside it)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.models import nnue, train
+
+    dev = torch.device("cuda")
+    stats = {k: {"max_abs_err": 0.0} for k in ("nnue_refresh_kb", "nnue_ft_backward_kb")}
+    for B in (GRID_CALLER_BATCH, TRAIN_BATCH):
+        c = kb_train_case(B, seed=B + 7, dev=dev)
+        p, boards, d_acc = c["params"], c["boards"], c["d_acc"]
+        l1 = p.ft_w.shape[1]
+        n_ft = (nnue.NUM_FEATURES + 1) * l1
+        acc_k = nnue.accumulators_kb(p, boards)
+        acc_p = nnue.accumulators(p, boards)
+        half = p._replace(ft_w=p.ft_w[:, l1 // 2:].contiguous(), ft_b=p.ft_b[l1 // 2:].contiguous())
+        acc_h = nnue.accumulators_kb(half, boards)
+        ft_k, ft_k2 = (torch.empty(n_ft, device=dev) for _ in range(2))
+        train.ft_backward_kb(boards, d_acc, ft_k)
+        train.ft_backward_kb(boards, d_acc, ft_k2)
+        ft_p = torch.cat([t.reshape(-1) for t in train.ft_backward_kb_plain(boards, d_acc)])
+        ft_cpu = torch.cat([t.reshape(-1) for t in train.ft_backward_kb_plain(boards.cpu(),
+                                                                             d_acc.cpu())])
+        torch.cuda.synchronize()
+        err = float((acc_k - acc_p).abs().max())
+        equal = torch.equal(acc_k, acc_p) and torch.equal(acc_h, acc_p[:, :, l1 // 2:])
+        log(f"check nnue_refresh_kb B={B}: max_abs_err={err}; byte for byte, also on a tp "
+            f"shard's {l1 // 2} columns: {equal} (tolerance 0)")
+        if not equal:
+            raise AssertionError(f"nnue_refresh_kb B={B}: differs from its plain version")
+        stats["nnue_refresh_kb"]["max_abs_err"] = max(stats["nnue_refresh_kb"]["max_abs_err"], err)
+        rel = _rel_err(ft_k, ft_p)
+        err = float((ft_k.double() - ft_p.double()).abs().max())
+        same = torch.equal(ft_k, ft_k2)
+        cpu_diff = float((ft_k.cpu() - ft_cpu).abs().max())
+        rows = int(ft_k[:-l1].view(-1, l1).ne(0).any(1).sum())
+        log(f"check nnue_ft_backward_kb B={B}: max_abs_err={err} relative {rel} (tolerance "
+            f"{TRAIN_GRAD_RTOL}); a repeated launch the same bytes: {same}; max difference from "
+            f"the plain version on the CPU (its summation order) {cpu_diff}; {rows} of "
+            f"{nnue.NUM_FEATURES} rows touched")
+        if not rel <= TRAIN_GRAD_RTOL or not same:
+            raise AssertionError(f"nnue_ft_backward_kb B={B}: relative error {rel}, repeat "
+                                 f"equal {same}")
+        stats["nnue_ft_backward_kb"]["max_abs_err"] = max(
+            stats["nnue_ft_backward_kb"]["max_abs_err"], err)
+        if B != TRAIN_BATCH:
+            continue
+
+        # times at the training batch
+        feats = full_eval_features(boards)  # (B, 2, 64)
+        live = feats >= 0
+        idx = feats[live].long()
+        pieces = int(live.sum())
+        acc_bytes = B * 2 * l1 * 4
+        bag_off = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                             live.view(B * 2, 64).sum(1).cumsum(0)[:-1]])
+        src = d_acc[:, :, None, :].expand(B, 2, 64, l1)[live].contiguous()
+        lib_ft = torch.zeros((nnue.NUM_FEATURES, l1), device=dev)
+        table = {
+            "nnue_refresh_kb": (
+                lambda: nnue.accumulators_kb(p, boards),
+                lambda: nnue.accumulators(p, boards),
+                lambda: F.embedding_bag(idx, p.ft_w, bag_off, mode="sum") + p.ft_b,
+                # boards in, each distinct row the batch selects and ft_b once, acc out
+                B * 256 + int(idx.unique().numel()) * l1 * 4 + l1 * 4 + acc_bytes,
+                pieces * l1 + 2 * B * l1,
+            ),
+            "nnue_ft_backward_kb": (
+                lambda: train.ft_backward_kb(boards, d_acc, ft_k),
+                lambda: train.ft_backward_kb_plain(boards, d_acc),
+                lambda: lib_ft.index_add_(0, idx, src),
+                # d_acc and boards in, the whole gradient out
+                acc_bytes + B * 256 + n_ft * 4,
+                pieces * l1 + 2 * B * l1,
+            ),
+        }
+        for name, (kern, plain, lib, nbytes, nops) in table.items():
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = nops / F32_OPS_PER_S * 1e3
+            (ms, call_ms), (plain_ms, plain_call) = time_ms(kern, reps), time_ms(plain, reps)
+            lib_ms, lib_call = time_ms(lib, reps)
+            stats[name].update(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+            log(f"time {name} B={B} L1 {l1} (device ms / call ms): kernel {ms:.5f} / "
+                f"{call_ms:.5f}, plain {plain_ms:.5f} / {plain_call:.5f}, library {lib_ms:.5f} / "
+                f"{lib_call:.5f}, bound {stats[name]['bound_ms']:.6f} ({stats[name]['bound_by']}); "
+                f"{pieces} rows summed")
+
+        # K16 over the king-bucketed flat buffer
+        n = train.flat_view(p).numel()
+        rng = np.random.default_rng(B)
+
+        def f32(a):
+            return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+        grad, mu, nu = f32(rng.normal(size=n) * 1e-2), f32(rng.normal(size=n) * 1e-3), f32(
+            rng.random(n) * 1e-5)
+        opt = train.Adam(TRAIN_LR)
+        bc = opt.bias_corrections(8)
+        bufs_k = [train.flat_view(p).clone(), grad, mu.clone(), nu.clone()]
+        bufs_p = [train.flat_view(p).clone(), grad, mu.clone(), nu.clone()]
+        kernels.adam_update(*bufs_k, opt.lr, opt.b1, opt.b2, opt.eps, *bc)
+        train.adam_update_plain(*bufs_p, opt.lr, opt.b1, opt.b2, opt.eps, *bc)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(bufs_k, bufs_p)):
+            raise AssertionError("adam_update over the king-bucketed flat buffer differs from "
+                                 "its plain version")
+        lib_p = torch.nn.Parameter(bufs_k[0].clone())
+        lib_p.grad = grad.clone()
+        lib_opt = torch.optim.Adam([lib_p], lr=TRAIN_LR, fused=True)
+        (ms, call_ms), (plain_ms, _), (lib_ms, _) = [time_ms(f, reps) for f in (
+            lambda: kernels.adam_update(*bufs_k, opt.lr, opt.b1, opt.b2, opt.eps, *bc),
+            lambda: train.adam_update_plain(*bufs_p, opt.lr, opt.b1, opt.b2, opt.eps, *bc),
+            lib_opt.step)]
+        bound = 7 * 4 * n / HBM_BYTES_PER_S * 1e3
+        stats["adam_update_kb_flat"] = dict(n=n, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                            bound_ms=bound, bound_by="bytes")
+        log(f"check adam_update king-bucketed flat buffer ({n} floats): equal to its plain "
+            f"version; time kernel {ms:.5f} / {call_ms:.5f} ms, plain {plain_ms:.5f}, library "
+            f"{lib_ms:.5f}, bound {bound:.6f} (bytes)")
+    return stats
+
+
+def grid_phase() -> dict:
+    """The dp×tp step (models/train.py make_sharded_train_step) on
+    make_2d_mesh(*GRID, ["cuda:0"] * 8) at TRAIN_BATCH, from the seeded
+    init at L1 64, for a board768 and a king-bucketed net: GRID_STEPS steps
+    in which every position launches its refresh (K1 or K17), K2, K14, its
+    feature-transform backward (K15 or K18) and K16 once a step and no
+    plain version runs; the losses of every step and every position's
+    params after them held against the same grid of `cpu` devices (the
+    trainer's tolerances); then GRID_STEPS steps timed (host clock, the
+    card synchronised at the end) and GRID_STEPS profiled (device busy,
+    the host's share). → {feature set: its counts and times}."""
+    import numpy as np
+    import torch
+
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.models import nnue, train
+    from fishnet_tpu_torch.parallel import mesh as mesh_mod
+
+    dp, tp = GRID
+    dataset = train_dataset()
+    out = {}
+    for fs, path_kernels in TRAIN_PATH_KERNELS.items():
+        tag = f"grid {dp}x{tp} {fs}"
+        net = nnue.init_params(torch.Generator().manual_seed(0), l1=64, feature_set=fs,
+                               device="cpu")
+        rng = np.random.default_rng(5)
+        batches = [[torch.from_numpy(a[idx]) for a in dataset] for idx in rng.integers(
+            0, TRAIN_SAMPLES, size=(3 * GRID_STEPS, TRAIN_BATCH))]
+        runs = {}
+        for devs in (["cuda:0"] * (dp * tp), ["cpu"] * (dp * tp)):
+            grid = mesh_mod.make_2d_mesh(dp, tp, devs)
+            params = mesh_mod.shard_params_tp(net, grid)
+            opt = train.adam(TRAIN_LR)
+            state = opt.init(params)
+            step = train.make_sharded_train_step(grid, opt)
+            dev = grid[0][0]
+            losses = []
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.monotonic()
+            with count_plain_calls() as plain:
+                for b in batches[:GRID_STEPS]:
+                    params, state, loss = step(params, state, *[t.to(dev) for t in b])
+                    losses.append(loss)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            runs[dev.type] = (losses, params)
+            log(f"{tag} on {dev}: {GRID_STEPS} steps in {wall:.3f} s (the first included), "
+                f"final loss {float(losses[-1]):.4f}")
+            if dev.type != "cuda":
+                continue
+            launches = dict(kernels.LAUNCHES)
+            want = dp * tp * GRID_STEPS
+            wrong = {k: launches[k] for k in path_kernels if launches[k] != want}
+            ran = {k: v for k, v in plain.items() if v}
+            log(f"launches {tag}: {launches}; plain versions: {plain}")
+            if wrong or ran:
+                raise AssertionError(f"{tag}: kernels {wrong} did not launch {want} times (once a "
+                                     f"step a position), plain versions ran {ran}")
+            card = (params, state, step, dev, launches)
+        (l_k, p_k), (l_c, p_c) = runs["cuda"], runs["cpu"]
+        worst_loss = max(abs(float(a) - float(b)) / abs(float(b)) for a, b in zip(l_k, l_c))
+        worst_param = max(float((train.flat_view(a).cpu() - train.flat_view(b)).abs().max())
+                          for ra, rb in zip(p_k, p_c) for a, b in zip(ra, rb))
+        log(f"{tag}: {GRID_STEPS} steps, card against CPU: losses within {worst_loss:.3g} "
+            f"relative (tolerance {TRAIN_LOSS_RTOL}), every position's params within "
+            f"{worst_param:.3g} (tolerance {TRAIN_PARAM_ATOL})")
+        if not (worst_loss <= TRAIN_LOSS_RTOL and worst_param <= TRAIN_PARAM_ATOL):
+            raise AssertionError(f"{tag}: the card's grid differs from the CPU's")
+        params, state, step, dev, launches = card
+
+        def run(b):
+            nonlocal params, state
+            params, state, _ = step(params, state, *[t.to(dev) for t in b])
+
+        timed = batches[GRID_STEPS:2 * GRID_STEPS]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for b in timed:
+            run(b)
+        torch.cuda.synchronize()
+        ms = (time.monotonic() - t0) * 1e3 / len(timed)
+        prof_ms, idle, busy, source, events = profile_steps(run, batches[2 * GRID_STEPS:])
+        per_step = sum(launches.values()) / GRID_STEPS
+        log(f"{tag} time: {ms:.4f} ms/step unprofiled (batch {TRAIN_BATCH}, {dp * tp} positions "
+            f"of one card); profiled {prof_ms:.4f} ms/step, device busy {busy:.4f} ms/step "
+            f"({source}), device idle share (the host's share of a step) {idle:.3f}; "
+            f"{per_step:.1f} kernel launches a step, device entries "
+            f"{sum(e.count for e in events) / GRID_STEPS:.2f}/step")
+        out[fs] = {"launches": launches, "ms_per_step": ms, "idle_share": idle,
+                   "busy_ms_per_step": busy, "launches_per_step": per_step}
+    return out
 
 
 # ------------------------------------------------------------- variants
@@ -2558,22 +2888,20 @@ def bf16_segment_phase(params_f32, kb_f32, reps: int) -> dict:
     ms = sum(times["bf16"]) / len(times["bf16"])
     f32_ms = sum(times["f32"]) / len(times["f32"])
     plain, plain_table = _clone(state0, table0)
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    search.run_segment_plain(p16, plain, steps, True, **dict(kw, table=plain_table))
-    torch.cuda.synchronize()
-    plain_ms = (time.monotonic() - t0) * 1e3
+    plain_ms, n_p = plain_segment_ms(lambda k: search.run_segment_plain(
+        p16, plain, k, True, **dict(kw, table=plain_table))[0])
     nbytes = segment_bytes(calls, 2 * 64 * 4)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"time search_segment_bf16 B=64 engine table (CUDA events, {2 * reps} launches each, "
         f"f32/bf16 in turn): bf16 {ms:.4f} ms per segment of {n} steps, {ms / n * 1e3:.2f} "
         f"us/step; f32 on the widened weights {f32_ms:.4f} ms, {f32_ms / n * 1e3:.2f} us/step "
-        f"(bf16/f32 {ms / f32_ms:.4f}); plain {plain_ms:.1f} ms ({plain_ms / n:.3f} ms/step); "
+        f"(bf16/f32 {ms / f32_ms:.4f}); plain {plain_ms:.1f} ms for a segment of {n_p} steps "
+        f"({plain_ms / n_p:.3f} ms/step); "
         f"bound {bound:.6f} ms, {bound / n * 1e3:.4f} us/step (bytes, {nbytes} bytes; counters "
         f"{calls})")
     if n != steps:
         raise AssertionError(f"timed bf16 segment ran {n} of {steps} steps")
-    stats.update(ms=ms, f32_kernel_ms=f32_ms, plain_ms=plain_ms, bound_ms=bound,
+    stats.update(ms=ms, f32_kernel_ms=f32_ms, plain_ms=plain_ms, plain_steps=n_p, bound_ms=bound,
                  bound_by="bytes", library_ms=None, steps=n, us_per_step=ms / n * 1e3,
                  f32_kernel_us_per_step=f32_ms / n * 1e3)
     return {"search_segment_bf16": stats}
@@ -3161,13 +3489,10 @@ def mesh_segment_times(params_f32, reps: int) -> dict:
     one_ms = sum(one) / len(one)
     restore()
     plain = [_clone(sh, tables[i]) for i, sh in enumerate(shards)]
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    for i, (pst, ptab) in enumerate(plain):
-        search.run_segment_plain(params_f32, pst, steps, True, ptab, False, True,
-                                 gen[i * local:(i + 1) * local])
-    torch.cuda.synchronize()
-    plain_ms = (time.monotonic() - t0) * 1e3
+    plain_ms, n_p = plain_segment_ms(lambda k: max(
+        search.run_segment_plain(params_f32, pst, k, True, ptab, False, True,
+                                 gen[i * local:(i + 1) * local])[0]
+        for i, (pst, ptab) in enumerate(plain)))
     nbytes = segment_bytes(calls, 2 * 64 * 4)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"time search_segment mesh {MESH_SHARDS} shards x {local} lanes on one card, engine "
@@ -3177,10 +3502,11 @@ def mesh_segment_times(params_f32, reps: int) -> dict:
         f"shards overlapped in every segment: {overlapped}; kernel time summed over shards / "
         f"span {sum(busy) / len(busy):.4f} / {sum(span) / len(span):.4f} ms; one shard alone "
         f"{one_ms:.4f} ms for {n0} steps ({one_ms / max(n0, 1) * 1e3:.2f} us/step at {local} "
-        f"lanes); plain (shards in turn) {plain_ms:.1f} ms; bound {bound:.6f} ms (bytes, "
+        f"lanes); plain (shards in turn) {plain_ms:.1f} ms for segments of {n_p} steps "
+        f"({plain_ms / n_p:.3f} ms a step of the four); bound {bound:.6f} ms (bytes, "
         f"{nbytes} bytes; counters {calls})")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": None, "steps_a_shard": n, "us_per_step": ms / max(n) * 1e3,
+    return {"ms": ms, "plain_ms": plain_ms, "plain_steps": n_p, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None, "steps_a_shard": n, "us_per_step": ms / max(n) * 1e3,
             "one_shard_us_per_step": one_ms / max(n0, 1) * 1e3, "shards_overlapped": overlapped,
             "kernel_ms_summed": sum(busy) / len(busy), "span_ms": sum(span) / len(span)}
 
@@ -3396,6 +3722,7 @@ def main() -> int:
     part("K12 warm readings", lambda: k12_warm_readings(nets["kb f32"]))
     part("K11 on the full-eval nets", lambda: nets_segment_phase(nets, SEGMENT_REPS))
     stats.update(part("K14-K16", lambda: train_kernel_phase(TRAIN_REPS)))
+    stats.update(part("K17, K18", lambda: train_kb_kernel_phase(TRAIN_REPS)))
     variant_rules["search_segment"] = part("K11 in the variants", lambda: variant_segment_phase(
         params, SEGMENT_REPS, nets["kb int8"]))
     stats.update(part("K1-K3, K12 bf16", lambda: bf16_kernel_phase(params, nets["kb f32"], REPS)))
@@ -3428,6 +3755,8 @@ def main() -> int:
         ("stream parity", lambda: stream_parity_phase(params, STREAM_POSITIONS, STREAM_WIDTH)),
         ("scale", lambda: scale_phase(params, SCALE_LANES, SCALE_DEPTH)),
         ("train (main path)", train_phase),
+        ("train, king-bucketed net (main path)", lambda: train_phase("halfkav2_hm")),
+        ("train, dp×tp grid (main path)", grid_phase),
         ("engine, variants (variant main paths)", lambda: variant_engine_phase(
             params, DEPTH, POSITIONS)),
         ("variant parity", lambda: variant_parity_phase(params, PARITY_DEPTH)),
@@ -3441,6 +3770,8 @@ def main() -> int:
     sf_launches, _, sf_steps, sf_calls = results["engine, Stockfish net (main path)"]
     kb_launches, kb_steps, kb_calls = results["TT parity, king-bucketed net"]
     train_launches = results["train (main path)"]
+    kb_train_launches = results["train, king-bucketed net (main path)"]
+    grid_run = results["train, dp×tp grid (main path)"]
     variant_paths = results["engine, variants (variant main paths)"]
     mesh_run = results["mesh, 4 shards on one card (main path)"]
 
@@ -3461,6 +3792,8 @@ def main() -> int:
         "nnue_stack_backward": "fishnet_tpu/models/train.py:47",
         "nnue_ft_backward_768": "fishnet_tpu/models/train.py:47",
         "adam_update": "fishnet_tpu/models/train.py:47",
+        "nnue_refresh_kb": "fishnet_tpu/models/nnue.py:127",
+        "nnue_ft_backward_kb": "fishnet_tpu/models/train.py:47",
     }
     rows = []
     for name in kernels.KERNELS:
@@ -3473,17 +3806,28 @@ def main() -> int:
                               kb_steps),
             **{k: (f"train_material_net, {TRAIN_STEPS} steps at batch {TRAIN_BATCH}",
                    train_launches, None, TRAIN_STEPS) for k in TRAIN_KERNELS[2:]},
+            **{k: (f"train_material_net, king-bucketed net, {TRAIN_STEPS} steps at batch "
+                   f"{TRAIN_BATCH}", kb_train_launches, None, TRAIN_STEPS)
+               for k in ("nnue_refresh_kb", "nnue_ft_backward_kb")},
         }.get(name, ("engine, board768 net", launches, body_calls, main_steps))
         row = {"name": name, "route": "cuda", "source": f"fishnet_tpu_torch/csrc/{name}.cu",
                "replaces": sources[name], "launches": counts[name], "path": path,
                **{k: stats[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms")}}
-        if "ms_l2_warm" in stats[name]:  # K12, K13: ms is the cold-L2 time
-            row["ms_l2_warm"] = stats[name]["ms_l2_warm"]
+        for k in ("ms_l2_warm", "plain_steps"):  # K12, K13: ms is the cold-L2 time
+            if k in stats[name]:
+                row[k] = stats[name][k]
         if name in kernels.K11_BODIES:  # its body's calls inside K11, per step of its path
             row["in_k11_calls_per_step"] = calls[name] / max(steps, 1)
         if name in TRAIN_KERNELS[:2]:  # K1 and K2 run on the training path too
             row["train_launches"] = train_launches[name]
+        if name in TRAIN_KERNELS + TRAIN_KB_KERNELS:
+            if name in TRAIN_KERNELS[1:] and name in TRAIN_KB_KERNELS:  # K2, K14, K16
+                row["train_kb_launches"] = kb_train_launches[name]
+            # launches on the dp×tp grid's main path, each feature set's run
+            row["grid_launches"] = {fs: g["launches"][name] for fs, g in grid_run.items()}
+        if name == "adam_update":  # K16 over the king-bucketed net's flat buffer
+            row["kb_flat"] = stats["adam_update_kb_flat"]
         if name == "nnue_refresh_768":  # K1's body is atomic's board768 leaf inside K11
             vp = variant_paths["atomic"]
             row["variants"] = {"atomic": {
@@ -3516,7 +3860,7 @@ def main() -> int:
                "launches": n, "path": path,
                **{k: stats[entry][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms", "f32_kernel_ms")}}
-        for k in ("ms_l2_warm", "us_per_step", "f32_kernel_us_per_step"):
+        for k in ("ms_l2_warm", "us_per_step", "f32_kernel_us_per_step", "plain_steps"):
             if k in stats[entry]:
                 row[k] = stats[entry][k]
         if base in kernels.K11_BODIES:
@@ -3534,7 +3878,7 @@ def main() -> int:
                **{k: st[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")}}
         for k in ("us_per_step", "one_shard_us_per_step", "shards_overlapped",
-                  "kernel_ms_summed", "span_ms"):
+                  "kernel_ms_summed", "span_ms", "plain_steps"):
             if k in st:
                 row[k] = st[k]
         rows.append(row)

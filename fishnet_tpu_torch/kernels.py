@@ -50,6 +50,7 @@ KERNELS = (
     "node_rules", "generate_moves", "make_move", "search_segment",
     "nnue_evaluate", "nnue_evaluate_sf",
     "nnue_stack_backward", "nnue_ft_backward_768", "adam_update",
+    "nnue_refresh_kb", "nnue_ft_backward_kb",
 )
 # the kernels whose bodies K11 runs inside a segment, and its per-launch
 # counters: those bodies' calls, then the live lane-steps (csrc/search.cuh
@@ -133,6 +134,8 @@ _SIGNATURES = {
     "nnue_stack_backward": {"nnue_stack_backward": [_P] * 13 + [_I, _P]},
     "nnue_ft_backward_768": {"nnue_ft_backward_768": [_P, _P, _P, _I, _I, _P]},
     "adam_update": {"adam_update": [_P] * 4 + [_L] + [_F] * 8 + [_P]},
+    "nnue_refresh_kb": {"nnue_refresh_kb": [_P, _P, _P, _P, _I, _I, _P]},
+    "nnue_ft_backward_kb": {"nnue_ft_backward_kb": [_P, _P, _P, _P, _I, _I, _P]},
 }
 # the kernel (csrc source and LAUNCHES key) of each library
 _LIBRARY_SOURCE = {lib: ("search_segment" if lib.startswith("search_segment_") else lib)
@@ -494,18 +497,21 @@ def nnue_acc_update_768(acc: torch.Tensor, codes: torch.Tensor,
 
 def _head_types(params):
     """The layer stack's net tag and accumulator dtype and its widths (K2,
-    K12, K11) → (tag, acc dtype, (L1, H1, H2)), after checking the head
-    weights: 8 buckets of 2*L1 → H1 → H2 → 1, H1 and H2 at most MAX_HIDDEN,
-    L1 at most MAX_L1 (K2 takes the shipped widths only)."""
+    K12, K11, K14) → (tag, acc dtype, (L1, H1, H2)), after checking the
+    head weights: 8 buckets of 2*L1 → H1 → H2 → 1, H1 and H2 at most
+    MAX_HIDDEN, L1 at most MAX_L1 (K2 takes the shipped widths only). The
+    stack reads neither ft_w nor ft_b: L1 is l1_w's, so a tp shard of the
+    trainer's grid, whose ft_w and ft_b hold a block of the columns, runs
+    the stack on the gathered accumulators; ft_w's dtype names the net's
+    weight type."""
     if params.ft_w.dtype not in NET_TYPES:
         raise TypeError(f"unsupported net dtype {params.ft_w.dtype}")
-    _, tag, adt, fdt, wdt, bdt = NET_TYPES[params.ft_w.dtype]
-    l1, h1, h2 = params.ft_w.shape[1], params.l1_w.shape[-1], params.l2_w.shape[-1]
+    _, tag, adt, _, wdt, bdt = NET_TYPES[params.ft_w.dtype]
+    l1, h1, h2 = params.l1_w.shape[1] // 2, params.l1_w.shape[-1], params.l2_w.shape[-1]
     if not 0 < l1 <= MAX_L1 or not 0 < h1 <= MAX_HIDDEN or not 0 < h2 <= MAX_HIDDEN:
         raise ValueError(f"the layer stack takes L1 1..{MAX_L1} and hidden widths 1.."
                          f"{MAX_HIDDEN}, got {l1}, {h1}, {h2}")
     for name, shape, dt in (
-        ("ft_b", (l1,), fdt),
         ("l1_w", (8, 2 * l1, h1), wdt), ("l1_b", (8, h1), bdt),
         ("l2_w", (8, h1, h2), wdt), ("l2_b", (8, h2), bdt),
         ("out_w", (8, h2), wdt), ("out_b", (8,), bdt),
@@ -538,6 +544,14 @@ def nnue_forward_from_acc(acc: torch.Tensor, stm: torch.Tensor,
     return out
 
 
+def _check_ft(params, rows: int, l1: int) -> None:
+    """The feature transform of a net whose widths _head_types read: ft_w
+    (rows, L1) and ft_b (L1,) in its weight type's dtypes."""
+    _, _, _, fdt, _, _ = NET_TYPES[params.ft_w.dtype]
+    _check(params.ft_w, "ft_w", params.ft_w.dtype, (rows, l1))
+    _check(params.ft_b, "ft_b", fdt, (l1,))
+
+
 def _check_full_l1(l1: int) -> None:
     if l1 % 2 or not 0 < l1 <= MAX_L1:
         raise ValueError(f"the full-eval kernels take an even L1 up to {MAX_L1}, got {l1}")
@@ -548,7 +562,7 @@ def _kb_weights(params):
     weight pointers: ft_w, ft_b, the head's six)."""
     tag, _, widths = _head_types(params)
     _check_full_l1(widths[0])
-    _check(params.ft_w, "ft_w", params.ft_w.dtype, (NUM_FEATURES, widths[0]))
+    _check_ft(params, NUM_FEATURES, widths[0])
     return tag, widths, [t.data_ptr() for t in params]
 
 
@@ -890,7 +904,7 @@ def _segment_net(params):
     if widths != SHIPPED_WIDTHS:
         raise ValueError(f"K11 takes a board768 net of the shipped widths {SHIPPED_WIDTHS}, "
                          f"got {widths}")
-    _check(params.ft_w, "ft_w", params.ft_w.dtype, (768, SEGMENT_L1))
+    _check_ft(params, 768, SEGMENT_L1)
     return tag, [t.data_ptr() for t in params] + [None], widths, tensors
 
 
@@ -979,8 +993,9 @@ def search_segment(params, state, steps: int, pruning: bool, table=None,
 def nnue_stack_backward(acc: torch.Tensor, stm: torch.Tensor, bucket: torch.Tensor,
                         d_pred: torch.Tensor, params, grad: torch.Tensor) -> torch.Tensor:
     """K14: acc (B, 2, 64) f32, stm/bucket (B,) int32, d_pred (B,) f32 the
-    loss's gradient by each score, params an f32 board768 net of the
-    shipped widths → d_acc (B, 2, 64) f32; writes the gradients of l1_w,
+    loss's gradient by each score, params an f32 net (board768 or
+    king-bucketed; its ft_w is not read) whose layer stack has the shipped
+    widths → d_acc (B, 2, 64) f32; writes the gradients of l1_w,
     l1_b, l2_w, l2_b, out_w and out_b, field after field, into grad
     (STACK_GRADS,) f32 (a contiguous view, overwritten)."""
     B = acc.shape[0]
@@ -1030,3 +1045,40 @@ def adam_update(params: torch.Tensor, grad: torch.Tensor, mu: torch.Tensor, nu: 
         _launch("adam_update", "adam_update", params.device, params.data_ptr(),
                 grad.data_ptr(), mu.data_ptr(), nu.data_ptr(), n, -lr, b1, 1 - b1, b2,
                 1 - b2, eps, bc1, bc2)
+
+
+def nnue_refresh_kb(boards: torch.Tensor, ft_w: torch.Tensor, ft_b: torch.Tensor) -> torch.Tensor:
+    """K17: a king-bucketed f32 net's HalfKAv2_hm accumulators of boards
+    (B, 64) int32 → acc (B, 2, L1) f32; ft_w (NUM_FEATURES, L1) and ft_b
+    (L1,) may be a tp shard's column block (any L1 up to MAX_L1)."""
+    B, l1 = boards.shape[0], ft_w.shape[1]
+    _check(boards, "boards", torch.int32, (B, 64))
+    _check(ft_w, "ft_w", torch.float32, (NUM_FEATURES, l1))
+    _check(ft_b, "ft_b", torch.float32, (l1,))
+    if not 0 < l1 <= MAX_L1:
+        raise ValueError(f"L1 {l1} is outside the kernel's 1..{MAX_L1} columns")
+    acc = torch.empty((B, 2, l1), dtype=torch.float32, device=boards.device)
+    if B:
+        _launch("nnue_refresh_kb", "nnue_refresh_kb", boards.device, boards.data_ptr(),
+                ft_w.data_ptr(), ft_b.data_ptr(), acc.data_ptr(), B, l1)
+    return acc
+
+
+def nnue_ft_backward_kb(d_acc: torch.Tensor, boards: torch.Tensor, grad: torch.Tensor) -> None:
+    """K18: d_acc (B, 2, L1) f32, boards (B, 64) int32 → writes a
+    king-bucketed net's ft_w gradient (NUM_FEATURES, L1) and then ft_b's
+    (L1,) into grad ((NUM_FEATURES + 1) * L1,) f32 (a contiguous view,
+    overwritten). Deterministic: every row sums in (sample, perspective)
+    order, without float atomics."""
+    B, l1 = d_acc.shape[0], d_acc.shape[2]
+    _check(d_acc, "d_acc", torch.float32, (B, 2, l1))
+    _check(boards, "boards", torch.int32, (B, 64))
+    _check(grad, "grad", torch.float32, ((NUM_FEATURES + 1) * l1,))
+    if not 0 < l1 <= MAX_L1 or not B:
+        raise ValueError(f"K18 takes a batch and 1..{MAX_L1} columns, got {B} and {l1}")
+    # the rows' counts, cursors and offsets, then each (sample, perspective,
+    # square)'s row and the bucketed keys twice (csrc/nnue_ft_backward_kb.cu)
+    scratch = torch.empty(3 * (NUM_FEATURES + 1) + 3 * B * 128, dtype=torch.int32,
+                          device=d_acc.device)
+    _launch("nnue_ft_backward_kb", "nnue_ft_backward_kb", d_acc.device, d_acc.data_ptr(),
+            boards.data_ptr(), grad.data_ptr(), scratch.data_ptr(), B, l1)

@@ -354,6 +354,15 @@ def accumulators_768(params: NnueParams, boards: torch.Tensor) -> torch.Tensor:
     return kernels.nnue_refresh_768(boards, params.ft_w, params.ft_b)
 
 
+def accumulators_kb(params: NnueParams, boards: torch.Tensor) -> torch.Tensor:
+    """K17 wrapper, a king-bucketed f32 net's (B, 2, L1) accumulators of
+    (B, 64) boards (ft_w and ft_b may be a column block of the net): the
+    plain version (`accumulators`) on the CPU, the kernel on the card."""
+    if boards.device.type == "cpu":
+        return accumulators(params, boards)
+    return kernels.nnue_refresh_kb(boards, params.ft_w, params.ft_b)
+
+
 # --------------------------------------------- K3: incremental acc update
 
 _NONE = 1 << 20

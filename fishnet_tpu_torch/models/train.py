@@ -1,22 +1,26 @@
-"""NNUE training in PyTorch: supervised regression of the board768 net on
-(position, score) pairs, the JAX package's fishnet_tpu/models/train.py.
+"""NNUE training in PyTorch: supervised regression of a board768 or
+king-bucketed (HalfKAv2_hm) net on (position, score) pairs, the JAX
+package's fishnet_tpu/models/train.py.
 
 The step is the reference's `jax.value_and_grad(loss_fn)` plus
-`optax.adam(lr)`: the eval as a `torch.autograd.Function`
-(`Board768Eval`), the loss in plain torch on its output, and Adam with
-optax's arithmetic. Its device work runs in hand-written CUDA kernels,
-each beside a plain PyTorch version in this module: the forward is K1
-(accumulators) and K2 (layer stack) from models/nnue.py, the backward K14
-`nnue_stack_backward` (the layer stack's gradients and the accumulators'
-upstream gradient) and K15 `nnue_ft_backward_768` (the feature
-transform's), and the update K16 `adam_update`. A wrapper runs the plain
-version for CPU tensors and the kernel for CUDA tensors.
+`optax.adam(lr)`: the eval as a `torch.autograd.Function` (`NnueEval`),
+the loss in plain torch on its output, and Adam with optax's arithmetic.
+Its device work runs in hand-written CUDA kernels, each beside a plain
+PyTorch version in this module or in models/nnue.py: the forward is K1
+(board768) or K17 `nnue_refresh_kb` (king-bucketed) for the accumulators,
+then K2 for the layer stack; the backward is K14 `nnue_stack_backward`
+(the layer stack's gradients and the accumulators' upstream gradient),
+then K15 `nnue_ft_backward_768` or K18 `nnue_ft_backward_kb` (the
+feature transform's); the update is K16 `adam_update`. A wrapper runs the
+plain version for CPU tensors and the kernel for CUDA tensors.
 
 The parameters live as views into one flat f32 buffer (`pack_params`),
 and so do Adam's moments and the gradients, so that one K16 launch
-updates everything in place. The dataset functions are the reference's
-over the port's own chess rules: the same seed gives the same arrays,
-byte for byte.
+updates everything in place. `make_sharded_train_step` runs the
+reference's dp×tp step on a grid of devices (parallel/mesh.py
+make_2d_mesh), each position with a flat buffer of its own. The dataset
+functions are the reference's over the port's own chess rules: the same
+seed gives the same arrays, byte for byte.
 
 Run as `python -m fishnet_tpu_torch.models.train` to regenerate the
 shipped board768 net (the port's tools/train_default_net.py).
@@ -35,20 +39,40 @@ from .. import kernels
 from ..chess import Position
 from ..chess.types import BISHOP, KNIGHT, PAWN, QUEEN, ROOK, scan
 from ..ops.board import board_array
+from ..parallel import mesh as mesh_mod
 from . import nnue
 
 # ------------------------------------------------------------- flat layout
 
+# ft_w's rows of the feature sets the trainer takes
+FEATURE_ROWS = {"board768": nnue.NUM_FEATURES_768, "halfkav2_hm": nnue.NUM_FEATURES}
+
 
 def widths(params: nnue.NnueParams) -> Tuple[int, int, int]:
-    return params.ft_w.shape[1], params.l1_w.shape[2], params.l2_w.shape[2]
+    """(L1, H1, H2) of a net's layer stack; L1 from l1_w's 2 * L1 rows (a
+    tp shard's ft_w holds a block of the columns)."""
+    return params.l1_w.shape[1] // 2, params.l1_w.shape[2], params.l2_w.shape[2]
 
 
-def unflatten(flat: torch.Tensor, l1: int, h1: int, h2: int) -> nnue.NnueParams:
-    """Views of a flat (n,) buffer as a board768 net's eight fields, in
-    field order."""
+def feature_rows(params) -> int:
+    """ft_w's rows of a net the trainer takes: a board768 or king-bucketed
+    NnueParams (the reference trains no other)."""
+    if not isinstance(params, nnue.NnueParams) or params.ft_w.shape[0] not in (
+            FEATURE_ROWS.values()):
+        raise NotImplementedError(
+            f"training takes a board768 or king-bucketed NnueParams net, not a "
+            f"{type(params).__name__} with ft_w {tuple(params.ft_w.shape)}")
+    return params.ft_w.shape[0]
+
+
+def unflatten(flat: torch.Tensor, l1: int, h1: int, h2: int, rows: int = nnue.NUM_FEATURES_768,
+              cols: Optional[int] = None) -> nnue.NnueParams:
+    """Views of a flat (n,) buffer as a net's eight fields, in field
+    order: ft_w (rows, cols) and ft_b (cols,), cols L1 or a tp shard's
+    block of it, then the layer stack of L1 → H1 → H2."""
     b = nnue.NUM_OUTPUT_BUCKETS
-    shapes = [(nnue.NUM_FEATURES_768, l1), (l1,), (b, 2 * l1, h1), (b, h1), (b, h1, h2),
+    cols = l1 if cols is None else cols
+    shapes = [(rows, cols), (cols,), (b, 2 * l1, h1), (b, h1), (b, h1, h2),
               (b, h2), (b, h2), (b,)]
     views, off = [], 0
     for shape in shapes:
@@ -58,6 +82,11 @@ def unflatten(flat: torch.Tensor, l1: int, h1: int, h2: int) -> nnue.NnueParams:
     if off != flat.numel():
         raise ValueError(f"a flat buffer of these widths has {off} values, got {flat.numel()}")
     return nnue.NnueParams(*views)
+
+
+def layout(params: nnue.NnueParams) -> dict:
+    """unflatten's keywords for a buffer of params' layout."""
+    return dict(rows=params.ft_w.shape[0], cols=params.ft_w.shape[1])
 
 
 def flat_view(tensors: Sequence[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -76,13 +105,11 @@ def flat_view(tensors: Sequence[torch.Tensor]) -> Optional[torch.Tensor]:
 def pack_params(params: nnue.NnueParams) -> nnue.NnueParams:
     """params as views into one flat f32 buffer: `params` themselves when
     they already are, else a copy."""
-    if params.ft_w.shape[0] != nnue.NUM_FEATURES_768:
-        raise NotImplementedError(
-            "training takes a board768 net; the king-bucketed trainer is not ported")
+    feature_rows(params)
     if flat_view(params) is not None and params.ft_w.dtype == torch.float32:
         return params
     flat = torch.cat([t.detach().reshape(-1).to(torch.float32) for t in params])
-    return unflatten(flat, *widths(params))
+    return unflatten(flat, *widths(params), **layout(params))
 
 
 # --------------------------------------------- the layer stack's backward
@@ -147,20 +174,43 @@ def stack_backward(params: nnue.NnueParams, acc: torch.Tensor, stm: torch.Tensor
 # ------------------------------------------ the feature transform's backward
 
 
+def _ft_backward_plain(idx: torch.Tensor, d_acc: torch.Tensor, rows: int):
+    """idx (B, 2, 64) each piece's feature row or -1, d_acc (B, 2, L1) →
+    (ft_w's gradient (rows, L1), ft_b's (L1,)): each row the sum of the
+    d_acc rows of the (sample, perspective) pairs that hold it, and ft_b
+    the sum of all, each in (sample, perspective, square) order from 0.0
+    (a CPU index_add_ adds its sources in index order; a pair puts one
+    square in a row). Every column is summed on its own, so a block of
+    d_acc's columns gives those columns' bits of the whole."""
+    B, _, l1 = d_acc.shape
+    pairs = d_acc.reshape(B * 2, l1)
+    src = pairs[:, None].expand(B * 2, 64, l1).reshape(-1, l1)
+    g_w = torch.zeros((rows + 1, l1), dtype=d_acc.dtype, device=d_acc.device)
+    g_w.index_add_(0, torch.where(idx >= 0, idx, rows).reshape(-1).long(), src)
+    g_b = torch.zeros((1, l1), dtype=d_acc.dtype, device=d_acc.device)
+    g_b.index_add_(0, torch.zeros(B * 2, dtype=torch.long, device=d_acc.device), pairs)
+    return g_w[:rows], g_b[0]
+
+
 def ft_backward_768_plain(boards: torch.Tensor, d_acc: torch.Tensor):
     """K15's plain version. boards (B, 64), d_acc (B, 2, L1) → (ft_w's
-    gradient (768, L1), ft_b's (L1,)): each piece's feature row collects
-    its perspective's d_acc, and ft_b the sum over samples and both
-    perspectives. Empty squares add nothing."""
-    B, _, l1 = d_acc.shape
+    gradient (768, L1), ft_b's (L1,)): each piece's board768 feature row
+    collects its perspective's d_acc, and ft_b the sum over samples and
+    both perspectives, in K15's order. Empty squares add nothing."""
     sq = torch.arange(64, dtype=torch.int32, device=boards.device)
-    g_w = torch.zeros((nnue.NUM_FEATURES_768, l1), dtype=d_acc.dtype, device=d_acc.device)
-    for p in (0, 1):
-        idx = nnue.feature_index_768(boards, sq, p)
-        hits = torch.zeros((B, nnue.NUM_FEATURES_768 + 1), dtype=d_acc.dtype, device=d_acc.device)
-        hits.scatter_(1, torch.where(idx >= 0, idx, nnue.NUM_FEATURES_768).long(), 1.0)
-        g_w = g_w + hits[:, :nnue.NUM_FEATURES_768].T @ d_acc[:, p]
-    return g_w, d_acc.sum((0, 1))
+    idx = torch.stack([nnue.feature_index_768(boards, sq, p) for p in (0, 1)], 1)
+    return _ft_backward_plain(idx, d_acc, nnue.NUM_FEATURES_768)
+
+
+def ft_backward_kb_plain(boards: torch.Tensor, d_acc: torch.Tensor):
+    """K18's plain version. boards (B, 64), d_acc (B, 2, L1) → (ft_w's
+    gradient (NUM_FEATURES, L1), ft_b's (L1,)) of a king-bucketed net:
+    each piece's HalfKAv2_hm row (its perspective's king bucket, flip and
+    mirror: nnue.feature_indices) collects that perspective's d_acc, in
+    K18's order. Empty squares add nothing."""
+    idx = torch.stack([nnue.feature_indices(boards, p, nnue.king_square(boards, p))
+                       for p in (0, 1)], 1)
+    return _ft_backward_plain(idx, d_acc, nnue.NUM_FEATURES)
 
 
 def ft_backward_768(boards: torch.Tensor, d_acc: torch.Tensor, grad_ft: torch.Tensor) -> None:
@@ -174,19 +224,46 @@ def ft_backward_768(boards: torch.Tensor, d_acc: torch.Tensor, grad_ft: torch.Te
     kernels.nnue_ft_backward_768(d_acc, boards, grad_ft)
 
 
+def ft_backward_kb(boards: torch.Tensor, d_acc: torch.Tensor, grad_ft: torch.Tensor) -> None:
+    """K18 wrapper: writes a king-bucketed net's ft_w gradient and then
+    ft_b's into grad_ft ((NUM_FEATURES + 1) * L1 values, the flat
+    buffer's head); the plain version on the CPU, the kernel on the card."""
+    if d_acc.device.type == "cpu":
+        g_w, g_b = ft_backward_kb_plain(boards, d_acc)
+        torch.cat([g_w.reshape(-1), g_b], out=grad_ft)
+        return
+    kernels.nnue_ft_backward_kb(d_acc, boards, grad_ft)
+
+
 # ------------------------------------------------------------ the eval
 
 
-class Board768Eval(torch.autograd.Function):
-    """A board768 net's eval of (B, 64) boards and (B,) stms as a function
-    of its eight weights. Forward: K1, then K2; it keeps the (B, 2, L1)
-    accumulators. Backward: K14, then K15, into one flat gradient buffer
-    whose views it returns. CPU tensors take the plain versions."""
+def refresh(params: nnue.NnueParams, boards: torch.Tensor) -> torch.Tensor:
+    """The (B, 2, cols) accumulators of a net's ft_w columns: K1 on a
+    board768 net, K17 on a king-bucketed one."""
+    if feature_rows(params) == nnue.NUM_FEATURES_768:
+        return nnue.accumulators_768(params, boards)
+    return nnue.accumulators_kb(params, boards)
+
+
+def ft_backward(rows: int, boards: torch.Tensor, d_acc: torch.Tensor,
+                grad_ft: torch.Tensor) -> None:
+    """The feature transform's backward of a net of `rows` feature rows:
+    K15 on board768, K18 on king-bucketed."""
+    (ft_backward_768 if rows == nnue.NUM_FEATURES_768 else ft_backward_kb)(boards, d_acc, grad_ft)
+
+
+class NnueEval(torch.autograd.Function):
+    """A board768 or king-bucketed f32 net's eval of (B, 64) boards and
+    (B,) stms as a function of its eight weights. Forward: K1 or K17, then
+    K2; it keeps the (B, 2, L1) accumulators. Backward: K14, then K15 or
+    K18, into one flat gradient buffer whose views it returns. CPU tensors
+    take the plain versions."""
 
     @staticmethod
     def forward(ctx, boards, stms, *weights):
         params = nnue.NnueParams(*weights)
-        acc = nnue.accumulators_768(params, boards)
+        acc = refresh(params, boards)
         bucket = nnue.output_bucket(boards)
         ctx.save_for_backward(boards, stms, bucket, acc, *weights)
         return nnue.forward_from_acc(params, acc, stms, bucket)
@@ -195,20 +272,19 @@ class Board768Eval(torch.autograd.Function):
     def backward(ctx, d_pred):
         boards, stms, bucket, acc, *weights = ctx.saved_tensors
         params = nnue.NnueParams(*weights)
-        l1, h1, h2 = widths(params)
         grad = torch.empty(sum(t.numel() for t in weights), dtype=torch.float32,
                            device=acc.device)
-        n_ft = (nnue.NUM_FEATURES_768 + 1) * l1
+        n_ft = params.ft_w.numel() + params.ft_b.numel()
         d_acc = stack_backward(params, acc, stms, bucket, d_pred.contiguous(), grad[n_ft:])
-        ft_backward_768(boards, d_acc, grad[:n_ft])
-        return (None, None, *unflatten(grad, l1, h1, h2))
+        ft_backward(params.ft_w.shape[0], boards, d_acc, grad[:n_ft])
+        return (None, None, *unflatten(grad, *widths(params), **layout(params)))
 
 
 def batched_forward(params: nnue.NnueParams, boards: torch.Tensor,
                     stms: torch.Tensor) -> torch.Tensor:
     """(B, 64) int32 boards, (B,) int32 stms → (B,) centipawn scores,
     differentiable in the eight weights."""
-    return Board768Eval.apply(boards, stms, *params)
+    return NnueEval.apply(boards, stms, *params)
 
 
 def loss_fn(params, boards, stms, targets):
@@ -217,13 +293,27 @@ def loss_fn(params, boards, stms, targets):
     return torch.mean(((pred - targets) / 100.0) ** 2)
 
 
+def _loss_part(pred: torch.Tensor, targets: torch.Tensor, n: int):
+    """A part of a batch of n scores → (its sum of loss_fn's squared
+    errors, the mean's gradient by each of its scores). The gradient is
+    autograd's of loss_fn's terms seeded with ones / n, the seed its
+    mean's backward passes, so a grid of one row gives make_train_step's
+    bits."""
+    p = pred.detach().requires_grad_()
+    with torch.enable_grad():
+        sq = ((p - targets) / 100.0) ** 2
+        (d_pred,) = torch.autograd.grad(sq, p, torch.ones_like(sq) / n)
+    return sq.detach().sum(), d_pred
+
+
 # ---------------------------------------------------------------- Adam
 
 
 class AdamState(NamedTuple):
     """optax.adam's state: the step count (int32 in optax, kept on the
     host here) and the moments, each one flat f32 buffer in the params'
-    field order."""
+    field order (on a grid, make_sharded_train_step: a grid of them, one a
+    position, and one count)."""
     count: int
     mu: torch.Tensor
     nu: torch.Tensor
@@ -266,7 +356,14 @@ class Adam(NamedTuple):
         return tuple(float(np.float32(1) - np.float32(b) ** np.float32(count))
                      for b in (self.b1, self.b2))
 
-    def init(self, params: nnue.NnueParams) -> AdamState:
+    def init(self, params) -> AdamState:
+        """The zero state of a net, or of a grid's params
+        (parallel/mesh.py shard_params_tp): one count, zero moments a
+        position."""
+        if not isinstance(params, nnue.NnueParams):
+            zeros = tuple(tuple(torch.zeros_like(flat_view(p)) for p in row) for row in params)
+            return AdamState(0, zeros, tuple(tuple(torch.zeros_like(m) for m in row)
+                                             for row in zeros))
         flat = flat_view(pack_params(params))
         return AdamState(0, torch.zeros_like(flat), torch.zeros_like(flat))
 
@@ -312,6 +409,81 @@ def make_train_step(optimizer: Adam):
     return train_step
 
 
+def make_sharded_train_step(mesh: mesh_mod.Grid, optimizer: Adam):
+    """The reference's dp×tp training step on a (dp, tp) grid of devices
+    (parallel/mesh.py make_2d_mesh): step(params, opt_state, boards, stms,
+    targets) → (params, opt_state, loss), params the grid's
+    (mesh.shard_params_tp: position (i, j) holds column block j of ft_w
+    and ft_b and the whole layer stack, views of a flat buffer of its own),
+    opt_state `optimizer.init` of them (one count, a moment buffer a
+    position), boards, stms and targets the whole batch on any device
+    (split over dp by mesh.shard_batch), loss a 0-dim tensor on position
+    (0, 0)'s device. params and the moments are updated IN PLACE.
+
+    Position (i, j) does the work of the reference's device (i, j). The
+    collectives XLA inserts from the shardings are copies and ordered adds
+    here, no kernel:
+    - K1 or K17 on dp row i's boards over its columns of ft_w;
+    - the tp gather: row i's column blocks copied in tp order into a
+      (B / dp, 2, L1) accumulator of its own;
+    - K2, the loss's gradient (the mean over the whole batch of B scores,
+      so each score's divides by B), K14, then K15 or K18 on its column
+      block of d_acc, into a flat gradient of its buffer's layout;
+    - the dp sum: its column's dp gradients (the layer stack's too) added
+      in dp order 0..dp-1 into a buffer of its own;
+    - K16 on its buffers, the grid's one Adam count.
+    The loss is the rows' sums of squared errors added in dp order, over
+    B. Each column is summed on its own by every kernel and plain version
+    here, so a grid of one row gives make_train_step's bits whatever tp.
+    K2 and K14 take only the shipped widths (kernels.SHIPPED_WIDTHS), so a
+    net whose layer stack has others raises, on the CPU too (the
+    reference's caller on an odd device count: tp 1, L1 32)."""
+    grid = mesh_mod.check_grid(mesh)
+    dp, tp = len(grid), len(grid[0])
+
+    def train_step(params, opt_state: AdamState, boards, stms, targets):
+        if widths(params[0][0]) != kernels.SHIPPED_WIDTHS:
+            raise ValueError(f"the grid's layer stack runs K2 and K14, which take the shipped "
+                             f"widths {kernels.SHIPPED_WIDTHS}; got {widths(params[0][0])}")
+        B = boards.shape[0]
+        b_parts, s_parts, t_parts = (mesh_mod.shard_batch(grid, x) for x in (boards, stms, targets))
+        grads, sse = [], []
+        for i, row in enumerate(grid):
+            accs = [refresh(params[i][j], b_parts[i][j]) for j in range(tp)]
+            grads.append([])
+            for j, dev in enumerate(row):
+                p, b, s = params[i][j], b_parts[i][j], s_parts[i][j]
+                rows, cols = p.ft_w.shape
+                acc = torch.cat([a.to(dev) for a in accs], 2)
+                bucket = nnue.output_bucket(b)
+                part, d_pred = _loss_part(nnue.forward_from_acc(p, acc, s, bucket),
+                                          t_parts[i][j], B)
+                grad = torch.empty_like(flat_view(p))
+                n_ft = (rows + 1) * cols
+                d_acc = stack_backward(p, acc, s, bucket, d_pred, grad[n_ft:])
+                ft_backward(rows, b, d_acc[:, :, j * cols:(j + 1) * cols].contiguous(),
+                            grad[:n_ft])
+                grads[i].append(grad)
+                if j == 0:
+                    sse.append(part)
+        count = opt_state.count
+        for i, row in enumerate(grid):
+            for j, dev in enumerate(row):
+                total = grads[0][j].to(dev, copy=True)
+                for k in range(1, dp):
+                    total.add_(grads[k][j].to(dev))
+                count = optimizer.apply(
+                    flat_view(params[i][j]), total,
+                    AdamState(opt_state.count, opt_state.mu[i][j], opt_state.nu[i][j])).count
+        dev0 = grid[0][0]
+        loss = sse[0].to(dev0, copy=True)
+        for part in sse[1:]:
+            loss.add_(part.to(dev0))
+        return params, AdamState(count, opt_state.mu, opt_state.nu), loss / B
+
+    return train_step
+
+
 def train_material_net(
     l1: int = 64,
     steps: int = 200,
@@ -324,17 +496,15 @@ def train_material_net(
     generator: Optional[torch.Generator] = None,
     on_step: Optional[Callable] = None,
 ):
-    """Train a board768 net against the dataset's targets (by default
-    random_position_dataset(batch * 8, seed)) → (params, final loss). The
-    net starts from init_params(generator) (default: a CPU generator
-    seeded with `seed`, so the card and the CPU start from the same
-    net), and the batches are the reference's: np.random.default_rng(seed)
-    .integers(0, n, size=batch) each step. on_step(i, params, opt_state,
-    loss), if given, runs after each step (params are updated in place by
-    the next one). Runs on the card unless device="cpu"."""
-    if feature_set != "board768":
-        raise NotImplementedError(
-            f"training a {feature_set} net is not ported; only board768")
+    """Train a board768 or king-bucketed ("halfkav2_hm") net against the
+    dataset's targets (by default random_position_dataset(batch * 8,
+    seed)) → (params, final loss). The net starts from
+    init_params(generator) (default: a CPU generator seeded with `seed`,
+    so the card and the CPU start from the same net), and the batches are
+    the reference's: np.random.default_rng(seed).integers(0, n,
+    size=batch) each step. on_step(i, params, opt_state, loss), if given,
+    runs after each step (params are updated in place by the next one).
+    Runs on the card unless device="cpu"."""
     dev = device_mod.resolve(device)
     if generator is None:
         generator = torch.Generator().manual_seed(seed)

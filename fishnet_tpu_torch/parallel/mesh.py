@@ -21,10 +21,19 @@ of its tensors current (kernels.py `_launch`), so on several cards each
 shard launches on its own. A CPU shard runs the plain version
 (`run_segment_plain`, `refill_lanes`' plain K7).
 
+The trainer's (dp, tp) grid (`make_2d_mesh`) is a tuple of dp rows of
+tp devices each: `shard_params_tp` lays a net out as the reference's
+PARAM_RULES_TP shard it (ft_w's and ft_b's columns split in contiguous
+blocks over tp, the layer stack replicated), each position's fields views
+of a flat buffer of its own, and `shard_batch` splits a batch over dp
+(the reference's batch_spec) and gives each row's part to each of its
+positions. models/train.py make_sharded_train_step runs the step on it.
+
 Not ported: the reference's partition-spec registry
 (parallel/partition.py) and its `aot`/`sanitize` wrapping serve only
 XLA's sharded compilation and buffer donation, which have no counterpart
-here; `sharded_search`, a thin wrapper, is `ops/search.py
+here (the grid's two layouts are written out in `shard_params_tp` and
+`shard_batch`); `sharded_search`, a thin wrapper, is `ops/search.py
 search_batch_resumable(mesh=...)` itself; the multi-host half
 (parallel/distributed.py) waits for a machine with several hosts.
 """
@@ -36,10 +45,13 @@ import numpy as np
 import torch
 
 from .. import kernels, settings
+from ..models import nnue
 from ..ops import search
 from ..ops import tt as tt_mod
 
 Mesh = Tuple[torch.device, ...]
+# the trainer's (dp, tp) grid: dp rows of tp devices
+Grid = Tuple[Mesh, ...]
 
 # each (device index, shard) its own CUDA stream, made once
 _STREAMS: dict = {}
@@ -64,27 +76,85 @@ def make_mesh(devices: Optional[Sequence] = None) -> Mesh:
     return tuple(mesh)
 
 
-def _local(mesh: Mesh, B: int) -> int:
+def make_2d_mesh(dp: int, tp: int, devices: Optional[Sequence] = None) -> Grid:
+    """A dp x tp grid of devices, the reference's make_2d_mesh (axes "dp"
+    and "tp"): row i is devices[i * tp:(i + 1) * tp]. By default the first
+    dp * tp visible cards (RuntimeError with fewer); a device repeats only
+    where `devices` repeats it (["cuda:0"] * 8 puts eight positions on one
+    card, ["cpu"] * 8 on the CPU)."""
+    if dp < 1 or tp < 1:
+        raise ValueError(f"a grid needs dp, tp >= 1, got {dp} x {tp}")
+    if devices is None:
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n < dp * tp:
+            raise RuntimeError(f"a {dp} x {tp} grid needs {dp * tp} cards, {n} visible; "
+                               f"pass the grid's devices")
+        devices = [f"cuda:{i}" for i in range(dp * tp)]
+    flat = make_mesh(devices)
+    if len(flat) != dp * tp:
+        raise ValueError(f"a {dp} x {tp} grid takes {dp * tp} devices, got {len(flat)}")
+    return tuple(flat[i * tp:(i + 1) * tp] for i in range(dp))
+
+
+def _is_grid(mesh) -> bool:
+    return len(mesh) > 0 and isinstance(mesh[0], tuple)
+
+
+def check_grid(grid) -> Grid:
+    """grid itself if it is a rectangular (dp, tp) grid of devices."""
+    if not _is_grid(grid) or any(len(row) != len(grid[0]) or not row for row in grid):
+        raise ValueError("expected a (dp, tp) grid of devices (make_2d_mesh)")
+    return grid
+
+
+def _local(mesh, B: int) -> int:
     if B % len(mesh):
         raise ValueError(f"lane count {B} must divide over {len(mesh)} devices")
     return B // len(mesh)
 
 
-def shard_batch(mesh: Mesh, tree) -> list:
+def shard_batch(mesh, tree) -> list:
     """A tensor, or a tuple of tensors with one leading lane dimension (a
     SearchState, a Board), → its n shards along that dimension, shard s
     on mesh[s]: views where the batch already lies contiguous on that
-    device, copies elsewhere."""
+    device, copies elsewhere. On a (dp, tp) grid the batch splits over dp
+    and every position of row i gets row i's part on its device (the
+    reference's batch_spec): → [i][j]."""
     first = tree if torch.is_tensor(tree) else tree[0]
     local = _local(mesh, int(first.shape[0]))
 
-    def part(x: torch.Tensor, s: int) -> torch.Tensor:
-        piece = x[s * local:(s + 1) * local]
-        return piece.to(mesh[s]).contiguous()
+    def part(s: int, dev: torch.device):
+        def piece(x: torch.Tensor) -> torch.Tensor:
+            return x[s * local:(s + 1) * local].to(dev).contiguous()
 
-    if torch.is_tensor(tree):
-        return [part(tree, s) for s in range(len(mesh))]
-    return [type(tree)(*[part(x, s) for x in tree]) for s in range(len(mesh))]
+        return piece(tree) if torch.is_tensor(tree) else type(tree)(*[piece(x) for x in tree])
+
+    if _is_grid(mesh):
+        return [[part(i, dev) for dev in row] for i, row in enumerate(mesh)]
+    return [part(s, dev) for s, dev in enumerate(mesh)]
+
+
+def shard_params_tp(params, grid: Grid) -> tuple:
+    """A net (NnueParams) in the reference's training layout on a (dp, tp)
+    grid (PARAM_RULES_TP): the position (i, j) holds column block j of ft_w (P(None, "tp")) and of
+    ft_b (P("tp")), contiguous blocks in tp order, and the whole layer
+    stack (P()), all f32 views of one flat buffer of its own on its device
+    → a grid of NnueParams."""
+    tp = len(check_grid(grid)[0])
+    l1 = params.ft_w.shape[1]
+    if l1 % tp:
+        raise ValueError(f"ft_w's {l1} columns do not split over tp = {tp}")
+    w = l1 // tp
+    out = []
+    for row in grid:
+        out.append([])
+        for j, dev in enumerate(row):
+            fields = [params.ft_w[:, j * w:(j + 1) * w], params.ft_b[j * w:(j + 1) * w],
+                      *params[2:]]
+            flat = torch.cat([t.detach().reshape(-1).to(dev, torch.float32) for t in fields])
+            views = flat.split([t.numel() for t in fields])
+            out[-1].append(nnue.NnueParams(*[v.view(t.shape) for v, t in zip(views, fields)]))
+    return tuple(tuple(row) for row in out)
 
 
 def replicate(mesh: Mesh, tree) -> list:

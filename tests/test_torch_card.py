@@ -11,9 +11,11 @@ transposition table and helper lanes too, and a refill splice and a
 refill stream (tables compared byte for byte); the full evals of the
 king-bucketed and Stockfish nets (K12, K13) against their plain versions,
 their wrappers' refusals, and K11 on those nets against
-run_segment_plain; the trainer's kernels (K14-K16) against their plain
-versions, their wrappers' refusals, and training steps on the card that
-run no plain version, against the CPU's; the variant instantiations of
+run_segment_plain; the trainer's kernels (K14-K16, and on a king-bucketed net
+K17 and K18) against their plain versions, their wrappers' refusals, and
+training steps on the card that run no plain version, against the CPU's;
+the dp×tp step on grids of cuda:0 (one row equal to the one-device step
+bit for bit, a 2 x 2 grid against the same grid of CPU devices); the variant instantiations of
 K4 and K8-K10 against their plain versions and K11 against
 run_segment_plain in each variant (in crazyhouse also on roots from its
 mid, heavy and full pockets; atomic also on the king-bucketed net); the
@@ -33,8 +35,8 @@ import torch
 
 from chip_smoke import (
     TRAIN_GRAD_RTOL, TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL, TT_PROBE_ARGS, TT_STORE_ARGS, VARIANTS,
-    ZH_POCKETS, _rel_err, every_move, kb_case, lane_init_case, playout_boards, rules_inputs, segment_case,
-    sf_file, train_case, tt_inputs, tt_runner_layout,
+    ZH_POCKETS, _rel_err, every_move, kb_case, kb_train_case, lane_init_case, playout_boards,
+    rules_inputs, segment_case, sf_file, train_case, tt_inputs, tt_runner_layout,
 )
 from fishnet_tpu_torch import kernels
 from fishnet_tpu_torch.chess import Position
@@ -47,8 +49,8 @@ from fishnet_tpu_torch.ops import tt
 from fishnet_tpu_torch.ops import search
 from fishnet_tpu_torch.ops.search import search_batch, search_batch_resumable, search_stream
 from fishnet_tpu_torch.parallel.mesh import (
-    make_mesh, make_sharded_table, refill_lanes_sharded, refill_lanes_sharded_plain,
-    run_segment_sharded, shard_batch,
+    make_2d_mesh, make_mesh, make_sharded_table, refill_lanes_sharded, refill_lanes_sharded_plain,
+    run_segment_sharded, shard_batch, shard_params_tp,
 )
 
 pytestmark = pytest.mark.cuda
@@ -647,6 +649,120 @@ def test_training_steps_on_the_card_run_no_plain_code(card, monkeypatch):
     for a, b in zip(card_losses, cpu_losses):
         assert abs(a - b) <= TRAIN_LOSS_RTOL * abs(b)
     assert float((card_params - cpu_params).abs().max()) <= TRAIN_PARAM_ATOL
+
+
+@pytest.mark.parametrize("batch", [32, 512])
+def test_king_bucketed_training_kernels_match_plain_versions(card, batch):
+    """K17 equal to its plain version byte for byte, also on a tp shard's
+    half of the columns; K18 within TRAIN_GRAD_RTOL of its plain version
+    and the same bytes on a repeated launch."""
+    c = kb_train_case(batch, seed=batch + 9, dev=card)
+    p, boards, d_acc = c["params"], c["boards"], c["d_acc"]
+    kernels.reset_launches()
+    acc = nnue.accumulators_kb(p, boards)
+    assert torch.equal(acc, nnue.accumulators(p, boards))
+    half = p._replace(ft_w=p.ft_w[:, :32].contiguous(), ft_b=p.ft_b[:32].contiguous())
+    assert torch.equal(nnue.accumulators_kb(half, boards), acc[:, :, :32])
+    n_ft = (nnue.NUM_FEATURES + 1) * 64
+    f1, f2 = (torch.empty(n_ft, device=card) for _ in range(2))
+    train.ft_backward_kb(boards, d_acc, f1)
+    train.ft_backward_kb(boards, d_acc, f2)
+    assert torch.equal(f1, f2)
+    want = torch.cat([t.reshape(-1) for t in train.ft_backward_kb_plain(boards, d_acc)])
+    assert _rel_err(f1, want) <= TRAIN_GRAD_RTOL
+    assert {n: v for n, v in kernels.LAUNCHES.items() if v} == {
+        "nnue_refresh_kb": 2, "nnue_ft_backward_kb": 2}
+
+
+def test_king_bucketed_training_wrappers_refuse_bad_inputs(card):
+    c = kb_train_case(16, seed=3, dev=card)
+    p, boards, d_acc = c["params"], c["boards"], c["d_acc"]
+    n_ft = (nnue.NUM_FEATURES + 1) * 64
+    kernels.reset_launches()
+    with pytest.raises(ValueError):  # CPU tensors
+        kernels.nnue_refresh_kb(boards.cpu(), p.ft_w.cpu(), p.ft_b.cpu())
+    with pytest.raises(ValueError):  # a board768 table
+        kernels.nnue_refresh_kb(boards, p.ft_w[:768].contiguous(), p.ft_b)
+    with pytest.raises(TypeError):
+        kernels.nnue_refresh_kb(boards.long(), p.ft_w, p.ft_b)
+    with pytest.raises(ValueError):  # a gradient buffer of the wrong length
+        kernels.nnue_ft_backward_kb(d_acc, boards, torch.empty(n_ft - 1, device=card))
+    with pytest.raises(ValueError):  # an empty batch
+        kernels.nnue_ft_backward_kb(d_acc[:0], boards[:0], torch.empty(n_ft, device=card))
+    with pytest.raises(ValueError):  # a non-contiguous d_acc
+        kernels.nnue_ft_backward_kb(d_acc.transpose(0, 1).contiguous().transpose(0, 1), boards,
+                                    torch.empty(n_ft, device=card))
+    assert not any(kernels.LAUNCHES.values())
+
+
+def _grid_steps(net, grid, batches, dev):
+    params = shard_params_tp(net, grid)
+    opt = train.adam(2e-3)
+    state = opt.init(params)
+    step = train.make_sharded_train_step(grid, opt)
+    losses = []
+    for b in batches:
+        params, state, loss = step(params, state, *[t.to(dev) for t in b])
+        losses.append(loss)
+    return params, losses
+
+
+def _train_batches(n, batch, seed):
+    dataset = train.diverse_position_dataset(256, seed=seed)
+    rng = np.random.default_rng(seed)
+    return [[torch.from_numpy(a[idx]) for a in dataset]
+            for idx in rng.integers(0, 256, size=(n, batch))]
+
+
+@pytest.mark.parametrize("feature_set", ["board768", "halfkav2_hm"])
+def test_grid_of_one_row_equals_one_device_on_the_card(card, feature_set):
+    """Three steps of the grid (1, 2) on cuda:0 equal make_train_step on
+    the card bit for bit (losses and params): tp alone changes no bit."""
+    net = nnue.init_params(torch.Generator().manual_seed(4), l1=64, feature_set=feature_set,
+                           device=card)
+    batches = _train_batches(3, 64, seed=4)
+    params, losses = _grid_steps(net, make_2d_mesh(1, 2, ["cuda:0"] * 2), batches, card)
+    one = train.pack_params(nnue.NnueParams(*[t.clone() for t in net]))
+    opt = train.adam(2e-3)
+    state = opt.init(one)
+    step = train.make_train_step(opt)
+    for b, loss in zip(batches, losses):
+        one, state, want = step(one, state, *[t.to(card) for t in b])
+        assert torch.equal(loss, want)
+    for j, p in enumerate(params[0]):
+        assert torch.equal(p.ft_w, one.ft_w[:, j * 32:(j + 1) * 32])
+        assert torch.equal(p.ft_b, one.ft_b[j * 32:(j + 1) * 32])
+        assert all(torch.equal(a, b) for a, b in zip(p[2:], one[2:]))
+
+
+@pytest.mark.parametrize("feature_set", ["board768", "halfkav2_hm"])
+def test_grid_2x2_on_the_card_equals_the_cpu(card, feature_set, monkeypatch):
+    """Three steps of the grid (2, 2) on cuda:0 launch each position's
+    kernels once a step and no plain version, and agree with the same grid
+    of CPU devices (losses within TRAIN_LOSS_RTOL, every position's params
+    within TRAIN_PARAM_ATOL)."""
+    net = nnue.init_params(torch.Generator().manual_seed(6), l1=64, feature_set=feature_set,
+                           device="cpu")
+    batches = _train_batches(3, 64, seed=6)
+    cpu_params, cpu_losses = _grid_steps(net, make_2d_mesh(2, 2, ["cpu"] * 4), batches, "cpu")
+    for mod, name in ((nnue, "accumulators_768_plain"), (nnue, "accumulators"),
+                      (nnue, "forward_from_acc_plain"), (train, "stack_backward_plain"),
+                      (train, "ft_backward_768_plain"), (train, "ft_backward_kb_plain"),
+                      (train, "adam_update_plain")):
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, **k: pytest.fail(_n))
+    kernels.reset_launches()
+    params, losses = _grid_steps(net, make_2d_mesh(2, 2, ["cuda:0"] * 4), batches, card)
+    refresh, ft = (("nnue_refresh_768", "nnue_ft_backward_768") if feature_set == "board768"
+                   else ("nnue_refresh_kb", "nnue_ft_backward_kb"))
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        k: 12 for k in (refresh, "nnue_forward_from_acc", "nnue_stack_backward", ft,
+                        "adam_update")}
+    for a, b in zip(losses, cpu_losses):
+        assert abs(float(a) - float(b)) <= TRAIN_LOSS_RTOL * abs(float(b))
+    for row, cpu_row in zip(params, cpu_params):
+        for p, q in zip(row, cpu_row):
+            assert float((train.flat_view(p).cpu() - train.flat_view(q)).abs().max()) \
+                <= TRAIN_PARAM_ATOL
 
 
 @pytest.mark.parametrize("variant,roots", [(v, None) for v in VARIANTS]

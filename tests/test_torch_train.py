@@ -37,6 +37,7 @@ from fishnet_tpu.models import train as jt
 from fishnet_tpu_torch import ipc
 from fishnet_tpu_torch.engine.gpu import GpuEngine
 from fishnet_tpu_torch.models import nnue as tn
+from fishnet_tpu_torch.models import nnue_import as tni
 from fishnet_tpu_torch.models import train as tt
 
 REPO = Path(__file__).resolve().parents[1]
@@ -293,9 +294,20 @@ def test_entry_point_runs_on_the_cpu(tmp_path):
     assert tn.load_params(out, device="cpu").ft_w.shape == (768, 64)
 
 
-def test_king_bucketed_training_is_refused():
+def test_stockfish_net_training_is_refused():
+    """The trainer takes the reference's two NnueParams feature sets
+    (board768, king-bucketed; tests/test_torch_train_kb.py trains the
+    latter): an imported Stockfish net is refused, and an unknown feature
+    set raises as the reference's init_params does."""
+    l1 = 8
+    shapes = {"ft_w": (tn.NUM_FEATURES, l1), "ft_b": (l1,), "psqt_w": (tn.NUM_FEATURES, 8),
+              "fc0_w": (8, 16, l1), "fc0_b": (8, 16), "fc1_w": (8, 32, 30), "fc1_b": (8, 32),
+              "fc2_w": (8, 1, 32), "fc2_b": (8, 1)}
+    net = tni.StockfishNet(**{f: torch.zeros(s) for f, s in shapes.items()})
     with pytest.raises(NotImplementedError):
-        tt.train_material_net(steps=1, batch=4, feature_set="halfkav2_hm", device="cpu")
-    king = tn.init_params(torch.Generator().manual_seed(0), l1=8, device="cpu")
+        tt.pack_params(net)
+    dataset = tt.random_position_dataset(4, seed=0)
     with pytest.raises(NotImplementedError):
-        tt.pack_params(king)
+        tt.make_train_step(tt.adam(1e-3))(net, None, *[torch.from_numpy(a) for a in dataset])
+    with pytest.raises(KeyError):
+        tt.train_material_net(steps=1, batch=4, feature_set="halfka", device="cpu")
