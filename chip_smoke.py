@@ -157,13 +157,18 @@ power limit, and the result line `{"ok": true, "device": {...}}`.
 one-card main path, REPS times a process, for an earlier tree of the
 repository (TREE, unpacked with git archive; it needs only its
 fishnet_tpu_torch package) and for this one, parent, this, this, parent,
-each run's counts and times one JSON line.
+each run's counts, times and responses digest one JSON line, then each
+process's digests of K2's and K9's outputs on seeded inputs and its K11
+us-per-step table (every variant and net at 16, 64 and 1024 lanes), and
+one line `{"digests_equal": ...}` over all four processes (exit 1 where
+the digests differ).
 """
 from __future__ import annotations
 
 import asyncio
 import contextlib
 import functools
+import hashlib
 import json
 import os
 import random
@@ -555,6 +560,58 @@ def kernel_phase(params_f32, reps: int) -> dict:
                     f"{lib_ms} / {lib_call}, bound {stats[name]['bound_ms']:.6f} "
                     f"({stats[name]['bound_by']})")
     return stats
+
+
+K2_EDGE_LANES = (1, 16, 64, 1024)
+
+
+def k2_edge_phase(params_f32, reps: int) -> dict:
+    """K2 (one warp a lane) on k2_case's accumulators at the clip edges,
+    every output bucket, at K2_EDGE_LANES lanes on the f32, int8 and bf16
+    nets: against its plain version (f32 and bf16 within F32_EVAL_TOL,
+    int8 exactly), the bf16 entry also against the f32 kernel on the
+    widened weights (bit difference 0). Times at 64 and 1024 lanes on
+    each net, with the bound from the bytes each call must move (the pair,
+    stm and bucket in, the head weights of the buckets it uses, the evals
+    out). → {"max_abs_err", "edge_ms": {net: {lanes: ms}}, "edge_bound_ms"}."""
+    import torch
+
+    from fishnet_tpu_torch.models import nnue
+
+    dev = torch.device("cuda")
+    p16 = nnue.cast_params(params_f32)
+    nets = {"f32": params_f32, "int8": nnue.quantize_int8(params_f32), "bf16": p16}
+    wide = nnue.widened(p16)
+    out = {"max_abs_err": 0.0, "edge_ms": {}, "edge_bound_ms": {}}
+    for B in K2_EDGE_LANES:
+        for net, p in nets.items():
+            acc, stm, bucket = k2_inputs(B, B, "int8" if net == "int8" else "f32", dev)
+            got = nnue.forward_from_acc(p, acc, stm, bucket)
+            want = nnue.forward_from_acc_plain(p, acc, stm, bucket)
+            tol = 0.0 if net == "int8" else nnue.F32_EVAL_TOL
+            bits = _bit_diff(got, nnue.forward_from_acc(wide, acc, stm, bucket)) \
+                if net == "bf16" else 0
+            torch.cuda.synchronize()
+            err = float((got.double() - want.double()).abs().max())
+            log(f"check nnue_forward_from_acc B={B} {net} at the clip edges, buckets "
+                f"{sorted(set(bucket.tolist()))}: max_abs_err={err} (tolerance {tol})"
+                + (f"; bit difference {bits} against the f32 kernel on the widened weights"
+                   if net == "bf16" else ""))
+            if not err <= tol or bits != 0 or got.shape != want.shape:
+                raise AssertionError(f"K2 B={B} {net} at the clip edges: error {err} > {tol} "
+                                     f"or bits {bits}")
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            if B not in (64, 1024):
+                continue
+            head = int(bucket.unique().numel()) * sum(
+                t[0].numel() * t.element_size() for t in p[2:])
+            nbytes = acc.numel() * acc.element_size() + B * 8 + head + B * 4
+            ms = time_ms(lambda: nnue.forward_from_acc(p, acc, stm, bucket), reps)[0]
+            out["edge_ms"].setdefault(net, {})[B] = ms
+            out["edge_bound_ms"].setdefault(net, {})[B] = nbytes / HBM_BYTES_PER_S * 1e3
+            log(f"time nnue_forward_from_acc B={B} {net} (device ms): kernel {ms:.5f}, bound "
+                f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} (bytes, {nbytes} bytes)")
+    return out
 
 
 def sf_case(l1: int, seed: int) -> dict:
@@ -1017,6 +1074,108 @@ def positions_case(positions, seed: int) -> dict:
     return case
 
 
+# K9's long and tied lists, for the branches of its sort (csrc/movegen.cuh):
+# exactly 64 and 65 moves (the last list sorted in registers, the first
+# merged in shared memory), the 218-move position, crazyhouse lists of 299
+# and 435 moves, a castling right without its rook (its castle and the king
+# step encode alike: equal packed values once both are killers), antichess
+# with and without a capture, and every key class (captures and capture
+# promotions, quiet queen promotions, castling, killers, history, quiet
+# moves; drops in the crazyhouse lists) → (label, variant, FEN)
+MOVEGEN_LONG = (
+    ("64 moves", "standard", "4Q3/5P1B/7B/6P1/1Q6/n5K1/8/k6N w - - 13 87"),
+    ("65 moves", "standard", "4Q3/1P5B/7B/6P1/1Q6/n5K1/8/k6N w - - 13 87"),
+    ("218 moves", "standard", "R6R/3Q4/1Q4Q1/4Q3/2Q4Q/Q4Q2/pp1Q4/kBNN1KB1 w - - 0 1"),
+    ("key classes", "standard", "r3k2r/1P6/8/8/3p4/4P3/8/R3K2R w KQkq - 0 1"),
+    ("castling right without its rook", "standard", "4k3/8/8/8/8/8/8/5K2 w - - 0 1"),
+    ("antichess, a capture", "antichess",
+     "rnbqkbnr/ppp1pppp/8/3p4/4P3/8/PPPP1PPP/RNBQKBNR w - - 0 2"),
+    ("antichess, no capture", "antichess",
+     "rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR w - - 0 1"),
+    ("crazyhouse, 299 moves", "crazyhouse", "7k/8/8/8/8/8/8/K7[QRBNPqrbnp] w - - 0 30"),
+    ("crazyhouse, 435 moves", "crazyhouse",
+     "R6R/3Q4/1Q4Q1/4Q3/2Q4Q/Q4Q2/pp1Q4/kBNN1KB1[QQQQRRBBNNPPPP] w - - 0 1"),
+)
+
+
+def movegen_long_case(variant: str) -> tuple:
+    """MOVEGEN_LONG's fixtures of one device variant → (labels, a
+    positions_case dict): history counters whose bonuses span 0-99 and
+    its clamps, and as killers the moves a third and all the way down the
+    unordered list (in crazyhouse the last is a drop); "key classes"
+    takes its e1h1 castle and b7b8=Q as killers, and "castling right
+    without its rook" gets the g1 right back with f1g1 (king step and
+    castle alike) as a killer."""
+    import numpy as np
+    import torch
+
+    from fishnet_tpu_torch.chess import from_fen
+    from fishnet_tpu_torch.ops import movegen as tm
+    from fishnet_tpu_torch.ops import tables as T
+    from fishnet_tpu_torch.ops.board import Board
+
+    rows = [(label, fen) for label, v, fen in MOVEGEN_LONG if v == variant]
+    case = positions_case([from_fen(fen, variant) for _, fen in rows], seed=17)
+    rng = np.random.default_rng(17)
+    case["hist"] = rng.integers(-64, 3300, case["hist"].shape).astype(np.int32)
+    for lane, (label, _) in enumerate(rows):
+        if label == "castling right without its rook":
+            case["castling"][lane, 0] = 6
+    b = Board(*[torch.from_numpy(case[f]) for f in Board._fields])
+    moves, count, _ = tm.generate_moves_plain(b, variant=variant)
+    for lane, (label, _) in enumerate(rows):
+        n = int(count[lane])
+        case["killers"][lane] = [int(moves[lane, n // 3]), int(moves[lane, n - 1])]
+        if label == "key classes":
+            case["killers"][lane] = [4 | (7 << 6), 49 | (57 << 6) | (T.PROMO_Q << 12)]
+        if label == "castling right without its rook":
+            case["killers"][lane] = [5 | (6 << 6), -1]
+    return [label for label, _ in rows], case
+
+
+def movegen_long_inputs(variant: str, dev):
+    """movegen_long_case on dev → (labels, Board, killers, hist)."""
+    import torch
+
+    from fishnet_tpu_torch.ops.board import Board
+
+    labels, case = movegen_long_case(variant)
+    c = {k: torch.from_numpy(v).to(dev) for k, v in case.items()}
+    return labels, Board(*[c[f] for f in Board._fields]), c["killers"], c["hist"]
+
+
+# K2's inputs at the clip edges: each accumulator column one of these
+# values (f32, for the f32 and bf16 nets: around crelu's 0 and 1; int8:
+# around [0, QA]) or a seeded value inside the range
+K2_EDGES = {"f32": (-0.5, -1e-7, 0.0, 1e-7, 0.5, 1.0 - 6e-8, 1.0, 1.0 + 1.2e-7, 2.0),
+            "int8": (-300, -1, 0, 1, 63, 64, 126, 127, 128, 4000)}
+
+
+def k2_case(B: int, seed: int, kind: str) -> dict:
+    """B lanes of K2's inputs (numpy): acc (B, 2, 64) (f32 for kind
+    "f32", int32 for "int8"), half its columns K2_EDGES[kind] and half
+    inside the clip range, stm (B,) seeded, bucket (B,) lane % 8, so every
+    output bucket runs from 8 lanes on."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    edges = np.asarray(K2_EDGES[kind], np.float32 if kind == "f32" else np.int32)
+    acc = edges[rng.integers(len(edges), size=(B, 2, 64))]
+    inner = (rng.random((B, 2, 64)).astype(np.float32) if kind == "f32"
+             else rng.integers(0, 128, (B, 2, 64)).astype(np.int32))
+    acc = np.where(rng.random((B, 2, 64)) < 0.5, inner, acc)
+    return {"acc": acc, "stm": rng.integers(0, 2, B).astype(np.int32),
+            "bucket": (np.arange(B) % 8).astype(np.int32)}
+
+
+def k2_inputs(B: int, seed: int, kind: str, dev) -> tuple:
+    """k2_case on dev → (acc, stm, bucket)."""
+    import torch
+
+    c = k2_case(B, seed, kind)
+    return tuple(torch.from_numpy(c[k]).to(dev) for k in ("acc", "stm", "bucket"))
+
+
 def rules_inputs(B: int, seed: int, dev, variant: str = "standard", fens=None):
     """B seeded positions for K4 and K8-K10 on dev → (Board, killers,
     hist): rules_case's in standard chess, else variant_positions' (its
@@ -1049,10 +1208,11 @@ def rules_kernel_phase(reps: int, variant: str = "standard") -> dict:
     the card at B = 16, 64 (the engine's width) and 1024 on rules_inputs'
     positions: K9 with and without the killers and history, K10 over every
     generated move from packed rows (as the step calls it), K8 and K4 on
-    the boards and on every child K10 makes. Max error 0 everywhere.
-    Times at B = 64 and 1024, one call each as the step makes it (K9 with
-    killers and history, K10 one move a lane); the bounds count the bytes
-    each lane must move."""
+    the boards and on every child K10 makes, and K9 on the variant's
+    MOVEGEN_LONG fixtures. Max error 0 everywhere. Times at B = 16, 64 and
+    1024 (the plain versions' at 64 and 1024), one call each as the step
+    makes it (K9 with killers and history, K10 one move a lane); the
+    bounds count the bytes each lane must move."""
     import torch
 
     from fishnet_tpu_torch.ops import board as tb
@@ -1105,8 +1265,6 @@ def rules_kernel_phase(reps: int, variant: str = "standard") -> dict:
             got, want = tt.hash_boards(boards, v), hash_plain(boards)
             torch.cuda.synchronize()
             check("zobrist_hash", f"B={B} {label}", (got,), (want,))
-        if B == 16:
-            continue
 
         # one call as the step makes it: the lane's board rows, its killers
         # and history; K10 on one generated move a lane
@@ -1139,15 +1297,32 @@ def rules_kernel_phase(reps: int, variant: str = "standard") -> dict:
                 B * (64 + 7 + 12 + 1) * 4 + B * (64 + 7 + 12 + 12) * 4),
         }
         for name, (kern, plain, nbytes) in timed.items():
-            (ms, call_ms), (plain_ms, plain_call) = time_ms(kern, reps), time_ms(plain, reps)
+            ms, call_ms = time_ms(kern, reps)
             bound = nbytes / HBM_BYTES_PER_S * 1e3
+            stats[name].setdefault("ms_by_lanes", {})[B] = ms
+            if B == 16:  # the kernels only: 16 lanes read their launch
+                log(f"time {name} {v} B={B} (device ms / call ms): kernel {ms:.5f} / "
+                    f"{call_ms:.5f}, bound {bound:.6f} (bytes, {nbytes} bytes)")
+                continue
+            plain_ms, plain_call = time_ms(plain, reps)
             stats[name].update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
                                bound_by="bytes")
             log(f"time {name} {v} B={B} (device ms / call ms): kernel {ms:.5f} / "
                 f"{call_ms:.5f}, plain {plain_ms:.5f} / {plain_call:.5f}, library none, bound "
                 f"{bound:.6f} (bytes, {nbytes} bytes)")
 
-    # K9 with every lane at one root case's FEN (crazyhouse: its rank sort
+    # K9 on the long and tied lists of MOVEGEN_LONG
+    if any(fv == v for _, fv, _ in MOVEGEN_LONG):
+        labels, b, killers, hist = movegen_long_inputs(v, dev)
+        for label, kw in (("plain ordering", {}), ("killers+history",
+                                                   {"killers": killers, "hist": hist})):
+            got = tm.generate_moves(b, variant=v, **kw)
+            want = tm.generate_moves_plain(b, variant=v, **kw)
+            torch.cuda.synchronize()
+            check("generate_moves", f"MOVEGEN_LONG {label} ({', '.join(labels)}: moves "
+                  f"{want[1].tolist()})", got, want)
+
+    # K9 with every lane at one root case's FEN (crazyhouse: its sort
     # grows with the pockets' drops), checked, then timed at 1024
     for label, fen in ROOT_CASES.get(v, {}).items():
         B = 1024
@@ -3611,17 +3786,105 @@ def mesh_phase(params_f32, depth: int, n_positions: int) -> dict:
     return {"launches": launches, "steps": steps, "search_segment": seg, "lane_init": k7}
 
 
+def digest(*tensors) -> str:
+    """The first 16 hex digits of the SHA-256 of the tensors' bytes."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def kernel_digests(dev) -> dict:
+    """Digests of K2's and K9's outputs on fixed seeded inputs: K2 on
+    k2_case's accumulators (f32, int8, bf16 nets) and K9 with killers and
+    history on rules_inputs (standard, crazyhouse) at 64 and 1024 lanes,
+    and K9 on MOVEGEN_LONG's fixtures. Uses only entry points every tree
+    of the port has."""
+    from fishnet_tpu_torch.models import nnue
+    from fishnet_tpu_torch.ops import movegen as tm
+
+    f32 = nnue.load_params(device=dev)
+    nets = {"f32": f32, "int8": nnue.quantize_int8(f32), "bf16": nnue.cast_params(f32)}
+    out = {}
+    for B in (64, 1024):
+        for net, p in nets.items():
+            acc, stm, bucket = k2_inputs(B, B, "int8" if net == "int8" else "f32", dev)
+            out[f"K2 {net} B={B}"] = digest(nnue.forward_from_acc(p, acc, stm, bucket))
+        for v in ("standard", "crazyhouse"):
+            b, killers, hist = rules_inputs(B, B, dev, v)
+            out[f"K9 {v} B={B}"] = digest(*tm.generate_moves(b, killers, hist, variant=v))
+    for v in sorted({fv for _, fv, _ in MOVEGEN_LONG}):
+        _, b, killers, hist = movegen_long_inputs(v, dev)
+        out[f"K9 long lists {v}"] = digest(*tm.generate_moves(b, killers, hist, variant=v))
+    return out
+
+
+STEP_TABLE_LANES = (16, 64, 1024)
+
+
+def k11_step_table(params_f32, reps: int) -> dict:
+    """K11's us per step at STEP_TABLE_LANES lanes: a 200-step segment on
+    segment_case's "engine" setup (the main path's table), after a warm-up
+    segment, from the same state each time (CUDA events, the mean of `reps`
+    launches), for standard chess and each variant on the f32 board768
+    net, crazyhouse's ZH_POCKETS roots, the bf16 board768 net, the
+    king-bucketed int8 net (KB_WIDTHS) and the Stockfish net at SF_L1.
+    Uses only entry points every tree of the port has. → {config: {lanes:
+    us per step}}."""
+    import torch
+
+    from fishnet_tpu_torch.models import nnue
+    from fishnet_tpu_torch.models import nnue_import as ni
+    from fishnet_tpu_torch.ops import search
+
+    dev = torch.device("cuda")
+    kb = nnue.params_from_numpy(kb_case(*KB_WIDTHS, seed=5), dev)
+    configs = [(v, params_f32, v, None) for v in ("standard",) + VARIANTS]
+    configs += [(f"crazyhouse {k}", params_f32, "crazyhouse", fen)
+                for k, fen in ZH_POCKETS.items()]
+    configs += [("bf16", nnue.cast_params(params_f32), "standard", None),
+                ("king-bucketed int8", nnue.quantize_int8(kb), "standard", None),
+                (f"Stockfish L1 {SF_L1}", ni.load_nnue(sf_file(SF_L1, 7), device=dev),
+                 "standard", None)]
+    table = {}
+    for name, params, v, fen in configs:
+        for B in STEP_TABLE_LANES:
+            state0, table0, kw = segment_case(params, B, "engine", seed=B, dev=dev, variant=v,
+                                              fens=None if fen is None else [fen] * B)
+            state, tt_table = _clone(state0, table0)
+            kw = dict(kw, table=tt_table)
+            search.run_segment(params, state, 200, True, **kw)  # warm up
+            total, steps = 0.0, 0
+            for _ in range(reps):
+                for t, t0 in zip(list(state) + [tt_table], list(state0) + [table0]):
+                    t.copy_(t0)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                n, _ = search.run_segment(params, state, 200, True, **kw)
+                end.record()
+                torch.cuda.synchronize()
+                total += start.elapsed_time(end)
+                steps += n
+            table.setdefault(name, {})[B] = total / steps * 1e3
+    return table
+
+
 def main_path_run(root: str, reps: int) -> int:
     """The one-card board768 main path (GpuEngine at its defaults: refill,
     a 2^21 table, K = 4, f32; POSITIONS positions at DEPTH) `reps` times
     in one process with the fishnet_tpu_torch package of the tree `root`,
-    each run's counts and times one JSON line. Uses only what every tree
-    of the port has, so an earlier commit's tree runs it too."""
+    each run's counts, times and the digest of its responses (each
+    position's depths, scores, PVs, nodes and best move) one JSON line;
+    then one line of kernel_digests and one of k11_step_table. Uses only
+    what every tree of the port has, so an earlier commit's tree runs it
+    too."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
 
-    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch import ipc, kernels
     from fishnet_tpu_torch.engine.gpu import GpuEngine
     from fishnet_tpu_torch.models import nnue
 
@@ -3641,11 +3904,23 @@ def main_path_run(root: str, reps: int) -> int:
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         tot = engine.occupancy_totals
+        wire = []
+        for r in responses:
+            w = ipc.response_to_wire(r)
+            w.pop("time_s")
+            w.pop("nps")
+            wire.append(w)
+        responses_digest = hashlib.sha256(
+            json.dumps(wire, sort_keys=True).encode()).hexdigest()[:16]
         print(json.dumps({
             "tree": root, "rep": rep, "build_s": build_s, "wall_s": wall,
             "responses": len(responses), "nodes": sum(r.nodes for r in responses),
+            "responses_digest": responses_digest,
             **{k: tot[k] for k in ("steps", "segments", "refills", "host_ms", "device_ms")},
         }), flush=True)
+    print(json.dumps({"tree": root, "kernel_digests": kernel_digests(torch.device("cuda"))}),
+          flush=True)
+    print(json.dumps({"tree": root, "k11_us_per_step": k11_step_table(params, 3)}), flush=True)
     return 0
 
 
@@ -3654,8 +3929,11 @@ def main_path_ab(parent: str, reps: int) -> int:
     git archive) and of this one, in that order: parent, this, this,
     parent, each in a process of its own (main_path_run), so host and
     card drift show as the two parent runs' difference. Prints each run's
-    lines, then the card's name and power limit."""
+    lines, then one line saying whether every run's responses digest and
+    the four processes' kernel digests are equal, then the card's name
+    and power limit; exits 1 where they differ."""
     here = os.path.dirname(os.path.abspath(__file__))
+    runs, kernel_sets = set(), set()
     for root in (parent, here, here, parent):
         out = subprocess.run([sys.executable, os.path.abspath(__file__), "--main-path-run",
                               root, str(reps)], capture_output=True, text=True, timeout=900)
@@ -3663,8 +3941,17 @@ def main_path_ab(parent: str, reps: int) -> int:
         if out.returncode:
             sys.stderr.write(out.stderr[-4000:])
             return out.returncode
+        for line in out.stdout.splitlines():
+            row = json.loads(line)
+            if "responses_digest" in row:
+                runs.add((row["responses_digest"], row["steps"], row["nodes"]))
+            if "kernel_digests" in row:
+                kernel_sets.add(json.dumps(row["kernel_digests"], sort_keys=True))
+    same = len(runs) == 1 and len(kernel_sets) == 1
+    print(json.dumps({"digests_equal": same, "runs": sorted(runs),
+                      "kernel_digest_sets": len(kernel_sets)}))
     print(card_line())
-    return 0
+    return 0 if same else 1
 
 
 def main() -> int:
@@ -3705,6 +3992,9 @@ def main() -> int:
         return out
 
     stats = part("K1-K4", lambda: kernel_phase(params, REPS))
+    edge = part("K2 at the clip edges", lambda: k2_edge_phase(params, REPS))
+    k2 = stats["nnue_forward_from_acc"]
+    k2.update(max_abs_err=max(k2["max_abs_err"], edge.pop("max_abs_err")), **edge)
     stats.update(part("K5, K6", lambda: tt_kernel_phase(REPS)))
     stats.update(part("K7", lambda: lane_init_phase(REPS)))
     rules = {v: part(f"K4, K8-K10 {v}", lambda v=v: rules_kernel_phase(
@@ -3814,7 +4104,9 @@ def main() -> int:
                "replaces": sources[name], "launches": counts[name], "path": path,
                **{k: stats[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms")}}
-        for k in ("ms_l2_warm", "plain_steps"):  # K12, K13: ms is the cold-L2 time
+        # K12, K13: ms is the cold-L2 time; K2 at the clip edges on each
+        # net, K4 and K8-K10 at each width
+        for k in ("ms_l2_warm", "plain_steps", "edge_ms", "edge_bound_ms", "ms_by_lanes"):
             if k in stats[name]:
                 row[k] = stats[name][k]
         if name in kernels.K11_BODIES:  # its body's calls inside K11, per step of its path

@@ -19,15 +19,19 @@
 // quiet move, and the 224-word list and two counts out (904 B): ~1.2 KB a
 // lane, 1.3 MB at 1024 lanes, ~0.4 us of HBM time (crazyhouse: its 10
 // pocket words in and a 544-word list out, ~2.5 KB a lane). In practice
-// the dependent shared-memory reads of the enumeration and the rank sort
-// (n^2 / 32 a thread for n moves; a full crazyhouse pocket gives n ~300)
-// bound it.
+// each lane's dependent chain bounds it: the enumeration's steps, the
+// history loads, and the sort's compare-exchange steps (21 in registers
+// for up to 64 moves; for n longer, the 64-move blocks and log2(n / 64)
+// merges of up to log2(n) steps).
 //
 // Design: one warp per lane, four lanes a block (movegen.cuh): the warp
-// stages the board in shared memory, enumerates the moves into a shared
-// list of MOVE_LIST_CAP words, and ranks it. A warp keeps the list in
-// shared memory where a thread per lane would keep it in local memory,
-// and spreads the enumeration and the sort over 32 threads. The candidate
+// stages the board in shared memory, hands the side's pieces out as work
+// units (a ray, a piece's targets, a pawn's moves) a thread each and
+// appends their moves in lockstep by ballots, sets the keys with the
+// history loads in flight, and sorts the packed values (registers up to
+// 64, else the list's shared array). A warp keeps the list in shared
+// memory where a thread per lane would keep it in local memory, and
+// spreads the enumeration and the sort over 32 threads. The candidate
 // space of the TPU version (4,962 fixed slots and a sort of all of them)
 // is not carried over. The board fields, killers and history are views
 // (a batch stride each, rows contiguous); killers and history may be

@@ -2,10 +2,10 @@
 // stack from an accumulator pair (K2) and one column of its incremental
 // accumulator update (K3), and the full evals of the nets without
 // incremental accumulators: a king-bucketed (HalfKAv2_hm) NnueParams net
-// (K12) and an imported Stockfish net (K13). K2's and K3's kernels wrap
-// their bodies one lane (one column) a thread, K12's and K13's one lane a
-// warp; the segment kernel (K11) calls the same functions, so its evals
-// and accumulators are the standalone kernels' bit for bit.
+// (K12) and an imported Stockfish net (K13). K3's kernel wraps its body
+// one column a thread, K2's, K12's and K13's one lane a warp; the segment
+// kernel (K11) calls the same functions, so its evals and accumulators are
+// the standalone kernels' bit for bit.
 //
 // Float order: every add and multiply of the K12/K13 bodies outside an
 // explicit fmaf is written with __fadd_rn/__fmul_rn, which the compiler
@@ -148,53 +148,84 @@ __device__ __forceinline__ int warp_sum(int v) {
 }
 
 // K2's body on the f32 net (W float) and the bf16 net (W __nv_bfloat16,
-// each weight widened at its load): own/opp are the side to move's and
-// the other side's L1 f32 accumulator columns, b the output bucket. Sums
-// run in input order with fused multiply-adds, in f32; one thread
-// computes the whole lane.
+// each weight widened at its load), one lane a warp: own/opp are the side
+// to move's and the other side's L1 f32 accumulator columns, staged in the
+// warp's shared memory, b the output bucket. Each hidden unit is its own
+// chain of fused multiply-adds in input order, in f32, as one thread
+// computed it before: thread j < H1 sums first-layer unit j over k = 0 ...
+// IN-1 with its weights loaded a chunk ahead of the chain, the units go
+// round the warp by shuffles, thread j < H2 sums second-layer unit j over
+// k = 0 ... H1-1, and every thread runs the output's chain over the
+// shuffled second-layer values in k order. No sum is split across
+// threads, so every caller gets the bits of the one-thread chain.
+// Returns the eval in every thread.
 template <typename W>
-__device__ __forceinline__ float forward_lane(const float* own, const float* opp, int b,
-                                              const Head<W, W>& w) {
-    const W* w1 = w.l1_w + (int64_t)b * IN * H1;
-    float h1[H1];
-    for (int j = 0; j < H1; ++j) h1[j] = 0.0f;
-    for (int k = 0; k < IN; ++k) {
-        float x = crelu(k < L1 ? own[k] : opp[k - L1]);
-        for (int j = 0; j < H1; ++j) h1[j] = fmaf(x, wide(w1[k * H1 + j]), h1[j]);
+__device__ __forceinline__ float forward_warp(const float* own, const float* opp, int b,
+                                              const Head<W, W>& w, int t) {
+    static_assert(H1 <= 32 && H2 <= 32, "K2: a hidden unit a thread");
+    constexpr int CHUNK = 32;  // first-layer weights in flight a thread
+    static_assert(IN % CHUNK == 0, "K2: whole chunks");
+    float h1 = 0.0f;
+    if (t < H1) {
+        const W* w1 = w.l1_w + (int64_t)b * IN * H1 + t;
+#pragma unroll
+        for (int k0 = 0; k0 < IN; k0 += CHUNK) {
+            float wk[CHUNK];
+#pragma unroll
+            for (int i = 0; i < CHUNK; ++i) wk[i] = wide(w1[(k0 + i) * H1]);
+#pragma unroll
+            for (int i = 0; i < CHUNK; ++i) {
+                const int k = k0 + i;
+                h1 = fmaf(crelu(k < L1 ? own[k] : opp[k - L1]), wk[i], h1);
+            }
+        }
+        h1 = crelu(h1 + wide(w.l1_b[b * H1 + t]));
     }
-    for (int j = 0; j < H1; ++j) h1[j] = crelu(h1[j] + wide(w.l1_b[b * H1 + j]));
-    const W* w2 = w.l2_w + (int64_t)b * H1 * H2;
-    float h2[H2];
-    for (int j = 0; j < H2; ++j) h2[j] = 0.0f;
-    for (int k = 0; k < H1; ++k)
-        for (int j = 0; j < H2; ++j) h2[j] = fmaf(h1[k], wide(w2[k * H2 + j]), h2[j]);
+    // every thread runs the shuffles; threads j >= H2 sum nothing they keep
+    const W* w2 = w.l2_w + (int64_t)b * H1 * H2 + t;
+    float wk[H1];
+#pragma unroll
+    for (int k = 0; k < H1; ++k) wk[k] = t < H2 ? wide(w2[k * H2]) : 0.0f;
+    const float ow = t < H2 ? wide(w.out_w[b * H2 + t]) : 0.0f;
+    float h2 = 0.0f;
+#pragma unroll
+    for (int k = 0; k < H1; ++k) h2 = fmaf(__shfl_sync(FULL, h1, k), wk[k], h2);
+    const float a2 = t < H2 ? crelu(h2 + wide(w.l2_b[b * H2 + t])) : 0.0f;
     float o = 0.0f;
-    for (int k = 0; k < H2; ++k)
-        o = fmaf(crelu(h2[k] + wide(w.l2_b[b * H2 + k])), wide(w.out_w[b * H2 + k]), o);
+#pragma unroll
+    for (int k = 0; k < H2; ++k) {
+        o = fmaf(__shfl_sync(FULL, a2, k), __shfl_sync(FULL, ow, k), o);
+    }
     return (o + wide(w.out_b[b])) * OUTPUT_SCALE;
 }
 
-// K2's body on the int8 net: the fixed-point ladder (activations [0, QA],
-// weights in 1/64 steps, >> 6 between layers), exact integer arithmetic.
-__device__ __forceinline__ float forward_lane(const int32_t* own, const int32_t* opp, int b,
-                                              const Head<int8_t, int32_t>& w) {
-    const int8_t* w1 = w.l1_w + (int64_t)b * IN * H1;
-    int h1[H1];
-    for (int j = 0; j < H1; ++j) h1[j] = 0;
-    for (int k = 0; k < IN; ++k) {
-        int x = clip_qa(k < L1 ? own[k] : opp[k - L1]);
-        for (int j = 0; j < H1; ++j) h1[j] += x * (int)w1[k * H1 + j];
+// K2's body on the int8 net, one lane a warp: the fixed-point ladder
+// (activations [0, QA], weights in 1/64 steps, >> 6 between layers),
+// exact integer arithmetic, so the sums may split: first-layer unit j is
+// summed by threads j (own's columns) and j + 16 (opp's) and the halves
+// added; thread j < H2 sums second-layer unit j, and a warp sum gives the
+// output. Returns the eval in every thread.
+__device__ __forceinline__ float forward_warp(const int32_t* own, const int32_t* opp, int b,
+                                              const Head<int8_t, int32_t>& w, int t) {
+    static_assert(2 * H1 == 32 && IN == 2 * L1 && H2 <= 32, "K2 int8: a half-warp a side");
+    const int j = t % H1, half = t / H1;
+    const int32_t* x = half ? opp : own;
+    const int8_t* w1 = w.l1_w + ((int64_t)b * IN + half * L1) * H1 + j;
+    int part = 0;
+#pragma unroll 16
+    for (int k = 0; k < L1; ++k) part += clip_qa(x[k]) * (int)w1[k * H1];
+    const int h1 = clip_qa((part + __shfl_down_sync(FULL, part, H1) + w.l1_b[b * H1 + j])
+                           >> QW_SHIFT);  // threads j < H1
+    int h2 = 0;
+    const int8_t* w2 = w.l2_w + (int64_t)b * H1 * H2 + t;
+#pragma unroll
+    for (int k = 0; k < H1; ++k) {
+        const int hk = __shfl_sync(FULL, h1, k);
+        if (t < H2) h2 += hk * (int)w2[k * H2];
     }
-    for (int j = 0; j < H1; ++j) h1[j] = clip_qa((h1[j] + w.l1_b[b * H1 + j]) >> QW_SHIFT);
-    const int8_t* w2 = w.l2_w + (int64_t)b * H1 * H2;
-    int h2[H2];
-    for (int j = 0; j < H2; ++j) h2[j] = 0;
-    for (int k = 0; k < H1; ++k)
-        for (int j = 0; j < H2; ++j) h2[j] += h1[k] * (int)w2[k * H2 + j];
-    int o = 0;
-    for (int k = 0; k < H2; ++k)
-        o += clip_qa((h2[k] + w.l2_b[b * H2 + k]) >> QW_SHIFT) * (int)w.out_w[b * H2 + k];
-    return (float)(o + w.out_b[b]) * INT8_SCALE;
+    int v = 0;
+    if (t < H2) v = clip_qa((h2 + w.l2_b[b * H2 + t]) >> QW_SHIFT) * (int)w.out_w[b * H2 + t];
+    return (float)(warp_sum(v) + w.out_b[b]) * INT8_SCALE;
 }
 
 // K3's body: the signed sum of the <= 4 changed feature rows of one lane
@@ -394,8 +425,11 @@ __device__ float evaluate_warp(const Features& f, int stm, int bucket, const Net
 // computes fc1 unit j on [clip(h), clip(h)^2] and its fc2 term, a warp
 // sum the output; the PSQT column of the bucket is summed in the
 // reference's order from one value a feature, loaded by all threads.
-__device__ float evaluate_sf_warp(const Features& f, int stm, int bucket, const SfNet& net,
-                                  int t) {
+// Not inlined: a body of its own keeps its register allocation apart from
+// the rest of K11's step; inlined beside K9's warp passes it made K11's
+// Stockfish step 20% slower (486 against 405 us at 64 lanes on an H100).
+__device__ __noinline__ float evaluate_sf_warp(const Features& f, int stm, int bucket,
+                                               const SfNet& net, int t) {
     const int l1 = net.l1, half = l1 / 2;
     const float* fc0 = net.fc0_w + (int64_t)bucket * FC0_OUT * l1;
     float part[FC0_OUT];

@@ -11,37 +11,50 @@
 // Bound on the H100: bytes at large batch — per lane the accumulator pair
 // (512 B f32) in and 4 B out; the layer stack is 2,592 multiply-adds per
 // lane (5.3 MFLOP at B = 1024, nothing against 67 TFLOP/s of f32), and the
-// 8 buckets' weights (84 KiB f32) stay in L1/L2. At the main path's
-// batches the launch itself dominates.
+// 8 buckets' weights (84 KiB f32) stay in L1/L2. What limits it in
+// practice is each lane's dependent chain: 128 multiply-adds in one
+// hidden unit's first-layer sum, then 16 and 32.
 //
-// Design: one thread per lane, 128 lanes a block; the body is
-// nnue.cuh forward_lane, which the segment kernel (K11) calls too. A
-// thread streams its own accumulator pair through the first layer (each
-// column is read once per hidden unit, from L1) and keeps the 16 + 32
-// hidden activations in registers. Float sums run in input order with
-// fused multiply-adds, which differs from the reference's XLA dot in the
-// last bits: the f32 eval is held to its plain version within a stated
-// tolerance, the int8 eval exactly. The bf16 net (models/nnue.py
-// cast_params) keeps f32 accumulators and reads its bf16 weights (42 KiB
-// for the 8 buckets), widening each at its load: the same f32 arithmetic
-// in the same order, so its eval is the f32 kernel's bits on the widened
-// weights.
+// Design: one warp per lane, four lanes a block; the body is nnue.cuh
+// forward_warp, which the segment kernel (K11) calls too. The warp stages
+// its lane's accumulator pair in shared memory (four coalesced columns a
+// thread), then thread j computes hidden unit j: its first-layer chain in
+// input order with the weights loaded a chunk ahead, the second layer
+// from the first's units by shuffles, the output on the shuffled second
+// layer, so the lane's chain is one unit's and not all 2,592
+// multiply-adds on one thread. Float sums run in input order with fused
+// multiply-adds, one thread a sum, which differs from the reference's XLA
+// dot in the last bits: the f32 eval is held to its plain version within
+// a stated tolerance, the int8 eval exactly (its first layer splits each
+// unit's sum over two threads, exact in integers). The bf16 net
+// (models/nnue.py cast_params) keeps f32 accumulators and reads its bf16
+// weights (42 KiB for the 8 buckets), widening each at its load: the same
+// f32 arithmetic in the same order, so its eval is the f32 kernel's bits
+// on the widened weights.
 #include "nnue.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int WARP = 32;
+constexpr int LANES = 4;  // warps, one lane each, per block
 
 template <typename A, typename W, typename B>
-__global__ void forward_kernel(const A* __restrict__ acc, const int32_t* __restrict__ stm,
-                               const int32_t* __restrict__ bucket, nnue::Head<W, B> head,
-                               float* __restrict__ out, int batch) {
-    int lane = blockIdx.x * THREADS + threadIdx.x;
+__global__ void __launch_bounds__(LANES * WARP) forward_kernel(
+        const A* __restrict__ acc, const int32_t* __restrict__ stm,
+        const int32_t* __restrict__ bucket, nnue::Head<W, B> head, float* __restrict__ out,
+        int batch) {
+    __shared__ A pairs[LANES][2 * nnue::L1];
+    const int w = threadIdx.x / WARP, t = threadIdx.x % WARP;
+    const int lane = blockIdx.x * LANES + w;
     if (lane >= batch) return;
-    int s = stm[lane];
-    const A* own = acc + ((int64_t)lane * 2 + s) * nnue::L1;
-    const A* opp = acc + ((int64_t)lane * 2 + (1 - s)) * nnue::L1;
-    out[lane] = nnue::forward_lane(own, opp, bucket[lane], head);
+    A* pair = pairs[w];
+    const A* src = acc + (int64_t)lane * 2 * nnue::L1;
+    for (int c = t; c < 2 * nnue::L1; c += WARP) pair[c] = src[c];
+    __syncwarp();
+    const int s = stm[lane];
+    const float ev = nnue::forward_warp(pair + s * nnue::L1, pair + (1 - s) * nnue::L1,
+                                        bucket[lane], head, t);
+    if (t == 0) out[lane] = ev;
 }
 
 template <typename A, typename W, typename B>
@@ -51,8 +64,8 @@ int launch(const void* acc, const void* stm, const void* bucket, const void* l1_
     nnue::Head<W, B> head{(const W*)l1_w, (const B*)l1_b, (const W*)l2_w,
                           (const B*)l2_b, (const W*)out_w, (const B*)out_b,
                           nnue::L1, nnue::H1, nnue::H2};
-    int grid = (batch + THREADS - 1) / THREADS;
-    forward_kernel<A, W, B><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+    int grid = (batch + LANES - 1) / LANES;
+    forward_kernel<A, W, B><<<grid, LANES * WARP, 0, (cudaStream_t)stream>>>(
         (const A*)acc, (const int32_t*)stm, (const int32_t*)bucket, head, (float*)out, batch);
     return (int)cudaGetLastError();
 }

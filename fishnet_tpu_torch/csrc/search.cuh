@@ -12,11 +12,12 @@
 // mate/stalemate, LMR, the null child, make-move, the child's row,
 // accumulators and depth). One warp serves one lane: every thread computes
 // the lane's scalars (the same values, read from the warp's shared copies
-// of the rows), the board rules, move generator and make-move run as
-// K8-K10's warp bodies, the eval (K2) and the child accumulators (K3) as
-// their bodies. The net is a template parameter (its `Net` traits): a
-// board768 net carries accumulators down the stack (K3) and evaluates a
-// leaf from them (K2); a king-bucketed or an imported Stockfish net
+// of the rows), the board rules, move generator, make-move and the eval run
+// as K8-K10's and K2's warp bodies (K2 on the lane's accumulator pair,
+// staged in shared memory), the child accumulators (K3) as its body. The
+// net is a template parameter (its `Net` traits): a board768 net carries
+// accumulators down the stack (K3) and evaluates a leaf from them (K2); a
+// king-bucketed or an imported Stockfish net
 // evaluates every leaf from its board (K12's or K13's warp body) and
 // leaves the state's accumulator table as it is, as the reference does.
 // The variant is a second template parameter V (a VARIANT_* id): the
@@ -146,24 +147,22 @@ struct Segment {
     bool pruning, deep_tt, prefer_deep;
 };
 
-// Atomic's board768 leaf pair, refreshed from the board each step: a base
-// of the atomic warp rows only (an empty base takes no room in the others).
-template <int V>
-struct LeafPair {};
-template <>
-struct LeafPair<VARIANT_ATOMIC> {
+// A board768 leaf's accumulator pair, staged for K2's body (in atomic
+// refreshed from the board by K1's body): it shares its room with K9's
+// scratch, which the step fills only after the eval.
+struct LeafPair {
     union {
         float f32[2 * L1];
         int32_t i32[2 * L1];
     };
 };
-__device__ __forceinline__ float* pair_of(LeafPair<VARIANT_ATOMIC>& p, float) { return p.f32; }
-__device__ __forceinline__ int32_t* pair_of(LeafPair<VARIANT_ATOMIC>& p, int32_t) { return p.i32; }
+__device__ __forceinline__ float* pair_of(LeafPair& p, float) { return p.f32; }
+__device__ __forceinline__ int32_t* pair_of(LeafPair& p, int32_t) { return p.i32; }
 
 // The rows a lane's step reads, staged by its warp (the move lists as
-// wide as the variant's; in atomic also the leaf's accumulator pair).
+// wide as the variant's).
 template <int V>
-struct WarpRows : LeafPair<V> {
+struct WarpRows {
     int btr[BT_W];  // the ply row; after ENTER, with its path hash (btE)
     int btp[BT_W];  // the parent's row
     int child[BT_W];  // the child's row
@@ -171,7 +170,10 @@ struct WarpRows : LeafPair<V> {
     int ntp[NT_W];  // the parent's node row; after RETURN, the folded row (ntP)
     int gen[rules::max_moves<V>()];  // the ordered move list ENTER generates
     int chg[12];  // the child's piece changes: codes, squares, signs
-    rules::MoveList<V> list;  // K9's scratch
+    union {
+        rules::MoveList<V> list;  // K9's scratch
+        LeafPair pair;  // K2's input, staged before K9 runs
+    };
     nnue::Features feat;  // K12's and K13's feature lists (atomic's board768 leaf: K1's)
 };
 
@@ -350,32 +352,33 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows<V>& s, int t
                                     : (parent_null ? 1 - s.ntp[NT_BETA] : -s.ntp[NT_ALPHA]);
         const bool in_qs = depth_left <= 0;
 
-        // leaf value: on board768 K2's body on the lane's accumulator pair
-        // (one thread), in atomic on the pair K1's body refreshes here (four
-        // columns a thread); any other net K12's or K13's full eval (the warp)
+        // leaf value: on board768 K2's body (the warp) on the lane's
+        // accumulator pair staged in shared memory, in atomic on the pair
+        // K1's body refreshes there (four columns a thread); any other net
+        // K12's or K13's full eval (the warp)
         float ev = 0.0f;
         if constexpr (Net::KIND == BOARD768) {
             const int pieces = __popc(__ballot_sync(FULL_MASK, s.btr[t] > 0))
                                + __popc(__ballot_sync(FULL_MASK, s.btr[t + WARP] > 0));
             const int bucket = min(max((pieces - 1) / 4, 0), 7);
-            const Acc* pair = acc + p0 * 2 * L1;
+            Acc* pair = pair_of(s.pair, Acc{});
             if constexpr (V == VARIANT_ATOMIC) {
                 nnue::features_768_warp(s.btr, t, s.feat);
-                Acc* fresh = pair_of(s, Acc{});
                 for (int i = 0; i < 4; ++i) {
                     const int col = t + WARP * i;
                     const int persp = col / L1, c = col % L1;
-                    fresh[col] = (Acc)nnue::wide(a.net.ft_b[c])
-                                 + nnue::refresh_column<typename Net::Weights::Ft, Acc>(
-                                       s.feat, persp, a.net.ft_w, L1, c);
+                    pair[col] = (Acc)nnue::wide(a.net.ft_b[c])
+                                + nnue::refresh_column<typename Net::Weights::Ft, Acc>(
+                                      s.feat, persp, a.net.ft_w, L1, c);
                 }
-                __syncwarp();
-                pair = fresh;
+            } else {
+                const Acc* src = acc + p0 * 2 * L1;
+                for (int i = 0; i < 4; ++i) pair[t + WARP * i] = src[t + WARP * i];
             }
-            if (t == 0) {
-                ev = nnue::forward_lane(pair + stm * L1, pair + (1 - stm) * L1, bucket,
-                                        a.net.head);
-            }
+            __syncwarp();
+            ev = nnue::forward_warp(pair + stm * L1, pair + (1 - stm) * L1, bucket, a.net.head,
+                                    t);
+            __syncwarp();  // the pair's room is K9's scratch next
         } else {
             nnue::features_warp(s.btr, t, s.feat);
             const int bucket = nnue::output_bucket(s.feat);

@@ -17,8 +17,8 @@
 // advances writes the child's board row and accumulator pair (~0.8 KB);
 // with a table a few 16-byte rows. ~0.1 MB a step at 64 lanes, ~0.03 us
 // of HBM time. What bounds it in practice is each step's dependent chain
-// in one warp (the board rules, the move generator's enumeration and rank
-// sort, the eval's 2,592 multiply-adds on one thread) plus one grid
+// in one warp (the board rules, the move generator's enumeration and sort,
+// the eval's layer stack, one hidden unit's chain a thread) plus one grid
 // barrier a step without a table and four with one.
 //
 // On a king-bucketed or an imported Stockfish net (entry points
@@ -35,9 +35,9 @@
 // scratch: ~9.9 KB of shared memory a warp against ~7.4 KB); atomic's on
 // a board768 net a full eval a leaf (the reference's :440-445 and :801):
 // K1's refresh of the lane's pair from its board row into the warp's
-// shared memory (512 B more a warp, atomic's rows only; the 192 KiB of
-// ft_w stay in L2), then K2's body, and no accumulator read or written
-// past the root. Each variant is a library of its own, built from this
+// shared memory (where every board768 leaf stages its pair for K2's body;
+// the 192 KiB of ft_w stay in L2), then K2's body, and no accumulator read
+// or written past the root. Each variant is a library of its own, built from this
 // source with the generated `segment_entries.cuh` of its build directory,
 // which instantiates the five net kinds for it (kernels.py
 // segment_entries); kernels.build() runs the eight nvcc processes in

@@ -2,7 +2,8 @@
 PyTorch version (the TT probe and store on seeded tables with forced
 slot collisions, the lane init over every lane and over scattered
 ones, the board rules, move generator and make-move on chip_smoke's
-seeded positions, the segment kernel K11 against run_segment_plain on
+seeded positions (the move generator also on its long and tied lists,
+the layer stack at the clip edges from 1 to 1024 lanes), the segment kernel K11 against run_segment_plain on
 chip_smoke's seeded search states, exactly), the wrappers' checks and
 launch counts, a plain step on the card that runs none of the plain
 board code, a segment on the card that runs no PyTorch step, and the
@@ -35,8 +36,9 @@ import torch
 
 from chip_smoke import (
     TRAIN_GRAD_RTOL, TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL, TT_PROBE_ARGS, TT_STORE_ARGS, VARIANTS,
-    ZH_POCKETS, _rel_err, every_move, kb_case, kb_train_case, lane_init_case, playout_boards,
-    rules_inputs, segment_case, sf_file, train_case, tt_inputs, tt_runner_layout,
+    ZH_POCKETS, _rel_err, every_move, k2_inputs, kb_case, kb_train_case, lane_init_case,
+    movegen_long_inputs, playout_boards, rules_inputs, segment_case, sf_file, train_case,
+    tt_inputs, tt_runner_layout,
 )
 from fishnet_tpu_torch import kernels
 from fishnet_tpu_torch.chess import Position
@@ -105,6 +107,41 @@ def test_kernels_match_plain_versions(nets, lanes, net):
     z1, z2 = tt.tables(b.board.device)
     assert torch.equal(tt.hash_board(b.board, b.stm, b.ep, b.castling),
                        tt.hash_board_plain(b.board, b.stm, b.ep, b.castling, z1, z2))
+
+
+@pytest.mark.parametrize("net", ["f32", "int8", "bf16"])
+@pytest.mark.parametrize("batch", [1, 16, 64, 1024])
+def test_forward_warp_at_the_clip_edges(card, nets, batch, net):
+    """K2, one warp a lane, on chip_smoke.k2_case's accumulators at the
+    clip edges, every output bucket from 8 lanes on: within F32_EVAL_TOL
+    of its plain version on the f32 and bf16 nets, exact on the int8 net;
+    the bf16 entry equal to the f32 kernel on the widened weights."""
+    p = nnue.cast_params(nets["f32"]) if net == "bf16" else nets[net]
+    acc, stm, bucket = k2_inputs(batch, batch, "int8" if net == "int8" else "f32", card)
+    kernels.reset_launches()
+    got = nnue.forward_from_acc(p, acc, stm, bucket)
+    assert kernels.LAUNCHES["nnue_forward_from_acc"] == 1
+    want = nnue.forward_from_acc_plain(p, acc, stm, bucket)
+    tol = 0.0 if net == "int8" else nnue.F32_EVAL_TOL
+    assert got.shape == want.shape and float((got - want).abs().max()) <= tol
+    if net == "bf16":
+        wide = nnue.forward_from_acc(nnue.widened(p), acc, stm, bucket)
+        assert torch.equal(got.view(torch.int32), wide.view(torch.int32))
+
+
+@pytest.mark.parametrize("variant", ["standard", "antichess", "crazyhouse"])
+def test_move_generator_on_long_and_tied_lists(card, variant):
+    """K9 on chip_smoke.MOVEGEN_LONG's fixtures (exactly 64 and 65 moves,
+    the 218-move position, crazyhouse lists of 299 and 435, a castling
+    right without its rook, antichess with and without a capture, every
+    key class), with and without killers and history: equal to the plain
+    version, exactly."""
+    _, b, killers, hist = movegen_long_inputs(variant, card)
+    for kw in ({}, {"killers": killers, "hist": hist}):
+        got = tm.generate_moves(b, variant=variant, **kw)
+        want = tm.generate_moves_plain(b, variant=variant, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 def test_wrappers_check_inputs_and_count_launches(nets, lanes):

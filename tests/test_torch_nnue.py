@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import k2_case
 from fishnet_tpu.assets import default_weights_path
 from fishnet_tpu.chess import Position as JaxPosition
 from fishnet_tpu.models import nnue as jn
@@ -143,6 +144,27 @@ def test_k2_forward_from_acc(nets, positions):
     got = tn.forward_from_acc(
         tp, torch.from_numpy(acc), torch.from_numpy(stm), torch.from_numpy(bucket)).numpy()
     assert got.dtype == np.float32
+    if tn.is_int8(tp):
+        assert np.array_equal(got, want)
+    else:
+        assert np.abs(got - want).max() <= tn.F32_EVAL_TOL
+
+
+@pytest.mark.parametrize("bucket", range(8))
+def test_k2_every_bucket_at_the_clip_edges(nets, bucket):
+    """K2's plain version against the reference in one output bucket, on
+    chip_smoke.k2_case's accumulators (half the columns at the clip edges
+    of the net's activation, the rest inside), both sides to move: f32
+    within F32_EVAL_TOL, int8 exactly."""
+    jp, tp = nets
+    case = k2_case(16, 100 + bucket, "int8" if tn.is_int8(tp) else "f32")
+    acc = case["acc"][:, :, :tp.l1]  # the random net is narrower
+    stm = (np.arange(16) % 2).astype(np.int32)
+    b = np.full(16, bucket, np.int32)
+    want = np.asarray(jax.jit(jax.vmap(jn.forward_from_acc, in_axes=(None, 0, 0, 0)))(
+        jp, acc, stm, b))
+    got = tn.forward_from_acc(tp, torch.from_numpy(np.ascontiguousarray(acc)),
+                              torch.from_numpy(stm), torch.from_numpy(b)).numpy()
     if tn.is_int8(tp):
         assert np.array_equal(got, want)
     else:
