@@ -10,9 +10,11 @@ Phases (any failure exits non-zero before the final line):
   3. every kernel against its plain PyTorch version on the card, at the
      main path's shapes (B = 16, 64 and 1024 lanes, L1 = 64) on the
      shipped f32 net and on its int8 quantization; the TT probe and store
-     (K5, K6) on seeded tables with forced slot collisions, plain and
-     prefer_deep, deep_bounds off and on, with contiguous inputs and with
-     the runner's strided and broadcast ones; the lane init (K7) over
+     (K5, K6) on seeded tables with forced slot collisions (up to 8192
+     lanes into 2^6 or 2^21 slots, and every lane on one of four slots),
+     plain and prefer_deep (mixed generations), deep_bounds off and on,
+     with contiguous inputs and with the runner's strided and broadcast
+     ones; the lane init (K7) over
      every lane and over a scattered quarter of them; the board rules,
      move generator and make-move (K8-K10) on seeded tactical, promotion,
      en-passant, check and chess960 castling positions and playouts from
@@ -21,10 +23,13 @@ Phases (any failure exits non-zero before the final line):
      playout states at 16, 64 and 1024 lanes on both nets, without a
      table, with a 2^21 table, with jittered helpers and the prefer_deep
      store into a 2^12 table (colliding slots), and with deep_tt probes,
-     over segments of 1, 7, 33 and 200 steps and (16 lanes) one in which
-     every lane finishes: states, tables, summaries and step counts byte
-     for byte; the full evals (K12 on a seeded king-bucketed net at L1
-     256, f32 and int8; K13 on seeded Stockfish nets at L1 128 and 3072,
+     and at 16 and 64 lanes the main path's rules with helpers into a
+     2^6 table ("tiny": a step's leaf stores and the next step's probes
+     and interior stores share slots; K11 must count reads through a
+     store's pending rows), over segments of 1, 7, 33 and 200 steps and
+     (16 lanes) one in which every lane finishes: states, tables,
+     summaries and step counts byte for byte; the full evals (K12 on a
+     seeded king-bucketed net at L1 256, f32 and int8; K13 on seeded Stockfish nets at L1 128 and 3072,
      written and read as .nnue files) at 16, 64 and 1024 lanes; K11 on
      the int8 king-bucketed net (without and with a 2^21 table) and on
      the L1 3072 Stockfish net (jittered helpers, 2^12 slots) against
@@ -158,10 +163,24 @@ one-card main path, REPS times a process, for an earlier tree of the
 repository (TREE, unpacked with git archive; it needs only its
 fishnet_tpu_torch package) and for this one, parent, this, this, parent,
 each run's counts, times and responses digest one JSON line, then each
-process's digests of K2's and K9's outputs on seeded inputs and its K11
-us-per-step table (every variant and net at 16, 64 and 1024 lanes), and
-one line `{"digests_equal": ...}` over all four processes (exit 1 where
-the digests differ).
+process's digests of K2's, K6's and K9's outputs on seeded inputs and
+its K11 us-per-step table (every variant and net at 16, 64 and 1024
+lanes), and one line
+`{"digests_equal": ...}` over all four processes (exit 1 where the
+digests differ).
+
+`python3 chip_smoke.py --k11-split TREE...` instead splits K11's step
+into parts for each tree in turn (this one as `.`): a copy of the tree's
+package under build/k11-split/ whose segment kernel thread 0 of each
+warp times with clock64() (its grid barriers, its lanes' steps, the
+whole step loop; the rest is the table's claims and commits and the live
+flags), on the "engine" states of segment_case at 16, 64 and 1024 lanes,
+one JSON line a tree (a tree that launches one thread-block cluster also
+patched to launch the cooperative grid), then the card's name and power
+limit. A measurement build: the package itself has no such counters.
+`python3 chip_smoke.py --ptxas TREE...` prints, a JSON line a tree,
+ptxas's registers, stack frames and spills for every kernel of every
+library (nvcc -Xptxas -v with the build's flags).
 """
 from __future__ import annotations
 
@@ -196,6 +215,7 @@ PROFILE_STEPS = 200  # steps of the profiled segment
 SEGMENT_STEPS = (1, 7, 33, 200)  # K11's checked segments, in turn on one state
 FINISH_STEPS = 20_000  # then, at 16 lanes, one segment in which every lane finishes
 SEGMENT_CONFIGS = ("no table", "table", "helpers", "deep_tt")
+TINY_LANES = (16, 64)  # the lanes K11 runs the "tiny" table setup at (segment_phase)
 SEGMENT_REPS = 10  # K11 launches per timing
 # steps of the short segment that times K11's plain yardstick (the "plain"
 # figures of K11's timed rows; the plain segments that are checked against
@@ -645,12 +665,14 @@ def sf_case(l1: int, seed: int) -> dict:
     }
 
 
-def tt_case(B: int, size_log2: int, seed: int) -> dict:
+def tt_case(B: int, size_log2: int, seed: int, n_slots: int = 0) -> dict:
     """A seeded table of 2**size_log2 slots (30% empty, in-range meta,
     generations 0-2) and B lanes of probe/store inputs; half the lanes'
     second keys match the row in their slot, most of those at its depth,
     so probes hit with every flag; some scores are in the mate range,
-    which is never stored. → dict of int32/bool numpy arrays."""
+    which is never stored. n_slots: if set, every lane's key falls on one
+    of that many slots (its high bits still differ). → dict of int32/bool
+    numpy arrays."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -661,6 +683,9 @@ def tt_case(B: int, size_log2: int, seed: int) -> dict:
                       rng.integers(-1, 4096, n), rng.integers(0, 3, n)], 1).astype(np.int32)
     table[rng.random(n) < 0.3] = 0
     h1 = rng.integers(-2**31, 2**31, B, dtype=np.int64).astype(np.int32)
+    if n_slots:
+        slots = rng.choice(n, n_slots, replace=False)
+        h1 = ((h1 & ~np.int32(n - 1)) | slots[rng.integers(0, n_slots, B)]).astype(np.int32)
     h2 = rng.integers(-2**31, 2**31, B, dtype=np.int64).astype(np.int32)
     hit = rng.random(B) < 0.5
     rows = table[h1 & (n - 1)]
@@ -681,11 +706,12 @@ def tt_case(B: int, size_log2: int, seed: int) -> dict:
     )
 
 
-def tt_inputs(B: int, size_log2: int, seed: int, dev) -> dict:
+def tt_inputs(B: int, size_log2: int, seed: int, dev, n_slots: int = 0) -> dict:
     """tt_case as tensors on dev."""
     import torch
 
-    return {k: torch.from_numpy(v).to(dev) for k, v in tt_case(B, size_log2, seed).items()}
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in tt_case(B, size_log2, seed, n_slots).items()}
 
 
 TT_PROBE_ARGS = ("h1", "h2", "depth_left", "alpha", "beta", "enter")
@@ -766,14 +792,22 @@ def store_bytes(table, h1, h2, score, depth, flag, move, mask, prefer_deep: bool
     return nbytes + n_win * ((3 if prefer_deep else 4) * 4 + 16)
 
 
+# K5's and K6's checked cases: (lanes, log2 of the table's slots, the
+# slots every lane's key falls on or 0 for spread keys)
+TT_CASES = ((16, 3, 0), (16, 21, 0), (64, 21, 0), (1024, 6, 0), (1024, 21, 0), (1024, 6, 4),
+            (1024, 21, 4), (8192, 6, 0), (8192, 21, 0), (8192, 6, 4), (8192, 21, 4))
+
+
 def tt_kernel_phase(reps: int) -> dict:
-    """K5 and K6 against their plain versions on the card, at B = 16, 64
-    (the engine's dispatch width) and 1024 into small tables (forced
-    collisions: 1024 lanes into 64 slots) and into the main path's
-    2^21-slot table, K5 with deep_bounds off and on, K6 plain and
-    prefer_deep (one generation, and per-lane ones); each also with the
-    runner's strided and broadcast inputs. Returns per-kernel stats
-    (times at B = 1024 into 2^21 slots, the engine's prefer_deep store)."""
+    """K5 and K6 against their plain versions on the card (TT_CASES): at
+    B = 16, 64 (the engine's dispatch width), 1024 and 8192 into small
+    tables (forced collisions: 1024 lanes into 64 slots) and into the
+    main path's 2^21-slot table, and with every lane on one of four slots,
+    K5 with deep_bounds off and on, K6 plain and prefer_deep (one
+    generation, and mixed per-lane ones against the table's mixed
+    generations); each also with the runner's strided and broadcast
+    inputs. Returns per-kernel stats (times at B = 1024 into 2^21 slots,
+    the engine's prefer_deep store)."""
     import torch
 
     from fishnet_tpu_torch.ops import tt
@@ -788,8 +822,9 @@ def tt_kernel_phase(reps: int) -> dict:
             raise AssertionError(f"{name} {label}: max_abs_err {err}")
         return err
 
-    for B, size_log2 in ((16, 3), (16, 21), (64, 21), (1024, 6), (1024, 21)):
-        c = tt_inputs(B, size_log2, seed=B + size_log2, dev=dev)
+    for B, size_log2, n_slots in TT_CASES:
+        c = tt_inputs(B, size_log2, seed=B + size_log2 + n_slots, dev=dev, n_slots=n_slots)
+        on = f" on {n_slots} slots" if n_slots else ""
         runner_probe, runner_store, runner_leaf = tt_runner_layout(c)
         for deep in (False, True):
             for layout, args in (("contiguous", [c[k] for k in TT_PROBE_ARGS]),
@@ -797,7 +832,7 @@ def tt_kernel_phase(reps: int) -> dict:
                 got = tt.probe(c["table"], *args, deep_bounds=deep)
                 want = tt.probe_plain(c["table"], *args, deep_bounds=deep)
                 torch.cuda.synchronize()
-                label = f"B={B} slots=2^{size_log2} deep_bounds={deep} {layout}"
+                label = f"B={B} slots=2^{size_log2}{on} deep_bounds={deep} {layout}"
                 err = check("tt_probe", label, got, want)
                 log(f"check tt_probe {label}: max_abs_err={err} (tolerance 0; usable "
                     f"{int(want[0].sum())}/{B})")
@@ -809,13 +844,13 @@ def tt_kernel_phase(reps: int) -> dict:
                 tt.store(got, *args, prefer_deep=prefer, gen=gen)
                 tt.store_plain(want, *args, prefer_deep=prefer, gen=gen)
                 torch.cuda.synchronize()
-                label = (f"B={B} slots=2^{size_log2} prefer_deep={prefer} "
+                label = (f"B={B} slots=2^{size_log2}{on} prefer_deep={prefer} "
                          f"gen={'lanes' if torch.is_tensor(gen) else gen} {layout}")
                 err = check("tt_store", label, [got], [want])
                 changed = int((want != c["table"]).any(1).sum())
                 log(f"check tt_store {label}: max_abs_err={err} (tolerance 0; rows "
                     f"written {changed})")
-        if (B, size_log2) != (1024, 21):
+        if (B, size_log2, n_slots) != (1024, 21, 0):
             continue
 
         # times at the main path's table size and the widest batch
@@ -1397,10 +1432,12 @@ def segment_case(params, B: int, cfg: str, seed: int, dev, variant: str = "stand
     generations into 2^12 slots, so lanes collide); "deep_tt" (2^21
     slots, deep_bounds probes, the prefer_deep store of one generation);
     "engine" (the main path's: 2^21 slots, prefer_deep, per-lane
-    generations). variant: a device variant other than "standard" takes
-    rules_inputs' positions (from `fens` where given) as roots and is
-    passed on to the segment. → (state, table or None, run_segment's
-    keywords)."""
+    generations); "tiny" (the main path's rules and helpers into 2^6
+    slots, so one step's leaf stores and the next step's probes and
+    interior stores share slots). variant: a device variant other than
+    "standard" takes rules_inputs' positions (from `fens` where given) as
+    roots and is passed on to the segment. → (state, table or None,
+    run_segment's keywords)."""
     import numpy as np
     import torch
 
@@ -1416,17 +1453,18 @@ def segment_case(params, B: int, cfg: str, seed: int, dev, variant: str = "stand
         return torch.from_numpy(np.asarray(values, np.int32)).to(dev)
 
     kw = {}
-    if cfg == "helpers":
+    if cfg in ("helpers", "tiny"):
         jitter = rng.integers(1, 2**31 - 1, B).astype(np.int32)
         jitter[::4] = 0
         kw = dict(order_jitter=col(jitter), group=col(np.arange(B) // 4))
     state = search.init_state(params, roots, col(1 + np.arange(B) % 3),
                               col(rng.integers(100, 1500, B)), 32, variant=variant, **kw)
-    size = {"no table": None, "table": 21, "helpers": 12, "deep_tt": 21, "engine": 21}[cfg]
+    size = {"no table": None, "table": 21, "helpers": 12, "deep_tt": 21, "engine": 21,
+            "tiny": 6}[cfg]
     table = None if size is None else tt.make_table(size, device=dev)
-    gen = col(rng.integers(1, 4, B)) if cfg in ("helpers", "engine") else 5
+    gen = col(rng.integers(1, 4, B)) if cfg in ("helpers", "engine", "tiny") else 5
     run_kw = dict(table=table, deep_tt=cfg == "deep_tt",
-                  prefer_deep=cfg in ("helpers", "deep_tt", "engine"), tt_gen=gen,
+                  prefer_deep=cfg in ("helpers", "deep_tt", "engine", "tiny"), tt_gen=gen,
                   variant=variant)
     return state, table, run_kw
 
@@ -1494,10 +1532,12 @@ def segment_bytes(calls: dict, acc_bytes: int, variant: str = "standard") -> int
 
 def segment_phase(params_f32, reps: int) -> dict:
     """K11 against run_segment_plain on the card: seeded states at 16, 64
-    and 1024 lanes, both nets, every SEGMENT_CONFIGS setup, segments of
-    SEGMENT_STEPS steps in turn and (16 lanes) one of FINISH_STEPS in
-    which every lane finishes: every state table, the transposition table
-    and the summary byte for byte and the step counts equal. Then K11's
+    and 1024 lanes, both nets, every SEGMENT_CONFIGS setup (and at
+    TINY_LANES the "tiny" one, whose reads through a store's pending rows
+    K11's counter must show), segments of SEGMENT_STEPS steps in turn and
+    (16 lanes) one of FINISH_STEPS in which every lane finishes: every
+    state table, the transposition table and the summary byte for byte
+    and the step counts equal. Then K11's
     time per segment and per step (CUDA events) at 16, 64 and 1024 lanes
     on the main path's table setup ("engine"), the plain version's, and
     the bound from the bytes the timed segment moves."""
@@ -1512,11 +1552,13 @@ def segment_phase(params_f32, reps: int) -> dict:
     stats = {"max_abs_err": 0.0}
     for B in (16, 64, 1024):
         for net, params in nets.items():
-            for cfg in SEGMENT_CONFIGS:
+            for cfg in SEGMENT_CONFIGS + (("tiny",) if B in TINY_LANES else ()):
                 state, table, kw = segment_case(params, B, cfg, seed=B + len(cfg), dev=dev)
                 plain, plain_table = _clone(state, table)
                 plain_kw = dict(kw, table=plain_table)
                 segs = SEGMENT_STEPS + ((FINISH_STEPS,) if B == 16 else ())
+                pending = kernels.body_calls()["pending_reads"]
+                t0 = time.monotonic()
                 for steps in segs:
                     n_k, sum_k = search.run_segment(params, state, steps, True, **kw)
                     n_p, sum_p = search.run_segment_plain(params, plain, steps, True, **plain_kw)
@@ -1534,6 +1576,12 @@ def segment_phase(params_f32, reps: int) -> dict:
                                              f"run_segment_plain (steps {n_k} / {n_p})")
                     if steps == FINISH_STEPS and (done != B or n_k >= steps):
                         raise AssertionError(f"search_segment {label}: lanes did not finish")
+                pending = kernels.body_calls()["pending_reads"] - pending
+                log(f"search_segment B={B} {net} {cfg}: {pending} table reads went through "
+                    f"a store's pending row; checks {time.monotonic() - t0:.1f} s")
+                if cfg == "tiny" and pending <= 0:
+                    raise AssertionError(f"search_segment B={B} {net} tiny: no read went "
+                                         f"through a pending row")
 
     # times on the main path's table setup, f32 net, one segment of 200
     # steps from a fresh state (the state and table restored between runs)
@@ -3795,13 +3843,18 @@ def digest(*tensors) -> str:
 
 
 def kernel_digests(dev) -> dict:
-    """Digests of K2's and K9's outputs on fixed seeded inputs: K2 on
-    k2_case's accumulators (f32, int8, bf16 nets) and K9 with killers and
+    """Digests of K2's, K6's and K9's outputs on fixed seeded inputs: K2 on
+    k2_case's accumulators (f32, int8, bf16 nets), K9 with killers and
     history on rules_inputs (standard, crazyhouse) at 64 and 1024 lanes,
-    and K9 on MOVEGEN_LONG's fixtures. Uses only entry points every tree
-    of the port has."""
+    K9 on MOVEGEN_LONG's fixtures, and the tables K6's prefer_deep store
+    with mixed generations leaves on TT_CASES' inputs. Uses only entry
+    points every tree of the port has."""
+    import numpy as np
+    import torch
+
     from fishnet_tpu_torch.models import nnue
     from fishnet_tpu_torch.ops import movegen as tm
+    from fishnet_tpu_torch.ops import tt
 
     f32 = nnue.load_params(device=dev)
     nets = {"f32": f32, "int8": nnue.quantize_int8(f32), "bf16": nnue.cast_params(f32)}
@@ -3816,6 +3869,12 @@ def kernel_digests(dev) -> dict:
     for v in sorted({fv for _, fv, _ in MOVEGEN_LONG}):
         _, b, killers, hist = movegen_long_inputs(v, dev)
         out[f"K9 long lists {v}"] = digest(*tm.generate_moves(b, killers, hist, variant=v))
+    for B, size_log2, n_slots in TT_CASES:
+        c = tt_inputs(B, size_log2, B + size_log2 + n_slots, dev, n_slots)
+        gen = torch.from_numpy(np.random.default_rng(B).integers(0, 3, B).astype(np.int32))
+        table = tt.store(c["table"], *[c[k] for k in TT_STORE_ARGS], prefer_deep=True,
+                         gen=gen.to(dev))
+        out[f"K6 B={B} slots=2^{size_log2} on {n_slots or 'spread'}"] = digest(table)
     return out
 
 
@@ -3952,6 +4011,231 @@ def main_path_ab(parent: str, reps: int) -> int:
                       "kernel_digest_sets": len(kernel_sets)}))
     print(card_line())
     return 0 if same else 1
+
+
+SPLIT_LANES = (16, 64, 1024)
+SPLIT_STEPS = 200
+SPLIT_HEAD = """
+// k11-split measurement build: thread 0 of each warp sums its cycles
+__device__ unsigned long long k11_split[4];  // barriers, lane steps, step loop, warps
+FISHNET_EXPORT int k11_split_read(void* out) {
+    return (int)cudaMemcpyFromSymbol(out, k11_split, sizeof(k11_split));
+}
+FISHNET_EXPORT int k11_split_reset() {
+    const unsigned long long zero[4] = {0, 0, 0, 0};
+    return (int)cudaMemcpyToSymbol(k11_split, zero, sizeof(zero));
+}
+"""
+
+
+def split_source(text: str, cooperative: bool = False) -> str:
+    """A tree's csrc/search_segment.cu with k11_split's clock64() counters
+    in its segment kernel: around each barrier in the kernel's body
+    (`grid.sync();` or `barrier(grid, ...);`) and each step_lane call,
+    and over the step loop (from `int n = 0;` to the summary's loop),
+    added at the kernel's end into k11_split (SPLIT_HEAD); cooperative:
+    a launcher that would launch one thread-block cluster launches the
+    cooperative grid instead. Raises where the text has not the
+    statements it patches."""
+    import re
+
+    def sub(pattern, repl, src, count=0):
+        out, n = re.subn(pattern, repl, src, count=count)
+        if not n:
+            raise AssertionError(f"k11-split: no {pattern!r} in search_segment.cu")
+        return out
+
+    text = sub(r'(#include "search\.cuh"\n)', lambda m: m.group(1) + SPLIT_HEAD, text, 1)
+    if cooperative:
+        text = sub(r"a\.one_cluster = fits_one_cluster<Net, V>\(dev, grid\);",
+                   "a.one_cluster = false;", text, 1)
+    head, sep, body = text.partition("segment_kernel(const Segment<Net> a) {")
+    body, tail_sep, tail = body.partition("constexpr int MAX_DEVICES")
+    body = sub(r"(unsigned calls\[N_BODY\];\n)",
+               r"\1    long long split_bar = 0, split_step = 0, split_t0 = 0;\n", body, 1)
+    body = sub(r"\n(\s*)((?:grid\.sync\(\)|barrier\(grid, \w+\));)",
+               r"\n\1{ const long long c0 = clock64(); \2 split_bar += clock64() - c0; }",
+               body)
+    body = sub(r"(live \|= step_lane<Net, V>\(a, lane, s, t, calls\);)",
+               r"{ const long long c0 = clock64(); \1 split_step += clock64() - c0; }", body)
+    body = sub(r"(\n    int n = 0;\n)", r"\1    split_t0 = clock64();\n    split_bar = 0;\n",
+               body, 1)
+    body = sub(r"(\n    for \(int lane = first_warp; lane < a\.B; lane \+= n_warps\) \{\n"
+               r"        if \(t < 4\) \{)",
+               r"\n    const long long split_loop = clock64() - split_t0;\1", body, 1)
+    body = sub(r"(\n    if \(t == 0\) \{\n        for \(int i = 0; i < N_BODY; \+\+i\) \{)",
+               r"\n    if (t == 0) {\n        atomicAdd(k11_split, (unsigned long long)split_bar);"
+               r"\n        atomicAdd(k11_split + 1, (unsigned long long)split_step);"
+               r"\n        atomicAdd(k11_split + 2, (unsigned long long)split_loop);"
+               r"\n        atomicAdd(k11_split + 3, 1ull);\n    }\1", body, 1)
+    return head + sep + body + tail_sep + tail
+
+
+def k11_split_run(root: str, launch: str) -> int:
+    """One tree's split (k11_split): its package copied under
+    build/k11-split/, split_source patched in (launch "cooperative": with
+    the cooperative grid only), built, then per lane count
+    a warm-up segment and 3 timed SPLIT_STEPS-step segments from
+    segment_case's "engine" state (board768 f32), each with the counters
+    reset before
+    and read after it; one JSON line of cycles a step averaged over the
+    warps, and the timed segments' us a step (CUDA events)."""
+    import ctypes
+    import glob
+    import shutil
+
+    import numpy as np
+
+    root = os.path.abspath(root)
+    here = os.path.dirname(os.path.abspath(__file__))
+    tag = hashlib.sha256(f"{root} {launch}".encode()).hexdigest()[:8]
+    dest = os.path.join(here, "build", "k11-split", tag)
+    shutil.rmtree(dest, ignore_errors=True)
+    shutil.copytree(os.path.join(root, "fishnet_tpu_torch"),
+                    os.path.join(dest, "fishnet_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    src = os.path.join(dest, "fishnet_tpu_torch", "csrc", "search_segment.cu")
+    with open(src) as f:
+        text = split_source(f.read(), launch == "cooperative")
+    with open(src, "w") as f:
+        f.write(text)
+    sys.path.insert(0, dest)
+    import torch
+
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.models import nnue
+    from fishnet_tpu_torch.ops import search
+
+    if not kernels.__file__.startswith(dest):
+        raise AssertionError(f"imported {kernels.__file__}, not the copy in {dest}")
+    os.environ["FISHNET_TPU_MAX_PLY"] = "32"
+    kernels.build()
+    lib = ctypes.CDLL(glob.glob(os.path.join(dest, "build", "kernels-*",
+                                             "libsearch_segment_standard.so"))[0])
+    lib.k11_split_read.argtypes = [ctypes.c_void_p]
+    lib.k11_split_read.restype = lib.k11_split_reset.restype = ctypes.c_int
+    dev = torch.device("cuda")
+    params = nnue.load_params(device=dev)
+    split = {}
+    for B in SPLIT_LANES:
+        state0, table0, kw = segment_case(params, B, "engine", seed=B, dev=dev)
+        state, table = _clone(state0, table0)
+        kw = dict(kw, table=table)
+        search.run_segment(params, state, SPLIT_STEPS, True, **kw)  # warm up
+        sums, steps, ms = np.zeros(4), 0, 0.0
+        for _ in range(3):
+            for t, t0 in zip(list(state) + [table], list(state0) + [table0]):
+                t.copy_(t0)
+            torch.cuda.synchronize()
+            if lib.k11_split_reset():
+                raise RuntimeError("k11_split_reset failed")
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            n, _ = search.run_segment(params, state, SPLIT_STEPS, True, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            ms += start.elapsed_time(end)
+            out = (ctypes.c_ulonglong * 4)()
+            if lib.k11_split_read(out):
+                raise RuntimeError("k11_split_read failed")
+            sums += np.asarray(list(out), np.float64)
+            steps += n
+        warps = sums[3] / 3
+        per = sums[:3] / warps / steps  # cycles a step, averaged over the warps
+        split[B] = {"barrier_waits": per[0], "lane_steps": per[1],
+                    "table_and_flags": per[2] - per[0] - per[1], "step_loop": per[2],
+                    "warps": warps, "steps": steps / 3, "grid": kernels.LAST_GRID["blocks"],
+                    "us_per_step": ms / steps * 1e3}
+    print(json.dumps({"tree": root, "launch": launch, "cycles_per_step": split}), flush=True)
+    return 0
+
+
+def k11_split(roots) -> int:
+    """k11_split_run for each tree in turn, each in a process of its own
+    (a tree that launches one thread-block cluster also as the cooperative
+    grid), then the card's name and power limit."""
+    for root in roots:
+        with open(os.path.join(root, "fishnet_tpu_torch", "csrc", "search_segment.cu")) as f:
+            clusters = "fits_one_cluster" in f.read()
+        for launch in ("default",) + (("cooperative",) if clusters else ()):
+            out = subprocess.run([sys.executable, os.path.abspath(__file__), "--k11-split-run",
+                                  root, launch], capture_output=True, text=True, timeout=900)
+            sys.stdout.write(out.stdout)
+            if out.returncode:
+                sys.stderr.write(out.stderr[-4000:])
+                return out.returncode
+    print(card_line())
+    return 0
+
+
+def ptxas_run(root: str) -> int:
+    """ptxas's registers, stack frame and spills for every kernel entry
+    and out-of-line device function of the tree `root`'s libraries:
+    each library's nvcc (the build's flags and headers, -Xptxas -v) into
+    a scratch directory, all started together; one JSON line."""
+    import re
+    import tempfile
+
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from fishnet_tpu_torch import kernels
+
+    if not kernels.__file__.startswith(root):
+        raise AssertionError(f"imported {kernels.__file__}, not the tree {root}")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for fname, text in kernels._headers().items():
+            os.makedirs(os.path.dirname(os.path.join(tmp, fname)), exist_ok=True)
+            with open(os.path.join(tmp, fname), "w") as f:
+                f.write(text)
+        procs = {}
+        for lib, source in kernels._LIBRARY_SOURCE.items():
+            own = os.path.join(tmp, lib)
+            procs[lib] = subprocess.Popen(
+                [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v",
+                 *(["-I", own] if os.path.isdir(own) else []), "-I", tmp,
+                 "-o", os.path.join(tmp, f"{lib}.so"), str(kernels.CSRC / f"{source}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for lib, proc in procs.items():
+            log_text, _ = proc.communicate(timeout=900)
+            if proc.returncode:
+                raise RuntimeError(f"{lib}: nvcc exit {proc.returncode}\n{log_text}")
+            rows, name = {}, None
+            for line in log_text.splitlines():
+                m = re.search(r"(?:Compiling entry function '|Function properties for )(\w+)",
+                              line)
+                if m:
+                    name = m.group(1)
+                    continue
+                m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                              r"(\d+) bytes spill loads", line)
+                if m and name:
+                    rows.setdefault(name, {}).update(
+                        stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                        spill_loads=int(m.group(3)))
+                m = re.search(r"Used (\d+) registers", line)
+                if m and name:
+                    rows.setdefault(name, {})["registers"] = int(m.group(1))
+            names = subprocess.run(["c++filt"], input="\n".join(rows), capture_output=True,
+                                   text=True).stdout.splitlines() or list(rows)
+            names = [re.sub(r"\(anonymous namespace\)::|search::|nnue::", "", n) for n in names]
+            out[lib] = {n[:n.rfind("(")] if "(" in n else n: row
+                        for n, row in zip(names, rows.values())}
+    print(json.dumps({"tree": root, "ptxas": out}), flush=True)
+    return 0
+
+
+def ptxas(roots) -> int:
+    """ptxas_run for each tree in turn, each in a process of its own."""
+    for root in roots:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--ptxas-run", root],
+                             capture_output=True, text=True, timeout=1200)
+        sys.stdout.write(out.stdout)
+        if out.returncode:
+            sys.stderr.write(out.stderr[-4000:])
+            return out.returncode
+    return 0
 
 
 def main() -> int:
@@ -4188,4 +4472,12 @@ if __name__ == "__main__":
         sys.exit(main_path_run(sys.argv[2], int(sys.argv[3])))
     if sys.argv[1:2] == ["--main-path-ab"]:
         sys.exit(main_path_ab(sys.argv[2], int(sys.argv[3]) if len(sys.argv) > 3 else 3))
+    if sys.argv[1:2] == ["--k11-split-run"]:
+        sys.exit(k11_split_run(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--k11-split"]:
+        sys.exit(k11_split(sys.argv[2:]))
+    if sys.argv[1:2] == ["--ptxas-run"]:
+        sys.exit(ptxas_run(sys.argv[2]))
+    if sys.argv[1:2] == ["--ptxas"]:
+        sys.exit(ptxas(sys.argv[2:]))
     sys.exit(main())

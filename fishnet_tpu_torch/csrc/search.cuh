@@ -1,7 +1,7 @@
 // One lane's search step and its table stores as warp-cooperative device
 // functions: the reference's _step_lane (fishnet_tpu/ops/search.py:343)
-// and the store halves of its TT runner (:903-980), for the segment
-// kernel K11 (search_segment.cu).
+// and the claim halves of its TT runner's stores (:903-980; K6's body,
+// tt.cuh), for the segment kernel K11 (search_segment.cu).
 //
 // The step follows the port's batched `_step` (ops/search.py) line for
 // line: ENTER (the board rules, the keys, the repetition scan over the
@@ -41,8 +41,9 @@
 // board row and accumulators.
 //
 // Lane state (rows, history counters, accumulators) is read with plain
-// loads: a lane's warp writes it in the same launch. The table and the
-// cross-block words (claims, flags) go through L2 (ld/st.cg and atomics).
+// loads: a lane's warp writes it in the same launch. The table, the staged
+// rows and the cross-block words (claims, flags) go through L2 (ld/st.cg,
+// an acquire load of a claim word, and atomics).
 // Constants come from search_consts.cuh and rules_tables.cuh, which
 // kernels.build() writes from the plain versions' modules.
 #pragma once
@@ -66,15 +67,17 @@ using rules::BT_PH2;
 using rules::BT_STM;
 using rules::BT_W;
 constexpr int L1 = nnue::L1;  // a board768 net's accumulator width
-// a PV row is staged in two words a thread; a lane's scratch holds a
-// pending table row and its slot; a board768 accumulator pair is four
+// a PV row is staged in two words a thread; a lane's scratch holds its
+// two stores' staged rows and slots (four int4s: the interior store's row
+// and slot, then the leaf store's); a board768 accumulator pair is four
 // columns a thread
-static_assert(SEGMENT_MAX_PLY <= 2 * WARP && SEGMENT_SCRATCH >= 5, "K11 layout");
+static_assert(SEGMENT_MAX_PLY <= 2 * WARP && SEGMENT_SCRATCH == 16, "K11 layout");
 static_assert(2 * L1 == 4 * WARP, "K3's body: four columns a thread");
 
 // the body calls and live lane-steps a launch counts (kernels.py K11_COUNTERS)
+// and the table reads that went through a store's pending row
 enum Body { B_FORWARD, B_ACC_UPDATE, B_HASH, B_PROBE, B_STORE, B_NODE_RULES, B_MOVEGEN,
-            B_MAKE_MOVE, B_EVALUATE, B_EVALUATE_SF, B_REFRESH, B_LIVE, N_BODY };
+            B_MAKE_MOVE, B_EVALUATE, B_EVALUATE_SF, B_REFRESH, B_LIVE, B_PENDING, N_BODY };
 
 // the nets K11 takes
 constexpr int BOARD768 = 0;  // incremental accumulators: K2's and K3's bodies
@@ -120,7 +123,8 @@ struct NetKbBf16 {
 
 // A segment's arguments: the state's nine tables ((B, ...) contiguous,
 // ops/search.py SearchState), the net, the key tables, the table (null
-// for none) with its claim words, and the launch's scratch and outputs.
+// for none) with its two stores' claim words and staged rows, and the
+// launch's scratch and outputs.
 template <class Net>
 struct Segment {
     int32_t* bt;  // (B, P+1, BT_W)
@@ -137,14 +141,15 @@ struct Segment {
     const uint32_t* z2;
     int4* table;  // (n, 4) or null
     uint32_t nmask;  // n - 1
-    int* claims;  // (n,): -1, or the highest lane claiming the slot in a store
+    tt::Pending interior, leaf;  // claim words (n,) each; rows in the scratch
     const int32_t* gen_lanes;  // (B,) or null: every lane stores generation `gen`
     int gen;
-    int* scratch;  // (B, SEGMENT_SCRATCH), then three live flags
+    int* scratch;  // (B, SEGMENT_SCRATCH): the stores' staged rows; then three live flags
     unsigned long long* body_calls;  // (N_BODY,)
     int32_t* summary;  // (B+1, 4)
     int B, P, H, steps;
     bool pruning, deep_tt, prefer_deep;
+    bool one_cluster;  // the grid is one cluster: its barrier is the cluster's
 };
 
 // A board768 leaf's accumulator pair, staged for K2's body (in atomic
@@ -187,50 +192,17 @@ __device__ __forceinline__ bool is_quiet(int move, const int* board) {
     return board[(move >> 6) & 63] == 0 && ((move >> 12) & 7) == 0;
 }
 
-// A masked store's half before the barrier (K6's rules, tt.cuh): the lane
-// decides against the pre-store row, records its row and slot (-1: stores
-// nothing) in its scratch and claims the slot; the highest claiming lane
-// of a slot wins, as the reference's scatter gives on XLA:CPU.
+// the generation a lane's stores write (and prefer_deep keeps)
 template <class Net>
-__device__ void store_claim(const Segment<Net>& a, int lane, bool mask, uint32_t h1,
-                            uint32_t h2, int score, int depth, int flag, int move, int t,
-                            unsigned* calls) {
-    int slot = -1;
-    const int gen = a.gen_lanes ? a.gen_lanes[lane] : a.gen;
-    if (mask && tt::storable(score)) {
-        const uint32_t s = h1 & a.nmask;
-        if (!(a.prefer_deep && tt::keep_old(__ldcg(a.table + s), gen, depth))) slot = (int)s;
-    }
-    if (t == 0) {
-        int* sc = a.scratch + (int64_t)lane * SEGMENT_SCRATCH;
-        if (slot >= 0) {
-            const int4 row = tt::store_row((int32_t)h2, score, depth, flag, move, gen);
-            sc[0] = row.x;
-            sc[1] = row.y;
-            sc[2] = row.z;
-            sc[3] = row.w;
-            atomicMax(a.claims + slot, lane);
-        }
-        sc[4] = slot;
-        calls[B_STORE] += mask;
-    }
-}
-
-// A store's half after the barrier: the slot's owner writes its row whole
-// and frees the claim word for the next store.
-template <class Net>
-__device__ void store_commit(const Segment<Net>& a, int lane, int t) {
-    if (t != 0) return;
-    const int* sc = a.scratch + (int64_t)lane * SEGMENT_SCRATCH;
-    const int slot = sc[4];
-    if (slot < 0 || __ldcg(a.claims + slot) != lane) return;
-    __stcg(a.table + slot, make_int4(sc[0], sc[1], sc[2], sc[3]));
-    atomicExch(a.claims + slot, -1);
+__device__ __forceinline__ int lane_gen(const Segment<Net>& a, int lane) {
+    return a.gen_lanes ? a.gen_lanes[lane] : a.gen;
 }
 
 // The runner's first store: a lane parked in RETURN whose interior node
 // finished (not illegal, not a TT-sourced value of depth -1, within its
-// budget) stores the node's value with its bound flag and best move.
+// budget) stores the node's value with its bound flag and best move. Its
+// claim half: the keep-old decision reads through the last step's leaf
+// store, whose commits may still be landing.
 template <class Net, int V>
 __device__ void interior_store_claim(const Segment<Net>& a, int lane, WarpRows<V>& s, int t,
                                      unsigned* calls) {
@@ -254,14 +226,40 @@ __device__ void interior_store_claim(const Segment<Net>& a, int lane, WarpRows<V
         __syncwarp();  // the rows are free for the warp's next lane
         if (t == 0) calls[B_HASH] += 1;
     }
-    store_claim(a, lane, mask, h1, h2, ret, max(retd, 0), flag, move, t, calls);
+    if (t == 0) {
+        const int gen = lane_gen(a, lane), depth = max(retd, 0);
+        bool through = false;
+        tt::store_claim(a.interior, a.nmask, lane, mask, h1, (int32_t)h2, ret, depth, flag, move,
+                        gen, a.prefer_deep, [&] {
+                            return tt::keep_old(tt::read_row(a.table, a.leaf, h1 & a.nmask,
+                                                             through), gen, depth);
+                        });
+        calls[B_STORE] += mask;
+        calls[B_PENDING] += through;
+    }
+}
+
+// The runner's leaf store's claim half (depth-0 EXACT, no move), from
+// thread 0 of the lane's warp; keep: the keep-old decision, made on the
+// row the probe read (the same slot, through the interior store).
+template <class Net>
+__device__ __forceinline__ void leaf_store_claim(const Segment<Net>& a, int lane, bool mask,
+                                                 uint32_t h1, uint32_t h2, int score, bool keep,
+                                                 unsigned* calls) {
+    tt::store_claim(a.leaf, a.nmask, lane, mask, h1, (int32_t)h2, score, 0, FLAG_EXACT, -1,
+                    lane_gen(a, lane), a.prefer_deep, [&] { return keep; });
+    calls[B_STORE] += mask;
 }
 
 // One step of one lane (the port's `_step`, its TT-runner arguments from
 // the probe made here, with the window ENTER gives the node), written into
 // the state in place; with a table, then the claim half of the leaf store
-// (depth-0 EXACT under the pre-step keys). Returns whether the lane is
-// still live. Every thread of the warp calls it; branches are warp-uniform.
+// (depth-0 EXACT under the pre-step keys). The probe reads through the
+// interior store, whose commits may still be landing (the slot's claim
+// word right after the hash, its row at the probe), and the leaf store's
+// keep-old decision is made on the probed row. Returns whether the lane
+// is still live. Every thread of the warp calls it; branches are
+// warp-uniform.
 template <class Net, int V>
 __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows<V>& s, int t,
                           unsigned* calls) {
@@ -280,7 +278,7 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows<V>& s, int t
             L[LN_SVAL] = 0;
             L[LN_RESEARCH] = research;
         }
-        if (a.table) store_claim(a, lane, false, 0, 0, 0, 0, 0, 0, t, calls);
+        if (a.table && t == 0) leaf_store_claim(a, lane, false, 0, 0, 0, false, calls);
         return false;
     }
     if (t == 0) calls[B_LIVE] += 1;
@@ -314,7 +312,7 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows<V>& s, int t
     // ---------------------------------------------------------- ENTER
     const bool enter = mode0 == MODE_ENTER;
     const bool root = ply0 == 0;
-    bool expand = false, leaf_store = false;
+    bool expand = false, leaf_store = false, leaf_keep = false;
     int store_val = 0, mode = mode0;
     uint32_t h1 = 0, h2 = 0;
     if (enter) {
@@ -334,6 +332,8 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows<V>& s, int t
         // pre-root game history, through unbroken reversible-move chains
         tt::zobrist_keys_warp<V>(s.btr, stm, s.btr[BT_EP], &s.btr[BT_CAST], &s.btr[BT_EXTRA],
                                  a.z1, a.z2, t, h1, h2);  // K4
+        // the probe's slot's interior claim word, early (its row is read at the probe)
+        const int claim = a.table ? tt::load_acquire(a.interior.claims + (h1 & a.nmask)) : -1;
         bool rep = false;
         for (int k = t; k < ply0; k += WARP) {
             const int32_t* r = bt + k * BT_W;
@@ -422,9 +422,11 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows<V>& s, int t
         int tt_score = 0, tt_move = -1;
         if (a.table) {
             bool usable;
-            tt::probe_row(__ldcg(a.table + (h1 & a.nmask)), (int32_t)h2, depth_left,
-                          entry_alpha, entry_beta, true, a.deep_tt, usable, tt_score,
-                          tt_move);  // K5
+            const int4 row = tt::row_after(a.table, a.interior, h1 & a.nmask, claim);
+            tt::probe_row(row, (int32_t)h2, depth_left, entry_alpha, entry_beta, true, a.deep_tt,
+                          usable, tt_score, tt_move);  // K5
+            leaf_keep = tt::keep_old(row, lane_gen(a, lane), 0);
+            if (t == 0) calls[B_PENDING] += claim >= 0;
             use_tt = usable && !(root || ends);
             to_return = parent_illegal || is_leaf || use_tt;
             no_store = parent_illegal || ends || use_tt;
@@ -689,7 +691,9 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows<V>& s, int t
         L[LN_RESEARCH] = research;
     }
     // the leaves the step evaluated: their position is the pre-step one
-    if (a.table) store_claim(a, lane, leaf_store, h1, h2, store_val, 0, FLAG_EXACT, -1, t, calls);
+    if (a.table && t == 0) {
+        leaf_store_claim(a, lane, leaf_store, h1, h2, store_val, leaf_keep, calls);
+    }
     return mode != MODE_DONE;
 }
 

@@ -19,7 +19,7 @@
 // of HBM time. What bounds it in practice is each step's dependent chain
 // in one warp (the board rules, the move generator's enumeration and sort,
 // the eval's layer stack, one hidden unit's chain a thread) plus one grid
-// barrier a step without a table and four with one.
+// barrier a step without a table and two with one.
 //
 // On a king-bucketed or an imported Stockfish net (entry points
 // search_segment_kb_* and _sf) every entering lane pays a full eval
@@ -47,22 +47,34 @@
 // cooperative_groups grid sync), sized by the occupancy API to the blocks
 // that fit on the card at once; one warp per lane (search.cuh step_lane),
 // four warps a block, each warp stepping lanes w, w + W, ... so any batch
-// fits. The lane tables and the table stay in device memory and are
-// updated in place; a warp stages the rows its lane's step reads in
-// shared memory. One step with a table: (1) each lane parked in RETURN
-// hashes its row and claims its store's slot (atomicMax of the lane index
-// in a claim word per slot, the decision taken against the pre-store row,
-// as the reference's prefer_deep store reads it), barrier, (2) each
-// slot's highest claiming lane writes its row whole and frees the claim,
-// barrier, (3) each lane steps (probing the table with the window ENTER
-// gives it) and claims its leaf store, barrier, (4) the leaf stores'
-// owners write, barrier. That is the reference's order and its colliding-
-// store rule (the highest storable lane of a slot wins) in O(B), across
-// blocks. Without a table there is no cross-lane dependency: one barrier
-// a step, for the exit test. The exit test is a grid-wide "any lane live"
-// flag every block reads after the same barrier (three flags in rotation,
-// so one is reset while another is read), so all blocks take the same
-// number of steps and barriers.
+// fits. A grid that fits in one thread-block cluster (the main path's 16
+// and 64 lanes: 4 and 16 blocks) is launched as that cluster, and its
+// barrier is the cluster's hardware barrier instead of the grid sync. The
+// lane tables and the table stay in device memory and are updated in
+// place; a warp stages the rows its lane's step reads in shared memory.
+//
+// The table's two stores a step run as K6's body (tt.cuh): a claim half
+// (the lane decides against the slot's row, stages its row and takes the
+// slot's claim word with atomicMax of its index, so the highest storable
+// lane wins) and a commit half (the winner writes its row whole and frees
+// the word). Each store kind has its own claim words and staged rows, and
+// a read of a slot between a store's halves goes through that store's
+// claim words (a claimed slot reads as its winner's staged row), so a
+// step with a table takes two barriers: (1) this step's interior stores
+// claim, their keep-old decisions reading through the last step's leaf
+// claims, and then those leaf stores commit; barrier; (2) each lane steps,
+// probing the table and deciding its leaf store's keep-old through the
+// interior claims, and claims its leaf store, and then the interior
+// stores commit; barrier. A warp commits after its own reads, so the
+// reads of a phase find most of its claims still pending. Every read sees
+// what the reference's order (interior store | probe, step | leaf store,
+// each store reading the table before its own writes) gives it. After
+// the last step the leaf stores commit, so every claim word is free again
+// when the launch ends. Without a table there is no cross-lane
+// dependency: one barrier a step, for the exit test. The exit test is a
+// grid-wide "any lane live" flag every block reads after the same barrier
+// (three flags in rotation, so one is reset while another is read), so
+// all blocks take the same number of steps and barriers.
 #include <cooperative_groups.h>
 
 #include "search.cuh"
@@ -75,9 +87,20 @@ using namespace search;
 constexpr int WARPS = 4;  // lanes in flight per block
 constexpr int THREADS = WARPS * WARP;
 
+// The barrier every block of the launch passes: the cluster's when the
+// grid is one cluster, else the cooperative grid's.
+__device__ __forceinline__ void barrier(cg::grid_group& grid, bool one_cluster) {
+    if (one_cluster) {
+        cg::this_cluster().sync();
+    } else {
+        grid.sync();
+    }
+}
+
 template <class Net, int V>
 __global__ void __launch_bounds__(THREADS) segment_kernel(const Segment<Net> a) {
     cg::grid_group grid = cg::this_grid();
+    const bool one_cluster = a.one_cluster;
     __shared__ WarpRows<V> rows[WARPS];
     const int w = threadIdx.x / WARP, t = threadIdx.x % WARP;
     const int first_warp = blockIdx.x * WARPS + w, n_warps = gridDim.x * WARPS;
@@ -91,34 +114,41 @@ __global__ void __launch_bounds__(THREADS) segment_kernel(const Segment<Net> a) 
     if (leader) {
         for (int i = 0; i < 3; ++i) atomicExch(flags + i, 0);
     }
-    grid.sync();
+    barrier(grid, one_cluster);
     for (int lane = first_warp; lane < a.B; lane += n_warps) {
         if (t == 0 && a.lane[(int64_t)lane * LN_W + LN_MODE] != MODE_DONE) atomicExch(flags, 1);
     }
-    grid.sync();
+    barrier(grid, one_cluster);
     int n = 0;
     while (n < a.steps && __ldcg(flags + n % 3) != 0) {
         // flags[(n + 2) % 3] was last read before this step's first barrier
         if (leader) atomicExch(flags + (n + 2) % 3, 0);
         if (a.table) {
+            // (1) this step's interior claims, then the last step's leaf commits
             for (int lane = first_warp; lane < a.B; lane += n_warps) {
                 interior_store_claim<Net, V>(a, lane, s, t, calls);
             }
-            grid.sync();
-            for (int lane = first_warp; lane < a.B; lane += n_warps) store_commit(a, lane, t);
-            grid.sync();
+            for (int lane = first_warp; lane < a.B && n > 0; lane += n_warps) {
+                if (t == 0) tt::store_commit(a.table, a.leaf, lane);
+            }
+            barrier(grid, one_cluster);
         }
+        // (2) the step with its leaf claims, then the interior commits
         bool live = false;
         for (int lane = first_warp; lane < a.B; lane += n_warps) {
             live |= step_lane<Net, V>(a, lane, s, t, calls);
         }
         if (t == 0 && live) atomicExch(flags + (n + 1) % 3, 1);
-        grid.sync();
-        if (a.table) {
-            for (int lane = first_warp; lane < a.B; lane += n_warps) store_commit(a, lane, t);
-            grid.sync();
+        for (int lane = first_warp; lane < a.B && a.table; lane += n_warps) {
+            if (t == 0) tt::store_commit(a.table, a.interior, lane);
         }
+        barrier(grid, one_cluster);
         ++n;
+    }
+    if (a.table && n > 0) {  // the last step's leaf commits
+        for (int lane = first_warp; lane < a.B; lane += n_warps) {
+            if (t == 0) tt::store_commit(a.table, a.leaf, lane);
+        }
     }
 
     for (int lane = first_warp; lane < a.B; lane += n_warps) {
@@ -142,6 +172,44 @@ __global__ void __launch_bounds__(THREADS) segment_kernel(const Segment<Net> a) 
 }
 
 constexpr int MAX_DEVICES = 64;  // the occupancy cache's devices
+constexpr int MAX_CLUSTER = 16;  // the H100's largest (non-portable) cluster
+
+// A launch of `blocks` blocks as one cluster (attr: its attribute's room).
+cudaLaunchConfig_t one_cluster_config(int blocks, cudaStream_t stream,
+                                      cudaLaunchAttribute& attr) {
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = blocks;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(THREADS);
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    return cfg;
+}
+
+// Whether a grid of `blocks` blocks fits in one cluster on the current
+// device (the occupancy API, asked once a device and size).
+template <class Net, int V>
+bool fits_one_cluster(int dev, int blocks) {
+    static signed char fits[MAX_DEVICES][MAX_CLUSTER + 1];  // 0 unknown, 1 yes, -1 no
+    if (blocks > MAX_CLUSTER) return false;
+    if (!fits[dev][blocks]) {
+        cudaLaunchAttribute attr;
+        const cudaLaunchConfig_t cfg = one_cluster_config(blocks, 0, attr);
+        int clusters = 0;
+        cudaError_t e = cudaFuncSetAttribute(segment_kernel<Net, V>,
+                                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (e == cudaSuccess) {
+            e = cudaOccupancyMaxActiveClusters(&clusters, segment_kernel<Net, V>, &cfg);
+        }
+        if (e != cudaSuccess) cudaGetLastError();  // a refusal means no: clear it
+        fits[dev][blocks] = e == cudaSuccess && clusters >= 1 ? 1 : -1;
+    }
+    return fits[dev][blocks] > 0;
+}
 
 template <class Net, int V>
 int launch(Segment<Net> a, int* grid_out, cudaStream_t stream) {
@@ -166,9 +234,16 @@ int launch(Segment<Net> a, int* grid_out, cudaStream_t stream) {
     const int want = (a.B + WARPS - 1) / WARPS, fit = blocks_per_sm[dev] * sms[dev];
     const int grid = want < fit ? want : fit;
     *grid_out = grid;
-    void* args[] = {&a};
-    e = cudaLaunchCooperativeKernel((const void*)segment_kernel<Net, V>, grid, THREADS, args, 0,
-                                    stream);
+    a.one_cluster = fits_one_cluster<Net, V>(dev, grid);
+    if (a.one_cluster) {
+        cudaLaunchAttribute attr;
+        const cudaLaunchConfig_t cfg = one_cluster_config(grid, stream, attr);
+        e = cudaLaunchKernelEx(&cfg, segment_kernel<Net, V>, a);
+    } else {
+        void* args[] = {&a};
+        e = cudaLaunchCooperativeKernel((const void*)segment_kernel<Net, V>, grid, THREADS, args,
+                                        0, stream);
+    }
     return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
@@ -222,7 +297,11 @@ int segment(void* bt, void* nt, void* lane, const void* hist_hash, const void* h
     a.z2 = (const uint32_t*)z2;
     a.table = (int4*)table;
     a.nmask = (uint32_t)table_rows - 1u;
-    a.claims = (int*)claims;
+    // claims (2, table_rows): the interior store's words, then the leaf
+    // store's; each lane's staged rows in its SEGMENT_SCRATCH words
+    constexpr int stride = SEGMENT_SCRATCH / 4;
+    a.interior = tt::Pending{(int*)claims, (int4*)scratch, stride};
+    a.leaf = tt::Pending{(int*)claims + table_rows, (int4*)scratch + 2, stride};
     a.gen_lanes = (const int32_t*)gen_lanes;
     a.gen = gen;
     a.scratch = (int*)scratch;
@@ -251,12 +330,12 @@ int segment(void* bt, void* nt, void* lane, const void* hist_hash, const void* h
 // (set_weights: a board768 net of l1 64, a king-bucketed net, or an
 // imported Stockfish net, with l1, h1, h2), the key tables, the table (n,
 // 4) int32 with n = table_rows a power of two, or null, with its claim
-// words (n,) all -1; gen_lanes (batch,) int32 or null; scratch (batch * 8
-// + 4) int32; body_calls (12,) int64, added to (kernels.py K11_COUNTERS);
-// summary (batch + 1, 4) int32 out; grid_out: the blocks launched (host
-// int). The entry points of one variant's library, one per net kind, are
-// the generated segment_entries.cuh's SEGMENT_ENTRY(name, net, variant)
-// lines.
+// words (2, n) all -1 (left so); gen_lanes (batch,) int32 or null;
+// scratch (batch * SEGMENT_SCRATCH + 4) int32; body_calls (13,) int64,
+// added to (kernels.py K11_COUNTERS); summary (batch + 1, 4) int32 out;
+// grid_out: the blocks launched (host int). The entry points of one
+// variant's library, one per net kind, are the generated
+// segment_entries.cuh's SEGMENT_ENTRY(name, net, variant) lines.
 #define SEGMENT_ENTRY(NAME, NET, V)                                                        \
     FISHNET_EXPORT int NAME(                                                              \
             void* bt, void* nt, void* lane, const void* hist_hash,                        \

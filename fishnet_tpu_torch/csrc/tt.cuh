@@ -1,7 +1,8 @@
 // The transposition table's per-lane bodies as device functions: the
-// Zobrist keys of a position (K4), a probe of one row (K5) and the store's
-// row and keep-old rule (K6). K4-K6's kernels wrap them; the segment
-// kernel (K11) calls the same functions. The table is (n, 4) int32 rows
+// Zobrist keys of a position (K4), a probe of one row (K5) and the store
+// (K6): its row, its keep-old rule and its claim and commit halves. K4-K6's
+// kernels wrap them; the segment kernel (K11) calls the same functions.
+// The table is (n, 4) int32 rows
 // [check, meta, move, generation] with meta = (score + 32768) << 10 |
 // depth << 2 | flag; a row is valid when check ^ meta ^ move == h2 and
 // meta != 0 (ops/tt.py).
@@ -189,6 +190,78 @@ __device__ __forceinline__ int4 store_row(int32_t h2, int32_t score, int32_t dep
     uint32_t meta = ((uint32_t)(score + SCORE_BIAS) << 10) | ((uint32_t)depth << 2)
                     | (uint32_t)flag;
     return make_int4(h2 ^ (int32_t)meta ^ move, (int32_t)meta, move, gen);
+}
+
+// K6's store in two halves, the body its kernel and K11 run. The claim
+// half decides a lane's store (storable, and with prefer_deep not kept
+// out by a deeper row of its generation), stages its row and slot and
+// claims the slot: atomicMax of the lane into the slot's claim word, so
+// the highest storable lane of a slot wins, as the reference's scatter
+// gives on XLA:CPU. The commit half, after every claim of the store,
+// lets each slot's winner write its row whole, then frees the word.
+// Between the halves a reader of a slot goes through the claim words
+// (read_row): a claimed slot reads as its winner's staged row, which is
+// what it holds once the store lands, so a store's commits may run beside
+// the next store's claims and a step's probes.
+struct Pending {
+    int* claims;  // (n,): -1, or the highest lane claiming the slot
+    int4* staged;  // lane l's row at staged[l * stride], its slot at staged[l * stride + 1].x
+    int stride;  // int4s a lane
+};
+
+// The claim word, with acquire order: a commit writes its row, fences and
+// only then frees the word, so a reader that finds it free reads the row.
+__device__ __forceinline__ int load_acquire(const int* p) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+    return v;
+}
+
+// Slot s's row as it stands once `pending`'s store has landed, from the
+// slot's claim word w read earlier in the same phase (a staged row stays
+// until the next barrier; a slot found free keeps its row).
+__device__ __forceinline__ int4 row_after(const int4* table, const Pending& pending, uint32_t s,
+                                          int w) {
+    return __ldcg(w >= 0 ? pending.staged + (int64_t)w * pending.stride : table + s);
+}
+
+// The same from the claim word read now; `through` says whether it came
+// from a winner's staged row.
+__device__ __forceinline__ int4 read_row(const int4* table, const Pending& pending, uint32_t s,
+                                         bool& through) {
+    const int w = load_acquire(pending.claims + s);
+    through = w >= 0;
+    return row_after(table, pending, s, w);
+}
+
+// The claim half for one lane, from one thread. keep() is the keep-old
+// decision on the slot's row as the store must see it (read through the
+// store whose commits may not have landed yet); it runs only for a
+// storable lane under prefer_deep.
+template <class Keep>
+__device__ __forceinline__ void store_claim(const Pending& mine, uint32_t nmask, int lane,
+                                            bool mask, uint32_t h1, int32_t h2, int32_t score,
+                                            int32_t depth, int32_t flag, int32_t move,
+                                            int32_t gen, bool prefer_deep, Keep keep) {
+    int slot = -1;
+    if (mask && storable(score) && !(prefer_deep && keep())) slot = (int)(h1 & nmask);
+    int4* st = mine.staged + (int64_t)lane * mine.stride;
+    if (slot >= 0) {
+        __stcg(st, store_row(h2, score, depth, flag, move, gen));
+        atomicMax(mine.claims + slot, lane);
+    }
+    __stcg(&st[1].x, slot);
+}
+
+// The commit half for one lane, from one thread, once every claim of its
+// store is in.
+__device__ __forceinline__ void store_commit(int4* table, const Pending& mine, int lane) {
+    const int4* st = mine.staged + (int64_t)lane * mine.stride;
+    const int slot = __ldcg(&st[1].x);
+    if (slot < 0 || __ldcg(mine.claims + slot) != lane) return;
+    __stcg(table + slot, __ldcg(st));
+    __threadfence();
+    atomicExch(mine.claims + slot, -1);
 }
 
 }  // namespace tt

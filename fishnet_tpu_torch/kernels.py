@@ -53,8 +53,9 @@ KERNELS = (
     "nnue_refresh_kb", "nnue_ft_backward_kb",
 )
 # the kernels whose bodies K11 runs inside a segment, and its per-launch
-# counters: those bodies' calls, then the live lane-steps (csrc/search.cuh
-# Body). K1's body runs there in atomic on a board768 net only (a full
+# counters: those bodies' calls, then the live lane-steps and the table
+# reads (probes and keep-old decisions) that went through a store's
+# pending row (csrc/search.cuh Body). K1's body runs there in atomic on a board768 net only (a full
 # refresh a leaf); its kernel also refreshes the roots of every board768
 # search.
 K11_BODIES = (
@@ -62,7 +63,7 @@ K11_BODIES = (
     "node_rules", "generate_moves", "make_move", "nnue_evaluate", "nnue_evaluate_sf",
     "nnue_refresh_768",
 )
-K11_COUNTERS = K11_BODIES + ("live_lane_steps",)
+K11_COUNTERS = K11_BODIES + ("live_lane_steps", "pending_reads")
 
 # HalfKAv2_hm feature rows of the full-eval nets (models/nnue.py
 # NUM_FEATURES)
@@ -82,7 +83,7 @@ LAUNCHES_BY_ENTRY: dict = {}
 # K11's counters since the last reset, on the device: (K11_COUNTERS,)
 # int64 per device, each launch adding its warps' counts at its end
 _body_calls: dict = {}
-# K11's per-slot claim words per device and stream (_claim_words)
+# the stores' per-slot claim words per device and stream (_claim_words)
 _claims: dict = {}
 
 _P = ctypes.c_void_p
@@ -124,7 +125,7 @@ _SIGNATURES = {
     "nnue_evaluate_sf": {"nnue_evaluate_sf": [_P, _L, _P, _L] + [_P] * 10 + [_I] * 2 + [_P]},
     "zobrist_hash": _per_variant("zobrist_hash", [_P, _L] * 5 + [_P, _P, _P, _I, _P]),
     "tt_probe": {"tt_probe": [_P, _I] + [_P, _L] * 5 + [_P, _I, _P, _P, _P, _I, _P]},
-    "tt_store": {"tt_store": [_P, _I] + [_P, _L] * 6 + [_P, _P, _I, _I, _I, _P]},
+    "tt_store": {"tt_store": [_P, _I] + [_P, _L] * 6 + [_P, _P, _I, _I, _P, _P, _I, _P]},
     "lane_init": {"lane_init": [_P] * 20 + [_I] * 5 + [_P]},
     "node_rules": _per_variant("node_rules", [_P, _L] * 3 + [_P, _P, _P, _I, _P]),
     "generate_moves": _per_variant("generate_moves", [_P, _L] * 7 + [_P, _P, _P, _I, _P]),
@@ -141,23 +142,20 @@ _SIGNATURES = {
 _LIBRARY_SOURCE = {lib: ("search_segment" if lib.startswith("search_segment_") else lib)
                    for lib in _SIGNATURES}
 
-# lanes one K6 launch takes (its shared-memory slot array)
-TT_STORE_MAX_LANES = 8192
-
 # the search state's fixed widths K7 writes (ops/search.py BT_W, NT_W,
 # LN_W, MAX_HIST and the history table)
 BT_W, NT_W, LN_W, MAX_HIST, HIST_SIZE = 96, 16, 16, 16, 4096
 # K11: the deepest stack it takes (it stages a PV row in two words a
 # thread), the board768 net's widths, which K2's and K3's bodies are
 # compiled for (the shipped net's; K3's body takes L1 four columns a
-# thread), and its per-lane scratch words (a pending table row and its
-# slot)
+# thread), and its per-lane scratch words (its two stores' staged rows
+# and slots, an int4 each)
 SEGMENT_MAX_PLY = 64
 SEGMENT_L1 = 64
 SEGMENT_H1 = 16
 SEGMENT_H2 = 32
 SHIPPED_WIDTHS = (SEGMENT_L1, SEGMENT_H1, SEGMENT_H2)
-SEGMENT_SCRATCH = 8
+SEGMENT_SCRATCH = 16
 # K14's per-sample scratch row (csrc/nnue_stack_backward.cu: h1, dz1, h2,
 # dz2, d_out) and the number of head gradients it writes, at the shipped
 # widths it is compiled for
@@ -715,15 +713,14 @@ def tt_store(table: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor,
     """K6: stores each masked lane's entry into table (n, 4) int32, in
     place, and returns it. h1, h2, score, depth, flag, move (B,) int32
     views (any stride, 0 for a broadcast scalar); mask (B,) bool; gen
-    None, an int or a (B,) int32 CUDA tensor; B <= TT_STORE_MAX_LANES."""
+    None, an int or a (B,) int32 CUDA tensor. Two launches on the current
+    stream (claim, commit) through that stream's claim words."""
     B = h1.shape[0]
     n = _check_table(table)
     cols = (("h1", h1), ("h2", h2), ("score", score), ("depth", depth), ("flag", flag),
             ("move", move))
     strides = [_check_lanes(t, name, B) for name, t in cols]
     _check(mask, "mask", torch.bool, (B,))
-    if B > TT_STORE_MAX_LANES:
-        raise ValueError(f"tt_store takes at most {TT_STORE_MAX_LANES} lanes, got {B}")
     gen_ptr, gen_int = None, 0
     if torch.is_tensor(gen):
         _check(gen, "gen", torch.int32, (B,))
@@ -732,8 +729,11 @@ def tt_store(table: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor,
         gen_int = int(gen)
     if B:
         args = [a for (_, t), s in zip(cols, strides) for a in (t.data_ptr(), s)]
+        claims = _claim_words(table.device, n)
+        scratch = torch.empty((B, 8), dtype=torch.int32, device=table.device)
         _launch("tt_store", "tt_store", table.device, table.data_ptr(), n, *args,
-                mask.data_ptr(), gen_ptr, gen_int, int(bool(prefer_deep)), B)
+                mask.data_ptr(), gen_ptr, gen_int, int(bool(prefer_deep)), claims.data_ptr(),
+                scratch.data_ptr(), B)
     return table
 
 
@@ -870,16 +870,18 @@ def make_move(board: torch.Tensor, stm: torch.Tensor, ep: torch.Tensor,
 
 
 def _claim_words(device: torch.device, n: int) -> torch.Tensor:
-    """K11's per-slot claim words for a table of n rows on `device`: one
-    int32 a slot, all -1 between stores (a store's winners reset theirs),
-    so one buffer, grown to the largest table, serves every table of the
-    launches on one stream. Launches on separate streams (the shards of
-    parallel/mesh.py) may run at once, so each stream has its own."""
+    """The stores' per-slot claim words for a table of n rows on `device`
+    → (2, n) int32: K11's interior store's words, then its leaf store's
+    (K6 claims through the first and reads through the second). All -1
+    between launches (a store's winners reset theirs), so one buffer,
+    grown to the largest table, serves every table of the launches on one
+    stream. Launches on separate streams (the shards of parallel/mesh.py)
+    may run at once, so each stream has its own."""
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
     words = _claims.get(key)
-    if words is None or words.shape[0] < n:
-        words = _claims[key] = torch.full((n,), -1, dtype=torch.int32, device=device)
-    return words
+    if words is None or words.shape[0] < 2 * n:
+        words = _claims[key] = torch.full((2 * n,), -1, dtype=torch.int32, device=device)
+    return words[:2 * n].view(2, n)
 
 
 def _segment_net(params):
@@ -925,8 +927,9 @@ def search_segment(params, state, steps: int, pruning: bool, table=None,
     variant: the device variant (each has its own instantiations). out:
     None, or the contiguous (B+1, 4) int32 tensor on the state's device
     to write the summary into (a shard's rows of parallel/mesh.py's
-    stacked summary). One cooperative launch on the current stream;
-    raises if the card refuses it."""
+    stacked summary). One launch on the current stream (cooperative, or
+    one thread-block cluster where the grid fits in one); raises if the
+    card refuses it."""
     from .ops.movegen import max_moves_for
 
     B, p1, max_moves, l1 = _check_state(state)

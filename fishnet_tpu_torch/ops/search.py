@@ -757,7 +757,8 @@ def _tt_step(params: nnue.NnueParams, s: SearchState, pruning: bool,
              table: torch.Tensor, deep_tt: bool, prefer_deep: bool, gen,
              variant: str = "standard") -> None:
     """One step under the reference's TT runner (its _run_segment body;
-    K11's four phases a step, csrc/search_segment.cu, in batched PyTorch):
+    K11's two table phases a step, csrc/search_segment.cu, in batched
+    PyTorch):
     hash each lane's ply row once; store the lanes parked in RETURN with
     the node's finished value; probe the lanes about to ENTER with the
     window ENTER will give them; step; store the leaves the step marked

@@ -1,10 +1,13 @@
 """fishnet_tpu_torch's CUDA kernels on the card: each against its plain
 PyTorch version (the TT probe and store on seeded tables with forced
-slot collisions, the lane init over every lane and over scattered
-ones, the board rules, move generator and make-move on chip_smoke's
-seeded positions (the move generator also on its long and tied lists,
-the layer stack at the clip edges from 1 to 1024 lanes), the segment kernel K11 against run_segment_plain on
-chip_smoke's seeded search states, exactly), the wrappers' checks and
+slot collisions, the store up to 8192 lanes and on four slots, the lane
+init over every lane and over scattered ones, the board rules, move
+generator and make-move on chip_smoke's seeded positions (the move
+generator also on its long and tied lists, the layer stack at the clip
+edges from 1 to 1024 lanes), the segment kernel K11 against
+run_segment_plain on chip_smoke's seeded search states, also where a
+step's stores and the next step's reads share slots and go through
+pending rows, exactly), the wrappers' checks and
 launch counts, a plain step on the card that runs none of the plain
 board code, a segment on the card that runs no PyTorch step, and the
 int8 searches (all through K11) on the card against the CPU, with the
@@ -35,10 +38,10 @@ import pytest
 import torch
 
 from chip_smoke import (
-    TRAIN_GRAD_RTOL, TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL, TT_PROBE_ARGS, TT_STORE_ARGS, VARIANTS,
-    ZH_POCKETS, _rel_err, every_move, k2_inputs, kb_case, kb_train_case, lane_init_case,
-    movegen_long_inputs, playout_boards, rules_inputs, segment_case, sf_file, train_case,
-    tt_inputs, tt_runner_layout,
+    FINISH_STEPS, TRAIN_GRAD_RTOL, TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL, TT_PROBE_ARGS,
+    TT_STORE_ARGS, VARIANTS, ZH_POCKETS, _rel_err, every_move, k2_inputs, kb_case,
+    kb_train_case, lane_init_case, movegen_long_inputs, playout_boards, rules_inputs,
+    segment_case, sf_file, train_case, tt_inputs, tt_runner_layout,
 )
 from fishnet_tpu_torch import kernels
 from fishnet_tpu_torch.chess import Position
@@ -174,13 +177,13 @@ def test_int8_search_card_equals_cpu(nets, lanes):
 
 
 @pytest.mark.parametrize("lanes,size_log2", [(16, 3), (64, 21), (1024, 6), (1024, 21),
-                                             (3000, 10)])
+                                             (3000, 10), (8192, 6), (8192, 21)])
 def test_tt_kernels_match_plain_versions(card, lanes, size_log2):
     """K5 and K6 equal their plain versions bit for bit, on contiguous
     inputs and on the runner's strided and broadcast ones: 1024 lanes
     into 64 slots force collisions (the highest storable lane wins), 64
-    lanes into 2^21 slots is the engine's dispatch, 3000 lanes span
-    several threads per lane of K6."""
+    lanes into 2^21 slots is the engine's dispatch, 3000 and 8192 lanes
+    span many blocks of K6's claim and commit launches."""
     c = tt_inputs(lanes, size_log2, lanes + size_log2, card)
     runner_probe, runner_store, runner_leaf = tt_runner_layout(c)
     for deep in (False, True):
@@ -197,6 +200,25 @@ def test_tt_kernels_match_plain_versions(card, lanes, size_log2):
             tt.store_plain(want, *args, prefer_deep=prefer, gen=gen)
             assert torch.equal(got, want)
             assert not torch.equal(want, c["table"])
+
+
+@pytest.mark.parametrize("lanes", [1024, 8192])
+@pytest.mark.parametrize("size_log2", [6, 21])
+def test_tt_store_on_four_slots_matches_plain_version(card, lanes, size_log2):
+    """K6 with every lane's key on one of four slots equals its plain
+    version bit for bit, plain and prefer_deep (one generation, and mixed
+    per-lane ones against the table's mixed generations), and leaves its
+    stream's claim words free."""
+    c = tt_inputs(lanes, size_log2, lanes + size_log2 + 4, card, n_slots=4)
+    gen_lanes = torch.randint(0, 3, (lanes,), dtype=torch.int32, device=card)
+    args = [c[k] for k in TT_STORE_ARGS]
+    for prefer, gen in ((False, None), (True, 1), (True, gen_lanes)):
+        got, want = c["table"].clone(), c["table"].clone()
+        tt.store(got, *args, prefer_deep=prefer, gen=gen)
+        tt.store_plain(want, *args, prefer_deep=prefer, gen=gen)
+        assert torch.equal(got, want)
+        assert 0 < int((want != c["table"]).any(1).sum()) <= 4
+    assert bool((kernels._claim_words(card, 1 << size_log2) == -1).all())
 
 
 def test_tt_wrappers_check_inputs_and_count_launches(card):
@@ -219,9 +241,9 @@ def test_tt_wrappers_check_inputs_and_count_launches(card):
                          False)
     with pytest.raises(ValueError):
         kernels.tt_probe(c["table"][:100], *[c[k] for k in TT_PROBE_ARGS], False)
-    big = tt_inputs(kernels.TT_STORE_MAX_LANES + 1, 8, 2, card)
-    with pytest.raises(ValueError):
-        kernels.tt_store(big["table"], *[big[k] for k in TT_STORE_ARGS], False)
+    with pytest.raises(ValueError):  # a mask of another width
+        kernels.tt_store(c["table"], *[c[k] for k in TT_STORE_ARGS[:-1]], c["mask"][:32],
+                         False)
     assert kernels.LAUNCHES["tt_probe"] == 1 and kernels.LAUNCHES["tt_store"] == 2
 
 
@@ -432,6 +454,31 @@ def test_segment_kernel_matches_plain_version(nets, batch, net, cfg):
         assert n_k == n_p == steps
         assert torch.equal(sum_k, sum_p)
         _same_state(state, plain, table, plain_table)
+
+
+@pytest.mark.parametrize("net", ["f32", "int8"])
+@pytest.mark.parametrize("batch", [16, 64])
+def test_segment_kernel_on_colliding_store_phases(nets, batch, net):
+    """K11 on chip_smoke's "tiny" setup (the main path's rules and
+    helpers into 2^6 slots, so a step's leaf stores and the next step's
+    probes and interior stores share slots) against run_segment_plain
+    over segments of 1, 33 and 100 steps (16 lanes: then one in which
+    every lane finishes), byte for byte; K11 counts reads through a
+    store's pending rows, and leaves every claim word free."""
+    params = nets[net]
+    state, table, kw = segment_case(params, batch, "tiny", batch + 1, params.device)
+    plain = search.SearchState(*[t.clone() for t in state])
+    plain_table = table.clone()
+    kernels.reset_launches()
+    for steps in (1, 33, 100) + ((FINISH_STEPS,) if batch == 16 else ()):
+        n_k, sum_k = search.run_segment(params, state, steps, True, **kw)
+        n_p, sum_p = search.run_segment_plain(params, plain, steps, True,
+                                              **dict(kw, table=plain_table))
+        assert n_k == n_p and (n_k == steps or steps == FINISH_STEPS > n_k)
+        assert torch.equal(sum_k, sum_p)
+        _same_state(state, plain, table, plain_table)
+    assert kernels.body_calls()["pending_reads"] > 0
+    assert bool((kernels._claim_words(params.device, table.shape[0]) == -1).all())
 
 
 def test_segment_on_the_card_runs_no_pytorch_step(card, nets, lanes, monkeypatch):

@@ -80,6 +80,7 @@ CASES = {
     "no table": (None, False, False, False, False, 100_000),
     "table": (12, False, False, False, False, 100_000),
     "helpers, colliding prefer_deep store": (6, True, True, True, True, 100_000),
+    "helpers, the main path's rules into 2^6 slots": (6, False, True, True, True, 100_000),
     "every lane finishes": (10, False, True, False, False, 300),
 }
 

@@ -127,6 +127,21 @@ def test_store_matches_reference(lanes, size_log2, prefer_deep, gen):
     assert (want != case["table"]).any()
 
 
+@pytest.mark.parametrize("prefer_deep,gen", [(False, None), (True, 1), (True, "lanes")])
+@pytest.mark.parametrize("lanes,size_log2", [(1024, 6), (1024, 12), (8192, 6), (8192, 12)])
+def test_store_on_four_slots_matches_reference(lanes, size_log2, prefer_deep, gen):
+    """Every lane's key on one of four slots (chip_smoke's K6 cases): the
+    highest storable lane of each slot wins, each storing lane's keep-old
+    decision reads the pre-store row, with mixed per-lane generations
+    ("lanes") against the table's mixed ones."""
+    case = tt_case(lanes, size_log2, lanes + size_log2 + 4, n_slots=4)
+    assert len(np.unique(case["h1"] & ((1 << size_log2) - 1))) == 4
+    if gen == "lanes":
+        gen = np.random.default_rng(lanes).integers(0, 3, lanes).astype(np.int32)
+    want = _stores_agree(case, prefer_deep, gen)
+    assert 0 < int((want != case["table"]).any(1).sum()) <= 4
+
+
 def test_store_collisions_keep_the_highest_lane():
     """Every lane stores to one slot: the last storable lane's row lands
     whole; masked and mate-range lanes store nothing."""
