@@ -35,11 +35,14 @@ Phases (any failure exits non-zero before the final line):
      the L1 3072 Stockfish net (jittered helpers, 2^12 slots) against
      run_segment_plain, byte for byte; the trainer's kernels (K14 the
      layer stack's backward, K15 the feature transform's, K16 the Adam
-     update) at batch 16 and 512 on seeded diverse positions: K14 and K15
-     within a stated tolerance and the same bytes when repeated, K16 bit
-     for bit; with times (queued CUDA events: the card spins while the
-     host queues the calls; torch.profiler only as a logged check) and
-     bounds from the bytes these inputs need;
+     update) at batch 16 and 512 on seeded diverse positions: K14 within
+     a stated tolerance and the same bytes when repeated, K15 byte for
+     byte the plain version run on the CPU (and repeated), also on 512
+     start positions, 2,048 samples (four bitmap windows), L1 32 and L1
+     1040, K16 bit for bit; with times (queued CUDA events: the card spins
+     while the host queues the calls; torch.profiler only as a logged
+     check; K15's mark and row passes also on their own) and bounds from
+     the bytes these inputs need;
   4. where a segment's time goes (torch.profiler over one K11 segment of
      PROFILE_STEPS steps: B = 16 and 1024 without the table, B = 64 with
      it): host ms/step, device busy ms/step, the device's idle share;
@@ -138,10 +141,10 @@ boards of both phases that time K12, at both phases' call counts.
      losses and every position's params against the same grid of 8 cpu
      devices, then ms a step, the host's share and launches a step.
 The kernel phase (3) also holds K17 nnue_refresh_kb (byte for byte, also
-on a tp shard's columns) and K18 nnue_ft_backward_kb (within the K15
-tolerance, the same bytes repeated) to their plain versions at batch 32
-and 512, times them, and holds and times K16 over the king-bucketed flat
-buffer. K11's plain yardsticks (phase 3's timed segments, the bf16 and
+on a tp shard's columns) and K18 nnue_ft_backward_kb (as K15, its wide
+case at L1 256) to their plain versions at batch 32 and 512, times them
+(K18's passes also on their own), and holds and times K16 over the
+king-bucketed flat buffer. K11's plain yardsticks (phase 3's timed segments, the bf16 and
 the mesh segment) time a PLAIN_TIMING_STEPS-step segment; the plain
 segments that are checked against K11 run at their full lengths.
 Then a `kernels` JSON line (launches from phase 5, the board768 main
@@ -163,9 +166,10 @@ one-card main path, REPS times a process, for an earlier tree of the
 repository (TREE, unpacked with git archive; it needs only its
 fishnet_tpu_torch package) and for this one, parent, this, this, parent,
 each run's counts, times and responses digest one JSON line, then each
-process's digests of K2's, K6's and K9's outputs on seeded inputs and
-its K11 us-per-step table (every variant and net at 16, 64 and 1024
-lanes), and one line
+process's digests of K2's, K6's and K9's outputs on seeded inputs, of
+the board768 and king-bucketed trainers' params after their 200 steps
+and of the 4 x 2 grid's after 20 steps, and its K11 us-per-step table
+(every variant and net at 16, 64 and 1024 lanes), and one line
 `{"digests_equal": ...}` over all four processes (exit 1 where the
 digests differ).
 
@@ -271,6 +275,15 @@ TRAIN_PATH_KERNELS = {"board768": TRAIN_KERNELS, "halfkav2_hm": TRAIN_KB_KERNELS
 GRID = (4, 2)
 GRID_STEPS = 20
 GRID_CALLER_BATCH = 8 * GRID[0]
+# K15's and K18's fixtures beside the trainer's seeded batches (label,
+# batch, L1, boards: ft_case): every board the start position (each piece
+# row holds all 1,024 pairs of the window, the longest chains), a batch of
+# four windows, a tp position's 32 columns, and a wide L1 (FT_WIDE_L1: K18
+# at the king-bucketed nets' 256, K15 past its old 1,024-column limit,
+# with a ragged last slice)
+FT_CASES = (("start positions", 512, 64, "start"), ("2048 samples", 2048, 64, "seeded"),
+            ("L1 32", 512, 32, "seeded"), ("wide", 512, 0, "seeded"))
+FT_WIDE_L1 = {"board768": 1040, "halfkav2_hm": 256}
 
 START = "rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR w KQkq - 0 1"
 # a Sicilian and a Ruy Lopez with repetitions near the end (so the
@@ -1892,11 +1905,150 @@ def _rel_err(got, want) -> float:
     return err / scale if scale else err
 
 
+def ft_case(B: int, l1: int, seed: int, kind: str = "seeded") -> tuple:
+    """numpy inputs of K15 and K18 → boards (B, 64) int32: B start
+    positions ("start") or diverse positions from the seed (a batch above
+    512 repeats 512 of them, each repeat shuffled); d_acc (B, 2, l1) f32:
+    normal values scaled by a log-normal factor a (sample, perspective), so
+    that a sum's order shows in its bits."""
+    import numpy as np
+
+    from fishnet_tpu_torch.chess import Position
+    from fishnet_tpu_torch.models import train
+
+    rng = np.random.default_rng(seed)
+    if kind == "start":
+        boards = np.tile(train.board_array(Position.initial()), (B, 1))
+    else:
+        base = train.diverse_position_dataset(min(B, 512), seed=seed)[0]
+        boards = np.concatenate([base[rng.permutation(len(base))]
+                                 for _ in range(-(-B // len(base)))])[:B]
+    d_acc = rng.normal(size=(B, 2, l1)) * np.exp(rng.normal(size=(B, 2, 1)))
+    return boards.astype(np.int32), d_acc.astype(np.float32)
+
+
+def ft_kernel(feature_set: str) -> tuple:
+    """(kernel name, its wrapper, its plain version, feature rows) of K15
+    or K18."""
+    from fishnet_tpu_torch.models import nnue, train
+
+    if feature_set == "board768":
+        return ("nnue_ft_backward_768", train.ft_backward_768, train.ft_backward_768_plain,
+                nnue.NUM_FEATURES_768)
+    return ("nnue_ft_backward_kb", train.ft_backward_kb, train.ft_backward_kb_plain,
+            nnue.NUM_FEATURES)
+
+
+def ft_check(feature_set: str, label: str, boards, d_acc) -> float:
+    """K15 or K18 on one fixture on the card: byte for byte the plain
+    version run on the CPU (the order it states), the same bytes on a
+    repeated launch, and within TRAIN_GRAD_RTOL of the plain version run
+    on the card (a CUDA index_add_, whose float atomics add in no fixed
+    order). → the largest difference from the CPU's plain version."""
+    import torch
+
+    name, wrapper, plain, rows = ft_kernel(feature_set)
+    n = (rows + 1) * d_acc.shape[2]
+    g1, g2 = (torch.empty(n, device=d_acc.device) for _ in range(2))
+    wrapper(boards, d_acc, g1)
+    wrapper(boards, d_acc, g2)
+    on_card = torch.cat([t.reshape(-1) for t in plain(boards, d_acc)])
+    on_cpu = torch.cat([t.reshape(-1) for t in plain(boards.cpu(), d_acc.cpu())])
+    torch.cuda.synchronize()
+    got = g1.cpu()
+    equal = torch.equal(got.view(torch.int32), on_cpu.view(torch.int32))
+    same = torch.equal(g1.view(torch.int32), g2.view(torch.int32))
+    err = float((got.double() - on_cpu.double()).abs().max())
+    rel = _rel_err(g1, on_card)
+    touched = int(got[:rows * d_acc.shape[2]].view(rows, -1).ne(0).any(1).sum())
+    log(f"check {name} {label} (B={boards.shape[0]}, L1 {d_acc.shape[2]}): the CPU's plain "
+        f"version byte for byte: {equal} (max_abs_err {err}, tolerance 0); a repeated launch "
+        f"the same bytes: {same}; the card's plain version (atomics) within {rel} relative "
+        f"(tolerance {TRAIN_GRAD_RTOL}); {touched} of {rows} rows touched")
+    if not (equal and same and rel <= TRAIN_GRAD_RTOL):
+        raise AssertionError(f"{name} {label}: CPU bytes equal {equal}, repeat equal {same}, "
+                             f"relative error {rel}")
+    return err
+
+
+def ft_fixtures(feature_set: str) -> float:
+    """ft_check on FT_CASES → the largest difference from the CPU."""
+    import torch
+
+    err = 0.0
+    for i, (label, B, l1, kind) in enumerate(FT_CASES):
+        l1 = l1 or FT_WIDE_L1[feature_set]
+        boards, d_acc = (torch.from_numpy(a).cuda() for a in ft_case(B, l1, seed=50 + i,
+                                                                      kind=kind))
+        err = max(err, ft_check(feature_set, label, boards, d_acc))
+    return err
+
+
+def time_stages_ms(stages, reps: int) -> list:
+    """ms of each call of a sequence run reps times (stages: functions
+    called in turn): CUDA events recorded between the calls, all queued
+    while the card spins (as time_queued_ms), so each reads the card's time
+    for its call."""
+    import torch
+
+    for fn in stages:
+        fn()
+    torch.cuda.synchronize()
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+             for _ in range(reps)]
+    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+    for ev in marks:
+        ev[0].record()
+        for fn, e in zip(stages, ev[1:]):
+            fn()
+            e.record()
+    torch.cuda.synchronize()
+    return [sum(ev[i].elapsed_time(ev[i + 1]) for ev in marks) / reps
+            for i in range(len(stages))]
+
+
+def ft_times(feature_set: str, boards, d_acc, reps: int) -> dict:
+    """K15's or K18's passes timed on their own (time_stages_ms: the mark
+    pass, the row pass, then the sum and ft_b passes) on the trainer's
+    batch and on FT_CASES' start positions (every piece row a chain of
+    1,024 adds), with the whole kernel's time on the start positions →
+    {mark_ms, rows_ms, sums_ms, start_ms, start_mark_ms, start_rows_ms,
+    start_sums_ms}. Launched alone, each pass pays the launch gap that the
+    whole call overlaps, so the three add up to more than the call."""
+    import torch
+
+    from fishnet_tpu_torch import kernels
+
+    name, _, _, rows = ft_kernel(feature_set)
+    launch = getattr(kernels, name)
+    l1 = d_acc.shape[2]
+    out = {}
+    sb, sd = (torch.from_numpy(a).cuda() for a in ft_case(TRAIN_BATCH, l1, seed=50,
+                                                          kind="start"))
+    for tag, b, d in (("", boards, d_acc), ("start_", sb, sd)):
+        g = torch.empty((rows + 1) * l1, device=d.device)
+        split = time_stages_ms([lambda: launch(d, b, g, stages=1),
+                                lambda: launch(d, b, g, stages=2),
+                                lambda: launch(d, b, g, stages=4)], reps)
+        for stage, ms in zip(("mark", "rows", "sums"), split):
+            out[f"{tag}{stage}_ms"] = ms
+        if tag:
+            out["start_ms"] = time_ms(lambda: launch(d, b, g), reps)[0]
+    log(f"time {name} passes (B={boards.shape[0]}, L1 {l1}; CUDA events between the passes): "
+        f"mark {out['mark_ms']:.5f} ms, rows {out['rows_ms']:.5f} ms, sums and ft_b "
+        f"{out['sums_ms']:.5f} ms; start positions {out['start_ms']:.5f} ms (mark "
+        f"{out['start_mark_ms']:.5f}, rows {out['start_rows_ms']:.5f}, sums and ft_b "
+        f"{out['start_sums_ms']:.5f})")
+    return out
+
+
 def train_kernel_phase(reps: int) -> dict:
     """K14, K15 and K16 against their plain versions on the card at B = 16
-    and TRAIN_BATCH: K14 and K15 within TRAIN_GRAD_RTOL and the same bytes
-    on a repeated launch, K16 bit for bit; then times at TRAIN_BATCH
-    (kernel, plain, library) and bounds from these inputs' bytes."""
+    and TRAIN_BATCH: K14 within TRAIN_GRAD_RTOL and the same bytes on a
+    repeated launch, K15 byte for byte the plain version run on the CPU
+    (ft_check), also on FT_CASES, K16 bit for bit; then times at
+    TRAIN_BATCH (kernel, plain, library; K15's passes on their own) and
+    bounds from these inputs' bytes."""
     import torch
 
     from fishnet_tpu_torch import kernels
@@ -1914,10 +2066,10 @@ def train_kernel_phase(reps: int) -> dict:
         d_acc2 = train.stack_backward(p, acc, stms, bucket, d_pred, g_k2)
         d_acc_p, grads_p = train.stack_backward_plain(p, acc, stms, bucket, d_pred)
         g_p = torch.cat([g.reshape(-1) for g in grads_p])
-        ft_k, ft_k2 = (torch.empty(n_ft, device=dev) for _ in range(2))
-        train.ft_backward_768(boards, d_acc_p, ft_k)
-        train.ft_backward_768(boards, d_acc_p, ft_k2)
-        ft_p = torch.cat([t.reshape(-1) for t in train.ft_backward_768_plain(boards, d_acc_p)])
+        err = ft_check("board768", "seeded", boards, d_acc_p)
+        stats["nnue_ft_backward_768"]["max_abs_err"] = max(
+            stats["nnue_ft_backward_768"]["max_abs_err"], err)
+        ft_k = torch.empty(n_ft, device=dev)
         opt = train.Adam(TRAIN_LR)
         bc = opt.bias_corrections(c["count"] + 1)
         bufs_k = [train.flat_view(p).clone(), c["grad"], c["mu"].clone(), c["nu"].clone()]
@@ -1930,7 +2082,6 @@ def train_kernel_phase(reps: int) -> dict:
                 [(d_acc, d_acc_p), *zip(g_k.split([g.numel() for g in grads_p]),
                                         [g.reshape(-1) for g in grads_p])],
                 [(d_acc, d_acc2), (g_k, g_k2)]),
-            "nnue_ft_backward_768": ([(ft_k, ft_p)], [(ft_k, ft_k2)]),
         }
         for name, (pairs, repeats) in checks.items():
             rel = max(_rel_err(a, b) for a, b in pairs)
@@ -1947,6 +2098,8 @@ def train_kernel_phase(reps: int) -> dict:
             raise AssertionError("adam_update differs from its plain version")
         if B != TRAIN_BATCH:
             continue
+        stats["nnue_ft_backward_768"]["max_abs_err"] = max(
+            stats["nnue_ft_backward_768"]["max_abs_err"], ft_fixtures("board768"))
 
         # times at the training batch
         l1 = p.l1
@@ -2005,6 +2158,7 @@ def train_kernel_phase(reps: int) -> dict:
                 f"plain {plain_ms:.5f} / {plain_call:.5f}, library {lib_ms} / {lib_call}, "
                 f"bound {stats[name]['bound_ms']:.6f} ({stats[name]['bound_by']}); "
                 f"{pieces} pieces, {used} buckets")
+        stats["nnue_ft_backward_768"].update(ft_times("board768", boards, d_acc_p, reps))
     return stats
 
 
@@ -2058,6 +2212,13 @@ def train_dataset():
     return dataset
 
 
+def train_kwargs(feature_set: str) -> dict:
+    """train_material_net's arguments on the main path: TRAIN_STEPS steps
+    of TRAIN_BATCH at TRAIN_LR over train_dataset() from seed 0, L1 64."""
+    return dict(l1=64, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seed=0, dataset=train_dataset(),
+                lr=TRAIN_LR, feature_set=feature_set)
+
+
 def train_phase(feature_set: str = "board768") -> dict:
     """The trainer's main path on a board768 or king-bucketed
     ("halfkav2_hm") net: train_material_net on the card (TRAIN_STEPS steps
@@ -2078,8 +2239,7 @@ def train_phase(feature_set: str = "board768") -> dict:
     tag = "train" if feature_set == "board768" else f"train {feature_set}"
     path_kernels = TRAIN_PATH_KERNELS[feature_set]
     dataset = train_dataset()
-    kw = dict(l1=64, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seed=0, dataset=dataset,
-              lr=TRAIN_LR, feature_set=feature_set)
+    kw = train_kwargs(feature_set)
     runs = {}
     for dev in ("cuda", "cpu"):
         record = []
@@ -2208,11 +2368,11 @@ def train_kb_kernel_phase(reps: int) -> dict:
     """K17 and K18 against their plain versions on the card at batch
     GRID_CALLER_BATCH and TRAIN_BATCH on a seeded king-bucketed net at L1
     64: K17 byte for byte, also on a tp shard's half of the columns; K18
-    within TRAIN_GRAD_RTOL and the same bytes on a repeated launch (its
-    difference from the plain version run on the CPU, which sums in its
-    order, logged). Then times at TRAIN_BATCH (kernel, plain, library) with
-    bounds from these inputs' bytes, and K16 over the king-bucketed flat
-    buffer (equal to its plain version, timed beside it)."""
+    byte for byte the plain version run on the CPU (ft_check), also on
+    FT_CASES. Then times at TRAIN_BATCH (kernel, plain, library; K18's
+    passes on their own) with bounds from these inputs' bytes, and K16 over
+    the king-bucketed flat buffer (equal to its plain version, timed beside
+    it)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2231,12 +2391,7 @@ def train_kb_kernel_phase(reps: int) -> dict:
         acc_p = nnue.accumulators(p, boards)
         half = p._replace(ft_w=p.ft_w[:, l1 // 2:].contiguous(), ft_b=p.ft_b[l1 // 2:].contiguous())
         acc_h = nnue.accumulators_kb(half, boards)
-        ft_k, ft_k2 = (torch.empty(n_ft, device=dev) for _ in range(2))
-        train.ft_backward_kb(boards, d_acc, ft_k)
-        train.ft_backward_kb(boards, d_acc, ft_k2)
-        ft_p = torch.cat([t.reshape(-1) for t in train.ft_backward_kb_plain(boards, d_acc)])
-        ft_cpu = torch.cat([t.reshape(-1) for t in train.ft_backward_kb_plain(boards.cpu(),
-                                                                             d_acc.cpu())])
+        ft_k = torch.empty(n_ft, device=dev)
         torch.cuda.synchronize()
         err = float((acc_k - acc_p).abs().max())
         equal = torch.equal(acc_k, acc_p) and torch.equal(acc_h, acc_p[:, :, l1 // 2:])
@@ -2245,22 +2400,13 @@ def train_kb_kernel_phase(reps: int) -> dict:
         if not equal:
             raise AssertionError(f"nnue_refresh_kb B={B}: differs from its plain version")
         stats["nnue_refresh_kb"]["max_abs_err"] = max(stats["nnue_refresh_kb"]["max_abs_err"], err)
-        rel = _rel_err(ft_k, ft_p)
-        err = float((ft_k.double() - ft_p.double()).abs().max())
-        same = torch.equal(ft_k, ft_k2)
-        cpu_diff = float((ft_k.cpu() - ft_cpu).abs().max())
-        rows = int(ft_k[:-l1].view(-1, l1).ne(0).any(1).sum())
-        log(f"check nnue_ft_backward_kb B={B}: max_abs_err={err} relative {rel} (tolerance "
-            f"{TRAIN_GRAD_RTOL}); a repeated launch the same bytes: {same}; max difference from "
-            f"the plain version on the CPU (its summation order) {cpu_diff}; {rows} of "
-            f"{nnue.NUM_FEATURES} rows touched")
-        if not rel <= TRAIN_GRAD_RTOL or not same:
-            raise AssertionError(f"nnue_ft_backward_kb B={B}: relative error {rel}, repeat "
-                                 f"equal {same}")
+        err = ft_check("halfkav2_hm", "seeded", boards, d_acc)
         stats["nnue_ft_backward_kb"]["max_abs_err"] = max(
             stats["nnue_ft_backward_kb"]["max_abs_err"], err)
         if B != TRAIN_BATCH:
             continue
+        stats["nnue_ft_backward_kb"]["max_abs_err"] = max(
+            stats["nnue_ft_backward_kb"]["max_abs_err"], ft_fixtures("halfkav2_hm"))
 
         # times at the training batch
         feats = full_eval_features(boards)  # (B, 2, 64)
@@ -2302,6 +2448,7 @@ def train_kb_kernel_phase(reps: int) -> dict:
                 f"{call_ms:.5f}, plain {plain_ms:.5f} / {plain_call:.5f}, library {lib_ms:.5f} / "
                 f"{lib_call:.5f}, bound {stats[name]['bound_ms']:.6f} ({stats[name]['bound_by']}); "
                 f"{pieces} rows summed")
+        stats["nnue_ft_backward_kb"].update(ft_times("halfkav2_hm", boards, d_acc, reps))
 
         # K16 over the king-bucketed flat buffer
         n = train.flat_view(p).numel()
@@ -2338,6 +2485,81 @@ def train_kb_kernel_phase(reps: int) -> dict:
     return stats
 
 
+def grid_batches() -> list:
+    """3 x GRID_STEPS batches of TRAIN_BATCH drawn from train_dataset()
+    (seed 5): grid_phase's checked, timed and profiled steps."""
+    import numpy as np
+    import torch
+
+    dataset = train_dataset()
+    rng = np.random.default_rng(5)
+    return [[torch.from_numpy(a[idx]) for a in dataset] for idx in rng.integers(
+        0, TRAIN_SAMPLES, size=(3 * GRID_STEPS, TRAIN_BATCH))]
+
+
+def grid_run(feature_set: str, devs, batches) -> tuple:
+    """make_sharded_train_step on make_2d_mesh(*GRID, devs) from the seeded
+    init at L1 64, a step a batch → (every position's params, the Adam
+    state, the step, the grid's first device, the losses)."""
+    import torch
+
+    from fishnet_tpu_torch.models import nnue, train
+    from fishnet_tpu_torch.parallel import mesh as mesh_mod
+
+    net = nnue.init_params(torch.Generator().manual_seed(0), l1=64, feature_set=feature_set,
+                           device="cpu")
+    grid = mesh_mod.make_2d_mesh(*GRID, devs)
+    params = mesh_mod.shard_params_tp(net, grid)
+    opt = train.adam(TRAIN_LR)
+    state = opt.init(params)
+    step = train.make_sharded_train_step(grid, opt)
+    dev = grid[0][0]
+    losses = []
+    for b in batches:
+        params, state, loss = step(params, state, *[t.to(dev) for t in b])
+        losses.append(loss)
+    return params, state, step, dev, losses
+
+
+def grid_bound_ms(params, batch) -> float:
+    """The least time a step of the GRID grid could take at TRAIN_BATCH:
+    the sum over its positions of each of their kernels' byte bounds (the
+    kernel phases' formulas) at the position's shapes: its refresh (K1 or
+    K17) over its rows' boards and its column block, K2 and K14 on its
+    gathered accumulators, K15 or K18 on its block of d_acc, K16 over its
+    flat buffer. params: the grid's (grid_run), batch: one step's."""
+    import torch
+
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.models import nnue, train
+    from fishnet_tpu_torch.parallel import mesh as mesh_mod
+
+    dp, tp = GRID
+    boards = batch[0]
+    parts = mesh_mod.shard_batch(mesh_mod.make_2d_mesh(dp, tp, ["cpu"] * (dp * tp)), boards)
+    total = 0
+    for i in range(dp):
+        for j in range(tp):
+            p, b = params[i][j], parts[i][j].cpu()
+            rows, cols = p.ft_w.shape
+            B, l1 = b.shape[0], cols * tp
+            if rows == nnue.NUM_FEATURES_768:
+                sq = torch.arange(64, dtype=torch.int32)
+                idx = torch.stack([nnue.feature_index_768(b, sq, q) for q in (0, 1)], 1)
+            else:
+                idx = full_eval_features(b)
+            used = int(nnue.output_bucket(b).unique().numel())
+            head = used * sum(t[0].numel() * 4 for t in p[2:])
+            acc_block, acc = B * 2 * cols * 4, B * 2 * l1 * 4
+            total += (B * 256 + int(idx[idx >= 0].unique().numel()) * cols * 4 + cols * 4
+                      + acc_block)  # K1 or K17
+            total += acc + B * 8 + head + B * 4  # K2
+            total += acc + B * 12 + head + acc + kernels.STACK_GRADS * 4  # K14
+            total += acc_block + B * 256 + (rows + 1) * cols * 4  # K15 or K18
+            total += 7 * 4 * train.flat_view(p).numel()  # K16
+    return total / HBM_BYTES_PER_S * 1e3
+
+
 def grid_phase() -> dict:
     """The dp×tp step (models/train.py make_sharded_train_step) on
     make_2d_mesh(*GRID, ["cuda:0"] * 8) at TRAIN_BATCH, from the seeded
@@ -2349,39 +2571,23 @@ def grid_phase() -> dict:
     trainer's tolerances); then GRID_STEPS steps timed (host clock, the
     card synchronised at the end) and GRID_STEPS profiled (device busy,
     the host's share). → {feature set: its counts and times}."""
-    import numpy as np
     import torch
 
     from fishnet_tpu_torch import kernels
-    from fishnet_tpu_torch.models import nnue, train
-    from fishnet_tpu_torch.parallel import mesh as mesh_mod
+    from fishnet_tpu_torch.models import train
 
     dp, tp = GRID
-    dataset = train_dataset()
     out = {}
     for fs, path_kernels in TRAIN_PATH_KERNELS.items():
         tag = f"grid {dp}x{tp} {fs}"
-        net = nnue.init_params(torch.Generator().manual_seed(0), l1=64, feature_set=fs,
-                               device="cpu")
-        rng = np.random.default_rng(5)
-        batches = [[torch.from_numpy(a[idx]) for a in dataset] for idx in rng.integers(
-            0, TRAIN_SAMPLES, size=(3 * GRID_STEPS, TRAIN_BATCH))]
+        batches = grid_batches()
         runs = {}
         for devs in (["cuda:0"] * (dp * tp), ["cpu"] * (dp * tp)):
-            grid = mesh_mod.make_2d_mesh(dp, tp, devs)
-            params = mesh_mod.shard_params_tp(net, grid)
-            opt = train.adam(TRAIN_LR)
-            state = opt.init(params)
-            step = train.make_sharded_train_step(grid, opt)
-            dev = grid[0][0]
-            losses = []
             torch.cuda.synchronize()
             kernels.reset_launches()
             t0 = time.monotonic()
             with count_plain_calls() as plain:
-                for b in batches[:GRID_STEPS]:
-                    params, state, loss = step(params, state, *[t.to(dev) for t in b])
-                    losses.append(loss)
+                params, state, step, dev, losses = grid_run(fs, devs, batches[:GRID_STEPS])
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
             runs[dev.type] = (losses, params)
@@ -2422,13 +2628,15 @@ def grid_phase() -> dict:
         ms = (time.monotonic() - t0) * 1e3 / len(timed)
         prof_ms, idle, busy, source, events = profile_steps(run, batches[2 * GRID_STEPS:])
         per_step = sum(launches.values()) / GRID_STEPS
+        bound = grid_bound_ms(p_c, batches[0])
         log(f"{tag} time: {ms:.4f} ms/step unprofiled (batch {TRAIN_BATCH}, {dp * tp} positions "
             f"of one card); profiled {prof_ms:.4f} ms/step, device busy {busy:.4f} ms/step "
             f"({source}), device idle share (the host's share of a step) {idle:.3f}; "
             f"{per_step:.1f} kernel launches a step, device entries "
-            f"{sum(e.count for e in events) / GRID_STEPS:.2f}/step")
+            f"{sum(e.count for e in events) / GRID_STEPS:.2f}/step; bound {bound:.6f} ms a step "
+            f"(bytes: its positions' kernels)")
         out[fs] = {"launches": launches, "ms_per_step": ms, "idle_share": idle,
-                   "busy_ms_per_step": busy, "launches_per_step": per_step}
+                   "busy_ms_per_step": busy, "launches_per_step": per_step, "bound_ms": bound}
     return out
 
 
@@ -3878,6 +4086,25 @@ def kernel_digests(dev) -> dict:
     return out
 
 
+def train_digests() -> dict:
+    """Digests of the trainers' params on the card: train_material_net's
+    after TRAIN_STEPS steps from the seeded init (train_phase's run) on a
+    board768 and a king-bucketed net, and every position's after
+    GRID_STEPS steps of the GRID grid of cuda:0 (grid_phase's checked
+    run), both feature sets. Uses only entry points that every tree of the
+    port with the training grid has."""
+    from fishnet_tpu_torch.models import train
+
+    out = {}
+    for fs in TRAIN_PATH_KERNELS:
+        params, _ = train.train_material_net(**train_kwargs(fs), device="cuda")
+        out[f"train {fs}, {TRAIN_STEPS} steps"] = digest(train.flat_view(params))
+        grid = grid_run(fs, ["cuda:0"] * (GRID[0] * GRID[1]), grid_batches()[:GRID_STEPS])[0]
+        out[f"grid {GRID[0]}x{GRID[1]} {fs}, {GRID_STEPS} steps"] = digest(
+            *[train.flat_view(p) for row in grid for p in row])
+    return out
+
+
 STEP_TABLE_LANES = (16, 64, 1024)
 
 
@@ -3936,9 +4163,9 @@ def main_path_run(root: str, reps: int) -> int:
     in one process with the fishnet_tpu_torch package of the tree `root`,
     each run's counts, times and the digest of its responses (each
     position's depths, scores, PVs, nodes and best move) one JSON line;
-    then one line of kernel_digests and one of k11_step_table. Uses only
-    what every tree of the port has, so an earlier commit's tree runs it
-    too."""
+    then one line of kernel_digests, one of train_digests and one of
+    k11_step_table. Uses only what every tree of the port with the
+    training grid has, so an earlier commit's tree runs it too."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
@@ -3979,6 +4206,7 @@ def main_path_run(root: str, reps: int) -> int:
         }), flush=True)
     print(json.dumps({"tree": root, "kernel_digests": kernel_digests(torch.device("cuda"))}),
           flush=True)
+    print(json.dumps({"tree": root, "train_digests": train_digests()}), flush=True)
     print(json.dumps({"tree": root, "k11_us_per_step": k11_step_table(params, 3)}), flush=True)
     return 0
 
@@ -3989,10 +4217,10 @@ def main_path_ab(parent: str, reps: int) -> int:
     parent, each in a process of its own (main_path_run), so host and
     card drift show as the two parent runs' difference. Prints each run's
     lines, then one line saying whether every run's responses digest and
-    the four processes' kernel digests are equal, then the card's name
-    and power limit; exits 1 where they differ."""
+    the four processes' kernel and trainer digests are equal, then the
+    card's name and power limit; exits 1 where they differ."""
     here = os.path.dirname(os.path.abspath(__file__))
-    runs, kernel_sets = set(), set()
+    runs, kernel_sets, train_sets = set(), set(), set()
     for root in (parent, here, here, parent):
         out = subprocess.run([sys.executable, os.path.abspath(__file__), "--main-path-run",
                               root, str(reps)], capture_output=True, text=True, timeout=900)
@@ -4001,14 +4229,19 @@ def main_path_ab(parent: str, reps: int) -> int:
             sys.stderr.write(out.stderr[-4000:])
             return out.returncode
         for line in out.stdout.splitlines():
+            if not line.startswith("{"):  # a log line
+                continue
             row = json.loads(line)
             if "responses_digest" in row:
                 runs.add((row["responses_digest"], row["steps"], row["nodes"]))
             if "kernel_digests" in row:
                 kernel_sets.add(json.dumps(row["kernel_digests"], sort_keys=True))
-    same = len(runs) == 1 and len(kernel_sets) == 1
+            if "train_digests" in row:
+                train_sets.add(json.dumps(row["train_digests"], sort_keys=True))
+    same = len(runs) == 1 and len(kernel_sets) == 1 and len(train_sets) == 1
     print(json.dumps({"digests_equal": same, "runs": sorted(runs),
-                      "kernel_digest_sets": len(kernel_sets)}))
+                      "kernel_digest_sets": len(kernel_sets),
+                      "train_digest_sets": len(train_sets)}))
     print(card_line())
     return 0 if same else 1
 
@@ -4165,6 +4398,145 @@ def k11_split(roots) -> int:
             if out.returncode:
                 sys.stderr.write(out.stderr[-4000:])
                 return out.returncode
+    print(card_line())
+    return 0
+
+
+# the measurement build of --ft-split: (text in csrc/ft_backward.cuh, text
+# put after it) — each warp of K15's and K18's passes stamps the globaltimer
+# at its start, at its end, and (rows and sums) where its wait returned,
+# for the call the host selects
+FT_SPLIT_HEAD = """namespace ftb {
+__device__ unsigned long long wt[4][8192][4];
+__device__ int wt_on;
+__device__ __forceinline__ void stamp(int k, int j) {
+    const int wid = (blockIdx.y * gridDim.x + blockIdx.x) * (blockDim.x / 32) + threadIdx.x / 32;
+    if (wt_on && (threadIdx.x & 31) == 0 && wid < 8192) {
+        unsigned long long t;
+        asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
+        wt[k][wid][j] = t;
+    }
+}
+"""
+FT_SPLIT_STAMPS = (  # (text, the same text with its stamp)
+    ("    const int s0 = blockIdx.x * MARK_SAMPLES;\n",
+     "    const int s0 = blockIdx.x * MARK_SAMPLES;\n    stamp(0, 0);\n"),
+    ("spread16(m >> (lane & 16)) << p);\n        }\n    }\n}\n",
+     "spread16(m >> (lane & 16)) << p);\n        }\n    }\n    stamp(0, 1);\n}\n"),
+    ("    const int row0 = (blockIdx.x * WARPS + w) * ROWS_PER_WARP;\n",
+     "    const int row0 = (blockIdx.x * WARPS + w) * ROWS_PER_WARP;\n    stamp(1, 0);\n"),
+    ("    wait_for_previous();  // the mark pass's bits\n",
+     "    wait_for_previous();  // the mark pass's bits\n    stamp(1, 2);\n"),
+    ("            if (cb < l1) out[cb] = sb;\n        }\n    }\n}\n",
+     "            if (cb < l1) out[cb] = sb;\n        }\n    }\n    stamp(1, 1);\n}\n"),
+    ("    const int c0 = blockIdx.x * 32, c = c0 + lane;\n",
+     "    const int c0 = blockIdx.x * 32, c = c0 + lane;\n    stamp(2, 0);\n"),
+    ("    wait_for_previous();  // the row pass's list\n",
+     "    wait_for_previous();  // the row pass's list\n    stamp(2, 2);\n"),
+    ("        if (c < l1) *out = s;\n        __syncwarp();\n    }\n",
+     "        if (c < l1) *out = s;\n        __syncwarp();\n    }\n    stamp(2, 1);\n"),
+    ("    const int t = threadIdx.x, lane = t & 31, c = blockIdx.x * 32 + lane;\n",
+     "    const int t = threadIdx.x, lane = t & 31, c = blockIdx.x * 32 + lane;\n"
+     "    stamp(3, 0);\n"),
+    ("    if (t >= 32) return;\n", "    if (t >= 32) return;\n    stamp(3, 2);\n"),
+    ("    if (c < l1) *out = s;\n}\n", "    if (c < l1) *out = s;\n    stamp(3, 1);\n}\n"),
+)
+FT_SPLIT_TAIL = """
+FISHNET_EXPORT int ft_split_on(int on, void* stream) {
+    return (int)cudaMemcpyToSymbolAsync(ftb::wt_on, &on, sizeof(on), 0, cudaMemcpyHostToDevice,
+                                        (cudaStream_t)stream);
+}
+FISHNET_EXPORT int ft_split_read(void* host) {
+    return (int)cudaMemcpyFromSymbol(host, ftb::wt, sizeof(ftb::wt));
+}
+"""
+
+
+def ft_split_source(text: str) -> str:
+    """csrc/ft_backward.cuh with FT_SPLIT_STAMPS patched in (each text
+    found once: a changed source fails here, not on the card)."""
+    for old, new in (("namespace ftb {\n", FT_SPLIT_HEAD),) + FT_SPLIT_STAMPS:
+        if text.count(old) != 1:
+            raise AssertionError(f"--ft-split: {old!r} found {text.count(old)} times")
+        text = text.replace(old, new)
+    return text + FT_SPLIT_TAIL
+
+
+def ft_split() -> int:
+    """Where K15's and K18's time goes, pass by pass: a copy of the package
+    under build/ft-split/ whose csrc/ft_backward.cuh stamps each warp's
+    start, end and wait (ft_split_source), built; for each net, on the
+    trainer's seeded batch and on 512 start positions (TRAIN_BATCH, L1 64),
+    six calls queued behind a spin, the fifth stamped; one JSON line each:
+    per pass (mark, rows, sums, ft_b) its warps, first start, last end,
+    median and longest warp (us from the call's first stamp), and for the
+    row and sum passes when the waits returned (ft_b: when its slice had
+    landed). A measurement build: the package itself has no stamps."""
+    import ctypes
+    import glob
+    import shutil
+
+    import numpy as np
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    dest = os.path.join(here, "build", "ft-split")
+    shutil.rmtree(dest, ignore_errors=True)
+    shutil.copytree(os.path.join(here, "fishnet_tpu_torch"),
+                    os.path.join(dest, "fishnet_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    src = os.path.join(dest, "fishnet_tpu_torch", "csrc", "ft_backward.cuh")
+    with open(src) as f:
+        text = ft_split_source(f.read())
+    with open(src, "w") as f:
+        f.write(text)
+    sys.path.insert(0, dest)
+    import torch
+
+    from fishnet_tpu_torch import kernels
+
+    if not kernels.__file__.startswith(dest):
+        raise AssertionError(f"imported {kernels.__file__}, not the copy in {dest}")
+    kernels.build()
+    dev = torch.device("cuda")
+    buf = (ctypes.c_ulonglong * (4 * 8192 * 4))()
+    for fs in TRAIN_PATH_KERNELS:
+        name, wrapper, _, rows = ft_kernel(fs)
+        lib = ctypes.CDLL(glob.glob(os.path.join(dest, "build", "kernels-*", f"lib{name}.so"))[0])
+        lib.ft_split_on.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.ft_split_read.argtypes = [ctypes.c_void_p]
+        for kind in ("seeded", "start"):
+            boards, d_acc = (torch.from_numpy(a).to(dev)
+                             for a in ft_case(TRAIN_BATCH, 64, seed=50, kind=kind))
+            g = torch.empty((rows + 1) * 64, device=dev)
+            for _ in range(3):
+                wrapper(boards, d_acc, g)
+            torch.cuda.synchronize()
+            ctypes.memset(buf, 0, ctypes.sizeof(buf))
+            stream = torch.cuda.current_stream().cuda_stream
+            torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+            for i in range(6):
+                if lib.ft_split_on(int(i == 4), stream):
+                    raise RuntimeError("ft_split_on failed")
+                wrapper(boards, d_acc, g)
+            torch.cuda.synchronize()
+            if lib.ft_split_read(ctypes.addressof(buf)):
+                raise RuntimeError("ft_split_read failed")
+            a = np.frombuffer(buf, dtype=np.uint64).reshape(4, 8192, 4).astype(np.float64)
+            live = (a[:, :, 0] > 0) & (a[:, :, 1] > 0)  # ft_b: the adding warps
+            t0 = a[0][live[0], 0].min()
+            out = {"kernel": name, "boards": kind}
+            for k, stage in enumerate(("mark", "rows", "sums", "ft_b")):
+                x = (a[k][live[k]] - t0) / 1e3
+                dur = x[:, 1] - x[:, 0]
+                row = {"warps": int(len(x)), "first_start_us": float(x[:, 0].min()),
+                       "last_end_us": float(x[:, 1].max()), "median_warp_us": float(np.median(dur)),
+                       "longest_warp_us": float(dur.max())}
+                if k:
+                    waited = x[:, 2][a[k][live[k]][:, 2] > 0]
+                    if len(waited):
+                        row["waited_until_us"] = [float(waited.min()), float(waited.max())]
+                out[stage] = row
+            print(json.dumps(out), flush=True)
     print(card_line())
     return 0
 
@@ -4390,7 +4762,9 @@ def main() -> int:
                                               "bound_by", "library_ms")}}
         # K12, K13: ms is the cold-L2 time; K2 at the clip edges on each
         # net, K4 and K8-K10 at each width
-        for k in ("ms_l2_warm", "plain_steps", "edge_ms", "edge_bound_ms", "ms_by_lanes"):
+        for k in ("ms_l2_warm", "plain_steps", "edge_ms", "edge_bound_ms", "ms_by_lanes",
+                  "mark_ms", "rows_ms", "sums_ms", "start_ms", "start_mark_ms",
+                  "start_rows_ms", "start_sums_ms"):
             if k in stats[name]:
                 row[k] = stats[name][k]
         if name in kernels.K11_BODIES:  # its body's calls inside K11, per step of its path
@@ -4476,6 +4850,8 @@ if __name__ == "__main__":
         sys.exit(k11_split_run(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--k11-split"]:
         sys.exit(k11_split(sys.argv[2:]))
+    if sys.argv[1:2] == ["--ft-split"]:
+        sys.exit(ft_split())
     if sys.argv[1:2] == ["--ptxas-run"]:
         sys.exit(ptxas_run(sys.argv[2]))
     if sys.argv[1:2] == ["--ptxas"]:

@@ -85,6 +85,8 @@ LAUNCHES_BY_ENTRY: dict = {}
 _body_calls: dict = {}
 # the stores' per-slot claim words per device and stream (_claim_words)
 _claims: dict = {}
+# K15's and K18's scratch per device, stream and feature rows (_ft_backward)
+_ft_scratch: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -133,10 +135,10 @@ _SIGNATURES = {
     **{f"search_segment_{v}": {_variant_symbol(f"search_segment_{tag}", v): _SEGMENT_ARGS
                                for tag, _ in SEGMENT_NETS} for v in VARIANT_ID},
     "nnue_stack_backward": {"nnue_stack_backward": [_P] * 13 + [_I, _P]},
-    "nnue_ft_backward_768": {"nnue_ft_backward_768": [_P, _P, _P, _I, _I, _P]},
+    "nnue_ft_backward_768": {"nnue_ft_backward_768": [_P, _P, _P, _P, _I, _I, _I, _P]},
     "adam_update": {"adam_update": [_P] * 4 + [_L] + [_F] * 8 + [_P]},
     "nnue_refresh_kb": {"nnue_refresh_kb": [_P, _P, _P, _P, _I, _I, _P]},
-    "nnue_ft_backward_kb": {"nnue_ft_backward_kb": [_P, _P, _P, _P, _I, _I, _P]},
+    "nnue_ft_backward_kb": {"nnue_ft_backward_kb": [_P, _P, _P, _P, _I, _I, _I, _P]},
 }
 # the kernel (csrc source and LAUNCHES key) of each library
 _LIBRARY_SOURCE = {lib: ("search_segment" if lib.startswith("search_segment_") else lib)
@@ -167,6 +169,9 @@ STACK_GRADS = 8 * (2 * SEGMENT_L1 * SEGMENT_H1 + SEGMENT_H1 + SEGMENT_H1 * SEGME
 # (csrc/nnue.cuh MAX_H)
 MAX_L1 = 3072
 MAX_HIDDEN = 32
+# K15's and K18's window of (sample, perspective) pairs: a bitmap row's
+# bits (csrc/ft_backward.cuh)
+FT_WINDOW = 1024
 # the grid of K11's last launch (blocks), for the logs
 LAST_GRID = {"blocks": 0}
 
@@ -297,7 +302,7 @@ def search_header() -> str:
     consts.update({k: getattr(tt, k) for k in ("FLAG_EXACT", "FLAG_LOWER", "FLAG_UPPER")})
     consts.update(SEGMENT_MAX_PLY=SEGMENT_MAX_PLY, SEGMENT_SCRATCH=SEGMENT_SCRATCH,
                   SEGMENT_L1=SEGMENT_L1, SEGMENT_H1=SEGMENT_H1, SEGMENT_H2=SEGMENT_H2,
-                  MAX_L1=MAX_L1)
+                  MAX_L1=MAX_L1, FT_WINDOW=FT_WINDOW)
     consts.update({k.lstrip("_"): getattr(tt, k) for k in (
         "_SCORE_BIAS", "_DEPTH_MASK", "_MAX_STORE", "_EP_OFF", "_CASTLE_OFF", "_STM_OFF",
         "_CHECKS_OFF", "_POCKET_OFF", "_PROMOTED_OFF", "_VARIANT_OFF", "POCKET_MAX")})
@@ -1020,18 +1025,17 @@ def nnue_stack_backward(acc: torch.Tensor, stm: torch.Tensor, bucket: torch.Tens
     return d_acc
 
 
-def nnue_ft_backward_768(d_acc: torch.Tensor, boards: torch.Tensor, grad: torch.Tensor) -> None:
+def nnue_ft_backward_768(d_acc: torch.Tensor, boards: torch.Tensor, grad: torch.Tensor,
+                         stages: int = 7) -> None:
     """K15: d_acc (B, 2, L1) f32, boards (B, 64) int32 → writes ft_w's
     gradient (768, L1) and then ft_b's (L1,) into grad ((768 + 1) * L1,)
-    f32 (a contiguous view, overwritten)."""
-    B, l1 = d_acc.shape[0], d_acc.shape[2]
-    _check(d_acc, "d_acc", torch.float32, (B, 2, l1))
-    _check(boards, "boards", torch.int32, (B, 64))
-    _check(grad, "grad", torch.float32, ((768 + 1) * l1,))
-    if not 0 < l1 <= 1024:
-        raise ValueError(f"L1 {l1} is outside the kernel's 1..1024 columns")
-    _launch("nnue_ft_backward_768", "nnue_ft_backward_768", d_acc.device,
-            d_acc.data_ptr(), boards.data_ptr(), grad.data_ptr(), B, l1)
+    f32 (a contiguous view, overwritten); B >= 1, L1 up to MAX_L1.
+    Deterministic: every row sums in (sample, perspective) order, without
+    float atomics (csrc/ft_backward.cuh). Its scratch is _ft_backward's.
+    stages (for timing a pass alone, on at most FT_WINDOW / 2 samples): 1
+    the mark pass, 2 the row pass, 4 the sum and ft_b passes, each called
+    after the one before; 7 the gradient."""
+    _ft_backward("nnue_ft_backward_768", 768, d_acc, boards, grad, stages)
 
 
 def adam_update(params: torch.Tensor, grad: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
@@ -1067,21 +1071,44 @@ def nnue_refresh_kb(boards: torch.Tensor, ft_w: torch.Tensor, ft_b: torch.Tensor
     return acc
 
 
-def nnue_ft_backward_kb(d_acc: torch.Tensor, boards: torch.Tensor, grad: torch.Tensor) -> None:
+def nnue_ft_backward_kb(d_acc: torch.Tensor, boards: torch.Tensor, grad: torch.Tensor,
+                        stages: int = 7) -> None:
     """K18: d_acc (B, 2, L1) f32, boards (B, 64) int32 → writes a
     king-bucketed net's ft_w gradient (NUM_FEATURES, L1) and then ft_b's
     (L1,) into grad ((NUM_FEATURES + 1) * L1,) f32 (a contiguous view,
-    overwritten). Deterministic: every row sums in (sample, perspective)
-    order, without float atomics."""
+    overwritten); as K15 otherwise (nnue_ft_backward_768)."""
+    _ft_backward("nnue_ft_backward_kb", NUM_FEATURES, d_acc, boards, grad, stages)
+
+
+def _ft_backward(kernel: str, rows: int, d_acc: torch.Tensor, boards: torch.Tensor,
+                 grad: torch.Tensor, stages: int) -> None:
+    """K15's or K18's launch. Its scratch, kept a device, stream and feature
+    set in _ft_scratch, int32: the bitmap of one window of FT_WINDOW (sample,
+    perspective) pairs, FT_WINDOW / 32 words a feature row, then the list
+    of the rows the sum pass takes: its count, its finished blocks, two
+    spare words and an entry a row (the row, its key count, two spare words
+    and its bitmap words): 6.1 MB for K18's 22,528 rows, 209 KB for K15's
+    768. Zero between calls: the mark pass sets a row's bits, the row pass
+    reads and clears them and lists the rows of more than 4 keys, the last
+    block of the sum pass empties the list. Launches on separate streams
+    may run at once, so each stream has its own."""
     B, l1 = d_acc.shape[0], d_acc.shape[2]
     _check(d_acc, "d_acc", torch.float32, (B, 2, l1))
     _check(boards, "boards", torch.int32, (B, 64))
-    _check(grad, "grad", torch.float32, ((NUM_FEATURES + 1) * l1,))
+    _check(grad, "grad", torch.float32, ((rows + 1) * l1,))
     if not 0 < l1 <= MAX_L1 or not B:
-        raise ValueError(f"K18 takes a batch and 1..{MAX_L1} columns, got {B} and {l1}")
-    # the rows' counts, cursors and offsets, then each (sample, perspective,
-    # square)'s row and the bucketed keys twice (csrc/nnue_ft_backward_kb.cu)
-    scratch = torch.empty(3 * (NUM_FEATURES + 1) + 3 * B * 128, dtype=torch.int32,
-                          device=d_acc.device)
-    _launch("nnue_ft_backward_kb", "nnue_ft_backward_kb", d_acc.device, d_acc.data_ptr(),
-            boards.data_ptr(), grad.data_ptr(), scratch.data_ptr(), B, l1)
+        raise ValueError(f"{kernel} takes a batch and 1..{MAX_L1} columns, got {B} and {l1}")
+    if stages != 7 and (stages not in (1, 2, 4) or 2 * B > FT_WINDOW):
+        raise ValueError(f"{kernel}: one pass (stages 1, 2 or 4) runs on at most "
+                         f"{FT_WINDOW // 2} samples, got stages {stages} at {B}")
+    key = (d_acc.device.index, torch.cuda.current_stream(d_acc.device).cuda_stream, rows)
+    scratch = _ft_scratch.get(key)
+    if scratch is None:
+        words = rows * (FT_WINDOW // 32) + 4 + rows * (4 + FT_WINDOW // 32)
+        scratch = _ft_scratch[key] = torch.zeros(words, dtype=torch.int32, device=d_acc.device)
+    try:
+        _launch(kernel, kernel, d_acc.device, d_acc.data_ptr(), boards.data_ptr(),
+                grad.data_ptr(), scratch.data_ptr(), B, l1, stages)
+    except RuntimeError:  # a refused launch may leave it dirty: the next call starts anew
+        del _ft_scratch[key]
+        raise

@@ -16,7 +16,9 @@ refill stream (tables compared byte for byte); the full evals of the
 king-bucketed and Stockfish nets (K12, K13) against their plain versions,
 their wrappers' refusals, and K11 on those nets against
 run_segment_plain; the trainer's kernels (K14-K16, and on a king-bucketed net
-K17 and K18) against their plain versions, their wrappers' refusals, and
+K17 and K18) against their plain versions (K15 and K18 byte for byte the
+plain versions run on the CPU, also on the worst-case batch, across
+windows and at the tp and wide widths), their wrappers' refusals, and
 training steps on the card that run no plain version, against the CPU's;
 the dp×tp step on grids of cuda:0 (one row equal to the one-device step
 bit for bit, a 2 x 2 grid against the same grid of CPU devices); the variant instantiations of
@@ -38,10 +40,10 @@ import pytest
 import torch
 
 from chip_smoke import (
-    FINISH_STEPS, TRAIN_GRAD_RTOL, TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL, TT_PROBE_ARGS,
-    TT_STORE_ARGS, VARIANTS, ZH_POCKETS, _rel_err, every_move, k2_inputs, kb_case,
-    kb_train_case, lane_init_case, movegen_long_inputs, playout_boards, rules_inputs,
-    segment_case, sf_file, train_case, tt_inputs, tt_runner_layout,
+    FINISH_STEPS, FT_CASES, FT_WIDE_L1, TRAIN_GRAD_RTOL, TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL,
+    TT_PROBE_ARGS, TT_STORE_ARGS, VARIANTS, ZH_POCKETS, _rel_err, every_move, ft_case, ft_check,
+    k2_inputs, kb_case, kb_train_case, lane_init_case, movegen_long_inputs, playout_boards,
+    rules_inputs, segment_case, sf_file, train_case, tt_inputs, tt_runner_layout,
 )
 from fishnet_tpu_torch import kernels
 from fishnet_tpu_torch.chess import Position
@@ -639,8 +641,10 @@ def test_int8_king_bucketed_search_card_equals_cpu(full_nets, lanes):
 
 @pytest.mark.parametrize("batch", [16, 512])
 def test_training_kernels_match_plain_versions(card, batch):
-    """K14 and K15 within TRAIN_GRAD_RTOL of their plain versions and the
-    same bytes on a repeated launch; K16 equal to its plain version."""
+    """K14 within TRAIN_GRAD_RTOL of its plain version and the same bytes
+    on a repeated launch; K15 byte for byte the plain version run on the
+    CPU, the same bytes repeated and within TRAIN_GRAD_RTOL of the plain
+    version run on the card; K16 equal to its plain version."""
     c = train_case(batch, seed=batch + 3, dev=card)
     p, acc, stms, bucket, d_pred, boards = (
         c[k] for k in ("params", "acc", "stms", "bucket", "d_pred", "boards"))
@@ -660,6 +664,8 @@ def test_training_kernels_match_plain_versions(card, batch):
     assert torch.equal(f1, f2)
     want = torch.cat([t.reshape(-1) for t in train.ft_backward_768_plain(boards, d_p)])
     assert _rel_err(f1, want) <= TRAIN_GRAD_RTOL
+    cpu = torch.cat([t.reshape(-1) for t in train.ft_backward_768_plain(boards.cpu(), d_p.cpu())])
+    assert torch.equal(f1.cpu().view(torch.int32), cpu.view(torch.int32))
     opt = train.Adam(2e-3)
     bc = opt.bias_corrections(c["count"] + 1)
     k = [train.flat_view(p).clone(), c["grad"], c["mu"].clone(), c["nu"].clone()]
@@ -688,6 +694,13 @@ def test_training_wrappers_refuse_bad_inputs(card):
     with pytest.raises(ValueError):  # a non-contiguous d_acc
         kernels.nnue_ft_backward_768(acc.transpose(0, 1).contiguous().transpose(0, 1), boards,
                                      torch.empty((768 + 1) * 64, device=card))
+    with pytest.raises(ValueError):  # an empty batch
+        kernels.nnue_ft_backward_768(acc[:0], boards[:0], torch.empty((768 + 1) * 64, device=card))
+    wide = torch.zeros((16, 2, kernels.MAX_L1 + 1), device=card)
+    with pytest.raises(ValueError):  # more columns than MAX_L1
+        kernels.nnue_ft_backward_768(wide, boards, torch.empty(769 * wide.shape[2], device=card))
+    with pytest.raises(ValueError):  # no such pass
+        kernels.nnue_ft_backward_768(acc, boards, torch.empty(769 * 64, device=card), stages=3)
     flat = train.flat_view(p)
     with pytest.raises(ValueError):  # buffers of different lengths
         kernels.adam_update(flat, c["grad"][:-1], c["mu"], c["nu"], 1e-3, 0.9, 0.999, 1e-8,
@@ -738,8 +751,9 @@ def test_training_steps_on_the_card_run_no_plain_code(card, monkeypatch):
 @pytest.mark.parametrize("batch", [32, 512])
 def test_king_bucketed_training_kernels_match_plain_versions(card, batch):
     """K17 equal to its plain version byte for byte, also on a tp shard's
-    half of the columns; K18 within TRAIN_GRAD_RTOL of its plain version
-    and the same bytes on a repeated launch."""
+    half of the columns; K18 byte for byte the plain version run on the
+    CPU, the same bytes on a repeated launch and within TRAIN_GRAD_RTOL of
+    the plain version run on the card."""
     c = kb_train_case(batch, seed=batch + 9, dev=card)
     p, boards, d_acc = c["params"], c["boards"], c["d_acc"]
     kernels.reset_launches()
@@ -754,6 +768,8 @@ def test_king_bucketed_training_kernels_match_plain_versions(card, batch):
     assert torch.equal(f1, f2)
     want = torch.cat([t.reshape(-1) for t in train.ft_backward_kb_plain(boards, d_acc)])
     assert _rel_err(f1, want) <= TRAIN_GRAD_RTOL
+    cpu = torch.cat([t.reshape(-1) for t in train.ft_backward_kb_plain(boards.cpu(), d_acc.cpu())])
+    assert torch.equal(f1.cpu().view(torch.int32), cpu.view(torch.int32))
     assert {n: v for n, v in kernels.LAUNCHES.items() if v} == {
         "nnue_refresh_kb": 2, "nnue_ft_backward_kb": 2}
 
@@ -776,7 +792,39 @@ def test_king_bucketed_training_wrappers_refuse_bad_inputs(card):
     with pytest.raises(ValueError):  # a non-contiguous d_acc
         kernels.nnue_ft_backward_kb(d_acc.transpose(0, 1).contiguous().transpose(0, 1), boards,
                                     torch.empty(n_ft, device=card))
+    wide = torch.zeros((16, 2, kernels.MAX_L1 + 1), device=card)
+    with pytest.raises(ValueError):  # more columns than MAX_L1
+        kernels.nnue_ft_backward_kb(wide, boards,
+                                    torch.empty((nnue.NUM_FEATURES + 1) * wide.shape[2],
+                                                device=card))
+    many = torch.zeros((kernels.FT_WINDOW // 2 + 1, 2, 64), device=card)
+    with pytest.raises(ValueError):  # one pass alone on more than one window
+        kernels.nnue_ft_backward_kb(many, torch.zeros((many.shape[0], 64), dtype=torch.int32,
+                                                      device=card),
+                                    torch.empty(n_ft, device=card), stages=2)
     assert not any(kernels.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("feature_set", ["board768", "halfkav2_hm"])
+@pytest.mark.parametrize("case", [("seeded 16", 16, 64, "seeded"), ("seeded 32", 32, 64, "seeded"),
+                                  ("seeded 512", 512, 64, "seeded"), *FT_CASES],
+                         ids=lambda c: c[0])
+def test_ft_backward_kernels_equal_the_cpu_bytes(card, feature_set, case):
+    """K15 and K18 on chip_smoke.ft_case's batches (seeded diverse
+    positions at 16, 32 and 512 samples; FT_CASES: 512 start positions,
+    2,048 samples across four windows, a tp position's 32 columns, and a
+    wide L1: K18 256, K15 past 1,024): byte for byte the plain version run
+    on the CPU (the order it states), the same bytes on a repeated launch,
+    within TRAIN_GRAD_RTOL of the plain version run on the card (chip_smoke
+    ft_check, which raises otherwise), one launch a call."""
+    label, batch, l1, kind = case
+    l1 = l1 or FT_WIDE_L1[feature_set]
+    boards, d_acc = (torch.from_numpy(a).to(card)
+                     for a in ft_case(batch, l1, seed=batch + l1, kind=kind))
+    kernels.reset_launches()
+    assert ft_check(feature_set, label, boards, d_acc) == 0.0
+    name = "nnue_ft_backward_768" if feature_set == "board768" else "nnue_ft_backward_kb"
+    assert {n: v for n, v in kernels.LAUNCHES.items() if v} == {name: 2}
 
 
 def _grid_steps(net, grid, batches, dev):
