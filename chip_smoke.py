@@ -30,7 +30,9 @@ Phases (any failure exits non-zero before the final line):
      (16 lanes) one in which every lane finishes: states, tables,
      summaries and step counts byte for byte; the full evals (K12 on a
      seeded king-bucketed net at L1 256, f32 and int8; K13 on seeded Stockfish nets at L1 128 and 3072,
-     written and read as .nnue files) at 16, 64 and 1024 lanes; K11 on
+     written and read as .nnue files) at 16, 64 and 1024 lanes (K13 also
+     on tests/test_torch_sf_eval.py's boards of every output bucket and
+     king square, both sides to move, at L1 128, 200 and 130); K11 on
      the int8 king-bucketed net (without and with a 2^21 table) and on
      the L1 3072 Stockfish net (jittered helpers, 2^12 slots) against
      run_segment_plain, byte for byte; the trainer's kernels (K14 the
@@ -141,7 +143,10 @@ boards of both phases that time K12, at both phases' call counts.
      losses and every position's params against the same grid of 8 cpu
      devices, then ms a step, the host's share and launches a step.
 The kernel phase (3) also holds K17 nnue_refresh_kb (byte for byte, also
-on a tp shard's columns) and K18 nnue_ft_backward_kb (as K15, its wide
+on a tp shard's columns and on tests/test_torch_sf_eval.py's
+KB_REFRESH_CASES: L1 64, a tp block, 33, 1040 and a misaligned view,
+against the plain version on the card and on the CPU; timed at 1, 2, 4
+and 8 samples a block) and K18 nnue_ft_backward_kb (as K15, its wide
 case at L1 256) to their plain versions at batch 32 and 512, times them
 (K18's passes also on their own), and holds and times K16 over the
 king-bucketed flat buffer. K11's plain yardsticks (phase 3's timed segments, the bf16 and
@@ -165,8 +170,10 @@ power limit, and the result line `{"ok": true, "device": {...}}`.
 one-card main path, REPS times a process, for an earlier tree of the
 repository (TREE, unpacked with git archive; it needs only its
 fishnet_tpu_torch package) and for this one, parent, this, this, parent,
-each run's counts, times and responses digest one JSON line, then each
-process's digests of K2's, K6's and K9's outputs on seeded inputs, of
+each run's counts, times and responses digest one JSON line, then the
+chunk on the seeded L1 3072 Stockfish net (its responses digest, steps
+and nodes), then each process's digests of K2's, K6's, K9's and K13's
+outputs on seeded inputs (K13 at L1 128 and 3072 and on the fixtures), of
 the board768 and king-bucketed trainers' params after their 200 steps
 and of the 4 x 2 grid's after 20 steps, and its K11 us-per-step table
 (every variant and net at 16, 64 and 1024 lanes), and one line
@@ -182,6 +189,12 @@ flags), on the "engine" states of segment_case at 16, 64 and 1024 lanes,
 one JSON line a tree (a tree that launches one thread-block cluster also
 patched to launch the cooperative grid), then the card's name and power
 limit. A measurement build: the package itself has no such counters.
+`python3 chip_smoke.py --sf-split TREE...` splits K11's step on the
+seeded L1 3072 Stockfish net the same way (segment_case's "engine"
+states at 16, 64 and 1024 lanes), and where the tree spreads K13's units
+over the warps also counts the owners' waits, the units the owners and
+the other warps ran, the helping and the jobs posted, one JSON line a
+tree. Both are measurement builds: the package has no such counters.
 `python3 chip_smoke.py --ptxas TREE...` prints, a JSON line a tree,
 ptxas's registers, stack frames and spills for every kernel of every
 library (nvcc -Xptxas -v with the build's flags).
@@ -204,6 +217,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
+TIME_BUDGET_S = 1200  # the whole script, the build included
 DEPTH = 3  # engine analysis depth (PERF.md)
 SERIAL_DEPTH = 2  # the same chunk through the chunk-serial path
 NO_TT_DEPTH = 2  # the same chunk without the table or helpers
@@ -1663,6 +1677,18 @@ def kb_case(l1: int, h1: int, h2: int, seed: int) -> dict:
     }
 
 
+def sf_fixtures():
+    """tests/test_torch_sf_eval.py, the K13 and K17 fixtures' module
+    (sf_eval_boards, sf_eval_net, SF_EVAL_WIDTHS, KB_REFRESH_CASES,
+    kb_refresh_case); it imports no JAX at its top."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import test_torch_sf_eval
+
+    return test_torch_sf_eval
+
+
 def sf_file(l1: int, seed: int):
     """sf_case(l1, seed) written through write_nnue into the build
     directory (once per checkout) → its path."""
@@ -1762,6 +1788,21 @@ def nets_kernel_phase(nets: dict, reps: int) -> dict:
         ("nnue_evaluate_sf", f"sf {SF_L1}", ni.evaluate_sf, ni.evaluate_sf_plain,
          nnue.F32_EVAL_TOL),
     )
+    fx = sf_fixtures()
+    boards, stm = (torch.from_numpy(a).to(dev) for a in fx.sf_eval_boards())
+    for l1 in fx.SF_EVAL_WIDTHS:  # every bucket and king square, both sides to move
+        net = ni.stockfish_net_from_numpy(fx.sf_eval_net(l1), dev)
+        got, want = ni.evaluate_sf(net, boards, stm), ni.evaluate_sf_plain(net, boards, stm)
+        torch.cuda.synchronize()
+        err = float((got.double() - want.double()).abs().max())
+        log(f"check nnue_evaluate_sf fixtures L1={l1} ({len(stm)} boards, "
+            f"{nnue.output_bucket(boards).unique().numel()} buckets): max_abs_err={err} "
+            f"(tolerance {nnue.F32_EVAL_TOL}; evals {float(want.min()):.1f}.."
+            f"{float(want.max()):.1f})")
+        if not err <= nnue.F32_EVAL_TOL:
+            raise AssertionError(f"nnue_evaluate_sf fixtures L1={l1}: error {err}")
+        stats["nnue_evaluate_sf"]["max_abs_err"] = max(stats["nnue_evaluate_sf"]["max_abs_err"],
+                                                       err)
     for B in (16, 64, 1024):
         b = playout_boards(B, seed=100 + B)[0].to(dev)
         for name, label, kern, plain, tol in cases:
@@ -1802,6 +1843,16 @@ def nets_kernel_phase(nets: dict, reps: int) -> dict:
                 stats[name].update(ms=cold, ms_l2_warm=ms, plain_ms=plain_cold,
                                    library_ms=lib_cold, bound_ms=bound,
                                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+                # the L2 reckoning: every row the boards' pieces select is read
+                # once a perspective, the distinct ones from HBM (the bound)
+                rows = int(keep.sum())
+                stats[name].update(rows_read_mb=rows * net.l1 * 4 / 1e6,
+                                   distinct_rows_mb=int(bag_idx.unique().numel()) * net.l1 * 4
+                                   / 1e6)
+                log(f"rows {name} B={B} net={label}: {rows} row reads, "
+                    f"{stats[name]['rows_read_mb']:.1f} MB, of them "
+                    f"{stats[name]['distinct_rows_mb']:.1f} MB distinct (the bound's HBM reads; "
+                    f"the rest can hit the L2)")
     return stats
 
 
@@ -2382,6 +2433,20 @@ def train_kb_kernel_phase(reps: int) -> dict:
 
     dev = torch.device("cuda")
     stats = {k: {"max_abs_err": 0.0} for k in ("nnue_refresh_kb", "nnue_ft_backward_kb")}
+    fx = sf_fixtures()
+    for case in fx.KB_REFRESH_CASES:  # the widths and views, byte for byte card and CPU
+        boards, w, b, _, _ = fx.kb_refresh_case(case, dev)
+        got = kernels.nnue_refresh_kb(boards, w, b)
+        plain = nnue.NnueParams(w, b, *[torch.zeros(1, device=dev)] * 6)
+        want = nnue.accumulators(plain, boards)
+        cpu = nnue.accumulators(plain.to("cpu"), boards.cpu())
+        torch.cuda.synchronize()
+        equal = torch.equal(got, want) and torch.equal(got.cpu(), cpu)
+        log(f"check nnue_refresh_kb {case[0]} (batch {case[1]}, L1 {case[2]}, "
+            f"{'16-byte' if case[2] % 4 == 0 and case[3] != 'offset' else '4-byte'} loads): "
+            f"byte for byte the plain version on the card and on the CPU: {equal}")
+        if not equal:
+            raise AssertionError(f"nnue_refresh_kb {case[0]}: differs from its plain version")
     for B in (GRID_CALLER_BATCH, TRAIN_BATCH):
         c = kb_train_case(B, seed=B + 7, dev=dev)
         p, boards, d_acc = c["params"], c["boards"], c["d_acc"]
@@ -2449,6 +2514,13 @@ def train_kb_kernel_phase(reps: int) -> dict:
                 f"{lib_call:.5f}, bound {stats[name]['bound_ms']:.6f} ({stats[name]['bound_by']}); "
                 f"{pieces} rows summed")
         stats["nnue_ft_backward_kb"].update(ft_times("halfkav2_hm", boards, d_acc, reps))
+        # K17's samples a block: the wrapper's K17_WARPS against the others
+        by_warps = {w: time_ms(lambda w=w: kernels.nnue_refresh_kb(boards, p.ft_w, p.ft_b,
+                                                                   warps=w), reps)[0]
+                    for w in (1, 2, 4, 8)}
+        stats["nnue_refresh_kb"]["ms_by_warps"] = by_warps
+        log(f"time nnue_refresh_kb B={B} by samples a block (device ms): {by_warps} (the "
+            f"wrapper takes {kernels.K17_WARPS})")
 
         # K16 over the king-bucketed flat buffer
         n = train.flat_view(p).numel()
@@ -4051,16 +4123,19 @@ def digest(*tensors) -> str:
 
 
 def kernel_digests(dev) -> dict:
-    """Digests of K2's, K6's and K9's outputs on fixed seeded inputs: K2 on
-    k2_case's accumulators (f32, int8, bf16 nets), K9 with killers and
-    history on rules_inputs (standard, crazyhouse) at 64 and 1024 lanes,
-    K9 on MOVEGEN_LONG's fixtures, and the tables K6's prefer_deep store
-    with mixed generations leaves on TT_CASES' inputs. Uses only entry
-    points every tree of the port has."""
+    """Digests of K2's, K6's, K9's and K13's outputs on fixed seeded
+    inputs: K2 on k2_case's accumulators (f32, int8, bf16 nets), K9 with
+    killers and history on rules_inputs (standard, crazyhouse) at 64 and
+    1024 lanes, K9 on MOVEGEN_LONG's fixtures, K13 on the seeded Stockfish
+    nets at L1 128 and 3072 (playouts at 64 and 1024 lanes) and on the
+    fixtures of tests/test_torch_sf_eval.py, and the tables K6's
+    prefer_deep store with mixed generations leaves on TT_CASES' inputs.
+    Uses only entry points every tree of the port has."""
     import numpy as np
     import torch
 
     from fishnet_tpu_torch.models import nnue
+    from fishnet_tpu_torch.models import nnue_import as ni
     from fishnet_tpu_torch.ops import movegen as tm
     from fishnet_tpu_torch.ops import tt
 
@@ -4077,6 +4152,16 @@ def kernel_digests(dev) -> dict:
     for v in sorted({fv for _, fv, _ in MOVEGEN_LONG}):
         _, b, killers, hist = movegen_long_inputs(v, dev)
         out[f"K9 long lists {v}"] = digest(*tm.generate_moves(b, killers, hist, variant=v))
+    sf = {l1: ni.load_nnue(sf_file(l1, 7), device=dev) for l1 in (SF_SMALL_L1, SF_L1)}
+    for B in (64, 1024):
+        b = playout_boards(B, seed=100 + B)[0].to(dev)
+        for l1, net in sf.items():
+            out[f"K13 L1 {l1} B={B}"] = digest(ni.evaluate_sf(net, b.board, b.stm))
+    fx = sf_fixtures()
+    boards, stm = (torch.from_numpy(a).to(dev) for a in fx.sf_eval_boards())
+    for l1 in fx.SF_EVAL_WIDTHS:
+        net = ni.stockfish_net_from_numpy(fx.sf_eval_net(l1), dev)
+        out[f"K13 fixtures L1 {l1}"] = digest(ni.evaluate_sf(net, boards, stm))
     for B, size_log2, n_slots in TT_CASES:
         c = tt_inputs(B, size_log2, B + size_log2 + n_slots, dev, n_slots)
         gen = torch.from_numpy(np.random.default_rng(B).integers(0, 3, B).astype(np.int32))
@@ -4163,8 +4248,9 @@ def main_path_run(root: str, reps: int) -> int:
     in one process with the fishnet_tpu_torch package of the tree `root`,
     each run's counts, times and the digest of its responses (each
     position's depths, scores, PVs, nodes and best move) one JSON line;
-    then one line of kernel_digests, one of train_digests and one of
-    k11_step_table. Uses only what every tree of the port with the
+    then the same chunk once on the seeded Stockfish net at SF_L1 (its
+    responses' digest, steps and nodes), one line of kernel_digests, one
+    of train_digests and one of k11_step_table. Uses only what every tree of the port with the
     training grid has, so an earlier commit's tree runs it too."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
@@ -4204,6 +4290,27 @@ def main_path_run(root: str, reps: int) -> int:
             "responses_digest": responses_digest,
             **{k: tot[k] for k in ("steps", "segments", "refills", "host_ms", "device_ms")},
         }), flush=True)
+    # the Stockfish net's chunk (K13's units inside K11), once
+    engine = GpuEngine(weights_path=str(sf_file(SF_L1, 7)), max_depth=DEPTH)
+    chunk = make_chunk(POSITIONS, DEPTH)
+    t0 = time.monotonic()
+    responses = asyncio.run(engine.go_multiple(chunk))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    tot = engine.occupancy_totals
+    wire = []
+    for r in responses:
+        w = ipc.response_to_wire(r)
+        w.pop("time_s")
+        w.pop("nps")
+        wire.append(w)
+    print(json.dumps({
+        "tree": root, "net": f"Stockfish L1 {SF_L1}", "wall_s": wall,
+        "responses": len(responses), "nodes": sum(r.nodes for r in responses),
+        "sf_responses_digest": hashlib.sha256(json.dumps(wire, sort_keys=True).encode())
+        .hexdigest()[:16],
+        **{k: tot[k] for k in ("steps", "segments", "refills", "host_ms", "device_ms")},
+    }), flush=True)
     print(json.dumps({"tree": root, "kernel_digests": kernel_digests(torch.device("cuda"))}),
           flush=True)
     print(json.dumps({"tree": root, "train_digests": train_digests()}), flush=True)
@@ -4220,7 +4327,7 @@ def main_path_ab(parent: str, reps: int) -> int:
     the four processes' kernel and trainer digests are equal, then the
     card's name and power limit; exits 1 where they differ."""
     here = os.path.dirname(os.path.abspath(__file__))
-    runs, kernel_sets, train_sets = set(), set(), set()
+    runs, sf_runs, kernel_sets, train_sets = set(), set(), set(), set()
     for root in (parent, here, here, parent):
         out = subprocess.run([sys.executable, os.path.abspath(__file__), "--main-path-run",
                               root, str(reps)], capture_output=True, text=True, timeout=900)
@@ -4234,12 +4341,15 @@ def main_path_ab(parent: str, reps: int) -> int:
             row = json.loads(line)
             if "responses_digest" in row:
                 runs.add((row["responses_digest"], row["steps"], row["nodes"]))
+            if "sf_responses_digest" in row:
+                sf_runs.add((row["sf_responses_digest"], row["steps"], row["nodes"]))
             if "kernel_digests" in row:
                 kernel_sets.add(json.dumps(row["kernel_digests"], sort_keys=True))
             if "train_digests" in row:
                 train_sets.add(json.dumps(row["train_digests"], sort_keys=True))
-    same = len(runs) == 1 and len(kernel_sets) == 1 and len(train_sets) == 1
-    print(json.dumps({"digests_equal": same, "runs": sorted(runs),
+    same = (len(runs) == 1 and len(sf_runs) == 1 and len(kernel_sets) == 1
+            and len(train_sets) == 1)
+    print(json.dumps({"digests_equal": same, "runs": sorted(runs), "sf_runs": sorted(sf_runs),
                       "kernel_digest_sets": len(kernel_sets),
                       "train_digest_sets": len(train_sets)}))
     print(card_line())
@@ -4289,7 +4399,7 @@ def split_source(text: str, cooperative: bool = False) -> str:
     body = sub(r"\n(\s*)((?:grid\.sync\(\)|barrier\(grid, \w+\));)",
                r"\n\1{ const long long c0 = clock64(); \2 split_bar += clock64() - c0; }",
                body)
-    body = sub(r"(live \|= step_lane<Net, V>\(a, lane, s, t, calls\);)",
+    body = sub(r"(live \|= step_lane<Net, V>\(a, lane, s, t, calls[^;]*\);)",
                r"{ const long long c0 = clock64(); \1 split_step += clock64() - c0; }", body)
     body = sub(r"(\n    int n = 0;\n)", r"\1    split_t0 = clock64();\n    split_bar = 0;\n",
                body, 1)
@@ -4398,6 +4508,181 @@ def k11_split(roots) -> int:
             if out.returncode:
                 sys.stderr.write(out.stderr[-4000:])
                 return out.returncode
+    print(card_line())
+    return 0
+
+
+# --sf-split: K11's Stockfish step in parts. The measurement build adds
+# to --k11-split's counters (barrier waits, lane steps, the step loop) the
+# Stockfish spread's (csrc/search.cuh sf_own, sf_help), summed by thread 0
+# of each warp: the owners' waits, the units the owners and the helpers
+# ran (cycles and counts), the helping (sf_help, its units and its spins),
+# and the jobs posted.
+SF_SPLIT_HEAD = """
+// sf-split measurement build: owner waits, owners' units, helpers' units,
+// helping, owners' unit count, helpers' unit count, jobs
+__device__ unsigned long long sf_split[7];
+"""
+SF_SPLIT_READ = """
+FISHNET_EXPORT int sf_split_read(void* out) {
+    return (int)cudaMemcpyFromSymbol(out, sf_split, sizeof(sf_split));
+}
+FISHNET_EXPORT int sf_split_reset() {
+    const unsigned long long zero[7] = {0, 0, 0, 0, 0, 0, 0};
+    return (int)cudaMemcpyToSymbol(sf_split, zero, sizeof(zero));
+}
+"""
+
+
+def _sf_timed(stmt: str, slot: int, count: int = -1) -> str:
+    """stmt (a warp's statement) timed by clock64(), its cycles (thread 0)
+    added to sf_split[slot] and, with count >= 0, one to sf_split[count]."""
+    tail = f" atomicAdd(sf_split + {count}, 1ull);" if count >= 0 else ""
+    return (f"{{ const long long sf_c0 = clock64(); {stmt} if (t == 0) {{ "
+            f"atomicAdd(sf_split + {slot}, (unsigned long long)(clock64() - sf_c0));{tail} }} }}")
+
+
+def sf_split_sources(segment: str, search: str) -> tuple:
+    """A tree's search_segment.cu and search.cuh with the --sf-split
+    counters: split_source's, and (where the tree spreads K13's units)
+    around sf_own's waits and units, sf_help's units and sf_help itself,
+    and a count of sf_post's jobs. A tree without the spread gets
+    split_source's alone."""
+    segment = split_source(segment)
+    spread = "sf_help(a, n, s, t);" in segment
+    if not spread:
+        return segment, search, False
+    segment = segment.replace('#include "search.cuh"\n', '#include "search.cuh"\n' + SF_SPLIT_READ,
+                              1)
+    segment = segment.replace("if constexpr (Net::KIND == STOCKFISH) sf_help(a, n, s, t);",
+                              "if constexpr (Net::KIND == STOCKFISH) "
+                              + _sf_timed("sf_help(a, n, s, t);", 3), 1)
+    patches = (
+        ("if (t == 0) sf_wait(job + SF_JOB_FT_DONE, units);", 0, -1),
+        ("if (t == 0) sf_wait(job + SF_JOB_FC_DONE, nnue::SF_FC0_UNITS);", 0, -1),
+        ("nnue::sf_ft_unit(f, stm, u, a.net, x, t);", 1, 4),
+        ("nnue::sf_fc0_unit(bucket, i, a.net, x, chains, t);", 1, 4),
+        ("nnue::sf_ft_unit(s.feat, stm, u, a.net, x, t);", 2, 5),
+        ("nnue::sf_fc0_unit(__ldcg(job + SF_JOB_BUCKET), u, a.net, x,\n"
+         "                                  x + nnue::sf_x_stride(a.net.l1), t);", 2, 5),
+    )
+    for text, slot, count in patches:
+        if search.count(text) != 1:
+            raise AssertionError(f"--sf-split: {text!r} found {search.count(text)} times")
+        search = search.replace(text, _sf_timed(text, slot, count))
+    post = "    if (t == 0) atomicExch(job + SF_JOB_READY, step + 1);\n"
+    if search.count(post) != 1:
+        raise AssertionError("--sf-split: no job post in search.cuh")
+    search = search.replace(post, post + "    if (t == 0) atomicAdd(sf_split + 6, 1ull);\n")
+    search = search.replace("namespace search {\n", SF_SPLIT_HEAD + "namespace search {\n", 1)
+    return segment, search, True
+
+
+def sf_split_run(root: str) -> int:
+    """One tree's --sf-split: its package copied under build/sf-split/,
+    sf_split_sources patched in, built, then per lane count (SPLIT_LANES)
+    a warm-up segment and 3 timed SPLIT_STEPS-step segments from
+    segment_case's "engine" state on the seeded Stockfish net at SF_L1; one
+    JSON line of cycles a step averaged over the warps (and the owners'
+    waits and units per job), and the timed segments' us a step."""
+    import ctypes
+    import glob
+    import shutil
+
+    import numpy as np
+
+    root = os.path.abspath(root)
+    here = os.path.dirname(os.path.abspath(__file__))
+    tag = hashlib.sha256(root.encode()).hexdigest()[:8]
+    dest = os.path.join(here, "build", "sf-split", tag)
+    shutil.rmtree(dest, ignore_errors=True)
+    shutil.copytree(os.path.join(root, "fishnet_tpu_torch"),
+                    os.path.join(dest, "fishnet_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    csrc = os.path.join(dest, "fishnet_tpu_torch", "csrc")
+    with open(os.path.join(csrc, "search_segment.cu")) as f1, \
+            open(os.path.join(csrc, "search.cuh")) as f2:
+        segment, search_h, spread = sf_split_sources(f1.read(), f2.read())
+    for name, text in (("search_segment.cu", segment), ("search.cuh", search_h)):
+        with open(os.path.join(csrc, name), "w") as f:
+            f.write(text)
+    sys.path.insert(0, dest)
+    import torch
+
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.models import nnue_import as ni
+    from fishnet_tpu_torch.ops import search
+
+    if not kernels.__file__.startswith(dest):
+        raise AssertionError(f"imported {kernels.__file__}, not the copy in {dest}")
+    os.environ["FISHNET_TPU_MAX_PLY"] = "32"
+    kernels.build()
+    lib = ctypes.CDLL(glob.glob(os.path.join(dest, "build", "kernels-*",
+                                             "libsearch_segment_standard.so"))[0])
+    fns = [("k11_split", 4)] + ([("sf_split", 7)] if spread else [])
+    for name, _ in fns:
+        getattr(lib, f"{name}_read").argtypes = [ctypes.c_void_p]
+    dev = torch.device("cuda")
+    params = ni.load_nnue(sf_file(SF_L1, 7), device=dev)
+    split = {}
+    for B in SPLIT_LANES:
+        state0, table0, kw = segment_case(params, B, "engine", seed=B, dev=dev)
+        state, table = _clone(state0, table0)
+        kw = dict(kw, table=table)
+        search.run_segment(params, state, SPLIT_STEPS, True, **kw)  # warm up
+        sums = {name: np.zeros(n) for name, n in fns}
+        steps, ms = 0, 0.0
+        for _ in range(3):
+            for t, t0 in zip(list(state) + [table], list(state0) + [table0]):
+                t.copy_(t0)
+            torch.cuda.synchronize()
+            for name, _ in fns:
+                if getattr(lib, f"{name}_reset")():
+                    raise RuntimeError(f"{name}_reset failed")
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            n, _ = search.run_segment(params, state, SPLIT_STEPS, True, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            ms += start.elapsed_time(end)
+            for name, size in fns:
+                out = (ctypes.c_ulonglong * size)()
+                if getattr(lib, f"{name}_read")(out):
+                    raise RuntimeError(f"{name}_read failed")
+                sums[name] += np.asarray(list(out), np.float64)
+            steps += n
+        k = sums["k11_split"]
+        warps = k[3] / 3
+        per = k[:3] / warps / steps  # cycles a step, averaged over the warps
+        row = {"barrier_waits": per[0], "lane_steps": per[1], "step_loop": per[2],
+               "warps": warps, "steps": steps / 3, "grid": kernels.LAST_GRID["blocks"],
+               "us_per_step": ms / steps * 1e3}
+        if spread:
+            sf = sums["sf_split"]
+            jobs = max(sf[6], 1.0)
+            row.update(
+                owner_waits=sf[0] / warps / steps, owner_units=sf[1] / warps / steps,
+                helper_units=sf[2] / warps / steps, helping=sf[3] / warps / steps,
+                jobs_per_step=sf[6] / steps, units_per_job_by_owner=sf[4] / jobs,
+                units_per_job_by_helpers=sf[5] / jobs, owner_wait_per_job=sf[0] / jobs,
+                unit_cycles=(sf[1] + sf[2]) / max(sf[4] + sf[5], 1.0))
+        split[B] = row
+    print(json.dumps({"tree": root, "net": f"Stockfish L1 {SF_L1}", "cycles_per_step": split}),
+          flush=True)
+    return 0
+
+
+def sf_split(roots) -> int:
+    """sf_split_run for each tree in turn, each in a process of its own,
+    then the card's name and power limit."""
+    for root in roots:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--sf-split-run", root],
+                             capture_output=True, text=True, timeout=900)
+        sys.stdout.write(out.stdout)
+        if out.returncode:
+            sys.stderr.write(out.stderr[-4000:])
+            return out.returncode
     print(card_line())
     return 0
 
@@ -4613,6 +4898,7 @@ def ptxas(roots) -> int:
 def main() -> int:
     import torch
 
+    started = time.monotonic()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -4764,7 +5050,8 @@ def main() -> int:
         # net, K4 and K8-K10 at each width
         for k in ("ms_l2_warm", "plain_steps", "edge_ms", "edge_bound_ms", "ms_by_lanes",
                   "mark_ms", "rows_ms", "sums_ms", "start_ms", "start_mark_ms",
-                  "start_rows_ms", "start_sums_ms"):
+                  "start_rows_ms", "start_sums_ms", "rows_read_mb", "distinct_rows_mb",
+                  "ms_by_warps"):
             if k in stats[name]:
                 row[k] = stats[name][k]
         if name in kernels.K11_BODIES:  # its body's calls inside K11, per step of its path
@@ -4832,6 +5119,7 @@ def main() -> int:
             if k in st:
                 row[k] = st[k]
         rows.append(row)
+    log(f"chip_smoke: {time.monotonic() - started:.1f} s of its {TIME_BUDGET_S} s budget")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -4850,6 +5138,10 @@ if __name__ == "__main__":
         sys.exit(k11_split_run(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--k11-split"]:
         sys.exit(k11_split(sys.argv[2:]))
+    if sys.argv[1:2] == ["--sf-split-run"]:
+        sys.exit(sf_split_run(sys.argv[2]))
+    if sys.argv[1:2] == ["--sf-split"]:
+        sys.exit(sf_split(sys.argv[2:]))
     if sys.argv[1:2] == ["--ft-split"]:
         sys.exit(ft_split())
     if sys.argv[1:2] == ["--ptxas-run"]:

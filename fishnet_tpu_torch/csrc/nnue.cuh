@@ -3,7 +3,11 @@
 // accumulator update (K3), and the full evals of the nets without
 // incremental accumulators: a king-bucketed (HalfKAv2_hm) NnueParams net
 // (K12) and an imported Stockfish net (K13). K3's kernel wraps its body
-// one column a thread, K2's, K12's and K13's one lane a warp; the segment
+// one column a thread, K2's and K12's one lane a warp; K13's eval is split
+// into units any warp can run (sf_ft_unit, sf_fc0_unit, sf_finish), which
+// its kernel spreads over its grid and K11 over its waiting warps. K17's
+// refresh and K13's feature-transform units share row_sums, which keeps a
+// group of rows' 16-byte loads in flight ahead of the adds. The segment
 // kernel (K11) calls the same functions, so its evals and accumulators are
 // the standalone kernels' bit for bit.
 //
@@ -108,6 +112,7 @@ struct SfNet {
     const float* fc2_w;
     const float* fc2_b;
     int l1;
+    bool vec;  // the feature transform takes 16-byte loads (sf_vec_ok)
 };
 
 __device__ __forceinline__ float crelu(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
@@ -416,46 +421,189 @@ __device__ float evaluate_warp(const Features& f, int stm, int bucket, const Net
     return score(warp_sum(v), w.out_b[bucket]);
 }
 
-// K13's body: an imported Stockfish net's full eval of one lane (a warp),
-// f32. Each thread takes the column pairs (c, c + L1/2), c = t, t + 32,
-// ... of both perspectives: it sums their pieces' rows (the reference's
-// order) with ft_b, forms the pairwise clipped product and folds it
-// straight into its partial sums of the bucket's 16 fc0 rows, so no
-// (2, L1) accumulator is kept anywhere. A warp sum finishes fc0; thread j
-// computes fc1 unit j on [clip(h), clip(h)^2] and its fc2 term, a warp
-// sum the output; the PSQT column of the bucket is summed in the
-// reference's order from one value a feature, loaded by all threads.
-// Not inlined: a body of its own keeps its register allocation apart from
-// the rest of K11's step; inlined beside K9's warp passes it made K11's
-// Stockfish step 20% slower (486 against 405 us at 64 lanes on an H100).
-__device__ __noinline__ float evaluate_sf_warp(const Features& f, int stm, int bucket,
-                                               const SfNet& net, int t) {
-    const int l1 = net.l1, half = l1 / 2;
-    const float* fc0 = net.fc0_w + (int64_t)bucket * FC0_OUT * l1;
-    float part[FC0_OUT];
+// ------------------------------------------- rows in flight (K17, K13)
+
+// A column's value as f32 lanes: one float, or four neighbouring floats
+// read with one 16-byte load.
+__device__ __forceinline__ float vzero(float) { return 0.0f; }
+__device__ __forceinline__ float4 vzero(float4) { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+__device__ __forceinline__ float vadd(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float4 vadd(float4 a, float4 b) {
+    return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                       __fadd_rn(a.w, b.w));
+}
+
+// The sums of the rows idx[0, n) of a row-major f32 table (`stride`
+// vectors a row) at K vector columns col[k] (each a pointer to its
+// column in row 0), in refresh_column's order: squares 0-31 ([0, lo))
+// and 32-63 ([lo, n)) each summed in order, then the halves added. The
+// rows' loads go out G rows at a time, each group's loads issued before
+// the adds of the group before it, and a group's indices are read into
+// registers before any of its loads; the adds run in the old order, so
+// every sum is refresh_column's bit for bit. n and lo must be the same in
+// every thread of the warp that reaches a warp-wide call.
+template <int K, int G, class T>
+__device__ __forceinline__ void row_sums(const int* idx, int lo, int n, const T* const (&col)[K],
+                                         int64_t stride, T (&out)[K]) {
+    T s0[K], s1[K], cur[G][K];
 #pragma unroll
-    for (int i = 0; i < FC0_OUT; ++i) part[i] = 0.0f;
-    for (int c = t; c < half; c += 32) {
-        float x[2];
+    for (int k = 0; k < K; ++k) s0[k] = s1[k] = vzero(T{});
+    auto load = [&](int i0, T (&r)[G][K]) {
+        int row[G];
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
-            const int p = q ? 1 - stm : stm;
-            const float a = __fadd_rn(net.ft_b[c],
-                                      refresh_column<float, float>(f, p, net.ft_w, l1, c));
-            const float b = __fadd_rn(net.ft_b[c + half],
-                                      refresh_column<float, float>(f, p, net.ft_w, l1, c + half));
-            x[q] = __fmul_rn(crelu(a), crelu(b));
+        for (int g = 0; g < G; ++g) row[g] = i0 + g < n ? idx[i0 + g] : 0;
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+                r[g][k] = i0 + g < n ? __ldg(col[k] + (int64_t)row[g] * stride) : vzero(T{});
+            }
         }
+    };
+    load(0, cur);
+    for (int i0 = 0; i0 < n; i0 += G) {
+        T next[G][K];
+        if (i0 + G < n) load(i0 + G, next);
 #pragma unroll
-        for (int i = 0; i < FC0_OUT; ++i) {
-            part[i] = fmaf(fc0[(int64_t)i * l1 + half + c], x[1],
-                           fmaf(fc0[(int64_t)i * l1 + c], x[0], part[i]));
+        for (int g = 0; g < G; ++g) {
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+                if (i0 + g < lo) {
+                    s0[k] = vadd(s0[k], cur[g][k]);
+                } else if (i0 + g < n) {
+                    s1[k] = vadd(s1[k], cur[g][k]);
+                }
+            }
+        }
+        if (i0 + G < n) {
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+#pragma unroll
+                for (int k = 0; k < K; ++k) cur[g][k] = next[g][k];
+            }
         }
     }
+#pragma unroll
+    for (int k = 0; k < K; ++k) out[k] = vadd(s0[k], s1[k]);
+}
+
+// --------------------------------------------- K13 in units any warp runs
+
+// K13's eval split into units that any warp can run, each on its own
+// rows and none waiting on another (K11 spreads them over its warps, the
+// standalone kernel over its grid):
+// - a feature-transform unit u (sf_ft_unit): perspective q = u % 2 (0 the
+//   side to move's) and the column slice u / 2 of both halves, a thread
+//   four neighbouring columns (one if the net's widths or pointers do not
+//   allow 16-byte loads: SfNet::vec); it writes the pairwise clipped
+//   products x[q * L1/2 + c] into the eval's buffer, SF_X_W(L1) floats;
+// - an fc0 unit i (sf_fc0_unit), once every feature-transform unit is
+//   done: thread t runs chain (i, t) of the bucket's fc0, over the
+//   columns c = t, t + 32, ... in ascending order, own then opp at each,
+//   and writes it into the eval's 16 x 32 chain sums after the buffer;
+// - the owner (sf_finish), once every fc0 unit is done: warp sums close
+//   the chains, then fc1, fc2 and the PSQT sums of the bucket.
+// Every column, chain and sum keeps the order of the one-warp body it
+// replaces, so the eval's bits do not depend on which warp ran a unit.
+constexpr int SF_SLICE_VEC = 4 * 32;  // columns of a slice, four a thread
+constexpr int SF_SLICE_SCALAR = 32;  // one a thread
+constexpr int SF_CHAINS = FC0_OUT * 32;  // the fc0 chains' sums after the buffer
+constexpr int SF_FC0_UNITS = FC0_OUT;  // a row of fc0 a unit
+constexpr int SF_FC0_CHUNK = 8;  // a chain's steps whose loads go out together
+constexpr int SF_ROW_GROUP = 8;  // a unit's rows whose loads go out together (x2 columns)
+
+// An eval's buffer: the products x (L1 floats, rounded up to whole
+// vectors), then the chain sums.
+__host__ __device__ __forceinline__ int sf_x_stride(int l1) { return (l1 + 3) / 4 * 4; }
+__host__ __device__ __forceinline__ int sf_buffer_floats(int l1) {
+    return sf_x_stride(l1) + SF_CHAINS;
+}
+__host__ __device__ __forceinline__ int sf_ft_units(const SfNet& net) {
+    const int half = net.l1 / 2, slice = net.vec ? SF_SLICE_VEC : SF_SLICE_SCALAR;
+    return 2 * ((half + slice - 1) / slice);
+}
+// Whether a net's feature transform takes 16-byte loads: L1/2 whole
+// vectors, ft_w and ft_b 16-byte aligned.
+inline bool sf_vec_ok(const float* ft_w, const float* ft_b, int l1) {
+    return (l1 / 2) % 4 == 0 && (uintptr_t)ft_w % 16 == 0 && (uintptr_t)ft_b % 16 == 0;
+}
+
+__device__ __forceinline__ float4 sf_pair(float4 a, float4 b) {
+    return make_float4(__fmul_rn(crelu(a.x), crelu(b.x)), __fmul_rn(crelu(a.y), crelu(b.y)),
+                       __fmul_rn(crelu(a.z), crelu(b.z)), __fmul_rn(crelu(a.w), crelu(b.w)));
+}
+__device__ __forceinline__ float sf_pair(float a, float b) {
+    return __fmul_rn(crelu(a), crelu(b));
+}
+
+// One feature-transform unit's columns c and c + L1/2 (vector type T) of
+// perspective p: ft_b + the pieces' rows, paired, clipped, multiplied.
+template <class T>
+__device__ __forceinline__ T sf_columns(const Features& f, int p, const SfNet& net, int c) {
+    const int half = net.l1 / 2;
+    const T* w = reinterpret_cast<const T*>(net.ft_w);
+    const T* b = reinterpret_cast<const T*>(net.ft_b);
+    constexpr int V = sizeof(T) / sizeof(float);
+    const T* const col[2] = {w + c / V, w + (c + half) / V};
+    T sum[2];
+    row_sums<2, SF_ROW_GROUP>(f.idx[p], f.lo[p], f.n[p], col, net.l1 / V, sum);
+    return sf_pair(vadd(__ldg(b + c / V), sum[0]), vadd(__ldg(b + (c + half) / V), sum[1]));
+}
+
+// Feature-transform unit u of the eval of the board whose lists are f
+// (the warp's shared copy), side to move stm, into its buffer x.
+__device__ __noinline__ void sf_ft_unit(const Features& f, int stm, int u, const SfNet& net,
+                                        float* x, int t) {
+    const int half = net.l1 / 2, q = u & 1, p = q ? 1 - stm : stm;
+    if (net.vec) {
+        const int c = (u >> 1) * SF_SLICE_VEC + 4 * t;
+        if (c < half) __stcg(reinterpret_cast<float4*>(x + q * half + c),
+                             sf_columns<float4>(f, p, net, c));
+    } else {
+        const int c = (u >> 1) * SF_SLICE_SCALAR + t;
+        if (c < half) __stcg(x + q * half + c, sf_columns<float>(f, p, net, c));
+    }
+}
+
+// fc0 unit i of an eval in bucket `bucket` from its products x: chain
+// (i, t) into chains[i * 32 + t]. x comes from other warps: read through
+// L2.
+__device__ __noinline__ void sf_fc0_unit(int bucket, int i, const SfNet& net, const float* x,
+                                         float* chains, int t) {
+    const int l1 = net.l1, half = l1 / 2;
+    const float* w = net.fc0_w + ((int64_t)bucket * FC0_OUT + i) * l1;
+    float part = 0.0f;
+    for (int c0 = t; c0 < half; c0 += 32 * SF_FC0_CHUNK) {
+        float w0[SF_FC0_CHUNK], w1[SF_FC0_CHUNK], x0[SF_FC0_CHUNK], x1[SF_FC0_CHUNK];
+#pragma unroll
+        for (int k = 0; k < SF_FC0_CHUNK; ++k) {
+            const int c = c0 + 32 * k;
+            if (c < half) {
+                w0[k] = __ldg(w + c);
+                w1[k] = __ldg(w + half + c);
+                x0[k] = __ldcg(x + c);
+                x1[k] = __ldcg(x + half + c);
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < SF_FC0_CHUNK; ++k) {
+            if (c0 + 32 * k < half) part = fmaf(w1[k], x1[k], fmaf(w0[k], x0[k], part));
+        }
+    }
+    __stcg(chains + i * 32 + t, part);
+}
+
+// The owner's close of an eval (its warp, with the board's lists f):
+// warp sums finish fc0 from the chains; thread j computes fc1 unit j on
+// [clip(h), clip(h)^2] and its fc2 term, a warp sum the output; the PSQT
+// column of the bucket is summed in the reference's order from one value
+// a feature, loaded by all threads. Returns the eval in every thread.
+__device__ __noinline__ float sf_finish(const Features& f, int stm, int bucket, const SfNet& net,
+                                        const float* chains, int t) {
     float h0[FC0_OUT];
 #pragma unroll
     for (int i = 0; i < FC0_OUT; ++i) {
-        h0[i] = __fadd_rn(warp_sum(part[i]), net.fc0_b[bucket * FC0_OUT + i]);
+        h0[i] = __fadd_rn(warp_sum(__ldcg(chains + i * 32 + t)), net.fc0_b[bucket * FC0_OUT + i]);
     }
     // fc1 unit t (FC1_OUT == 32 == the warp) and its fc2 term
     const float* w1 = net.fc1_w + ((int64_t)bucket * FC1_OUT + t) * FC1_IN;

@@ -15,50 +15,75 @@
 // table is 22,528 x L1 f32 (5.8 MB at L1 64), so the rows a batch shares
 // stay in L2 and what the card must move is the boards, the distinct rows
 // the batch selects once, and the accumulators out (B x 2 x L1 x 4 B).
+// What holds it back is latency: a sample's ~30 rows a column are a chain
+// of dependent adds, each row a load from L2.
 //
-// Design: K12's refresh with its accumulators written out. One warp per
-// sample, four samples a block: nnue.cuh features_warp lists each
-// perspective's feature rows in square order (ballots over the 64
-// squares), then each thread sums the columns c = t, t + 32, ... with
-// refresh_column (squares 0-31 and 32-63 each summed in order, the halves
-// added) and adds ft_b last: K1's order and the plain version's
-// (models/nnue.py accumulators, sum_rows), so the two agree bit for bit.
-// Each column is summed on its own, so a tp shard's columns (a contiguous
-// (22528, L1 / tp) block) give the full net's bits. L1 is a run-time
-// argument; a thread reads one float a column, so no width needs
-// alignment.
+// Design: a warp a sample, `warps` samples a block (the wrapper's choice,
+// kernels.py K17_WARPS: small blocks spread a 512-sample batch over all
+// SMs). nnue.cuh features_warp lists each perspective's feature rows in
+// square order (ballots over the 64 squares), then the warp's threads
+// take the (perspective, column) items of both perspectives together:
+// where L1 is a multiple of 4 and ft_w, ft_b and acc are 16-byte aligned
+// an item is four neighbouring columns read with one 16-byte load a row
+// (at L1 64 half a warp a perspective), else one column (any L1 up to
+// MAX_L1, a tp shard's block at any width or offset). nnue.cuh row_sums
+// reads a group of row indices into registers and issues the group's
+// loads before the adds of the group before it, and adds in the old
+// order: squares 0-31 and 32-63 each in order, the halves added, ft_b
+// last, K1's order and the plain version's (models/nnue.py accumulators,
+// sum_rows), so the two agree bit for bit. Each column is summed on its
+// own, so a tp shard's columns (a contiguous (22528, L1 / tp) block) give
+// the full net's bits.
 #include "nnue.cuh"
 
 namespace {
 
-constexpr int WARPS = 4;
+constexpr int MAX_WARPS = 8;
+constexpr int GROUP = 8;  // rows whose loads go out together
 
-__global__ void __launch_bounds__(WARPS * 32)
+template <class T>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
 refresh_kb_kernel(const int32_t* __restrict__ boards, const float* __restrict__ ft_w,
                   const float* __restrict__ ft_b, float* __restrict__ acc, int batch, int l1) {
-    __shared__ nnue::Features feats[WARPS];
+    __shared__ nnue::Features feats[MAX_WARPS];
+    constexpr int V = sizeof(T) / sizeof(float);
     const int w = threadIdx.x / 32, t = threadIdx.x % 32;
-    const int lane = blockIdx.x * WARPS + w;
+    const int lane = blockIdx.x * (blockDim.x / 32) + w;
     if (lane >= batch) return;  // the whole warp
     nnue::Features& f = feats[w];
     nnue::features_warp(boards + (int64_t)lane * 64, t, f);
-    for (int p = 0; p < 2; ++p) {
-        float* out = acc + ((int64_t)lane * 2 + p) * l1;
-        for (int c = t; c < l1; c += 32) {
-            out[c] = ft_b[c] + nnue::refresh_column<float, float>(f, p, ft_w, l1, c);
-        }
+    const int vl = l1 / V;  // vectors a row
+    const T* rows = reinterpret_cast<const T*>(ft_w);
+    const T* bias = reinterpret_cast<const T*>(ft_b);
+    for (int j = t; j < 2 * vl; j += 32) {
+        const int p = j / vl, v = j - p * vl;
+        const T* const col[1] = {rows + v};
+        T sum[1];
+        nnue::row_sums<1, GROUP>(f.idx[p], f.lo[p], f.n[p], col, vl, sum);
+        reinterpret_cast<T*>(acc + ((int64_t)lane * 2 + p) * l1)[v] =
+            nnue::vadd(__ldg(bias + v), sum[0]);
     }
 }
 
 }  // namespace
 
 // boards (batch, 64) int32; ft_w (22528, l1) f32, ft_b (l1,) f32 →
-// acc (batch, 2, l1) f32
+// acc (batch, 2, l1) f32; warps: samples a block, 1..8
 FISHNET_EXPORT int nnue_refresh_kb(const void* boards, const void* ft_w, const void* ft_b,
-                                   void* acc, int batch, int l1, void* stream) {
-    if (batch <= 0 || l1 <= 0) return (int)cudaErrorInvalidValue;
-    const int grid = (batch + WARPS - 1) / WARPS;
-    refresh_kb_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)boards, (const float*)ft_w, (const float*)ft_b, (float*)acc, batch, l1);
+                                   void* acc, int batch, int l1, int warps, void* stream) {
+    if (batch <= 0 || l1 <= 0 || warps < 1 || warps > MAX_WARPS) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const bool vec = l1 % 4 == 0 && ((uintptr_t)ft_w | (uintptr_t)ft_b | (uintptr_t)acc) % 16 == 0;
+    const int grid = (batch + warps - 1) / warps;
+    if (vec) {
+        refresh_kb_kernel<float4><<<grid, warps * 32, 0, (cudaStream_t)stream>>>(
+            (const int32_t*)boards, (const float*)ft_w, (const float*)ft_b, (float*)acc, batch,
+            l1);
+    } else {
+        refresh_kb_kernel<float><<<grid, warps * 32, 0, (cudaStream_t)stream>>>(
+            (const int32_t*)boards, (const float*)ft_w, (const float*)ft_b, (float*)acc, batch,
+            l1);
+    }
     return (int)cudaGetLastError();
 }

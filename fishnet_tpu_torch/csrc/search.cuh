@@ -18,8 +18,9 @@
 // net is a template parameter (its `Net` traits): a board768 net carries
 // accumulators down the stack (K3) and evaluates a leaf from them (K2); a
 // king-bucketed or an imported Stockfish net
-// evaluates every leaf from its board (K12's or K13's warp body) and
-// leaves the state's accumulator table as it is, as the reference does.
+// evaluates every leaf from its board (K12's warp body, or K13's units
+// spread over the launch's warps: sf_post, sf_own, sf_help) and leaves
+// the state's accumulator table as it is, as the reference does.
 // The variant is a second template parameter V (a VARIANT_* id): the
 // board rules, keys, move generator and make-move take their variant
 // instantiations, a node at the variant's game end (node_rules' term) is
@@ -145,6 +146,14 @@ struct Segment {
     const int32_t* gen_lanes;  // (B,) or null: every lane stores generation `gen`
     int gen;
     int* scratch;  // (B, SEGMENT_SCRATCH): the stores' staged rows; then three live flags
+    // an imported Stockfish net's evals spread over the warps (sf_post,
+    // sf_own, sf_help): SF_CTL_W control words (three job counts, then
+    // three counts of the warps still stepping, each in rotation by step),
+    // then B job records of SF_JOB_W words, then B eval buffers
+    // (nnue::sf_buffer_floats); null on the other nets
+    int* sf_ctl;
+    int* sf_jobs;
+    float* sf_buf;
     unsigned long long* body_calls;  // (N_BODY,)
     int32_t* summary;  // (B+1, 4)
     int B, P, H, steps;
@@ -251,6 +260,212 @@ __device__ __forceinline__ void leaf_store_claim(const Segment<Net>& a, int lane
     calls[B_STORE] += mask;
 }
 
+// ---------------------------------- K13's units over K11's warps (Stockfish)
+//
+// A lane that enters a node on a Stockfish net posts its eval as a job
+// (sf_post: its feature lists, stm and bucket, in job record k, k counted
+// out of the step's job count), runs the rest of its ENTER up to and with
+// K9, then works on its own job's units and waits for the rest (sf_own).
+// Every warp that has stepped all its lanes claims units of any posted job
+// (sf_help) until no warp is still stepping; only then does it enter the
+// step's barrier. A unit is claimed by an atomic add to its job's counter
+// and never waits; the fc0 units are claimed only once every
+// feature-transform unit is done, and the owner waits for its job with
+// acquire loads. Every block of the launch is resident (the cooperative
+// grid of every block the card holds), so a claimed unit always runs to
+// its end and an owner's wait ends: the owner itself claims whatever
+// nobody else has. A unit's writes go through L2 (st.cg), are fenced, and
+// only then counted; readers load through L2 (ld.cg) after an acquire
+// load, or after a relaxed load and a fence.
+constexpr int SF_JOB_READY = 0;  // the step (+1) whose job the record holds
+constexpr int SF_JOB_STM = 1;
+constexpr int SF_JOB_BUCKET = 2;
+constexpr int SF_JOB_FT_NEXT = 4;  // feature-transform units claimed
+constexpr int SF_JOB_FT_DONE = 5;  // and done
+constexpr int SF_JOB_FC_NEXT = 6;  // fc0 units claimed
+constexpr int SF_JOB_FC_DONE = 7;  // and done
+constexpr int SF_JOB_LO = 8;
+constexpr int SF_JOB_N = 9;
+constexpr int SF_JOB_IDX = 16;  // the two perspectives' feature rows, 64 each
+static_assert(SF_JOB_IDX + 128 == SF_JOB_W && SF_CTL_W >= 6, "K11's job layout");
+// cycles after which a wait is a broken invariant: trap rather than hang
+constexpr int64_t SF_WAIT_LIMIT = 20'000'000'000LL;
+
+template <class Net>
+__device__ __forceinline__ int* sf_job(const Segment<Net>& a, int k) {
+    return a.sf_jobs + (int64_t)k * SF_JOB_W;
+}
+template <class Net>
+__device__ __forceinline__ float* sf_buffer(const Segment<Net>& a, int k) {
+    return a.sf_buf + (int64_t)k * nnue::sf_buffer_floats(a.net.l1);
+}
+
+// Thread 0: wait until *p reaches `want`, with acquire order.
+__device__ __forceinline__ void sf_wait(const int* p, int want) {
+    const long long t0 = clock64();
+    while (tt::load_acquire(p) < want) {
+        __nanosleep(32);
+        if (clock64() - t0 > SF_WAIT_LIMIT) __trap();
+    }
+}
+
+// A unit's end: its writes fenced, then counted (the warp).
+__device__ __forceinline__ void sf_unit_done(int* counter, int t) {
+    __threadfence();
+    __syncwarp();
+    if (t == 0) atomicAdd(counter, 1);
+}
+
+// Thread 0 claims the next unit of a counter; the warp gets its index.
+__device__ __forceinline__ int sf_claim(int* next, int t) {
+    int u = 0;
+    if (t == 0) u = atomicAdd(next, 1);
+    return __shfl_sync(FULL_MASK, u, 0);
+}
+
+// Post the eval of the board whose lists are f (the warp) as a job of
+// step `step` → its record's index.
+template <class Net>
+__device__ int sf_post(const Segment<Net>& a, int step, const nnue::Features& f, int stm,
+                       int bucket, int t) {
+    int k = 0;
+    if (t == 0) k = atomicAdd(a.sf_ctl + step % 3, 1);
+    k = __shfl_sync(FULL_MASK, k, 0);
+    int* job = sf_job(a, k);
+    const int n = f.n[0];
+    for (int j = t; j < n; j += WARP) {
+        __stcg(job + SF_JOB_IDX + j, f.idx[0][j]);
+        __stcg(job + SF_JOB_IDX + 64 + j, f.idx[1][j]);
+    }
+    if (t < 4) __stcg(job + SF_JOB_FT_NEXT + t, 0);
+    if (t == 0) {
+        __stcg(job + SF_JOB_STM, stm);
+        __stcg(job + SF_JOB_BUCKET, bucket);
+        __stcg(job + SF_JOB_LO, f.lo[0]);
+        __stcg(job + SF_JOB_N, n);
+    }
+    __threadfence();
+    __syncwarp();
+    if (t == 0) atomicExch(job + SF_JOB_READY, step + 1);
+    return k;
+}
+
+// The owner's part of its job k (the warp, with the board's lists f):
+// its own claims of the feature-transform units, the wait for the rest,
+// the same for the fc0 units, then the close. Returns the eval in every
+// thread.
+template <class Net>
+__device__ float sf_own(const Segment<Net>& a, int k, const nnue::Features& f, int stm,
+                        int bucket, int t) {
+    int* job = sf_job(a, k);
+    float* x = sf_buffer(a, k);
+    float* chains = x + nnue::sf_x_stride(a.net.l1);
+    const int units = nnue::sf_ft_units(a.net);
+    for (int u; (u = sf_claim(job + SF_JOB_FT_NEXT, t)) < units;) {
+        nnue::sf_ft_unit(f, stm, u, a.net, x, t);
+        sf_unit_done(job + SF_JOB_FT_DONE, t);
+    }
+    if (t == 0) sf_wait(job + SF_JOB_FT_DONE, units);
+    __syncwarp();
+    for (int i; (i = sf_claim(job + SF_JOB_FC_NEXT, t)) < nnue::SF_FC0_UNITS;) {
+        nnue::sf_fc0_unit(bucket, i, a.net, x, chains, t);
+        sf_unit_done(job + SF_JOB_FC_DONE, t);
+    }
+    if (t == 0) sf_wait(job + SF_JOB_FC_DONE, nnue::SF_FC0_UNITS);
+    __syncwarp();
+    return nnue::sf_finish(f, stm, bucket, a.net, chains, t);
+}
+
+// A job's control word read without ordering (coherent at the card's
+// scope); a reader that acts on it fences before it reads the job's data.
+__device__ __forceinline__ int load_relaxed(const int* p) {
+    int v;
+    asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+    return v;
+}
+
+// A warp that has stepped all its lanes in step `step`: claim units of
+// the step's posted jobs until no warp is still stepping (every job is
+// then done). The warp reads 32 jobs' control words at once, a job a
+// thread, and tries the claimable ones from a point that differs from
+// warp to warp, so the helpers spread over the jobs; s.feat holds a
+// claimed job's lists.
+template <class Net, int V>
+__device__ void sf_help(const Segment<Net>& a, int step, WarpRows<V>& s, int t) {
+    int* const posted = a.sf_ctl + step % 3;
+    int* const stepping = a.sf_ctl + 3 + step % 3;
+    const int stamp = step + 1, units = nnue::sf_ft_units(a.net);
+    const int spread = (int)((blockIdx.x * blockDim.x + threadIdx.x) / WARP) % WARP;
+    if (t == 0) atomicSub(stepping, 1);
+    int first = 0;  // the jobs before it have every unit claimed
+    const long long t0 = clock64();
+    for (;;) {
+        const int n_jobs = load_relaxed(posted);
+        int k = -1, kind = 0, u = 0;  // kind 1: a feature-transform unit, 2: an fc0 unit
+        for (int j0 = first; j0 < n_jobs && !kind; j0 += WARP) {
+            const int j = j0 + t;
+            bool ft = false, fc = false, spent = false;
+            if (j < n_jobs) {
+                const int* job = sf_job(a, j);
+                const int ready = load_relaxed(job + SF_JOB_READY);
+                const int ft_next = load_relaxed(job + SF_JOB_FT_NEXT);
+                const int ft_done = load_relaxed(job + SF_JOB_FT_DONE);
+                const int fc_next = load_relaxed(job + SF_JOB_FC_NEXT);
+                if (ready == stamp) {
+                    ft = ft_next < units;
+                    fc = ft_done == units && fc_next < nnue::SF_FC0_UNITS;
+                    spent = fc_next >= nnue::SF_FC0_UNITS;
+                }
+            }
+            if (j0 == first) {  // every unit of a leading run of jobs is claimed
+                const unsigned open = ~__ballot_sync(FULL_MASK, spent);
+                first += open ? __ffs(open) - 1 : WARP;
+            }
+            for (unsigned ok = __ballot_sync(FULL_MASK, ft || fc); ok && !kind;) {
+                const unsigned r = spread ? (ok >> spread) | (ok << (WARP - spread)) : ok;
+                const int pick = (__ffs(r) - 1 + spread) & (WARP - 1);
+                int c = -1;
+                if (t == pick) {
+                    int* job = sf_job(a, j);
+                    c = atomicAdd(job + (ft ? SF_JOB_FT_NEXT : SF_JOB_FC_NEXT), 1);
+                    if (c >= (ft ? units : nnue::SF_FC0_UNITS)) c = -1;
+                    if (c >= 0 && fc) c += units;
+                }
+                c = __shfl_sync(FULL_MASK, c, pick);
+                if (c >= 0) k = j0 + pick, kind = c < units ? 1 : 2, u = c < units ? c : c - units;
+                ok &= ~(1u << pick);
+            }
+        }
+        if (kind) {
+            __threadfence();  // the job's lists, or its products, were written before its counts
+            int* job = sf_job(a, k);
+            float* x = sf_buffer(a, k);
+            if (kind == 1) {
+                const int stm = __ldcg(job + SF_JOB_STM), n = __ldcg(job + SF_JOB_N);
+                const int p = (u & 1) ? 1 - stm : stm;
+                for (int j = t; j < n; j += WARP) {
+                    s.feat.idx[p][j] = __ldcg(job + SF_JOB_IDX + 64 * p + j);
+                }
+                if (t == 0) {
+                    s.feat.lo[p] = __ldcg(job + SF_JOB_LO);
+                    s.feat.n[p] = n;
+                }
+                __syncwarp();
+                nnue::sf_ft_unit(s.feat, stm, u, a.net, x, t);
+                sf_unit_done(job + SF_JOB_FT_DONE, t);
+            } else {
+                nnue::sf_fc0_unit(__ldcg(job + SF_JOB_BUCKET), u, a.net, x,
+                                  x + nnue::sf_x_stride(a.net.l1), t);
+                sf_unit_done(job + SF_JOB_FC_DONE, t);
+            }
+            continue;
+        }
+        if (load_relaxed(stepping) == 0) return;
+        __nanosleep(64);
+        if (clock64() - t0 > SF_WAIT_LIMIT) __trap();
+    }
+}
+
 // One step of one lane (the port's `_step`, its TT-runner arguments from
 // the probe made here, with the window ENTER gives the node), written into
 // the state in place; with a table, then the claim half of the leaf store
@@ -262,7 +477,7 @@ __device__ __forceinline__ void leaf_store_claim(const Segment<Net>& a, int lane
 // warp-uniform.
 template <class Net, int V>
 __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows<V>& s, int t,
-                          unsigned* calls) {
+                          unsigned* calls, int step) {
     using Acc = typename Net::Acc;
     constexpr int MM = rules::max_moves<V>();  // the variant's move-list width
     static_assert(MM % WARP == 0, "the TT move's search reads the list a warp at a time");
@@ -317,6 +532,14 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows<V>& s, int t
     uint32_t h1 = 0, h2 = 0;
     if (enter) {
         const int stm = s.btr[BT_STM];
+        // a Stockfish net's eval goes out as a job first: other warps may
+        // run its units while this one runs K8-K9 (sf_own waits for it below)
+        int sf_k = 0, sf_bucket = 0;
+        if constexpr (Net::KIND == STOCKFISH) {
+            nnue::features_warp(s.btr, t, s.feat);
+            sf_bucket = nnue::output_bucket(s.feat);
+            sf_k = sf_post(a, step, s.feat, stm, sf_bucket, t);
+        }
         bool illegal_raw, checked;
         int term;
         rules::node_rules_warp<V>(s.btr, stm, &s.btr[BT_EXTRA], t, &illegal_raw, &checked,
@@ -354,8 +577,9 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows<V>& s, int t
 
         // leaf value: on board768 K2's body (the warp) on the lane's
         // accumulator pair staged in shared memory, in atomic on the pair
-        // K1's body refreshes there (four columns a thread); any other net
-        // K12's or K13's full eval (the warp)
+        // K1's body refreshes there (four columns a thread); on a
+        // king-bucketed net K12's full eval (the warp); on a Stockfish net
+        // K13's units, after K9 (sf_own)
         float ev = 0.0f;
         if constexpr (Net::KIND == BOARD768) {
             const int pieces = __popc(__ballot_sync(FULL_MASK, s.btr[t] > 0))
@@ -379,23 +603,10 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows<V>& s, int t
             ev = nnue::forward_warp(pair + stm * L1, pair + (1 - stm) * L1, bucket, a.net.head,
                                     t);
             __syncwarp();  // the pair's room is K9's scratch next
-        } else {
+        } else if constexpr (Net::KIND == KING) {
             nnue::features_warp(s.btr, t, s.feat);
-            const int bucket = nnue::output_bucket(s.feat);
-            if constexpr (Net::KIND == KING) {
-                ev = nnue::evaluate_warp(s.feat, stm, bucket, a.net, t);
-            } else {
-                ev = nnue::evaluate_sf_warp(s.feat, stm, bucket, a.net, t);
-            }
+            ev = nnue::evaluate_warp(s.feat, stm, nnue::output_bucket(s.feat), a.net, t);
         }
-        ev = __shfl_sync(FULL_MASK, ev, 0);
-        const int static_val = min(max((int)ev, -MATE_BOUND), MATE_BOUND);
-        // a variant's game end ends the node at once, over the draws
-        const bool vterm = term != rules::TERM_NONE;
-        const bool ends = draw || vterm;
-        const int leaf_val = vterm ? (term == rules::TERM_LOSS ? ply0 - MATE
-                                      : (term == rules::TERM_WIN ? MATE - ply0 : DRAW))
-                                   : (draw ? DRAW : static_val);
 
         rules::Ordering o;
         o.hist = a.hist + (int64_t)lane * HIST_SIZE;
@@ -405,6 +616,15 @@ __device__ bool step_lane(const Segment<Net>& a, int lane, WarpRows<V>& s, int t
         rules::generate_moves_warp<V>(s.btr, stm, s.btr[BT_EP], &s.btr[BT_CAST],
                                       &s.btr[BT_EXTRA], o, t, s.list, s.gen, &count,
                                       &noisy);  // K9
+        if constexpr (Net::KIND == STOCKFISH) ev = sf_own(a, sf_k, s.feat, stm, sf_bucket, t);
+        ev = __shfl_sync(FULL_MASK, ev, 0);
+        const int static_val = min(max((int)ev, -MATE_BOUND), MATE_BOUND);
+        // a variant's game end ends the node at once, over the draws
+        const bool vterm = term != rules::TERM_NONE;
+        const bool ends = draw || vterm;
+        const int leaf_val = vterm ? (term == rules::TERM_LOSS ? ply0 - MATE
+                                      : (term == rules::TERM_WIN ? MATE - ply0 : DRAW))
+                                   : (draw ? DRAW : static_val);
         const bool quiet_node = noisy == 0;
         const bool window_ok_a = entry_alpha > -MATE_BOUND && entry_alpha < MATE_BOUND;
         bool qs_like = in_qs;

@@ -23,10 +23,19 @@
 //
 // On a king-bucketed or an imported Stockfish net (entry points
 // search_segment_kb_* and _sf) every entering lane pays a full eval
-// instead (K12's or K13's warp body), with the reference's full-eval
-// branch (:440-445, :801-812): no accumulator is read or written. At L1
-// 3072 that eval reads up to 0.79 MB of feature rows from HBM, which then
-// dominates a step's bytes.
+// instead (K12's warp body, or K13's units), with the reference's
+// full-eval branch (:440-445, :801-812): no accumulator is read or
+// written. At L1 3072 that eval reads up to 0.79 MB of feature rows from
+// HBM, which then dominates a step's bytes; one warp alone took ~370 us
+// for it while the others waited at the barrier. So on a Stockfish net an
+// entering lane posts its eval as a job in the launch's scratch (its
+// feature lists, stm, bucket: search.cuh sf_post), and every warp that has
+// stepped its lanes runs the job's units (sf_help: the feature transform
+// in 128-column slices, then fc0 a row a unit) until no warp is still
+// stepping; the owner runs its own job's units too and waits for the rest
+// (sf_own). A unit never waits and every block is resident, so no wait can
+// deadlock; each unit keeps its sums' order, so the eval's bits are the
+// one-warp body's.
 //
 // Variants: the step takes the variant as a template parameter (the
 // reference compiles one program per static variant flag), so each
@@ -114,6 +123,15 @@ __global__ void __launch_bounds__(THREADS) segment_kernel(const Segment<Net> a) 
     if (leader) {
         for (int i = 0; i < 3; ++i) atomicExch(flags + i, 0);
     }
+    if constexpr (Net::KIND == STOCKFISH) {  // step 0's counts; no job record holds a job
+        if (leader) {
+            atomicExch(a.sf_ctl, 0);
+            atomicExch(a.sf_ctl + 3, n_warps);
+        }
+        for (int k = first_warp * WARP + t; k < a.B; k += n_warps * WARP) {
+            __stcg(sf_job(a, k) + SF_JOB_READY, 0);
+        }
+    }
     barrier(grid, one_cluster);
     for (int lane = first_warp; lane < a.B; lane += n_warps) {
         if (t == 0 && a.lane[(int64_t)lane * LN_W + LN_MODE] != MODE_DONE) atomicExch(flags, 1);
@@ -123,6 +141,10 @@ __global__ void __launch_bounds__(THREADS) segment_kernel(const Segment<Net> a) 
     while (n < a.steps && __ldcg(flags + n % 3) != 0) {
         // flags[(n + 2) % 3] was last read before this step's first barrier
         if (leader) atomicExch(flags + (n + 2) % 3, 0);
+        if (Net::KIND == STOCKFISH && leader) {  // step n + 1's counts (last read in step n - 2)
+            atomicExch(a.sf_ctl + (n + 1) % 3, 0);
+            atomicExch(a.sf_ctl + 3 + (n + 1) % 3, n_warps);
+        }
         if (a.table) {
             // (1) this step's interior claims, then the last step's leaf commits
             for (int lane = first_warp; lane < a.B; lane += n_warps) {
@@ -136,12 +158,14 @@ __global__ void __launch_bounds__(THREADS) segment_kernel(const Segment<Net> a) 
         // (2) the step with its leaf claims, then the interior commits
         bool live = false;
         for (int lane = first_warp; lane < a.B; lane += n_warps) {
-            live |= step_lane<Net, V>(a, lane, s, t, calls);
+            live |= step_lane<Net, V>(a, lane, s, t, calls, n);
         }
         if (t == 0 && live) atomicExch(flags + (n + 1) % 3, 1);
         for (int lane = first_warp; lane < a.B && a.table; lane += n_warps) {
             if (t == 0) tt::store_commit(a.table, a.interior, lane);
         }
+        // a Stockfish net's eval units, until no warp is still stepping
+        if constexpr (Net::KIND == STOCKFISH) sf_help(a, n, s, t);
         barrier(grid, one_cluster);
         ++n;
     }
@@ -232,7 +256,9 @@ int launch(Segment<Net> a, int* grid_out, cudaStream_t stream) {
     }
     if (blocks_per_sm[dev] < 1) return (int)cudaErrorInvalidConfiguration;
     const int want = (a.B + WARPS - 1) / WARPS, fit = blocks_per_sm[dev] * sms[dev];
-    const int grid = want < fit ? want : fit;
+    // a Stockfish net's eval units go to every warp the card holds: the
+    // warps past the lanes only help (sf_help)
+    const int grid = Net::KIND == STOCKFISH || want > fit ? fit : want;
     *grid_out = grid;
     a.one_cluster = fits_one_cluster<Net, V>(dev, grid);
     if (a.one_cluster) {
@@ -260,7 +286,8 @@ void set_weights(nnue::Net<F, W, B>& n, const void* const* w, int l1, int h1, in
 void set_weights(nnue::SfNet& n, const void* const* w, int l1, int, int) {
     n = nnue::SfNet{(const float*)w[0], (const float*)w[1], (const float*)w[2],
                     (const float*)w[3], (const float*)w[4], (const float*)w[5],
-                    (const float*)w[6], (const float*)w[7], (const float*)w[8], l1};
+                    (const float*)w[6], (const float*)w[7], (const float*)w[8], l1,
+                    nnue::sf_vec_ok((const float*)w[0], (const float*)w[1], l1)};
 }
 
 // The widths each net kind takes (kernels.py checks them first).
@@ -305,6 +332,13 @@ int segment(void* bt, void* nt, void* lane, const void* hist_hash, const void* h
     a.gen_lanes = (const int32_t*)gen_lanes;
     a.gen = gen;
     a.scratch = (int*)scratch;
+    a.sf_ctl = a.sf_jobs = nullptr;
+    a.sf_buf = nullptr;
+    if (Net::KIND == STOCKFISH) {  // after the stores' rows and the live flags
+        a.sf_ctl = a.scratch + (int64_t)batch * SEGMENT_SCRATCH + 4;
+        a.sf_jobs = a.sf_ctl + SF_CTL_W;
+        a.sf_buf = (float*)(a.sf_jobs + (int64_t)batch * SF_JOB_W);
+    }
     a.body_calls = (unsigned long long*)body_calls;
     a.summary = (int32_t*)summary;
     a.B = batch;
@@ -331,7 +365,10 @@ int segment(void* bt, void* nt, void* lane, const void* hist_hash, const void* h
 // imported Stockfish net, with l1, h1, h2), the key tables, the table (n,
 // 4) int32 with n = table_rows a power of two, or null, with its claim
 // words (2, n) all -1 (left so); gen_lanes (batch,) int32 or null;
-// scratch (batch * SEGMENT_SCRATCH + 4) int32; body_calls (13,) int64,
+// scratch (batch * SEGMENT_SCRATCH + 4) int32, on a Stockfish net
+// followed by SF_CTL_W + batch * (SF_JOB_W + nnue::sf_buffer_floats(l1))
+// words (the spread evals' counters, jobs and buffers; kernels.py
+// segment_scratch_words); body_calls (13,) int64,
 // added to (kernels.py K11_COUNTERS); summary (batch + 1, 4) int32 out;
 // grid_out: the blocks launched (host int). The entry points of one
 // variant's library, one per net kind, are the generated

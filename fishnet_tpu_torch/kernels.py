@@ -124,7 +124,7 @@ _SIGNATURES = {
                               for tag in ("f32", "i8", "bf16")},
     "nnue_evaluate": {f"nnue_evaluate_{tag}": [_P, _L, _P, _L] + [_P] * 9 + [_I] * 4 + [_P]
                       for tag in ("f32", "i8", "bf16")},
-    "nnue_evaluate_sf": {"nnue_evaluate_sf": [_P, _L, _P, _L] + [_P] * 10 + [_I] * 2 + [_P]},
+    "nnue_evaluate_sf": {"nnue_evaluate_sf": [_P, _L, _P, _L] + [_P] * 11 + [_I] * 2 + [_P]},
     "zobrist_hash": _per_variant("zobrist_hash", [_P, _L] * 5 + [_P, _P, _P, _I, _P]),
     "tt_probe": {"tt_probe": [_P, _I] + [_P, _L] * 5 + [_P, _I, _P, _P, _P, _I, _P]},
     "tt_store": {"tt_store": [_P, _I] + [_P, _L] * 6 + [_P, _P, _I, _I, _P, _P, _I, _P]},
@@ -137,7 +137,7 @@ _SIGNATURES = {
     "nnue_stack_backward": {"nnue_stack_backward": [_P] * 13 + [_I, _P]},
     "nnue_ft_backward_768": {"nnue_ft_backward_768": [_P, _P, _P, _P, _I, _I, _I, _P]},
     "adam_update": {"adam_update": [_P] * 4 + [_L] + [_F] * 8 + [_P]},
-    "nnue_refresh_kb": {"nnue_refresh_kb": [_P, _P, _P, _P, _I, _I, _P]},
+    "nnue_refresh_kb": {"nnue_refresh_kb": [_P, _P, _P, _P, _I, _I, _I, _P]},
     "nnue_ft_backward_kb": {"nnue_ft_backward_kb": [_P, _P, _P, _P, _I, _I, _I, _P]},
 }
 # the kernel (csrc source and LAUNCHES key) of each library
@@ -158,6 +158,16 @@ SEGMENT_H1 = 16
 SEGMENT_H2 = 32
 SHIPPED_WIDTHS = (SEGMENT_L1, SEGMENT_H1, SEGMENT_H2)
 SEGMENT_SCRATCH = 16
+# K11 on a Stockfish net (csrc/search.cuh sf_post, sf_own, sf_help): its
+# control words and one job record a lane (the lists, stm, bucket, the
+# units' counters), then one eval buffer a lane: the pairwise products
+# (L1 rounded up to whole 4-float vectors) and the 16 x 32 fc0 chains
+# (csrc/nnue.cuh sf_buffer_floats)
+SF_CTL_W = 8
+SF_JOB_W = 144
+SF_CHAINS = 16 * 32
+# K17's samples a block (csrc/nnue_refresh_kb.cu; 1..8)
+K17_WARPS = 1
 # K14's per-sample scratch row (csrc/nnue_stack_backward.cu: h1, dz1, h2,
 # dz2, d_out) and the number of head gradients it writes, at the shipped
 # widths it is compiled for
@@ -301,6 +311,7 @@ def search_header() -> str:
     consts = {k: getattr(search, k) for k in names}
     consts.update({k: getattr(tt, k) for k in ("FLAG_EXACT", "FLAG_LOWER", "FLAG_UPPER")})
     consts.update(SEGMENT_MAX_PLY=SEGMENT_MAX_PLY, SEGMENT_SCRATCH=SEGMENT_SCRATCH,
+                  SF_CTL_W=SF_CTL_W, SF_JOB_W=SF_JOB_W,
                   SEGMENT_L1=SEGMENT_L1, SEGMENT_H1=SEGMENT_H1, SEGMENT_H2=SEGMENT_H2,
                   MAX_L1=MAX_L1, FT_WINDOW=FT_WINDOW)
     consts.update({k.lstrip("_"): getattr(tt, k) for k in (
@@ -601,18 +612,28 @@ def nnue_evaluate(boards: torch.Tensor, stm: torch.Tensor, params) -> torch.Tens
     return out
 
 
+def sf_buffer_floats(l1: int) -> int:
+    """One Stockfish eval's buffer in floats (csrc/nnue.cuh
+    sf_buffer_floats): its pairwise products, L1 rounded up to whole
+    4-float vectors, then its fc0 chains' sums."""
+    return (l1 + 3) // 4 * 4 + SF_CHAINS
+
+
 def nnue_evaluate_sf(boards: torch.Tensor, stm: torch.Tensor, net) -> torch.Tensor:
     """K13: an imported Stockfish net's (models/nnue_import.py
     StockfishNet, f32) full eval of boards (B, 64), stm (B,) — int32,
-    rows may be strided views — → (B,) f32."""
+    rows may be strided views — → (B,) f32. Three launches (the
+    feature-transform units, the fc0 units, the close) through a
+    (B, sf_buffer_floats(L1)) f32 scratch buffer; one counted call."""
     B = boards.shape[0]
     sb = _check_rows(boards, "boards", (B, 64))
     ss = _check_rows(stm, "stm", (B,))
     l1, ptrs = _sf_weights(net)
     out = torch.empty((B,), dtype=torch.float32, device=boards.device)
     if B:
+        buf = torch.empty((B, sf_buffer_floats(l1)), dtype=torch.float32, device=boards.device)
         _launch("nnue_evaluate_sf", "nnue_evaluate_sf", boards.device, boards.data_ptr(), sb,
-                stm.data_ptr(), ss, *ptrs, out.data_ptr(), B, l1)
+                stm.data_ptr(), ss, *ptrs, buf.data_ptr(), out.data_ptr(), B, l1)
     return out
 
 
@@ -915,6 +936,16 @@ def _segment_net(params):
     return tag, [t.data_ptr() for t in params] + [None], widths, tensors
 
 
+def segment_scratch_words(B: int, tag: str, l1: int) -> int:
+    """K11's int32 scratch words at B lanes: the stores' staged rows and
+    the live flags, and on a Stockfish net (entry tag "sf") its spread
+    evals' control words, job records and eval buffers."""
+    words = B * SEGMENT_SCRATCH + 4
+    if tag == "sf":
+        words += SF_CTL_W + B * (SF_JOB_W + sf_buffer_floats(l1))
+    return words
+
+
 def search_segment(params, state, steps: int, pruning: bool, table=None,
                    deep_tt: bool = False, prefer_deep: bool = False, gen=0,
                    variant: str = "standard", out=None) -> torch.Tensor:
@@ -984,7 +1015,8 @@ def search_segment(params, state, steps: int, pruning: bool, table=None,
     from .ops.tt import tables as zobrist_tables
 
     z1, z2 = zobrist_tables(dev)
-    scratch = torch.empty(B * SEGMENT_SCRATCH + 4, dtype=torch.int32, device=dev)
+    scratch = torch.empty(segment_scratch_words(B, tag, widths[0]), dtype=torch.int32,
+                          device=dev)
     grid = ctypes.c_int(0)
     _launch("search_segment", sym, dev,
             *[t.data_ptr() for t in state], *ptrs,
@@ -1054,20 +1086,25 @@ def adam_update(params: torch.Tensor, grad: torch.Tensor, mu: torch.Tensor, nu: 
                 1 - b2, eps, bc1, bc2)
 
 
-def nnue_refresh_kb(boards: torch.Tensor, ft_w: torch.Tensor, ft_b: torch.Tensor) -> torch.Tensor:
+def nnue_refresh_kb(boards: torch.Tensor, ft_w: torch.Tensor, ft_b: torch.Tensor,
+                    warps: int = K17_WARPS) -> torch.Tensor:
     """K17: a king-bucketed f32 net's HalfKAv2_hm accumulators of boards
     (B, 64) int32 → acc (B, 2, L1) f32; ft_w (NUM_FEATURES, L1) and ft_b
-    (L1,) may be a tp shard's column block (any L1 up to MAX_L1)."""
+    (L1,) may be a tp shard's column block (any L1 up to MAX_L1, at any
+    offset: 16-byte loads where L1 and the pointers allow, else one
+    column a thread). warps: samples a block, 1..8 (for timing)."""
     B, l1 = boards.shape[0], ft_w.shape[1]
     _check(boards, "boards", torch.int32, (B, 64))
     _check(ft_w, "ft_w", torch.float32, (NUM_FEATURES, l1))
     _check(ft_b, "ft_b", torch.float32, (l1,))
     if not 0 < l1 <= MAX_L1:
         raise ValueError(f"L1 {l1} is outside the kernel's 1..{MAX_L1} columns")
+    if not 1 <= warps <= 8:
+        raise ValueError(f"K17 takes 1..8 samples a block, got {warps}")
     acc = torch.empty((B, 2, l1), dtype=torch.float32, device=boards.device)
     if B:
         _launch("nnue_refresh_kb", "nnue_refresh_kb", boards.device, boards.data_ptr(),
-                ft_w.data_ptr(), ft_b.data_ptr(), acc.data_ptr(), B, l1)
+                ft_w.data_ptr(), ft_b.data_ptr(), acc.data_ptr(), B, l1, warps)
     return acc
 
 

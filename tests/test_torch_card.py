@@ -13,10 +13,13 @@ board code, a segment on the card that runs no PyTorch step, and the
 int8 searches (all through K11) on the card against the CPU, with the
 transposition table and helper lanes too, and a refill splice and a
 refill stream (tables compared byte for byte); the full evals of the
-king-bucketed and Stockfish nets (K12, K13) against their plain versions,
-their wrappers' refusals, and K11 on those nets against
-run_segment_plain; the trainer's kernels (K14-K16, and on a king-bucketed net
-K17 and K18) against their plain versions (K15 and K18 byte for byte the
+king-bucketed and Stockfish nets (K12, K13) against their plain versions
+(K13 also on tests/test_torch_sf_eval.py's boards of every bucket and king
+square at three widths), their wrappers' refusals, and K11 on those nets
+against run_segment_plain (on a Stockfish net also with 1, 2 and every
+lane evaluating in a step, its units spread over the other warps); the trainer's kernels (K14-K16, and on a king-bucketed net
+K17 and K18) against their plain versions (K17 also at every width and
+view of tests/test_torch_sf_eval.py's KB_REFRESH_CASES) (K15 and K18 byte for byte the
 plain versions run on the CPU, also on the worst-case batch, across
 windows and at the tp and wide widths), their wrappers' refusals, and
 training steps on the card that run no plain version, against the CPU's;
@@ -44,6 +47,9 @@ from chip_smoke import (
     TT_PROBE_ARGS, TT_STORE_ARGS, VARIANTS, ZH_POCKETS, _rel_err, every_move, ft_case, ft_check,
     k2_inputs, kb_case, kb_train_case, lane_init_case, movegen_long_inputs, playout_boards,
     rules_inputs, segment_case, sf_file, train_case, tt_inputs, tt_runner_layout,
+)
+from test_torch_sf_eval import (
+    KB_REFRESH_CASES, SF_EVAL_WIDTHS, kb_refresh_case, sf_eval_boards, sf_eval_net,
 )
 from fishnet_tpu_torch import kernels
 from fishnet_tpu_torch.chess import Position
@@ -623,6 +629,78 @@ def test_segment_kernel_on_full_eval_nets(full_nets, net, cfg, variant):
         assert torch.equal(sum_k, sum_p)
         _same_state(state, plain, table, plain_table)
     assert not state.acc.any()  # a full-eval net leaves the accumulators zero
+
+
+@pytest.mark.parametrize("l1", SF_EVAL_WIDTHS)
+def test_stockfish_eval_on_every_bucket_and_king_square(card, l1):
+    """K13 on tests/test_torch_sf_eval.py's boards (every output bucket,
+    every mirrored king square, both sides to move) at L1 128, 200 (a
+    partly used unit slice) and 130 (4-byte loads): within F32_EVAL_TOL of
+    its plain version, the same bytes on a repeated call and on strided
+    board rows, one counted launch a call."""
+    net = ni.stockfish_net_from_numpy(sf_eval_net(l1), card)
+    boards, stm = (torch.from_numpy(a).to(card) for a in sf_eval_boards())
+    rows = torch.zeros((len(stm), 96), dtype=torch.int32, device=card)
+    rows[:, :64], rows[:, 64] = boards, stm
+    kernels.reset_launches()
+    got = kernels.nnue_evaluate_sf(boards, stm, net)
+    again = kernels.nnue_evaluate_sf(rows[:, :64], rows[:, 64], net)
+    assert kernels.LAUNCHES["nnue_evaluate_sf"] == 2
+    assert torch.equal(got, again)
+    want = ni.evaluate_sf_plain(net, boards, stm)
+    assert float((got.double() - want.double()).abs().max()) <= nnue.F32_EVAL_TOL
+
+
+@pytest.mark.parametrize("batch,live,net", [
+    (64, 1, "sf 3072"), (64, 2, "sf 3072"), (64, 64, "sf 3072"), (16, 16, "sf 3072"),
+    (1024, 1024, "sf 3072"), (64, 64, "sf 130"), (64, 2, "sf 128")])
+def test_segment_kernel_spreads_stockfish_evals(full_nets, batch, live, net):
+    """K11 on a Stockfish net with `live` lanes of `batch` stepping (the
+    rest parked DONE), so 1, 2 or every lane evaluates in a step and the
+    others' warps run its units: states, tables and summaries byte for byte
+    run_segment_plain's (whose step launches K13's kernel, the same units);
+    one eval body call an eval. L1 130 takes 4-byte loads."""
+    params = (ni.stockfish_net_from_numpy(sf_eval_net(130), full_nets["sf 128"].device)
+              if net == "sf 130" else full_nets[net])
+    state, table, kw = segment_case(params, batch, "engine", 23, params.device)
+    state.lane[live:, search.LN_MODE] = search.MODE_DONE
+    plain = search.SearchState(*[t.clone() for t in state])
+    plain_table = table.clone()
+    evals = 0
+    for steps in (1, 30, 90):
+        kernels.reset_launches()
+        n_k, sum_k = search.run_segment(params, state, steps, True, **kw)
+        calls = kernels.body_calls()
+        n_p, sum_p = search.run_segment_plain(params, plain, steps, True,
+                                              **dict(kw, table=plain_table))
+        assert n_k == n_p and torch.equal(sum_k, sum_p)
+        _same_state(state, plain, table, plain_table)
+        assert calls["nnue_evaluate_sf"] <= live * n_k
+        evals += calls["nnue_evaluate_sf"]
+    assert evals > 0
+    assert (state.lane[live:, search.LN_MODE] == search.MODE_DONE).all()
+
+
+@pytest.mark.parametrize("case", KB_REFRESH_CASES, ids=[c[0] for c in KB_REFRESH_CASES])
+def test_king_bucketed_refresh_on_every_width_and_view(card, case):
+    """K17 byte for byte its plain version on the card and on the CPU at
+    L1 64, a tp shard's 32 columns, odd 33, 1040 and a view one float into
+    its buffer (4-byte loads), at every block size it takes."""
+    boards, w, b, (full_w, full_b), cols = kb_refresh_case(case, card)
+    params = nnue.NnueParams(w, b, *[torch.zeros(1, device=card)] * 6)
+    want = nnue.accumulators(params, boards)
+    cpu = nnue.accumulators(params.to("cpu"), boards.cpu())
+    kernels.reset_launches()
+    for warps in (1, 2, 8):
+        got = kernels.nnue_refresh_kb(boards, w, b, warps=warps)
+        assert torch.equal(got, want) and torch.equal(got.cpu(), cpu)
+    assert torch.equal(nnue.accumulators_kb(params, boards), want)
+    assert kernels.LAUNCHES["nnue_refresh_kb"] == 4
+    whole = nnue.accumulators(nnue.NnueParams(full_w, full_b, *params[2:]), boards)
+    assert torch.equal(want, whole[:, :, cols])
+    with pytest.raises(ValueError):  # 1..8 samples a block
+        kernels.nnue_refresh_kb(boards, w, b, warps=9)
+    assert kernels.LAUNCHES["nnue_refresh_kb"] == 4
 
 
 def test_int8_king_bucketed_search_card_equals_cpu(full_nets, lanes):
