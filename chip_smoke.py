@@ -145,8 +145,7 @@ boards of both phases that time K12, at both phases' call counts.
 The kernel phase (3) also holds K17 nnue_refresh_kb (byte for byte, also
 on a tp shard's columns and on tests/test_torch_sf_eval.py's
 KB_REFRESH_CASES: L1 64, a tp block, 33, 1040 and a misaligned view,
-against the plain version on the card and on the CPU; timed at 1, 2, 4
-and 8 samples a block) and K18 nnue_ft_backward_kb (as K15, its wide
+against the plain version on the card and on the CPU) and K18 nnue_ft_backward_kb (as K15, its wide
 case at L1 256) to their plain versions at batch 32 and 512, times them
 (K18's passes also on their own), and holds and times K16 over the
 king-bucketed flat buffer. K11's plain yardsticks (phase 3's timed segments, the bf16 and
@@ -1843,15 +1842,13 @@ def nets_kernel_phase(nets: dict, reps: int) -> dict:
                 stats[name].update(ms=cold, ms_l2_warm=ms, plain_ms=plain_cold,
                                    library_ms=lib_cold, bound_ms=bound,
                                    bound_by="bytes" if t_bytes >= t_ops else "operations")
-                # the L2 reckoning: every row the boards' pieces select is read
-                # once a perspective, the distinct ones from HBM (the bound)
-                rows = int(keep.sum())
-                stats[name].update(rows_read_mb=rows * net.l1 * 4 / 1e6,
-                                   distinct_rows_mb=int(bag_idx.unique().numel()) * net.l1 * 4
-                                   / 1e6)
-                log(f"rows {name} B={B} net={label}: {rows} row reads, "
-                    f"{stats[name]['rows_read_mb']:.1f} MB, of them "
-                    f"{stats[name]['distinct_rows_mb']:.1f} MB distinct (the bound's HBM reads; "
+                # the L2 reckoning, counted from the inputs (not measured):
+                # every row the boards' pieces select is read once a
+                # perspective, the distinct ones from HBM (the bound)
+                rows, distinct = int(keep.sum()), int(bag_idx.unique().numel())
+                log(f"rows {name} B={B} net={label} (counted from the inputs): {rows} row "
+                    f"reads, {rows * net.l1 * 4 / 1e6:.1f} MB, of them "
+                    f"{distinct * net.l1 * 4 / 1e6:.1f} MB distinct (the bound's HBM reads; "
                     f"the rest can hit the L2)")
     return stats
 
@@ -2514,13 +2511,6 @@ def train_kb_kernel_phase(reps: int) -> dict:
                 f"{lib_call:.5f}, bound {stats[name]['bound_ms']:.6f} ({stats[name]['bound_by']}); "
                 f"{pieces} rows summed")
         stats["nnue_ft_backward_kb"].update(ft_times("halfkav2_hm", boards, d_acc, reps))
-        # K17's samples a block: the wrapper's K17_WARPS against the others
-        by_warps = {w: time_ms(lambda w=w: kernels.nnue_refresh_kb(boards, p.ft_w, p.ft_b,
-                                                                   warps=w), reps)[0]
-                    for w in (1, 2, 4, 8)}
-        stats["nnue_refresh_kb"]["ms_by_warps"] = by_warps
-        log(f"time nnue_refresh_kb B={B} by samples a block (device ms): {by_warps} (the "
-            f"wrapper takes {kernels.K17_WARPS})")
 
         # K16 over the king-bucketed flat buffer
         n = train.flat_view(p).numel()
@@ -4193,15 +4183,15 @@ def train_digests() -> dict:
 STEP_TABLE_LANES = (16, 64, 1024)
 
 
-def k11_step_table(params_f32, reps: int) -> dict:
+def k11_step_table(params_f32, reps: int, stockfish_only: bool = False) -> dict:
     """K11's us per step at STEP_TABLE_LANES lanes: a 200-step segment on
     segment_case's "engine" setup (the main path's table), after a warm-up
     segment, from the same state each time (CUDA events, the mean of `reps`
     launches), for standard chess and each variant on the f32 board768
     net, crazyhouse's ZH_POCKETS roots, the bf16 board768 net, the
-    king-bucketed int8 net (KB_WIDTHS) and the Stockfish net at SF_L1.
-    Uses only entry points every tree of the port has. → {config: {lanes:
-    us per step}}."""
+    king-bucketed int8 net (KB_WIDTHS) and the Stockfish net at SF_L1
+    (stockfish_only: that one, params_f32 then unused). Uses only entry
+    points every tree of the port has. → {config: {lanes: us per step}}."""
     import torch
 
     from fishnet_tpu_torch.models import nnue
@@ -4209,13 +4199,15 @@ def k11_step_table(params_f32, reps: int) -> dict:
     from fishnet_tpu_torch.ops import search
 
     dev = torch.device("cuda")
-    kb = nnue.params_from_numpy(kb_case(*KB_WIDTHS, seed=5), dev)
-    configs = [(v, params_f32, v, None) for v in ("standard",) + VARIANTS]
-    configs += [(f"crazyhouse {k}", params_f32, "crazyhouse", fen)
-                for k, fen in ZH_POCKETS.items()]
-    configs += [("bf16", nnue.cast_params(params_f32), "standard", None),
-                ("king-bucketed int8", nnue.quantize_int8(kb), "standard", None),
-                (f"Stockfish L1 {SF_L1}", ni.load_nnue(sf_file(SF_L1, 7), device=dev),
+    configs = []
+    if not stockfish_only:
+        kb = nnue.params_from_numpy(kb_case(*KB_WIDTHS, seed=5), dev)
+        configs += [(v, params_f32, v, None) for v in ("standard",) + VARIANTS]
+        configs += [(f"crazyhouse {k}", params_f32, "crazyhouse", fen)
+                    for k, fen in ZH_POCKETS.items()]
+        configs += [("bf16", nnue.cast_params(params_f32), "standard", None),
+                    ("king-bucketed int8", nnue.quantize_int8(kb), "standard", None)]
+    configs += [(f"Stockfish L1 {SF_L1}", ni.load_nnue(sf_file(SF_L1, 7), device=dev),
                  "standard", None)]
     table = {}
     for name, params, v, fen in configs:
@@ -4242,6 +4234,33 @@ def k11_step_table(params_f32, reps: int) -> dict:
     return table
 
 
+def timed_chunk(engine) -> dict:
+    """The POSITIONS-position chunk at DEPTH through engine.go_multiple:
+    its wall seconds, responses, nodes, the digest of its responses (each
+    position's depths, scores, PVs, nodes and best move) and the engine's
+    occupancy totals."""
+    import torch
+
+    from fishnet_tpu_torch import ipc
+
+    chunk = make_chunk(POSITIONS, DEPTH)
+    t0 = time.monotonic()
+    responses = asyncio.run(engine.go_multiple(chunk))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    wire = []
+    for r in responses:
+        w = ipc.response_to_wire(r)
+        w.pop("time_s")
+        w.pop("nps")
+        wire.append(w)
+    tot = engine.occupancy_totals
+    return {"wall_s": wall, "responses": len(responses),
+            "nodes": sum(r.nodes for r in responses),
+            "digest": hashlib.sha256(json.dumps(wire, sort_keys=True).encode()).hexdigest()[:16],
+            **{k: tot[k] for k in ("steps", "segments", "refills", "host_ms", "device_ms")}}
+
+
 def main_path_run(root: str, reps: int) -> int:
     """The one-card board768 main path (GpuEngine at its defaults: refill,
     a 2^21 table, K = 4, f32; POSITIONS positions at DEPTH) `reps` times
@@ -4256,7 +4275,7 @@ def main_path_run(root: str, reps: int) -> int:
     sys.path.insert(0, root)
     import torch
 
-    from fishnet_tpu_torch import ipc, kernels
+    from fishnet_tpu_torch import kernels
     from fishnet_tpu_torch.engine.gpu import GpuEngine
     from fishnet_tpu_torch.models import nnue
 
@@ -4269,48 +4288,13 @@ def main_path_run(root: str, reps: int) -> int:
     build_s = time.monotonic() - t0
     params = nnue.load_params(device="cuda")
     for rep in range(reps):
-        engine = GpuEngine(params=params, max_depth=DEPTH)
-        chunk = make_chunk(POSITIONS, DEPTH)
-        t0 = time.monotonic()
-        responses = asyncio.run(engine.go_multiple(chunk))
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-        tot = engine.occupancy_totals
-        wire = []
-        for r in responses:
-            w = ipc.response_to_wire(r)
-            w.pop("time_s")
-            w.pop("nps")
-            wire.append(w)
-        responses_digest = hashlib.sha256(
-            json.dumps(wire, sort_keys=True).encode()).hexdigest()[:16]
-        print(json.dumps({
-            "tree": root, "rep": rep, "build_s": build_s, "wall_s": wall,
-            "responses": len(responses), "nodes": sum(r.nodes for r in responses),
-            "responses_digest": responses_digest,
-            **{k: tot[k] for k in ("steps", "segments", "refills", "host_ms", "device_ms")},
-        }), flush=True)
+        run = timed_chunk(GpuEngine(params=params, max_depth=DEPTH))
+        run["responses_digest"] = run.pop("digest")
+        print(json.dumps({"tree": root, "rep": rep, "build_s": build_s, **run}), flush=True)
     # the Stockfish net's chunk (K13's units inside K11), once
-    engine = GpuEngine(weights_path=str(sf_file(SF_L1, 7)), max_depth=DEPTH)
-    chunk = make_chunk(POSITIONS, DEPTH)
-    t0 = time.monotonic()
-    responses = asyncio.run(engine.go_multiple(chunk))
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    tot = engine.occupancy_totals
-    wire = []
-    for r in responses:
-        w = ipc.response_to_wire(r)
-        w.pop("time_s")
-        w.pop("nps")
-        wire.append(w)
-    print(json.dumps({
-        "tree": root, "net": f"Stockfish L1 {SF_L1}", "wall_s": wall,
-        "responses": len(responses), "nodes": sum(r.nodes for r in responses),
-        "sf_responses_digest": hashlib.sha256(json.dumps(wire, sort_keys=True).encode())
-        .hexdigest()[:16],
-        **{k: tot[k] for k in ("steps", "segments", "refills", "host_ms", "device_ms")},
-    }), flush=True)
+    run = timed_chunk(GpuEngine(weights_path=str(sf_file(SF_L1, 7)), max_depth=DEPTH))
+    run["sf_responses_digest"] = run.pop("digest")
+    print(json.dumps({"tree": root, "net": f"Stockfish L1 {SF_L1}", **run}), flush=True)
     print(json.dumps({"tree": root, "kernel_digests": kernel_digests(torch.device("cuda"))}),
           flush=True)
     print(json.dumps({"tree": root, "train_digests": train_digests()}), flush=True)
@@ -4578,6 +4562,32 @@ def sf_split_sources(segment: str, search: str) -> tuple:
     return segment, search, True
 
 
+def patched_package(root: str, where: str, patch) -> str:
+    """The tree root's fishnet_tpu_torch copied to build/<where>/ with
+    patch({csrc file name: text}) → {name: new text} written over its
+    csrc files, the copy first on sys.path; → the copy's root. A build
+    left in the copy from an earlier call stays (kernels.build keys its
+    directory by the sources)."""
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    dest = os.path.join(here, "build", where)
+    shutil.rmtree(os.path.join(dest, "fishnet_tpu_torch"), ignore_errors=True)
+    shutil.copytree(os.path.join(root, "fishnet_tpu_torch"),
+                    os.path.join(dest, "fishnet_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    csrc = os.path.join(dest, "fishnet_tpu_torch", "csrc")
+    texts = {}
+    for name in sorted(os.listdir(csrc)):
+        with open(os.path.join(csrc, name)) as f:
+            texts[name] = f.read()
+    for name, text in patch(texts).items():
+        with open(os.path.join(csrc, name), "w") as f:
+            f.write(text)
+    sys.path.insert(0, dest)
+    return dest
+
+
 def sf_split_run(root: str) -> int:
     """One tree's --sf-split: its package copied under build/sf-split/,
     sf_split_sources patched in, built, then per lane count (SPLIT_LANES)
@@ -4587,26 +4597,20 @@ def sf_split_run(root: str) -> int:
     waits and units per job), and the timed segments' us a step."""
     import ctypes
     import glob
-    import shutil
 
     import numpy as np
 
     root = os.path.abspath(root)
-    here = os.path.dirname(os.path.abspath(__file__))
-    tag = hashlib.sha256(root.encode()).hexdigest()[:8]
-    dest = os.path.join(here, "build", "sf-split", tag)
-    shutil.rmtree(dest, ignore_errors=True)
-    shutil.copytree(os.path.join(root, "fishnet_tpu_torch"),
-                    os.path.join(dest, "fishnet_tpu_torch"),
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    csrc = os.path.join(dest, "fishnet_tpu_torch", "csrc")
-    with open(os.path.join(csrc, "search_segment.cu")) as f1, \
-            open(os.path.join(csrc, "search.cuh")) as f2:
-        segment, search_h, spread = sf_split_sources(f1.read(), f2.read())
-    for name, text in (("search_segment.cu", segment), ("search.cuh", search_h)):
-        with open(os.path.join(csrc, name), "w") as f:
-            f.write(text)
-    sys.path.insert(0, dest)
+    flags = {}
+
+    def patch(texts):
+        segment, search_h, flags["spread"] = sf_split_sources(texts["search_segment.cu"],
+                                                              texts["search.cuh"])
+        return {"search_segment.cu": segment, "search.cuh": search_h}
+
+    dest = patched_package(root, os.path.join(
+        "sf-split", hashlib.sha256(root.encode()).hexdigest()[:8]), patch)
+    spread = flags["spread"]
     import torch
 
     from fishnet_tpu_torch import kernels
@@ -4685,6 +4689,93 @@ def sf_split(roots) -> int:
             return out.returncode
     print(card_line())
     return 0
+
+
+# --sf-variants: the Stockfish spread's two knobs on the main path. A
+# variant is a measurement build of this tree with K11's grid on a
+# Stockfish net ("own": the launch's lanes' blocks, one cluster at 16 and
+# 64 lanes; "all": every resident block, cooperative) and the rows a
+# feature-transform unit's loads put in flight (SF_ROW_GROUP) set.
+SF_GRID_LINES = {
+    "own": "const int grid = want < fit ? want : fit;",
+    "all": "const int grid = Net::KIND == STOCKFISH || want > fit ? fit : want;",
+}
+SF_VARIANTS = (("own", 4), ("own", 8), ("all", 4), ("all", 8))
+
+
+def sf_variant_sources(texts: dict, grid: str, row_group: int) -> dict:
+    """search_segment.cu and nnue.cuh of texts with K11's Stockfish grid
+    (SF_GRID_LINES) and SF_ROW_GROUP set."""
+    import re
+
+    segment = texts["search_segment.cu"]
+    found = [k for k, line in SF_GRID_LINES.items() if line in segment]
+    if len(found) != 1:
+        raise AssertionError(f"--sf-variants: the grid line matched {found}")
+    segment = segment.replace(SF_GRID_LINES[found[0]], SF_GRID_LINES[grid])
+    nnue_h, n = re.subn(r"constexpr int SF_ROW_GROUP = \d+;",
+                        f"constexpr int SF_ROW_GROUP = {row_group};", texts["nnue.cuh"])
+    if n != 1:
+        raise AssertionError(f"--sf-variants: SF_ROW_GROUP found {n} times")
+    return {"search_segment.cu": segment, "nnue.cuh": nnue_h}
+
+
+def sf_variant_run(grid: str, row_group: int, reps: int) -> int:
+    """One --sf-variants build (this tree patched by sf_variant_sources
+    under build/sf-variants/): the Stockfish net's chunk (the main path's
+    second chunk, GpuEngine at SF_L1) `reps` times in one process (its
+    wall, device ms, steps, nodes and responses' digest each), K11's us a
+    Stockfish step (k11_step_table) and K13's warm ms at 1024 lanes; one
+    JSON line."""
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    patched_package(here, f"sf-variants/{grid}-{row_group}",
+                    lambda texts: sf_variant_sources(texts, grid, row_group))
+    from fishnet_tpu_torch import kernels
+    from fishnet_tpu_torch.engine.gpu import GpuEngine
+    from fishnet_tpu_torch.models import nnue_import as ni
+
+    if "sf-variants" not in kernels.__file__:
+        raise AssertionError(f"imported {kernels.__file__}, not a variant's copy")
+    os.environ["FISHNET_TPU_MAX_PLY"] = "32"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build_s = kernels.build()
+    chunks = [timed_chunk(GpuEngine(weights_path=str(sf_file(SF_L1, 7)), max_depth=DEPTH))
+              for _ in range(reps)]
+    chunk_grid = kernels.LAST_GRID["blocks"]  # the chunk's last launch
+    dev = torch.device("cuda")
+    net = ni.load_nnue(sf_file(SF_L1, 7), device=dev)
+    b = playout_boards(1024, seed=1124)[0].to(dev)
+    k13_ms = time_ms(lambda: kernels.nnue_evaluate_sf(b.board, b.stm, net), NET_REPS)[0]
+    steps = k11_step_table(None, 3, stockfish_only=True)[f"Stockfish L1 {SF_L1}"]
+    print(json.dumps({"grid": grid, "row_group": row_group, "build_s": build_s,
+                      "chunks": chunks, "chunk_grid": chunk_grid, "k11_us_per_step": steps,
+                      "k13_1024_warm_ms": k13_ms}), flush=True)
+    return 0
+
+
+def sf_variants(reps: int) -> int:
+    """sf_variant_run for each of SF_VARIANTS, then again in the reverse
+    order (host and card drift show as a variant's two processes'
+    difference), each in a process of its own; then one line saying
+    whether every chunk's responses and steps were the same, and the
+    card's name and power limit. Exits 1 where they differ."""
+    seen = set()
+    for grid, row_group in SF_VARIANTS + SF_VARIANTS[::-1]:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--sf-variant-run",
+                              grid, str(row_group), str(reps)],
+                             capture_output=True, text=True, timeout=900)
+        sys.stdout.write(out.stdout)
+        if out.returncode:
+            sys.stderr.write(out.stderr[-4000:])
+            return out.returncode
+        for line in out.stdout.splitlines():
+            if line.startswith("{"):
+                seen |= {(c["digest"], c["steps"], c["nodes"]) for c in json.loads(line)["chunks"]}
+    print(json.dumps({"chunks_equal": len(seen) == 1, "chunks": sorted(seen)}))
+    print(card_line())
+    return 0 if len(seen) == 1 else 1
 
 
 # the measurement build of --ft-split: (text in csrc/ft_backward.cuh, text
@@ -5050,8 +5141,7 @@ def main() -> int:
         # net, K4 and K8-K10 at each width
         for k in ("ms_l2_warm", "plain_steps", "edge_ms", "edge_bound_ms", "ms_by_lanes",
                   "mark_ms", "rows_ms", "sums_ms", "start_ms", "start_mark_ms",
-                  "start_rows_ms", "start_sums_ms", "rows_read_mb", "distinct_rows_mb",
-                  "ms_by_warps"):
+                  "start_rows_ms", "start_sums_ms"):
             if k in stats[name]:
                 row[k] = stats[name][k]
         if name in kernels.K11_BODIES:  # its body's calls inside K11, per step of its path
@@ -5142,6 +5232,10 @@ if __name__ == "__main__":
         sys.exit(sf_split_run(sys.argv[2]))
     if sys.argv[1:2] == ["--sf-split"]:
         sys.exit(sf_split(sys.argv[2:]))
+    if sys.argv[1:2] == ["--sf-variant-run"]:
+        sys.exit(sf_variant_run(sys.argv[2], int(sys.argv[3]), int(sys.argv[4])))
+    if sys.argv[1:2] == ["--sf-variants"]:
+        sys.exit(sf_variants(int(sys.argv[2]) if len(sys.argv) > 2 else 2))
     if sys.argv[1:2] == ["--ft-split"]:
         sys.exit(ft_split())
     if sys.argv[1:2] == ["--ptxas-run"]:

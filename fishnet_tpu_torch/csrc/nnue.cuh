@@ -510,7 +510,7 @@ constexpr int SF_SLICE_SCALAR = 32;  // one a thread
 constexpr int SF_CHAINS = FC0_OUT * 32;  // the fc0 chains' sums after the buffer
 constexpr int SF_FC0_UNITS = FC0_OUT;  // a row of fc0 a unit
 constexpr int SF_FC0_CHUNK = 8;  // a chain's steps whose loads go out together
-constexpr int SF_ROW_GROUP = 8;  // a unit's rows whose loads go out together (x2 columns)
+constexpr int SF_ROW_GROUP = 4;  // a unit's rows whose loads go out together (x2 columns)
 
 // An eval's buffer: the products x (L1 floats, rounded up to whole
 // vectors), then the chain sums.

@@ -18,9 +18,9 @@
 // What holds it back is latency: a sample's ~30 rows a column are a chain
 // of dependent adds, each row a load from L2.
 //
-// Design: a warp a sample, `warps` samples a block (the wrapper's choice,
-// kernels.py K17_WARPS: small blocks spread a 512-sample batch over all
-// SMs). nnue.cuh features_warp lists each perspective's feature rows in
+// Design: a warp a sample, a block a sample (WARPS: one-warp blocks
+// spread a 512-sample batch over all 132 SMs; 1, 2, 4 and 8 samples a
+// block timed within 6% of each other on the H100). nnue.cuh features_warp lists each perspective's feature rows in
 // square order (ballots over the 64 squares), then the warp's threads
 // take the (perspective, column) items of both perspectives together:
 // where L1 is a multiple of 4 and ft_w, ft_b and acc are 16-byte aligned
@@ -38,17 +38,17 @@
 
 namespace {
 
-constexpr int MAX_WARPS = 8;
+constexpr int WARPS = 1;  // samples a block
 constexpr int GROUP = 8;  // rows whose loads go out together
 
 template <class T>
-__global__ void __launch_bounds__(MAX_WARPS * 32)
+__global__ void __launch_bounds__(WARPS * 32)
 refresh_kb_kernel(const int32_t* __restrict__ boards, const float* __restrict__ ft_w,
                   const float* __restrict__ ft_b, float* __restrict__ acc, int batch, int l1) {
-    __shared__ nnue::Features feats[MAX_WARPS];
+    __shared__ nnue::Features feats[WARPS];
     constexpr int V = sizeof(T) / sizeof(float);
     const int w = threadIdx.x / 32, t = threadIdx.x % 32;
-    const int lane = blockIdx.x * (blockDim.x / 32) + w;
+    const int lane = blockIdx.x * WARPS + w;
     if (lane >= batch) return;  // the whole warp
     nnue::Features& f = feats[w];
     nnue::features_warp(boards + (int64_t)lane * 64, t, f);
@@ -68,20 +68,20 @@ refresh_kb_kernel(const int32_t* __restrict__ boards, const float* __restrict__ 
 }  // namespace
 
 // boards (batch, 64) int32; ft_w (22528, l1) f32, ft_b (l1,) f32 →
-// acc (batch, 2, l1) f32; warps: samples a block, 1..8
+// acc (batch, 2, l1) f32
 FISHNET_EXPORT int nnue_refresh_kb(const void* boards, const void* ft_w, const void* ft_b,
-                                   void* acc, int batch, int l1, int warps, void* stream) {
-    if (batch <= 0 || l1 <= 0 || warps < 1 || warps > MAX_WARPS) {
+                                   void* acc, int batch, int l1, void* stream) {
+    if (batch <= 0 || l1 <= 0) {
         return (int)cudaErrorInvalidValue;
     }
     const bool vec = l1 % 4 == 0 && ((uintptr_t)ft_w | (uintptr_t)ft_b | (uintptr_t)acc) % 16 == 0;
-    const int grid = (batch + warps - 1) / warps;
+    const int grid = (batch + WARPS - 1) / WARPS;
     if (vec) {
-        refresh_kb_kernel<float4><<<grid, warps * 32, 0, (cudaStream_t)stream>>>(
+        refresh_kb_kernel<float4><<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
             (const int32_t*)boards, (const float*)ft_w, (const float*)ft_b, (float*)acc, batch,
             l1);
     } else {
-        refresh_kb_kernel<float><<<grid, warps * 32, 0, (cudaStream_t)stream>>>(
+        refresh_kb_kernel<float><<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
             (const int32_t*)boards, (const float*)ft_w, (const float*)ft_b, (float*)acc, batch,
             l1);
     }

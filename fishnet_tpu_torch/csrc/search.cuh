@@ -271,12 +271,14 @@ __device__ __forceinline__ void leaf_store_claim(const Segment<Net>& a, int lane
 // step's barrier. A unit is claimed by an atomic add to its job's counter
 // and never waits; the fc0 units are claimed only once every
 // feature-transform unit is done, and the owner waits for its job with
-// acquire loads. Every block of the launch is resident (the cooperative
-// grid of every block the card holds), so a claimed unit always runs to
+// acquire loads. Every block of the launch is resident (one cluster, or
+// the cooperative grid), so a claimed unit always runs to
 // its end and an owner's wait ends: the owner itself claims whatever
 // nobody else has. A unit's writes go through L2 (st.cg), are fenced, and
 // only then counted; readers load through L2 (ld.cg) after an acquire
-// load, or after a relaxed load and a fence.
+// load, or after a relaxed load and a fence. A helper reads a job's
+// stamp with acquire order before its counters, so it never decides on
+// counters left from the record's use in an earlier step.
 constexpr int SF_JOB_READY = 0;  // the step (+1) whose job the record holds
 constexpr int SF_JOB_STM = 1;
 constexpr int SF_JOB_BUCKET = 2;
@@ -407,7 +409,8 @@ __device__ void sf_help(const Segment<Net>& a, int step, WarpRows<V>& s, int t) 
             bool ft = false, fc = false, spent = false;
             if (j < n_jobs) {
                 const int* job = sf_job(a, j);
-                const int ready = load_relaxed(job + SF_JOB_READY);
+                // acquire: the counters read next are at least the post's resets
+                const int ready = tt::load_acquire(job + SF_JOB_READY);
                 const int ft_next = load_relaxed(job + SF_JOB_FT_NEXT);
                 const int ft_done = load_relaxed(job + SF_JOB_FT_DONE);
                 const int fc_next = load_relaxed(job + SF_JOB_FC_NEXT);

@@ -33,9 +33,9 @@
 // stepped its lanes runs the job's units (sf_help: the feature transform
 // in 128-column slices, then fc0 a row a unit) until no warp is still
 // stepping; the owner runs its own job's units too and waits for the rest
-// (sf_own). A unit never waits and every block is resident, so no wait can
-// deadlock; each unit keeps its sums' order, so the eval's bits are the
-// one-warp body's.
+// (sf_own). A unit never waits and every block of the launch is resident
+// (one cluster, or the cooperative grid), so no wait can deadlock; each
+// unit keeps its sums' order, so the eval's bits are the one-warp body's.
 //
 // Variants: the step takes the variant as a template parameter (the
 // reference compiles one program per static variant flag), so each
@@ -256,9 +256,7 @@ int launch(Segment<Net> a, int* grid_out, cudaStream_t stream) {
     }
     if (blocks_per_sm[dev] < 1) return (int)cudaErrorInvalidConfiguration;
     const int want = (a.B + WARPS - 1) / WARPS, fit = blocks_per_sm[dev] * sms[dev];
-    // a Stockfish net's eval units go to every warp the card holds: the
-    // warps past the lanes only help (sf_help)
-    const int grid = Net::KIND == STOCKFISH || want > fit ? fit : want;
+    const int grid = want < fit ? want : fit;
     *grid_out = grid;
     a.one_cluster = fits_one_cluster<Net, V>(dev, grid);
     if (a.one_cluster) {

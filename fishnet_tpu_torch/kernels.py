@@ -137,7 +137,7 @@ _SIGNATURES = {
     "nnue_stack_backward": {"nnue_stack_backward": [_P] * 13 + [_I, _P]},
     "nnue_ft_backward_768": {"nnue_ft_backward_768": [_P, _P, _P, _P, _I, _I, _I, _P]},
     "adam_update": {"adam_update": [_P] * 4 + [_L] + [_F] * 8 + [_P]},
-    "nnue_refresh_kb": {"nnue_refresh_kb": [_P, _P, _P, _P, _I, _I, _I, _P]},
+    "nnue_refresh_kb": {"nnue_refresh_kb": [_P, _P, _P, _P, _I, _I, _P]},
     "nnue_ft_backward_kb": {"nnue_ft_backward_kb": [_P, _P, _P, _P, _I, _I, _I, _P]},
 }
 # the kernel (csrc source and LAUNCHES key) of each library
@@ -166,8 +166,6 @@ SEGMENT_SCRATCH = 16
 SF_CTL_W = 8
 SF_JOB_W = 144
 SF_CHAINS = 16 * 32
-# K17's samples a block (csrc/nnue_refresh_kb.cu; 1..8)
-K17_WARPS = 1
 # K14's per-sample scratch row (csrc/nnue_stack_backward.cu: h1, dz1, h2,
 # dz2, d_out) and the number of head gradients it writes, at the shipped
 # widths it is compiled for
@@ -1086,25 +1084,22 @@ def adam_update(params: torch.Tensor, grad: torch.Tensor, mu: torch.Tensor, nu: 
                 1 - b2, eps, bc1, bc2)
 
 
-def nnue_refresh_kb(boards: torch.Tensor, ft_w: torch.Tensor, ft_b: torch.Tensor,
-                    warps: int = K17_WARPS) -> torch.Tensor:
+def nnue_refresh_kb(boards: torch.Tensor, ft_w: torch.Tensor, ft_b: torch.Tensor) -> torch.Tensor:
     """K17: a king-bucketed f32 net's HalfKAv2_hm accumulators of boards
     (B, 64) int32 → acc (B, 2, L1) f32; ft_w (NUM_FEATURES, L1) and ft_b
     (L1,) may be a tp shard's column block (any L1 up to MAX_L1, at any
     offset: 16-byte loads where L1 and the pointers allow, else one
-    column a thread). warps: samples a block, 1..8 (for timing)."""
+    column a thread)."""
     B, l1 = boards.shape[0], ft_w.shape[1]
     _check(boards, "boards", torch.int32, (B, 64))
     _check(ft_w, "ft_w", torch.float32, (NUM_FEATURES, l1))
     _check(ft_b, "ft_b", torch.float32, (l1,))
     if not 0 < l1 <= MAX_L1:
         raise ValueError(f"L1 {l1} is outside the kernel's 1..{MAX_L1} columns")
-    if not 1 <= warps <= 8:
-        raise ValueError(f"K17 takes 1..8 samples a block, got {warps}")
     acc = torch.empty((B, 2, l1), dtype=torch.float32, device=boards.device)
     if B:
         _launch("nnue_refresh_kb", "nnue_refresh_kb", boards.device, boards.data_ptr(),
-                ft_w.data_ptr(), ft_b.data_ptr(), acc.data_ptr(), B, l1, warps)
+                ft_w.data_ptr(), ft_b.data_ptr(), acc.data_ptr(), B, l1)
     return acc
 
 

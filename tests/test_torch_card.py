@@ -659,7 +659,9 @@ def test_segment_kernel_spreads_stockfish_evals(full_nets, batch, live, net):
     rest parked DONE), so 1, 2 or every lane evaluates in a step and the
     others' warps run its units: states, tables and summaries byte for byte
     run_segment_plain's (whose step launches K13's kernel, the same units);
-    one eval body call an eval. L1 130 takes 4-byte loads."""
+    one eval body call an entered node: as many as K8's calls, no fewer
+    than the nodes the lanes counted, no more than one a live lane a step.
+    L1 130 takes 4-byte loads."""
     params = (ni.stockfish_net_from_numpy(sf_eval_net(130), full_nets["sf 128"].device)
               if net == "sf 130" else full_nets[net])
     state, table, kw = segment_case(params, batch, "engine", 23, params.device)
@@ -668,6 +670,7 @@ def test_segment_kernel_spreads_stockfish_evals(full_nets, batch, live, net):
     plain_table = table.clone()
     evals = 0
     for steps in (1, 30, 90):
+        nodes0 = int(state.lane[:, search.LN_NODES].sum())
         kernels.reset_launches()
         n_k, sum_k = search.run_segment(params, state, steps, True, **kw)
         calls = kernels.body_calls()
@@ -675,7 +678,8 @@ def test_segment_kernel_spreads_stockfish_evals(full_nets, batch, live, net):
                                               **dict(kw, table=plain_table))
         assert n_k == n_p and torch.equal(sum_k, sum_p)
         _same_state(state, plain, table, plain_table)
-        assert calls["nnue_evaluate_sf"] <= live * n_k
+        nodes = int(plain.lane[:, search.LN_NODES].sum()) - nodes0  # an entered legal node each
+        assert nodes <= calls["nnue_evaluate_sf"] == calls["node_rules"] <= live * n_k
         evals += calls["nnue_evaluate_sf"]
     assert evals > 0
     assert (state.lane[live:, search.LN_MODE] == search.MODE_DONE).all()
@@ -685,22 +689,19 @@ def test_segment_kernel_spreads_stockfish_evals(full_nets, batch, live, net):
 def test_king_bucketed_refresh_on_every_width_and_view(card, case):
     """K17 byte for byte its plain version on the card and on the CPU at
     L1 64, a tp shard's 32 columns, odd 33, 1040 and a view one float into
-    its buffer (4-byte loads), at every block size it takes."""
+    its buffer (4-byte loads), on a repeated call too."""
     boards, w, b, (full_w, full_b), cols = kb_refresh_case(case, card)
     params = nnue.NnueParams(w, b, *[torch.zeros(1, device=card)] * 6)
     want = nnue.accumulators(params, boards)
     cpu = nnue.accumulators(params.to("cpu"), boards.cpu())
     kernels.reset_launches()
-    for warps in (1, 2, 8):
-        got = kernels.nnue_refresh_kb(boards, w, b, warps=warps)
+    for _ in range(2):
+        got = kernels.nnue_refresh_kb(boards, w, b)
         assert torch.equal(got, want) and torch.equal(got.cpu(), cpu)
     assert torch.equal(nnue.accumulators_kb(params, boards), want)
-    assert kernels.LAUNCHES["nnue_refresh_kb"] == 4
+    assert kernels.LAUNCHES["nnue_refresh_kb"] == 3
     whole = nnue.accumulators(nnue.NnueParams(full_w, full_b, *params[2:]), boards)
     assert torch.equal(want, whole[:, :, cols])
-    with pytest.raises(ValueError):  # 1..8 samples a block
-        kernels.nnue_refresh_kb(boards, w, b, warps=9)
-    assert kernels.LAUNCHES["nnue_refresh_kb"] == 4
 
 
 def test_int8_king_bucketed_search_card_equals_cpu(full_nets, lanes):
